@@ -3,8 +3,9 @@
 The step twin against ``tpufwi.kernels.acoustic2d_jnp`` (fp64, <= 1e-12
 relative) and against the fp64 NumPy oracle (< 1e-9 RMS, the bar of
 tests/test_forward_equiv.py); the illumination against the reference's;
-and the engine resolution of ``impl='auto'``, which must raise with a
-reason wherever no ported engine fits.
+and the engine resolution of ``impl='auto'``: the snapshot engine on a
+card when its tape fits, the rings engine with the reason when it does
+not, and a raise with the reason wherever no ported engine fits.
 """
 
 import json
@@ -89,8 +90,9 @@ def test_forward_matches_numpy_oracle(free_surface):
     grid = Grid(**kw)
     seis_o, _ = oracle_forward(vp, JGrid(**kw), dt, w, src, rcv, f0)
     # the oracle sizes its CPML from max(vp); match it
-    prop = AcousticPropagator(grid, dt, f0, float(vp.max()), dtype=torch.float64)
-    geom = Geometry.from_physical(grid, src, rcv)
+    prop = AcousticPropagator(grid, dt, f0, float(vp.max()), dtype=torch.float64,
+                              device="cpu")
+    geom = Geometry.from_physical(grid, src, rcv, device="cpu")
     with torch.no_grad():
         seis = prop(torch.tensor(vp), geom, torch.tensor(w)).numpy()
     rms = np.sqrt(np.mean((seis - seis_o) ** 2)) / np.sqrt(np.mean(seis_o**2))
@@ -102,8 +104,9 @@ def test_illumination_matches_reference():
     jprop = JProp(JGrid(**kw), dt, f0, c_max, dtype=jnp.float64, impl="jnp")
     jg = JGeometry.from_physical(JGrid(**kw), src, rcv)
     ref = np.asarray(jprop.illumination(jnp.asarray(vp), jg, jnp.asarray(w)))
-    prop = AcousticPropagator(Grid(**kw), dt, f0, c_max, dtype=torch.float64)
-    got = prop.illumination(torch.tensor(vp), Geometry.from_physical(Grid(**kw), src, rcv),
+    prop = AcousticPropagator(Grid(**kw), dt, f0, c_max, dtype=torch.float64, device="cpu")
+    got = prop.illumination(torch.tensor(vp),
+                            Geometry.from_physical(Grid(**kw), src, rcv, device="cpu"),
                             torch.tensor(w)).numpy()
     assert np.abs(got - ref).max() <= 1e-12 * np.abs(ref).max()
 
@@ -114,6 +117,7 @@ def test_illumination_matches_reference():
 def _prop(grid=None, **kw):
     grid = grid or Grid(shape=(60, 100), h=(10.0, 10.0), pml=10, order=8)
     dt = grid.cfl_dt(3000.0, safety=0.7)
+    kw.setdefault("device", "cpu")
     return AcousticPropagator(grid, dt, 8.0, 3000.0, **kw)
 
 
@@ -121,7 +125,7 @@ def test_auto_is_eager_on_cpu():
     prop = _prop()
     assert prop.resolve_impl(nt=500) == "eager"
     assert prop.resolve_impl() == "eager"  # no tape to size on the CPU
-    assert prop.resolve_note == "auto: CPU tensor -> plain engine"
+    assert prop.resolve_note == "auto: CPU tensor -> exact eager engine"
     assert prop.fix_impl_for(nt=500) == "eager" and prop.impl == "eager"
 
 
@@ -141,8 +145,10 @@ def test_auto_raises_for_fp64_on_cuda():
         _prop(dtype=torch.float64, device="cuda", impl="cuda_scansnap")
 
 
-def test_auto_raises_when_snap_tape_over_budget(monkeypatch):
-    """The budget comes from the card's memory: two tapes in 80% of it."""
+def test_auto_falls_back_to_rings_when_snap_tape_over_budget(monkeypatch):
+    """The budget comes from the card's memory: two tapes in 80% of it.
+    Past it, or with no wavelet length to size it, 'auto' takes the rings
+    engine and says why (the reference's rule, acoustic2d.py:267-287)."""
     gib = 2**30
     monkeypatch.setattr(torch.cuda, "get_device_properties",
                         lambda dev: types.SimpleNamespace(total_memory=80 * gib))
@@ -152,16 +158,26 @@ def test_auto_raises_when_snap_tape_over_budget(monkeypatch):
     nt_fit = prop.snap_tape_budget_bytes() // (NZ * NX * 2)
     assert prop.resolve_impl(nt=int(nt_fit)) == "cuda_scansnap"
     assert prop.resolve_note == "auto: CUDA snapshot engine"
-    with pytest.raises(NotImplementedError, match="rings reverse"):
-        prop.resolve_impl(nt=int(nt_fit) + 1)
-    with pytest.raises(ValueError, match="cannot be sized"):
-        prop.resolve_impl()
+    assert prop.resolve_impl(nt=int(nt_fit) + 1) == "cuda_scanres"
+    assert "rings engine" in prop.resolve_note and "exceeds the 32.0 GiB" in prop.resolve_note
+    assert prop.resolve_impl() == "cuda_scanres"
+    assert "cannot be sized" in prop.resolve_note
+    # the 5 m Marmousi2-scale survey of chip_smoke.py: a 46 GiB snapshot tape
+    big = Grid(shape=(701, 3401), h=(5.0, 5.0), pml=20, order=8)
+    big_prop = AcousticPropagator(big, big.cfl_dt(4700.0, 0.7), 12.0, 4700.0, device="cuda")
+    nt = int(4.0 / big_prop.dt)
+    assert big_prop.fix_impl_for(nt=nt) == "cuda_scanres" and big_prop.impl == "cuda_scanres"
+    assert "46." in big_prop.resolve_note
 
 
 def test_explicit_impl_checked_against_device():
     assert _prop(impl="eager").resolve_impl() == "eager"
-    with pytest.raises(ValueError, match="CUDA device"):
-        _prop(impl="cuda_scansnap")
+    for impl in ("cuda_scansnap", "cuda_scanres", "cuda_step"):
+        with pytest.raises(ValueError, match="CUDA device"):
+            _prop(impl=impl)
+        assert _prop(impl=impl, device="cuda").resolve_impl(nt=10) == impl
+    with pytest.raises(ValueError, match="eager-engine option"):
+        _prop(impl="cuda_scanres", device="cuda", tape_dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="on the CPU"):
         _prop(impl="eager", device="cuda")
     with pytest.raises(ValueError, match="unknown impl"):
@@ -172,7 +188,8 @@ def test_fwi_problem_pins_engine_and_python_loop():
     prop = _prop()
     grid = prop.grid
     geoms = Geometry.stack([
-        Geometry.from_physical(grid, np.array([[2, x]]), np.array([[3, 10], [3, 20]]))
+        Geometry.from_physical(grid, np.array([[2, x]]), np.array([[3, 10], [3, 20]]),
+                               device="cpu")
         for x in (30, 60)
     ])
     nt = 32
@@ -199,12 +216,12 @@ def test_driver_jsonl_records_engine(tmp_path):
     )
     vp_true = np.full((30, 40), 2000.0)
     vp_true[18:, :] = 2250.0
-    problem, vp0 = build_synthetic_problem(cfg, vp_true, dx=10.0)
+    problem, vp0 = build_synthetic_problem(cfg, vp_true, dx=10.0, device="cpu")
     invert(problem, vp0, cfg)
     recs = [json.loads(line) for line in open(os.path.join(cfg.run_dir, "log.jsonl"))]
     eng = [r for r in recs if r.get("event") == "engine"]
     assert len(eng) == 1 and eng[0]["stage"] == 0
     assert eng[0]["engine"] == "eager"
-    assert eng[0]["note"] == "auto: CPU tensor -> plain engine"
+    assert eng[0]["note"] == "auto: CPU tensor -> exact eager engine"
     its = [r for r in recs if "iter" in r and "event" not in r]
     assert len(its) == 1 and np.isfinite(its[0]["J"])

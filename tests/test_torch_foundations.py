@@ -89,7 +89,7 @@ def test_ricker_and_marmousi_like_bit_equal():
     assert np.array_equal(jwavelets.ricker_np(12.0, 1e-3, 500),
                           twavelets.ricker_np(12.0, 1e-3, 500))
     assert np.array_equal(np.asarray(jwavelets.ricker(12.0, 1e-3, 500)),
-                          twavelets.ricker(12.0, 1e-3, 500).numpy())
+                          twavelets.ricker(12.0, 1e-3, 500, device="cpu").numpy())
     vj, dxj = jio.marmousi_like(nz=60, nx=90, dx=12.5)
     vt, dxt = tio.marmousi_like(nz=60, nx=90, dx=12.5)
     assert dxj == dxt and np.array_equal(vj, vt)
@@ -98,7 +98,7 @@ def test_ricker_and_marmousi_like_bit_equal():
 def test_split_spread_survey_indices_equal():
     jg, tg = _grids(8)
     gj = j_survey(jg, 5, src_z=2, rcv_z=3, rcv_dx=2)
-    gt = t_survey(tg, 5, src_z=2, rcv_z=3, rcv_dx=2)
+    gt = t_survey(tg, 5, src_z=2, rcv_z=3, rcv_dx=2, device="cpu")
     assert gt.src_idx.dtype == torch.int64 and gt.n_shots == 5
     assert np.array_equal(np.asarray(gj.src_idx), gt.src_idx.numpy())
     assert np.array_equal(np.asarray(gj.rcv_idx), gt.rcv_idx.numpy())
@@ -156,7 +156,9 @@ def test_import_pulls_in_no_jax():
     code = (
         "import sys; before = set(sys.modules); "
         "import tpufwi_torch, tpufwi_torch.invert, tpufwi_torch.interop, "
-        "tpufwi_torch.kernels.acoustic2d_scanres; "
+        "tpufwi_torch.adjoint, tpufwi_torch.adjoint_step, tpufwi_torch.adjoint_scanres, "
+        "tpufwi_torch.kernels.acoustic2d_scanres, tpufwi_torch.kernels.acoustic2d_step, "
+        "chip_smoke; "
         "bad = sorted(m for m in set(sys.modules) - before "
         "if m.split('.')[0] in ('jax', 'jaxlib', 'tpufwi')); "
         "print(bad); sys.exit(1 if bad else 0)"
@@ -167,6 +169,27 @@ def test_import_pulls_in_no_jax():
     assert res.returncode == 0, res.stdout + res.stderr
 
 
+def test_port_sources_import_no_jax():
+    """No module of the port and not chip_smoke.py names jax or tpufwi in
+    an import statement, whether or not it runs at import time."""
+    import ast
+
+    root = Path(__file__).resolve().parents[1]
+    files = sorted((root / "tpufwi_torch").rglob("*.py")) + [root / "chip_smoke.py"]
+    assert len(files) > 20
+    bad = []
+    for f in files:
+        for node in ast.walk(ast.parse(f.read_text())):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                names = [node.module or ""] if node.level == 0 else []
+            else:
+                continue
+            bad += [(f.name, n) for n in names if n.split(".")[0] in ("jax", "jaxlib", "tpufwi")]
+    assert bad == []
+
+
 def test_grid_fields_round_trip_through_interop():
     from tpufwi_torch.interop import from_reference
 
@@ -174,7 +197,7 @@ def test_grid_fields_round_trip_through_interop():
     src, rcv = np.array([[24, 30]]), np.array([[16, 20], [16, 40]])
     vp = np.full(jg.shape, 2000.0)
     grid, geom, vp_t, w_t = from_reference(dataclasses.asdict(jg), src, rcv, vp,
-                                           np.ones(5), dtype=torch.float64)
+                                           np.ones(5), device="cpu", dtype=torch.float64)
     assert grid == tgrid.Grid(**dataclasses.asdict(jg)) and grid.free_surface
     assert geom.src_idx.dtype == torch.int64 and geom.nrec == 2
     assert vp_t.dtype == torch.float64 and w_t.shape == (5,)

@@ -24,7 +24,7 @@ class Geometry:
     rcv_idx: torch.Tensor
 
     @staticmethod
-    def from_physical(grid: Grid, src, rcv, device="cpu") -> "Geometry":
+    def from_physical(grid: Grid, src, rcv, device="cuda") -> "Geometry":
         """Build from (n, ndim) physical-grid cell indices, axis order as the
         array layout; raises on indices outside the physical grid."""
         src = np.atleast_2d(np.asarray(src, dtype=np.int64))
@@ -67,7 +67,7 @@ def line_geometry(
     rcv_x0: int = 0,
     rcv_x1: int | None = None,
     rcv_dx: int = 1,
-    device="cpu",
+    device="cuda",
 ) -> Geometry:
     """One source and a horizontal receiver line (2D)."""
     if rcv_x1 is None:
@@ -83,7 +83,7 @@ def split_spread_survey(
     src_z: int,
     rcv_z: int,
     rcv_dx: int = 1,
-    device="cpu",
+    device="cuda",
 ) -> Geometry:
     """n_shots sources evenly spread along x, each recorded by the same full
     receiver line; returns a stacked Geometry with a leading shot axis."""

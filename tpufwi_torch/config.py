@@ -35,8 +35,9 @@ class PropCfg:
     pml: int = 20
     cfl_safety: float = 0.7
     dtype: str = "float32"
-    # engine: 'auto' (CPU tensor -> 'eager', CUDA tensor -> 'cuda_scansnap'),
-    # 'eager' or 'cuda_scansnap'
+    # engine: 'auto' (CPU -> 'eager'; CUDA -> 'cuda_scansnap' when its tape
+    # fits the card, else 'cuda_scanres'), 'eager', 'cuda_scansnap',
+    # 'cuda_scanres' or 'cuda_step' (tpufwi_torch.propagators.acoustic2d)
     impl: str = "auto"
 
 

@@ -18,7 +18,7 @@ from .optimize import LbfgsHistory
 
 
 def from_reference(grid_fields: Mapping, src_idx, rcv_idx, vp, wavelet,
-                   device="cpu", dtype=torch.float32):
+                   device="cuda", dtype=torch.float32):
     """(Grid, Geometry, vp, wavelet) of the port from the reference's grid
     fields (shape, h, pml, order, free_surface), its grid-padded source and
     receiver indices (with or without a leading shot axis), its
@@ -41,7 +41,7 @@ class Checkpoint(NamedTuple):
     hist: LbfgsHistory
 
 
-def load_reference_checkpoint(path, device="cpu", dtype=torch.float32,
+def load_reference_checkpoint(path, device="cuda", dtype=torch.float32,
                               lbfgs_m: int = 10) -> Checkpoint:
     """Read a ``ckpt.npz`` (keys vp, stage, iter, alpha, S, Y, SY) as written
     by ``tpufwi.invert`` or by this package's ``invert``."""

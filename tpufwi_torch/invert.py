@@ -11,7 +11,8 @@ Checkpoints (``<run_dir>/ckpt.npz``: vp, stage, iter, alpha, S, Y, SY) and
 the JSONL records (``<run_dir>/log.jsonl``) have the reference's format, so
 a run of either package resumes in the other.
 
-Run: ``python -m tpufwi_torch.invert [--device cuda] [key=value ...]``.
+Run: ``python -m tpufwi_torch.invert [--device cpu] [key=value ...]`` (on the
+card unless ``--device cpu``).
 """
 
 from __future__ import annotations
@@ -239,7 +240,7 @@ def _invert_loop(problem, vp, cfg, hist, init_alpha, start_stage, start_iter, ck
 
 
 def build_synthetic_problem(cfg: FwiConfig, vp_true: np.ndarray, dx: float,
-                            mesh=None, device="cpu"):
+                            mesh=None, device="cuda"):
     """Survey + observed data from a true model; returns (problem, vp0) with
     vp0 a heavily smoothed start (water layer kept)."""
     from scipy.ndimage import gaussian_filter
@@ -282,8 +283,8 @@ def main(argv=None):
     ap.add_argument("--config", type=str, default=None, help="JSON config path")
     ap.add_argument("--resume", action="store_true")
     ap.add_argument("--mesh", type=int, default=0, help="shot-parallel devices (0=off)")
-    ap.add_argument("--device", type=str, default=None,
-                    help="torch device (default: cuda when available, else cpu)")
+    ap.add_argument("--device", type=str, default="cuda",
+                    help="torch device (default cuda; cpu runs the exact eager engine)")
     ap.add_argument("overrides", nargs="*", help="dotted.key=value overrides")
     args = ap.parse_args(argv)
 
@@ -299,7 +300,10 @@ def main(argv=None):
     if cfg.physics != "acoustic":
         raise NotImplementedError(
             f"physics={cfg.physics!r} is not ported yet (ROADMAP Queue A items 9-12)")
-    device = args.device or ("cuda" if torch.cuda.is_available() else "cpu")
+    device = torch.device(args.device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: the inversion runs on the card; "
+                           "pass --device cpu to run on the CPU")
 
     vp_true, dx = marmousi_like(nz=cfg.model.nz, nx=cfg.model.nx, dx=cfg.model.dx)
     problem, vp0 = build_synthetic_problem(cfg, vp_true, dx, device=device)

@@ -1,10 +1,12 @@
 """Acoustic leapfrog + CPML time step in plain torch: the step twin
 (counterpart of ``tpufwi/kernels/acoustic2d_jnp.py``).
 
-The plain versions of both CUDA kernels (``acoustic2d_scanres``) are loops
-of this step, and the propagator's ``illumination`` runs it on the card.
-The step is affine in the wavefield state, which the plain reverse uses to
-transpose it with one ``torch.func.vjp``.
+The exact CPU engine (``adjoint.make_simulator``) and the plain versions of
+the CUDA kernels are loops of this step, and the propagator's
+``illumination`` runs it on the card. The step is affine in the wavefield
+state, which the reverse passes use to transpose it with
+``torch.func.vjp``; ``make_reverse_reconstruct_step`` runs the interior
+leapfrog backwards for the boundary-saving reverse.
 
 Discrete scheme (kappa = 1 CPML, second-order form):
 
@@ -86,3 +88,30 @@ def make_acoustic_step(grid: Grid):
         return AcousticState(p, p_next, tuple(phi_new), tuple(psi_new)), rec
 
     return step
+
+
+def make_reverse_reconstruct_step(grid: Grid):
+    """``recon(p_t, p_tp1, c2dt2, src_idx, w_t) -> p_tm1``: the interior
+    leapfrog inverted, ``p[t-1] = 2 p[t] - p[t+1] + (c dt)^2 (Lap p[t] +
+    src_t)``. Exact wherever the forward update had no CPML contribution;
+    the adjoint engines re-impose the saved boundary rings on the result.
+    With ``grid.free_surface`` the surface row is pinned again, as the
+    forward pinned it (a source on that row is thereby dropped)."""
+    d2 = [scaled_taps(D2_COEFFS[grid.order], h, 2) for h in grid.h]
+    ndim = grid.ndim
+    fs_row = grid.pad if grid.free_surface else None
+    z_axis = 0 if ndim == 2 else 1
+
+    def recon(p_t, p_tp1, c2dt2, src_idx, w_t):
+        lap = None
+        for ax in range(ndim):
+            v = apply_stencil(p_t, d2[ax], ax)
+            lap = v if lap is None else lap + v
+        p_tm1 = 2.0 * p_t - p_tp1 + c2dt2 * lap
+        src = tuple(src_idx[..., d] for d in range(ndim))
+        p_tm1 = p_tm1.index_put(src, c2dt2[src] * w_t, accumulate=True)
+        if fs_row is not None:
+            p_tm1 = p_tm1.index_fill(z_axis, torch.tensor([fs_row], device=p_t.device), 0.0)
+        return p_tm1
+
+    return recon

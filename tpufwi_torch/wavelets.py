@@ -17,6 +17,6 @@ def ricker_np(f0: float, dt: float, nt: int, t0: float | None = None) -> np.ndar
 
 
 def ricker(f0: float, dt: float, nt: int, t0: float | None = None,
-           dtype=torch.float32, device="cpu") -> torch.Tensor:
+           dtype=torch.float32, device="cuda") -> torch.Tensor:
     """:func:`ricker_np` as a tensor of ``dtype`` on ``device``."""
     return torch.as_tensor(ricker_np(f0, dt, nt, t0), dtype=dtype, device=device)
