@@ -4,9 +4,9 @@
 
 Phases, each printing its own lines; any failure exits non-zero.
   1. device: the card's name and power limit (nvidia-smi); no CUDA -> exit 1
-  2. build: two nvcc calls, started together, build the acoustic library
-     (six kernels) and the elastic library (two kernels) from
-     tpufwi_torch/csrc
+  2. build: three nvcc calls, started together, build the acoustic library
+     (six kernels), the elastic library (two kernels) and the 3D library
+     (two kernels) from tpufwi_torch/csrc
   3. kernels vs plain: each CUDA kernel against its plain torch version on
      the card, at the main path's padded grid (399 x 1749), nt = 512, one
      shot: the whole-scan forward (snapshot and ring tapes), the snapshot
@@ -32,15 +32,29 @@ Phases, each printing its own lines; any failure exits non-zero.
      record, nt = 512; and a pressure / p-record free-surface case, nt = 128
   9. elastic shot: one shot's forward and value-and-grad on cuda_escan at
      nt = 4885, its ring-tape bytes and peak memory
- 10. main path elastic: tpufwi_torch.invert.main physics=elastic on the card
+ 10. 3D kernels vs plain: a3d_forward (no tape, fp32 and bf16 ring tapes,
+     illumination) and a3d_reverse (fed the plain forward's tape, fields and
+     seismogram; fp32 and bf16 tapes) against their plain versions at the 3D
+     main path's padded grid (428 x 188 x 588), one surface shot, nt = 64;
+     and a free-surface case on a smaller grid, nt = 128
+ 11. full Overthrust: one shot on the SEG/EAGE Overthrust grid (801 x 187 x
+     801 at 25 m, padded 829 x 215 x 829, nt = 3028): 'auto' resolves to the
+     bf16 ring tape; a tape-free forward and a value-and-grad
+ 12. main path elastic: tpufwi_torch.invert.main physics=elastic on the card
      (351 x 1701 land model at 10 m, order 8, pml 20, t_max 4 s: nt = 4885),
      8 shots, one 3 Hz stage of 2 iterations, counters reset just before
+ 13. main path 3D: tpufwi_torch.invert.invert on a 3D FwiProblem, the
+     large-scale single-card survey of scripts/overthrust_ms.py
+     (overthrust_like 160 x 400 x 560 at 25 m, order 8, pml 10, nt 900,
+     12 surface shots, 3,420 receivers), one 3 Hz stage of 2 iterations with
+     the illumination preconditioner, counters reset just before
 The second-to-last line is the kernels' JSON record, the last one
 {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
+import functools
 import json
 import os
 import re
@@ -77,6 +91,7 @@ SNAP_GTOL, STEP_GTOL = 5e-3, 1e-4  # engine against engine, on the valid region
 SCANRES_SRC = "tpufwi_torch/csrc/acoustic2d_scanres.cu"
 STEP_SRC = "tpufwi_torch/csrc/acoustic2d_step.cu"
 ESCAN_SRC = "tpufwi_torch/csrc/elastic2d_scan.cu"
+A3D_SRC = "tpufwi_torch/csrc/acoustic3d_scan.cu"
 KERNELS = {  # name: (source, the TPU kernel's pallas_call)
     "scanres_forward": (SCANRES_SRC, "tpufwi/kernels/acoustic2d_pallas_scanres.py:586"),
     "scanres_reverse_snap": (SCANRES_SRC, "tpufwi/kernels/acoustic2d_pallas_scanres.py:1112"),
@@ -86,12 +101,35 @@ KERNELS = {  # name: (source, the TPU kernel's pallas_call)
     "fused_adjoint_step": (STEP_SRC, "tpufwi/kernels/acoustic2d_pallas_bwd.py:289"),
     "escan_forward": (ESCAN_SRC, "tpufwi/kernels/elastic2d_pallas_scan.py:398"),
     "escan_reverse": (ESCAN_SRC, "tpufwi/kernels/elastic2d_pallas_scan.py:907"),
+    # one kernel for each pair: the y/z face kernels ride in the same launches
+    "a3d_forward": (A3D_SRC, "; ".join(
+        f"tpufwi/kernels/acoustic3d_fused2.py:{n}" for n in (1116, 167, 259))),
+    # the reconstruction (15) fused into the transposed step (16, 17)
+    "a3d_reverse": (A3D_SRC, "; ".join(
+        f"tpufwi/kernels/acoustic3d_bwd_pallas.py:{n}" for n in (321, 851, 419, 521))),
 }
 ELASTIC_MAIN = GRID_10M + ["physics=elastic", "acq.n_shots=8",
                            'stages=[{"fmax": 3.0, "iterations": 2}]']
 # of max|plain| per output: fp32 summation order, the reverse fed the plain
 # forward's tape, final fields and seismogram
 ETOL = {"seis": 1e-5, "finals": 1e-5, "tape": 1e-5, "grads": 1e-4, "srcrow": 1e-4}
+# of max|plain| per output (fp32 summation order; the reverse fed the plain
+# forward's tape, fp32 or the same rounded to bf16, final fields and
+# seismogram); "tape_bf16" in bf16 ulps at the tape's max: the kernel's
+# bf16 rows against its own fp32 rows rounded to nearest even, which the
+# same field arithmetic makes exactly equal (a truncating conversion would
+# miss by ~0.7; against the plain rows a value the fp32 order moves across
+# a rounding tie would flip by one ulp of its own); "recon" the
+# reconstructed P_{-1} against the last field
+A3D_TOL = {"seis": 1e-5, "fields": 1e-5, "tape": 1e-5, "tape_bf16": 0.0, "illum": 1e-5,
+           "gbar": 1e-4, "lam_src": 1e-4, "gbar_bf16": 1e-4, "lam_src_bf16": 1e-4,
+           "recon": 1e-4}
+# the kernels' bf16-tape gradient against their fp32-tape gradient, norm
+# relative on the valid region, a surface shot (its source in the ring);
+# the CPU test measured 1.8e-2 at its small grid (tests/test_torch_acoustic3d.py)
+A3D_BF16_GTOL = 5e-2
+MAIN3D = dict(model=(160, 400, 560), nt=900, shots=(3, 4), fmax=3.0, iterations=2,
+              mask_top=5, vmin=2000.0, vmax=6000.0)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA's data sheet
 FP32_FLOPS = 67e12  # outside the tensor cores
 
@@ -132,10 +170,15 @@ def elastic_module():
     return ke
 
 
+def a3d_module():
+    from tpufwi_torch.kernels import acoustic3d_scan as k3
+
+    return k3
+
+
 def wrapper(name):
     ks, kst = kernel_modules()
-    ke = elastic_module()
-    for mod in (ks, kst, ke):
+    for mod in (ks, kst, elastic_module(), a3d_module()):
         if hasattr(mod, name):
             return getattr(mod, name)
     raise KeyError(name)
@@ -235,13 +278,12 @@ def phase_device() -> str:
 
 
 def phase_build():
-    """Both libraries' nvcc calls at once, then each kernel's registers and
-    spills at order 8 (R = 4) from ptxas -v."""
+    """The three libraries' nvcc calls at once, then each kernel's registers
+    and spills at order 8 (R = 4) from ptxas -v."""
     import threading
 
     ks, _ = kernel_modules()
-    ke = elastic_module()
-    libs = (ks.LIBRARY, ke.LIBRARY)
+    libs = (ks.LIBRARY, elastic_module().LIBRARY, a3d_module().LIBRARY)
     errors = []
 
     def build(lib):
@@ -264,7 +306,7 @@ def phase_build():
     for lib in libs:
         kernel, spill = None, ""
         for line in lib.log.read_text().splitlines() if lib.log.exists() else ():
-            m = re.search(r"Compiling entry function '\w*?_((?:acoustic|elastic)2d_\w+?)_cu_"
+            m = re.search(r"Compiling entry function '\w*?_((?:acoustic|elastic)[23]d_\w+?)_cu_"
                           r"[0-9a-f]{8}(\d+)(\w+)", line)
             if m:
                 name = m.group(3)[:int(m.group(2))]
@@ -817,29 +859,39 @@ def elastic_kernels_vs_plain(dev, nt, source_type, record, free_surface):
     return errs, nums
 
 
-def elastic_profile(dev, nt=64):
-    """Device time per step of each CUDA kernel that one escan_forward
-    (with tape) and one escan_reverse launch, from torch.profiler, sorted
-    by time: [(kernel, us per step)], empty when the profiler sees no
+def device_us_per_step(run, nt, pattern):
+    """Device time per step of each CUDA kernel whose name ``pattern``
+    captures, over one ``run()`` after a warm-up one, from torch.profiler,
+    sorted by time: [(kernel, us per step)], empty when the profiler sees no
     device time."""
     from torch.profiler import ProfilerActivity, profile
 
-    ke = elastic_module()
-    args, w, si, ri, _ = elastic_shot(dev, nt)
-    kind = ("force_z", "v")
-    seis, tape, fin = ke.escan_forward(*args, w, si, ri, *kind, tape=True)
+    run()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        seis, tape, fin = ke.escan_forward(*args, w, si, ri, *kind, tape=True)
-        ke.escan_reverse(*args, w, seis.contiguous(), tape, fin, si, ri, *kind)
+        run()
         torch.cuda.synchronize()
     rows = []
     for e in prof.key_averages():
         us = getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
-        m = re.search(r"::(e[fr]?_\w+?)[<(]", e.key)
+        m = re.search(pattern, e.key)
         if us > 0 and m:
             rows.append((m.group(1), us / nt))
     return sorted(rows, key=lambda r: -r[1])
+
+
+def elastic_profile(dev, nt=64):
+    """Device us per step of each CUDA kernel that one escan_forward (with
+    tape) and one escan_reverse launch."""
+    ke = elastic_module()
+    args, w, si, ri, _ = elastic_shot(dev, nt)
+    kind = ("force_z", "v")
+
+    def run():
+        seis, tape, fin = ke.escan_forward(*args, w, si, ri, *kind, tape=True)
+        ke.escan_reverse(*args, w, seis.contiguous(), tape, fin, si, ri, *kind)
+
+    return device_us_per_step(run, nt, r"::(e[fr]?_\w+?)[<(]")
 
 
 def phase_elastic_kernels(dev, smi, nt=NT_CHECK, nt_fs=128):
@@ -978,6 +1030,341 @@ def phase_main_elastic(smi, device="cuda"):
     return mine
 
 
+# --------------------------------------------------------------------- 3D
+
+
+@functools.lru_cache(maxsize=None)
+def overthrust_model(nz, ny, nx):
+    """overthrust_like(nz, ny, nx) at 25 m in the engines' (y, z, x) layout,
+    fp32, and its spacing."""
+    from tpufwi_torch.io import overthrust_like
+
+    vp, dx = overthrust_like(nz=nz, ny=ny, nx=nx)
+    return np.ascontiguousarray(np.transpose(vp, (1, 0, 2)), dtype=np.float32), dx
+
+
+def overthrust_survey(nz, ny, nx, nt=None, t_max=None, shots=(3, 4), free_surface=False):
+    """The 3D survey of scripts/overthrust_ms.py:97-140 on overthrust_like:
+    order 8, pml 10, f0 6 Hz, CFL 0.7 at the model's top speed; surface
+    shots at depth 2 on a (y, x) grid of ``shots``; a receiver carpet at
+    depth 3, every 10 cells in y and 6 in x. Returns (grid, vp, dt, f0,
+    c_max, nt, src (nshot, 1, 3), rcv (nrec, 3)), indices physical."""
+    from tpufwi_torch.grid import Grid
+
+    vp, dx = overthrust_model(nz, ny, nx)
+    grid = Grid(shape=vp.shape, h=(dx,) * 3, pml=10, order=8, free_surface=free_surface)
+    c_max, f0 = float(vp.max()), 6.0
+    dt = grid.cfl_dt(c_max, safety=0.7)
+    nt = nt or int(t_max / dt)
+    rcv = np.array([[y, 3, x] for y in range(10, ny - 10, 10) for x in range(10, nx - 10, 6)])
+    src = np.array([[[int(y), 2, int(x)]] for y in np.linspace(0.2 * ny, 0.8 * ny, shots[0])
+                    for x in np.linspace(0.15 * nx, 0.75 * nx, shots[1])])
+    return grid, vp, dt, f0, c_max, nt, src, rcv
+
+
+def a3d_inputs(dev, grid, vp, dt, f0, c_max, nt, src, rcv):
+    """The 3D kernels' inputs for one shot: (grid, c2, profiles), wavelet,
+    src_idx, rcv_idx on ``dev`` (physical indices in)."""
+    from tpufwi_torch.kernels.acoustic2d_scanres import strip_profiles
+    from tpufwi_torch.wavelets import ricker_np
+
+    def on(x, dtype=torch.float32):
+        return torch.as_tensor(np.ascontiguousarray(x), dtype=dtype, device=dev)
+
+    c2 = on((np.pad(vp, grid.pad, mode="edge") * dt) ** 2)
+    prof = tuple(on(p) for p in strip_profiles(grid, dt, c_max, f0))
+    return ((grid, c2, prof), on(ricker_np(f0, dt, nt)), on(src + grid.pad, torch.int64),
+            on(rcv + grid.pad, torch.int64))
+
+
+def a3d_step_counts(grid, nrec, nsrc, n_ring):
+    """Operations and bytes of one 3D time step: a field (189 MB at the main
+    path's grid) outgrows the card's on-chip memory, so every step must move
+    the fields it reads and writes. Forward: P_{t-1}, P_{t-2}, C in, P_t out
+    (16 B/cell), phi and psi in and out on the strips (16 B/strip cell), the
+    seismogram row and the tape row. Reverse: P_{t-1}, P_t, C, lambda_t,
+    lambda_{t+1}, gacc in, P_{t-2}, lambda_{t-1}, gacc out (36 B/cell), the
+    two dual strip states psibar and phibar in and out (16 B/strip cell; w
+    and y are recomputed each step, traffic of the design, not of the
+    function), the residual row, lambda at the sources and the tape row
+    read. Per shot: C and the final
+    fields. Operations: three 9-tap D2 stencils a cell (forward), five
+    (reverse: the imaging laplacian and the transposed one of C lambda), the
+    strips' D1 stencils and updates."""
+    NY, NZ, NX = grid.padded_shape
+    taps = 2 * grid.radius + 1
+    S = grid.pml + grid.radius
+    faces = NZ * NX + NY * NX + NY * NZ
+    cells, strips, ext = NY * NZ * NX, 2 * S * faces, 2 * (S + grid.radius) * faces
+    fwd = cells * (6 * taps + 4) + strips * (2 * taps + 8) + ext * (2 * taps + 1) + 2 * nsrc
+    rev = cells * (10 * taps + 12) + strips * (4 * taps + 6) + ext * 4 * taps + 2 * nsrc
+    f = 4
+    return {
+        "a3d_forward": (fwd, 16 * cells + 16 * strips + nrec * f, 3 * cells * f),
+        "a3d_forward_tape": (fwd, 16 * cells + 16 * strips + (nrec + n_ring) * f, 3 * cells * f),
+        "a3d_reverse": (rev, 36 * cells + 16 * strips + (nrec + nsrc + n_ring) * f,
+                        3 * cells * f),
+    }
+
+
+def a3d_kernels_vs_plain(args, w, si, ri, reps=2):
+    """a3d_forward (no tape, fp32 tape, bf16 tape, illumination) and
+    a3d_reverse (fed the plain forward's fp32 tape, last fields and
+    seismogram; and the same with that tape rounded to bf16) against their
+    plain versions on the card:
+    ({output: error}, numbers). Times are ms per step, CUDA events."""
+    k3 = a3d_module()
+    grid = args[0]
+    nt = w.shape[0]
+    plain_ms, (seis_p, tape_p, ppen_p, plast_p, il_p) = timed_ms(
+        lambda: k3.a3d_forward_plain(*args, w, si, ri, torch.float32, illum=True),
+        warmup=False)
+    free_ms, (seis_n, _, pen_n, last_n, _) = timed_ms(
+        lambda: k3.a3d_forward(*args, w, si, ri), reps=reps)
+    ms, (seis, tape, ppen, plast, _) = timed_ms(
+        lambda: k3.a3d_forward(*args, w, si, ri, torch.float32), reps=reps)
+    bf_ms, (seis_b, tape_b, _, _, _) = timed_ms(
+        lambda: k3.a3d_forward(*args, w, si, ri, torch.bfloat16), reps=reps)
+    il_ms, (_, _, _, _, il) = timed_ms(
+        lambda: k3.a3d_forward(*args, w, si, ri, illum=True), reps=reps)
+    scale = float(plast_p.abs().max())
+    tape_max = float(tape_p.abs().max())
+    errs = {
+        "seis": max(rel_err(x, seis_p) for x in (seis, seis_n, seis_b)),
+        "fields": max(rel_err(ppen, ppen_p), rel_err(plast, plast_p), rel_err(pen_n, ppen_p),
+                      rel_err(last_n, plast_p)),
+        "tape": float((tape - tape_p).abs().max()) / max(tape_max, scale),
+        "tape_bf16": float((tape_b.float() - tape.to(torch.bfloat16).float()).abs().max())
+        / (tape_max * 2.0**-7),
+        "illum": rel_err(il, il_p),
+    }
+    ybar = seis_p.contiguous()
+    plain_rev_ms, (g_p, ls_p, p0_p) = timed_ms(
+        lambda: k3.a3d_reverse_plain(*args, w, ybar, tape_p, ppen_p, plast_p, si, ri,
+                                     return_field=True), warmup=False)
+    rev_ms, (g, ls, p0) = timed_ms(
+        lambda: k3.a3d_reverse(*args, w, ybar, tape_p, ppen_p, plast_p, si, ri,
+                               return_field=True), reps=reps)
+    tape16 = tape_p.to(torch.bfloat16)
+    g16_p, ls16_p = k3.a3d_reverse_plain(*args, w, ybar, tape16, ppen_p, plast_p, si, ri)
+    rev_bf_ms, (g16, ls16) = timed_ms(
+        lambda: k3.a3d_reverse(*args, w, ybar, tape16, ppen_p, plast_p, si, ri), reps=reps)
+    errs.update(gbar=rel_err(g, g_p), lam_src=rel_err(ls, ls_p),
+                gbar_bf16=rel_err(g16, g16_p), lam_src_bf16=rel_err(ls16, ls16_p),
+                recon=float((p0 - p0_p).abs().max()) / scale)
+    nums = dict(
+        fwd=(float((seis.double() - seis_p.double()).abs().max()), ms / nt, plain_ms / nt),
+        rev=(float((g.double() - g_p.double()).abs().max()), rev_ms / nt, plain_rev_ms / nt),
+        free_ms=free_ms / nt, bf_ms=bf_ms / nt, il_ms=il_ms / nt, rev_bf_ms=rev_bf_ms / nt,
+        counts=a3d_step_counts(grid, ri.shape[0], si.shape[0], tape.shape[1]),
+        grid="x".join(map(str, grid.padded_shape)), nt=nt,
+    )
+    return errs, nums
+
+
+def a3d_bf16_gradient(dev, nt):
+    """The kernels' gradient image with the bf16 ring tape against the fp32
+    tape's, one surface shot (its source in the ring) on the small survey
+    grid, long enough for the wave to fill the model: (norm-relative error
+    and cosine on the valid region)."""
+    from tpufwi_torch.propagators.boundary import RingSpec
+
+    k3 = a3d_module()
+    survey = overthrust_survey(48, 64, 80, nt=nt, shots=(1, 1))
+    args, w, si, ri = a3d_inputs(dev, *survey[:6], survey[6][0], survey[7])
+    seis, tape, ppen, plast, _ = k3.a3d_forward(*args, w, si, ri, torch.float32)
+    ybar = seis.contiguous()
+    g = k3.a3d_reverse(*args, w, ybar, tape, ppen, plast, si, ri)[0]
+    g16 = k3.a3d_reverse(*args, w, ybar, tape.to(torch.bfloat16), ppen, plast, si, ri)[0]
+    valid = RingSpec.build(args[0]).valid
+    a, b = g[valid].double().ravel(), g16[valid].double().ravel()
+    return float((b - a).norm() / a.norm()), float(a @ b / (a.norm() * b.norm()))
+
+
+def phase_a3d_kernels(dev, smi, nt=64, nt_fs=128, nt_bf16=400):
+    """a3d_forward and a3d_reverse against their plain versions: one
+    surface shot of the 3D main path's survey at nt, and a free-surface
+    case on a smaller grid at nt_fs (a source and receivers on the pinned
+    surface row, coinciding receivers)."""
+    k3 = a3d_module()
+    small = overthrust_survey(48, 64, 80, nt=8, shots=(1, 1))
+    a3d_kernels_vs_plain(*a3d_inputs(dev, *small[:6], small[6][0], small[7]), reps=1)
+    before = (k3.a3d_forward.launches, k3.a3d_reverse.launches)
+    survey = overthrust_survey(*MAIN3D["model"], nt=nt, shots=MAIN3D["shots"])
+    mid = survey[6][len(survey[6]) // 2]
+    errs, nums = a3d_kernels_vs_plain(*a3d_inputs(dev, *survey[:6], mid, survey[7]))
+    fs = overthrust_survey(48, 64, 80, nt=nt_fs, shots=(1, 1), free_surface=True)
+    src = np.concatenate([fs[6][0], [[30, 0, 40]]])  # a second source, on the surface row
+    rcv = np.concatenate([fs[7], [[y, 0, 40] for y in range(10, 54, 6)], fs[7][:3]])
+    errs_fs, nums_fs = a3d_kernels_vs_plain(*a3d_inputs(dev, *fs[:6], src, rcv))
+    bf16_rel, bf16_cos = a3d_bf16_gradient(dev, nt_bf16)
+    args, w, si, ri = a3d_inputs(dev, *survey[:5], 16, mid, survey[7])
+
+    def fwd_rev():
+        seis, tape, ppen, plast, _ = k3.a3d_forward(*args, w, si, ri, torch.float32)
+        k3.a3d_reverse(*args, w, seis.contiguous(), tape, ppen, plast, si, ri)
+
+    prof = device_us_per_step(fwd_rev, 16, r"::([fr]3_\w+?)[<(]")
+    launched = (k3.a3d_forward.launches - before[0], k3.a3d_reverse.launches - before[1])
+    c = nums["counts"]
+    entries = [entry("a3d_forward", *nums["fwd"], c["a3d_forward_tape"], nt),
+               entry("a3d_reverse", *nums["rev"], c["a3d_reverse"], nt)]
+    print(f"[a3d kernels] {smi}: grid {nums['grid']} order 8, one surface shot, nt {nt}, ms "
+          "per step, kernel (plain; bound):", flush=True)
+    for e in entries:
+        print(f"[a3d kernels]   {e['name']}: {e['ms']:.5f} ({e['plain_ms']:.4f}; "
+              f"{e['bound_ms']:.5f} by {e['bound_by']})", flush=True)
+    for label, ms, key in (("a3d_forward without tape", nums["free_ms"], "a3d_forward"),
+                           ("a3d_forward with the bf16 tape", nums["bf_ms"], "a3d_forward_tape"),
+                           ("a3d_forward with illumination", nums["il_ms"], "a3d_forward"),
+                           ("a3d_reverse with the bf16 tape", nums["rev_bf_ms"], "a3d_reverse")):
+        b = bound(c[key], nt)
+        print(f"[a3d kernels]   {label}: {ms:.5f} ({b[0]:.5f} by {b[1]})", flush=True)
+    print(f"[a3d kernels]   free surface, grid {nums_fs['grid']}, nt {nt_fs}: forward "
+          f"{nums_fs['fwd'][1]:.5f} ({nums_fs['fwd'][2]:.4f}), reverse {nums_fs['rev'][1]:.5f} "
+          f"({nums_fs['rev'][2]:.4f})", flush=True)
+    print(f"[a3d kernels] errors {json.dumps(errs)}; free surface {json.dumps(errs_fs)}; "
+          f"tolerances {json.dumps(A3D_TOL)}; bf16-tape gradient against the fp32 tape's, "
+          f"surface shot, nt {nt_bf16}: {bf16_rel:.3e} (norm, valid region; bound "
+          f"{A3D_BF16_GTOL:.0e}), cosine {bf16_cos:.6f}; launches in these checks: "
+          f"a3d_forward {launched[0]}, a3d_reverse {launched[1]}", flush=True)
+    print("[a3d kernels] torch.profiler device us per step (forward with the fp32 tape + "
+          "reverse, nt 16): " + (", ".join(f"{k} {us:.2f}" for k, us in prof)
+                                  or "not measured"), flush=True)
+    for group in (errs, errs_fs):
+        for name, err in group.items():
+            if not err <= A3D_TOL[name]:
+                fail(f"3D {name} disagrees with the plain version: {err:.3e} > "
+                     f"{A3D_TOL[name]:.0e}")
+    if not bf16_rel <= A3D_BF16_GTOL:
+        fail(f"bf16-tape gradient off the fp32 tape's by {bf16_rel:.3e} > {A3D_BF16_GTOL:.0e}")
+    return entries
+
+
+def phase_a3d_fullscale(dev, smi):
+    """One shot on the full SEG/EAGE Overthrust grid at t_max 4 s: 'auto'
+    takes the bf16 ring tape (the fp32 one outgrows the card); a tape-free
+    forward and a value-and-grad of 0.5 |seis(1.02 vp) - seis(vp)|^2."""
+    from tpufwi_torch.acquisition import Geometry
+    from tpufwi_torch.io import OVERTHRUST_SHAPE
+    from tpufwi_torch.propagators.acoustic2d import AcousticPropagator
+    from tpufwi_torch.wavelets import ricker
+
+    t0 = time.perf_counter()
+    nz, ny, nx = OVERTHRUST_SHAPE
+    grid, vp, dt, f0, c_max, nt, _, rcv = overthrust_survey(nz, ny, nx, t_max=4.0)
+    model_s = time.perf_counter() - t0
+    prop = AcousticPropagator(grid, dt, f0, c_max, device=dev)
+    impl = prop.fix_impl_for(nt=nt)
+    print(f"[a3d full] {smi}: overthrust_like {nz} x {ny} x {nx} at 25 m (padded "
+          f"{'x'.join(map(str, grid.padded_shape))}), nt {nt}, {rcv.shape[0]} receivers, model "
+          f"built in {model_s:.1f} s: impl {impl} ({prop.resolve_note})", flush=True)
+    if impl != "cuda3d_bf16":
+        fail(f"the full Overthrust shot resolved to {impl}: {prop.resolve_note}")
+    geom = Geometry.from_physical(grid, np.array([[ny // 2, 2, nx // 2]]), rcv, device=dev)
+    w = ricker(f0, dt, nt, device=dev)
+    vp_t = torch.as_tensor(vp, device=dev)
+    torch.cuda.reset_peak_memory_stats()
+    fwd_ms, d = timed_ms(lambda: prop(vp_t, geom, w), warmup=False)
+    J, g, secs = _value_and_grad(prop, vp_t * 1.02, geom, w, d)
+    peak = torch.cuda.max_memory_allocated()
+    tape = prop.tape3d_bytes(nt, 2)
+    print(f"[a3d full] tape-free forward {fwd_ms / 1e3:.3f} s, value-and-grad {secs:.3f} s; "
+          f"bf16 ring tape {tape} bytes ({tape / 2**30:.2f} GiB; fp32 "
+          f"{prop.tape3d_bytes(nt, 4) / 2**30:.2f} GiB, budget "
+          f"{prop.tape3d_budget_bytes() / 2**30:.2f} GiB); peak memory {peak / 2**30:.2f} GiB; "
+          f"J {J:.6e}; max |g| {float(g.abs().max()):.3e}", flush=True)
+    if not (np.isfinite(J) and bool(torch.isfinite(g).all()) and float(g.abs().max()) > 0):
+        fail("the full Overthrust gradient is not finite and nonzero")
+
+
+def phase_main_3d(smi, dev):
+    """invert() on a 3D FwiProblem: the survey of scripts/overthrust_ms.py
+    at its large-scale single-chip configuration (overthrust_ms.py:54-55),
+    observed data from the true model, a Gaussian-5 smooth start with the
+    top rows pinned; every launch counter set to 0 just before invert()."""
+    from scipy.ndimage import gaussian_filter
+
+    from tpufwi_torch.acquisition import Geometry
+    from tpufwi_torch.config import FwiConfig, OptCfg, PrecondCfg, StageCfg
+    from tpufwi_torch.invert import FwiProblem, invert
+    from tpufwi_torch.propagators.acoustic2d import AcousticPropagator
+    from tpufwi_torch.wavelets import ricker
+
+    cfg3 = MAIN3D
+    grid, vp, dt, f0, c_max, nt, src, rcv = overthrust_survey(*cfg3["model"], nt=cfg3["nt"],
+                                                              shots=cfg3["shots"])
+    n_shots = src.shape[0]
+    prop = AcousticPropagator(grid, dt, f0, c_max, device=dev)
+    geoms = Geometry.stack([Geometry.from_physical(grid, s, rcv, device=dev) for s in src])
+    w = ricker(f0, dt, nt, device=dev)
+    with torch.no_grad():
+        vp_t = torch.as_tensor(vp, device=dev)
+        d_obs = torch.stack([prop(vp_t, geoms.shot(i), w) for i in range(n_shots)])
+    top = cfg3["mask_top"]
+    vp0 = np.clip(gaussian_filter(vp.astype(np.float64), 5.0), cfg3["vmin"], cfg3["vmax"])
+    vp0[:, :top, :] = vp[:, :top, :]  # the near surface pinned to the truth
+    problem = FwiProblem(prop=prop, geoms=geoms, d_obs=d_obs, wavelet=w, dt=dt)
+    run_dir = os.path.join("smoke_out", "main3d")
+    cfg = FwiConfig(stages=(StageCfg(cfg3["fmax"], cfg3["iterations"]),),
+                    precond=PrecondCfg(use_illumination=True, mask_top=top),
+                    opt=OptCfg(vmin=cfg3["vmin"], vmax=cfg3["vmax"]), run_dir=run_dir)
+    if os.path.exists(os.path.join(run_dir, "log.jsonl")):
+        os.remove(os.path.join(run_dir, "log.jsonl"))
+    vp0_t = torch.as_tensor(vp0, dtype=torch.float32, device=dev)
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    vp_out = invert(problem, vp0_t, cfg)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+
+    with open(os.path.join(run_dir, "log.jsonl")) as f:
+        recs = [json.loads(line) for line in f]
+    its = [r for r in recs if "event" not in r]
+    engines = [r["engine"] for r in recs if r.get("event") == "engine"]
+    notes = [r["note"] for r in recs if r.get("event") == "engine"]
+    mine = {k: launches[k] for k in ("a3d_forward", "a3d_reverse")}
+    print(f"[main 3d] {smi}: padded {'x'.join(map(str, grid.padded_shape))}, {n_shots} shots, "
+          f"{rcv.shape[0]} receivers, nt {nt}: {wall:.1f} s total, peak memory "
+          f"{peak / 2**30:.2f} GiB, launches {json.dumps(mine)}; engine {engines} {notes}",
+          flush=True)
+    for r in its:
+        print(f"[main 3d] stage {r['stage']} f<{r['fmax']} Hz it {r['iter']}: J={r['J']:.6e} "
+              f"{r['seconds']} s/iter {r['shots_per_sec']} shots/s evals {r['evals']}",
+              flush=True)
+    if engines != ["cuda3d"] * len(cfg.stages):
+        fail(f"engine records {engines}, expected cuda3d per stage")
+    if len(its) != sum(st.iterations for st in cfg.stages):
+        fail(f"{len(its)} iterations logged")
+    J = [r["J"] for r in its]
+    if not all(np.isfinite(J)) or not all(b < a for a, b in zip(J, J[1:])):
+        fail(f"3D J not finite and falling: {J}")
+    if min(mine.values()) <= 0:
+        fail(f"a 3D kernel never launched: {mine}")
+    others = {k: v for k, v in launches.items() if k not in mine and v}
+    if others:
+        fail(f"the 3D path launched kernels of another engine: {others}")
+    rev = n_shots * (len(cfg.stages) + len(its))
+    if mine["a3d_reverse"] != nt * rev:
+        fail(f"a3d_reverse launches {mine['a3d_reverse']} != nt x {rev}")
+    # per stage one illumination and the first value-and-grad, then per
+    # iteration the logged evaluations
+    fwd_min = n_shots * (2 * len(cfg.stages) + sum(r["evals"] for r in its))
+    fwd = mine["a3d_forward"]
+    if fwd % nt or fwd // nt < fwd_min:
+        fail(f"a3d_forward launches {fwd} not nt x (>= {fwd_min}) evaluations")
+    print(f"[main 3d] evaluations: forward {fwd // nt} (>= {fwd_min}), reverse {rev}",
+          flush=True)
+    out = vp_out.detach().cpu().numpy()
+    if out.shape != vp.shape or not np.isfinite(out).all() or not (
+            cfg3["vmin"] <= out.min() and out.max() <= cfg3["vmax"]):
+        fail("final 3D model is not finite, of the model's shape, within the bounds")
+    return mine
+
+
 def main() -> int:
     smi = phase_device()
     dev = torch.device("cuda", 0)
@@ -988,11 +1375,14 @@ def main() -> int:
     phase_over_budget(dev, smi)
     kernels += phase_elastic_kernels(dev, smi)
     phase_elastic_shot(dev, smi)
+    kernels += phase_a3d_kernels(dev, smi)
+    phase_a3d_fullscale(dev, smi)
     launches = dict.fromkeys(KERNELS, 0)
     for path in PATHS:
         for name, n in phase_main(smi, path).items():
             launches[name] += n
     launches.update(phase_main_elastic(smi))
+    launches.update(phase_main_3d(smi, dev))
     order = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
              "plain_ms", "bound_ms", "bound_by", "library_ms")
     for k in kernels:

@@ -1,4 +1,5 @@
-"""The CUDA kernels == their plain torch versions, on the card.
+"""The CUDA kernels == their plain torch versions, on the card (2D acoustic,
+elastic and 3D acoustic).
 
 Skips without a CUDA device. Imports no JAX, so it runs where only the
 port is installed: ``python -m pytest tests/test_torch_cuda.py -m cuda
@@ -212,3 +213,58 @@ def test_elastic_wrapper_raises_instead_of_falling_back(device):
     seis, tape, finals = ke.escan_forward(grid, dt, mats, prof, w, *idx, tape=True)
     with pytest.raises(ValueError, match="tape"):
         ke.escan_reverse(grid, dt, mats, prof, w, seis, tape[:-1].contiguous(), finals, *idx)
+
+
+# ------------------------------------------------------------- 3D (12-17)
+
+
+def _a3d_case(device, order, free_surface, nt):
+    """A surface source (in the boundary ring) and a deeper one, a receiver
+    carpet at depth 3 with a coinciding pair; with the free surface a source
+    and a receiver on the pinned surface row."""
+    grid = Grid(shape=(20, 24, 28), h=(10.0, 11.0, 12.0), pml=6, order=order,
+                free_surface=free_surface)
+    c_max, f0 = 2600.0, 18.0
+    dt = grid.cfl_dt(c_max, safety=0.7)
+    rng = np.random.default_rng(order + nt)
+    vp = np.clip(2200 + 150 * rng.standard_normal(grid.shape), 1900, 2600)
+    src = np.array([[10, 2, 14], [12, 13, 9]])
+    rcv = [[y, 3, x] for y in range(3, 18, 4) for x in range(3, 26, 4)] + [[7, 3, 7]]
+    if free_surface:
+        src[1, 1] = 0
+        rcv.append([11, 0, 5])
+    return chip_smoke.a3d_inputs(device, grid, vp, dt, f0, c_max, nt, src, np.array(rcv))
+
+
+@pytest.mark.parametrize("order,free_surface", [(8, False), (8, True), (4, True)])
+def test_a3d_kernels_match_plain(device, order, free_surface):
+    """a3d_forward (no tape, fp32 and bf16 tapes, illumination) and
+    a3d_reverse (fp32 and bf16 tapes) against their plain versions, with
+    chip_smoke.py's tolerances; each wrapper counts nt launches per call."""
+    from tpufwi_torch.kernels import acoustic3d_scan as k3
+
+    args, w, si, ri = _a3d_case(device, order, free_surface, nt=100)
+    nt = w.shape[0]
+    f0, r0 = k3.a3d_forward.launches, k3.a3d_reverse.launches
+    errs, _ = chip_smoke.a3d_kernels_vs_plain(args, w, si, ri, reps=1)
+    torch.cuda.synchronize()
+    # four forward and two reverse variants, each a warm-up and a timed call
+    assert k3.a3d_forward.launches - f0 == 8 * nt
+    assert k3.a3d_reverse.launches - r0 == 4 * nt
+    for name, err in errs.items():
+        assert err <= chip_smoke.A3D_TOL[name], (name, err)
+
+
+def test_a3d_wrapper_raises_instead_of_falling_back(device):
+    from tpufwi_torch.kernels import acoustic3d_scan as k3
+
+    (grid, c2, prof), w, si, ri = _a3d_case(device, 8, False, nt=8)
+    with pytest.raises(ValueError, match="fp32"):
+        k3.a3d_forward(grid, c2.double(), prof, w, si, ri)
+    with pytest.raises(ValueError, match="outside the padded grid"):
+        k3.a3d_forward(grid, c2, prof, w, si + 10_000, ri)
+    seis, tape, ppen, plast, _ = k3.a3d_forward(grid, c2, prof, w, si, ri, torch.float32)
+    with pytest.raises(ValueError, match="tape"):
+        k3.a3d_reverse(grid, c2, prof, w, seis, tape[:-1].contiguous(), ppen, plast, si, ri)
+    with pytest.raises(ValueError, match="tape"):
+        k3.a3d_reverse(grid, c2, prof, w, seis, tape.double(), ppen, plast, si, ri)

@@ -158,6 +158,7 @@ def test_import_pulls_in_no_jax():
         "import tpufwi_torch, tpufwi_torch.invert, tpufwi_torch.interop, "
         "tpufwi_torch.adjoint, tpufwi_torch.adjoint_step, tpufwi_torch.adjoint_scanres, "
         "tpufwi_torch.kernels.acoustic2d_scanres, tpufwi_torch.kernels.acoustic2d_step, "
+        "tpufwi_torch.adjoint3d, tpufwi_torch.kernels.acoustic3d_scan, "
         "chip_smoke; "
         "bad = sorted(m for m in set(sys.modules) - before "
         "if m.split('.')[0] in ('jax', 'jaxlib', 'tpufwi')); "

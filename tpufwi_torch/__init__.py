@@ -1,5 +1,5 @@
-"""tpufwi_torch: the PyTorch + CUDA port of tpufwi (2D acoustic and elastic
-P-SV FWI).
+"""tpufwi_torch: the PyTorch + CUDA port of tpufwi (2D and 3D acoustic and
+2D elastic P-SV FWI).
 
 The JAX package ``tpufwi`` is the reference this port is tested against;
 this package imports ``torch`` and never ``jax``. Importing it needs

@@ -56,10 +56,10 @@ def profile_source(grid: Grid, dt: float, f0: float, c_max: float):
 def finish_gradient(rings: RingSpec, gbar, lam_src, c2dt2, wavelet, src_idx):
     """(model, wavelet) cotangents from the reverse's imaged ``gbar`` and
     lambda at the sources: the source-cell term, then the valid mask."""
-    sz, sx = src_idx[:, 0], src_idx[:, 1]
-    wbar = (lam_src * c2dt2[sz, sx][None, :]).sum(-1)
+    src = tuple(src_idx[:, d] for d in range(src_idx.shape[1]))
+    wbar = (lam_src * c2dt2[src][None, :]).sum(-1)
     gsrc = (lam_src * wavelet[:, None]).sum(0)
-    return rings.mask_valid(gbar.index_put((sz, sx), gsrc, accumulate=True)), wbar
+    return rings.mask_valid(gbar.index_put(src, gsrc, accumulate=True)), wbar
 
 
 def make_simulator_scanres(grid: Grid, dt: float, f0: float, c_max: float,

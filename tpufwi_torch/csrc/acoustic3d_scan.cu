@@ -1,0 +1,169 @@
+// Whole-scan 3D acoustic engine for Hopper (sm_90a): the forward time loop
+// (optional fp32 or bf16 boundary-ring tape, optional illumination) and the
+// reverse (reconstruction, exact transposed CPML step, imaging).
+//
+// Replaces the TPU kernels of the fused 3D engine (tpufwi/adjoint3d_pallas.py):
+//   a3d_forward <- kernels/acoustic3d_fused2.py make_leapfrog3d_merged (the
+//                  leapfrog, x-face CPML, y/z slab apply) and make_corr3d_y /
+//                  make_corr3d_z (the y/z face CPML slabs), plus the XLA source
+//                  scatter, receiver gather and tape slicing around them
+//   a3d_reverse <- kernels/acoustic3d_bwd_pallas.py make_recon3d_kernel (the
+//                  reconstruction, ring imposition and imaging) fused with
+//                  make_transpose3d_kernel and make_tcorr3d_y / make_tcorr3d_z
+//                  (the transposed step with its transposed faces)
+// On the TPU the y/z faces were split out of the leapfrog only for VMEM and
+// DMA tiling; the CPML is separable, so here every face of every axis rides
+// in the same launches. Plain C interface, built by nvcc into its own shared
+// library and called through ctypes (tpufwi_torch/kernels/acoustic3d_scan.py).
+// The kernels and their semantics are in acoustic3d_kernels.cuh.
+//
+// What bounds it: memory traffic. At the 428 x 188 x 588 grid of the 3D main
+// path (47.3 M cells, 189 MB a field) a forward step must at least read
+// P_{t-1}, P_{t-2}, C and write P_t (16 B/cell, 0.76 GB: 0.23 ms at
+// 3.35 TB/s) and a reverse step P_{t-1}, P_t, C, lambda_t, lambda_{t+1} and
+// gacc and write P_{t-2}, lambda_{t-1} and gacc (36 B/cell, 0.51 ms); the
+// stencils' operations are ~10x below that. A field is far larger than the
+// 50 MB L2, so the design keeps each pass a single sweep in (y, z, x) order:
+// one thread per cell, x contiguous, blocks ordered so a y plane's +-4
+// neighbours (9 x 0.44 MB) stay in L2 while it is swept. The CPML memories
+// are stored on their strips only (20% of the cells at this grid, touched by
+// one extra strip launch per step), u = C lambda is never written, and the
+// reverse fuses the reconstruction into the first cell pass, so the reverse
+// reads each full field about twice per step. Left for later: shared-memory
+// 2.5D tiling of the stencils, a persistent kernel or CUDA graph instead of
+// 3-5 launches per step, and the one-block source and receiver kernels.
+//
+// Tapes. Row t holds rings(P_t) after the sources, in RingSpec order
+// (tpufwi_torch/propagators/boundary.py), fp32 or bf16 (rounded to nearest
+// even); the reverse imposes row t-2 while it reconstructs P_{t-2} (zeros
+// for t < 2). At the full Overthrust grid a row is 7.4 M cells and nt = 3028
+// rows hold 22.5 G values, so tape offsets are size_t.
+
+#include "acoustic3d_kernels.cuh"
+
+namespace {
+
+template <int R, typename T>
+int forward_loop(const float* c2, const float* prof, const float* w, const long long* src,
+                 const long long* rcv, float* seis, const int* ring, T* tape, float* illum,
+                 float* pa, float* pb, float* strips, const Dims& D, int nt, int nsrc, int nrec,
+                 int fs, int n_ring, const Taps3& tp, cudaStream_t st) {
+  const Strips phi = strips_at(strips, D.n[0], D.n[1], D.n[2], D.S);
+  const Strips psi = strips_at(strips + strip_total(D.n[0], D.n[1], D.n[2], D.S), D.n[0],
+                               D.n[1], D.n[2], D.S);
+  float* cur = pb;   // P_{t-1}
+  float* prev = pa;  // P_{t-2}, overwritten by P_t
+  for (int t = 0; t < nt; ++t) {
+    f3_phi<R><<<strip_blocks(D), kStripBlock, 0, st>>>(cur, phi, prof, D, tp);
+    f3_cells<R><<<cell_grid(D), kCellBlock, 0, st>>>(cur, prev, c2, phi, psi, prof, illum, D,
+                                                      fs, tp);
+    f3_src_rcv<R><<<1, kSmallBlock, 0, st>>>(prev, c2, w, t, src, rcv, seis, nsrc, nrec, D, fs);
+    if (tape != nullptr)
+      f3_ring_get<R, T><<<blocks_for(n_ring), kSmallBlock, 0, st>>>(
+          prev, ring, tape + (size_t)t * n_ring, n_ring, D);
+    if (t == 0) {
+      const cudaError_t err = cudaGetLastError();
+      if (err != cudaSuccess) return (int)err;
+    }
+    float* tmp = cur;
+    cur = prev;
+    prev = tmp;
+  }
+  if (illum != nullptr) f3_illum_add<R><<<cell_grid(D), kCellBlock, 0, st>>>(cur, illum, D);
+  return (int)cudaGetLastError();
+}
+
+template <int R, typename T>
+int reverse_loop(const float* c2, const float* prof, const float* w, const float* ybar,
+                 const T* tape, const int* ring, const long long* src, const long long* rcv,
+                 float* gacc, float* lam_src, float* p_tp1, float* p_t, float* qc, float* qo,
+                 float* strips, int* chain, const Dims& D, int nt, int nsrc, int nrec, int fs,
+                 int n_ring, const RingFrame3& frame, const Taps3& tp, cudaStream_t st) {
+  const size_t ns = strip_total(D.n[0], D.n[1], D.n[2], D.S);
+  const Strips psb = strips_at(strips, D.n[0], D.n[1], D.n[2], D.S);
+  const Strips wv = strips_at(strips + ns, D.n[0], D.n[1], D.n[2], D.S);
+  const Strips pbar = strips_at(strips + 2 * ns, D.n[0], D.n[1], D.n[2], D.S);
+  const Strips yv = strips_at(strips + 3 * ns, D.n[0], D.n[1], D.n[2], D.S);
+  if (nrec > 0) r3_chain<<<blocks_for(nrec), kSmallBlock, 0, st>>>(rcv, nrec, chain);
+  for (int t = nt - 1; t >= 0; --t) {
+    r3_inject<R><<<1, kSmallBlock, 0, st>>>(qc, ybar, t, rcv, chain, src, lam_src, nsrc, nrec,
+                                            D, fs);
+    r3_cells1<R><<<cell_grid(D), kCellBlock, 0, st>>>(qc, c2, p_t, p_tp1, gacc, psb, wv, prof,
+                                                       D, fs, tp);
+    r3_src_ring<R, T><<<blocks_for(n_ring), kSmallBlock, 0, st>>>(
+        p_tp1, c2, w, t, src, nsrc, ring, t >= 2 ? tape + (size_t)(t - 2) * n_ring : nullptr,
+        n_ring, D, fs, frame);
+    r3_strips<R><<<strip_blocks(D), kStripBlock, 0, st>>>(qc, c2, wv, pbar, yv, prof, D, tp);
+    r3_cells2<R><<<cell_grid(D), kCellBlock, 0, st>>>(qc, qo, c2, wv, yv, D, tp);
+    if (t == nt - 1) {
+      const cudaError_t err = cudaGetLastError();
+      if (err != cudaSuccess) return (int)err;
+    }
+    float* tmp = p_t;
+    p_t = p_tp1;
+    p_tp1 = tmp;
+    tmp = qc;
+    qc = qo;
+    qo = tmp;
+  }
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// c2: the halo-padded C; prof: (3 axes x (a, b) x 2S); pa, pb: zeroed halo
+// fields; strips: 2 x strip_total zeroed floats (phi, then psi); tape (with
+// ring) and illum may be null; tape_bf16 selects the tape's type.
+int tpufwi_a3d_forward(const float* c2, const float* prof, const float* w,
+                       const long long* src, const long long* rcv, float* seis, const int* ring,
+                       void* tape, float* illum, float* pa, float* pb, float* strips, int NY,
+                       int NZ, int NX, int S, int R, int nt, int nsrc, int nrec, int fs,
+                       int n_ring, int tape_bf16, const float* taps, void* stream) {
+  const Taps3 tp = load_taps3(taps);
+  const Dims D = make_dims(NY, NZ, NX, S, R);
+  auto st = static_cast<cudaStream_t>(stream);
+  if (tape_bf16) {
+    auto* tb = static_cast<__nv_bfloat16*>(tape);
+    TPUFWI_DISPATCH_R3(R, (forward_loop<kR, __nv_bfloat16>(c2, prof, w, src, rcv, seis, ring, tb,
+                                                          illum, pa, pb, strips, D, nt, nsrc,
+                                                          nrec, fs, n_ring, tp, st)))
+  }
+  auto* tf = static_cast<float*>(tape);
+  TPUFWI_DISPATCH_R3(R, (forward_loop<kR, float>(c2, prof, w, src, rcv, seis, ring, tf, illum,
+                                                 pa, pb, strips, D, nt, nsrc, nrec, fs, n_ring,
+                                                 tp, st)))
+}
+
+// p_tp1 = P_{nt-1}, p_t = P_{nt-2} (halo fields set by the caller); qa, qb:
+// zeroed halo fields; strips: 4 x strip_total zeroed floats; gacc (NY, NZ,
+// NX) zeroed; chain: 2 * nrec ints; tape (nt, n_ring) with row t = rings(P_t).
+// After the loop P_{-1} is in p_tp1 for even nt, in p_t for odd nt.
+int tpufwi_a3d_reverse(const float* c2, const float* prof, const float* w, const float* ybar,
+                       const void* tape, const int* ring, const long long* src,
+                       const long long* rcv, float* gacc, float* lam_src, float* p_tp1,
+                       float* p_t, float* qa, float* qb, float* strips, int* chain, int NY,
+                       int NZ, int NX, int S, int R, int nt, int nsrc, int nrec, int fs,
+                       int n_ring, int tape_bf16, int y0, int y1, int z0, int z1, int x0, int x1,
+                       int rw, const float* taps, void* stream) {
+  const Taps3 tp = load_taps3(taps);
+  const Dims D = make_dims(NY, NZ, NX, S, R);
+  const RingFrame3 frame{{y0, z0, x0}, {y1, z1, x1}, rw};
+  auto st = static_cast<cudaStream_t>(stream);
+  if (tape_bf16) {
+    auto* tb = static_cast<const __nv_bfloat16*>(tape);
+    TPUFWI_DISPATCH_R3(R, (reverse_loop<kR, __nv_bfloat16>(
+                              c2, prof, w, ybar, tb, ring, src, rcv, gacc, lam_src, p_tp1, p_t,
+                              qa, qb, strips, chain, D, nt, nsrc, nrec, fs, n_ring, frame, tp,
+                              st)))
+  }
+  auto* tf = static_cast<const float*>(tape);
+  TPUFWI_DISPATCH_R3(R, (reverse_loop<kR, float>(c2, prof, w, ybar, tf, ring, src, rcv, gacc,
+                                                 lam_src, p_tp1, p_t, qa, qb, strips, chain, D,
+                                                 nt, nsrc, nrec, fs, n_ring, frame, tp, st)))
+}
+
+const char* tpufwi_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }
+
+}  // extern "C"

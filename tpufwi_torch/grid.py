@@ -156,8 +156,8 @@ def pad_model(field, grid: Grid):
     pad = grid.pad
     if isinstance(field, np.ndarray):
         return np.pad(field, [(pad, pad)] * grid.ndim, mode="edge")
-    if grid.ndim != 2:
-        raise NotImplementedError("the port pads 2D fields only (ROADMAP Queue A)")
-    return torch.nn.functional.pad(
-        field[None], (pad, pad, pad, pad), mode="replicate"
-    )[0]
+    if grid.ndim not in (2, 3):
+        raise NotImplementedError("the port pads 2D and 3D fields only")
+    lead = (None,) * (grid.ndim - 1)  # replicate padding wants (N, C,) leading dims in 3D
+    out = torch.nn.functional.pad(field[lead], (pad,) * (2 * grid.ndim), mode="replicate")
+    return out[(0,) * (grid.ndim - 1)]

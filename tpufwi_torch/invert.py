@@ -188,12 +188,14 @@ def _invert_loop(problem, vp, cfg, hist, init_alpha, start_stage, start_iter, ck
         pc = cfg.precond
         illum = problem.stage_illumination(vp, stage.fmax) if pc.use_illumination else None
         sigma = stage.smooth_sigma if stage.smooth_sigma >= 0 else pc.smooth_sigma
+        # the depth axis: dim 0 of a 2D (z, x) grid, dim 1 of a 3D (y, z, x) one
+        z_axis = 1 if problem.prop.grid.ndim == 3 else 0
 
         def pre(g):
             return precondition(
                 g, illum=illum, illum_eps=pc.illum_eps, depth_power=pc.depth_power,
-                dz=problem.prop.grid.h[0], mask_top=pc.mask_top, smooth_sigma=sigma,
-                z_axis=0,
+                dz=problem.prop.grid.h[z_axis], mask_top=pc.mask_top, smooth_sigma=sigma,
+                z_axis=z_axis,
             )
 
         if si != start_stage or it0 == 0:

@@ -1,12 +1,16 @@
-"""Synthetic model generator (counterpart of ``tpufwi/io.py::marmousi_like``).
+"""Synthetic model generators (counterpart of ``tpufwi/io.py::marmousi_like``
+and ``overthrust_like``).
 
-The other loaders and generators of the reference are not ported yet
-(ROADMAP Queue A item 2).
+The binary loaders of the reference are not ported yet (ROADMAP Queue A
+item 2).
 """
 
 from __future__ import annotations
 
 import numpy as np
+
+OVERTHRUST_SHAPE = (187, 801, 801)  # (nz, ny, nx) at 25 m, SEG/EAGE Overthrust
+OVERTHRUST_DX = 25.0
 
 
 def marmousi_like(
@@ -59,3 +63,39 @@ def marmousi_like(
     wd = int(water_depth_m / dx)
     vp[:wd] = 1500.0
     return np.clip(vp, 1480.0, 4700.0), dx
+
+
+def overthrust_like(
+    nz: int = 94,
+    ny: int = 100,
+    nx: int = 200,
+    dx: float = 25.0,
+    seed: int = 7,
+):
+    """Synthetic SEG/EAGE-Overthrust-scale 3D model: thrusted folded layers
+    over a faulted basement, deterministic given ``seed``. Returns (vp [m/s]
+    float64 (nz, ny, nx), dx); the engines' 3D layout is (y, z, x), so
+    transpose with ``np.transpose(vp, (1, 0, 2))``."""
+    from scipy.ndimage import gaussian_filter
+
+    rng = np.random.default_rng(seed)
+    z = np.arange(nz)[:, None, None] * dx
+    y = np.arange(ny)[None, :, None] * dx
+    x = np.arange(nx)[None, None, :] * dx
+
+    fold = (
+        150.0 * np.sin(2 * np.pi * x / (nx * dx / 2.5) + 0.7)
+        + 120.0 * np.cos(2 * np.pi * y / (ny * dx / 2.0))
+        + 0.1 * x
+    )
+    zw = z + fold
+    zw = zw + 300.0 * ((x > 0.5 * nx * dx) & (y > 0.3 * ny * dx))
+
+    n_layers = 16
+    bounds = np.sort(rng.uniform(0, nz * dx * 1.8, n_layers))
+    dv = rng.uniform(-250.0, 500.0, n_layers)
+    vp = 2200.0 + 0.6 * zw
+    for b, d in zip(bounds, dv):
+        vp = vp + d * (zw > b)
+    vp = gaussian_filter(vp, 1.0)
+    return np.clip(vp, 2000.0, 6000.0), dx

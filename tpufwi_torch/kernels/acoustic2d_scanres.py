@@ -57,60 +57,67 @@ def strip_depth(grid: Grid) -> int:
 
 
 def strip_profiles(grid: Grid, dt: float, c_max: float, f0: float, dtype=np.float32):
-    """(az, bz, ax, bx) sliced to the strips: az/bz (2,S,1), ax/bx (2,1,S).
-    With ``grid.free_surface`` the top z strip is disabled (a = b = 0)."""
+    """Each axis's (a, b) sliced to its two strips, (2, S) broadcast along
+    the axis: 2D (az, bz, ax, bx) as (2,S,1), (2,1,S); 3D (ay, by, az, bz,
+    ax, bx) as (2,S,1,1), (2,1,S,1), (2,1,1,S). With ``grid.free_surface``
+    the low strip of the depth axis z (dim ndim - 2) is disabled (a = b =
+    0)."""
     S = strip_depth(grid)
+    z_axis = grid.ndim - 2
     out = []
-    for ax_i in range(2):
+    for ax_i in range(grid.ndim):
         prof = CpmlProfile.build(
             n=grid.shape[ax_i], pml=grid.pml, radius=grid.radius,
             h=grid.h[ax_i], dt=dt, c_max=c_max, f0=f0,
-            free_lo=(grid.free_surface and ax_i == 0),
+            free_lo=(grid.free_surface and ax_i == z_axis),
         )
         n_pad = grid.padded_shape[ax_i]
-        a2 = np.stack([prof.a[:S], prof.a[n_pad - S:]]).astype(dtype)
-        b2 = np.stack([prof.b[:S], prof.b[n_pad - S:]]).astype(dtype)
-        if ax_i == 0:
-            out += [a2[:, :, None], b2[:, :, None]]
-        else:
-            out += [a2[:, None, :], b2[:, None, :]]
+        shape = [2] + [1] * grid.ndim
+        shape[1 + ax_i] = S
+        for v in (prof.a, prof.b):
+            out.append(np.stack([v[:S], v[n_pad - S:]]).astype(dtype).reshape(shape))
     return tuple(out)
 
 
 def full_profiles(grid: Grid, profiles):
     """Strip profiles -> the twin's broadcast-shaped full-axis (a, b)."""
-    NZ, NX = grid.padded_shape
     S = strip_depth(grid)
-    full = []
-    for prof, n, shape in zip(profiles, (NZ, NZ, NX, NX),
-                              ((NZ, 1), (NZ, 1), (1, NX), (1, NX))):
-        v = prof.new_zeros(n)
-        v[:S] = prof[0].reshape(S)
-        v[n - S:] = prof[1].reshape(S)
-        full.append(v.reshape(shape))
-    az, bz, ax, bx = full
-    return (az, ax), (bz, bx)
+    a, b = [], []
+    for ax in range(grid.ndim):
+        n = grid.padded_shape[ax]
+        shape = [1] * grid.ndim
+        shape[ax] = n
+        for prof, out in ((profiles[2 * ax], a), (profiles[2 * ax + 1], b)):
+            v = prof.new_zeros(n)
+            v[:S] = prof[0].reshape(S)
+            v[n - S:] = prof[1].reshape(S)
+            out.append(v.reshape(shape))
+    return tuple(a), tuple(b)
 
 
 def interior_lap(grid: Grid, p: torch.Tensor) -> torch.Tensor:
-    """D2-only laplacian: what a snapshot row holds and what images."""
-    d2 = [scaled_taps(D2_COEFFS[grid.order], h, 2) for h in grid.h]
-    return apply_stencil(p, d2[0], 0) + apply_stencil(p, d2[1], 1)
+    """D2-only laplacian over every axis: what a snapshot row holds and
+    what images."""
+    out = None
+    for ax, h in enumerate(grid.h):
+        term = apply_stencil(p, scaled_taps(D2_COEFFS[grid.order], h, 2), ax)
+        out = term if out is None else out + term
+    return out
 
 
 @functools.lru_cache(maxsize=None)
 def _ring_plan_cached(grid: Grid, device: torch.device):
     rings = RingSpec.build(grid)
     idx = rings.flat_index(grid.padded_shape, device=device)
-    frame = (grid.pad, grid.pad + grid.shape[0], grid.pad, grid.pad + grid.shape[1],
-             grid.radius)
+    frame = tuple(v for n in grid.shape for v in (grid.pad, grid.pad + n)) + (grid.radius,)
     return idx, idx.to(torch.int32), frame
 
 
 def ring_plan(grid: Grid, device):
-    """(ring int64 index, the same as int32, (z0, z1, x0, x1, width)): the
-    ring cells in tape-row order (``RingSpec.flat_index``) and the frame
-    they tile."""
+    """(ring int64 index, the same as int32, the frame they tile: (lo, hi)
+    of the physical interior per axis, then the ring width; (z0, z1, x0, x1,
+    width) in 2D): the ring cells in tape-row order
+    (``RingSpec.flat_index``)."""
     return _ring_plan_cached(grid, torch.device(device))
 
 
@@ -155,26 +162,25 @@ def _reverse_plain(grid, c2, profiles, ybar, src_idx, rcv_idx, image):
     """Reverse loop: the transpose of the twin step from ``torch.func.vjp``
     (the step is affine in the state, so one linearization serves every
     step), imaging ``gbar += lambda_t * image(t)``, called for t descending.
-    Returns (gbar (NZ, NX) before the source-cell term and masking,
-    lam_src (nt, nsrc))."""
-    NZ, NX = grid.padded_shape
+    Returns (gbar (the padded grid) before the source-cell term and
+    masking, lam_src (nt, nsrc)). Any dimension."""
     nt = ybar.shape[0]
     a, b = full_profiles(grid, profiles)
     params = AcousticParams(c2, a, b, src_idx, rcv_idx)
     step = make_acoustic_step(grid)
-    zero = zero_state((NZ, NX), 2, c2.dtype, c2.device)
+    zero = zero_state(grid.padded_shape, grid.ndim, c2.dtype, c2.device)
     _, step_t = torch.func.vjp(lambda s: step(s, params, 0.0), zero)
-    rz, rx = rcv_idx[:, 0], rcv_idx[:, 1]
-    sz, sx = src_idx[:, 0], src_idx[:, 1]
+    rcv = tuple(rcv_idx[:, d] for d in range(grid.ndim))
+    src = tuple(src_idx[:, d] for d in range(grid.ndim))
     fs = grid.pad if grid.free_surface else None
     gbar = torch.zeros_like(c2)
     lam_src = torch.empty((nt, src_idx.shape[0]), dtype=c2.dtype, device=c2.device)
     sbar = zero  # cotangent of the state after the last step
     for t in reversed(range(nt)):
-        lam = sbar.p.index_put((rz, rx), ybar[t], accumulate=True)
-        if fs is not None:
-            lam = lam.index_fill(0, torch.tensor([fs], device=c2.device), 0.0)
-        lam_src[t] = lam[sz, sx]
+        lam = sbar.p.index_put(rcv, ybar[t], accumulate=True)
+        if fs is not None:  # the depth axis z is dim ndim - 2
+            lam = lam.index_fill(grid.ndim - 2, torch.tensor([fs], device=c2.device), 0.0)
+        lam_src[t] = lam[src]
         gbar += lam * image(t)
         (sbar,) = step_t((sbar, ybar[t]))
     return gbar, lam_src
@@ -191,7 +197,8 @@ def scanres_reverse_plain(grid, c2, profiles, wavelet, ybar, tape, p_penult, p_l
     """Rings reverse: reconstructs P_{t-2} from P_{t-1} and P_t at each step
     t (``make_reverse_reconstruct_step``, then ring row t-2 imposed, zeros
     for t < 2) and images with the laplacian of P_{t-1}. ``return_field``
-    adds the reconstructed P_{-1}, which is zero in exact arithmetic."""
+    adds the reconstructed P_{-1}, which is zero in exact arithmetic. Any
+    dimension; the tape may be of another float type than the fields."""
     recon = make_reverse_reconstruct_step(grid)
     ring_idx = ring_plan(grid, c2.device)[0]
     fields = [p_penult, p_last]  # P_{t-1}, P_t
@@ -245,30 +252,35 @@ def taps_arg(grid: Grid):
     return (ctypes.c_float * 36)(*taps.reshape(-1).tolist())
 
 
-def check_args(name, grid, c2, profiles, vectors, src_idx, rcv_idx, bounds=True):
-    """Raise on what the kernels do not take. ``bounds`` checks that the
-    indices lie on the padded grid, at the cost of one host sync."""
-    if grid.ndim != 2:
-        raise ValueError(f"{name}: the kernel is 2D")
+def check_args(name, grid, c2, profiles, vectors, src_idx, rcv_idx, bounds=True, dims=2,
+               min_rcv=1):
+    """Raise on what the ``dims``-D kernels do not take. ``bounds`` checks
+    that the indices lie on the padded grid, at the cost of one host sync;
+    ``min_rcv`` is the fewest receivers the kernel takes."""
+    if grid.ndim != dims:
+        raise ValueError(f"{name}: the kernel is {dims}D")
     if grid.radius not in (1, 2, 4):
         raise ValueError(f"{name}: unsupported order {grid.order}")
     dev = c2.device
-    NZ, NX = grid.padded_shape
-    if tuple(c2.shape) != (NZ, NX):
-        raise ValueError(f"{name}: c2 shape {tuple(c2.shape)} != padded grid {(NZ, NX)}")
+    shape = grid.padded_shape
+    if tuple(c2.shape) != shape:
+        raise ValueError(f"{name}: c2 shape {tuple(c2.shape)} != padded grid {shape}")
+    halo = int(np.prod([n + 2 * grid.radius for n in shape]))
+    if halo >= 2**31:
+        raise ValueError(f"{name}: {halo} halo cells exceed the kernels' int32 indexing")
     for t in (c2, *profiles, *vectors):
         if t.device != dev or t.dtype != torch.float32 or not t.is_contiguous():
             raise ValueError(f"{name}: float tensors must be contiguous fp32 on {dev}")
     S = strip_depth(grid)
-    if tuple(p.numel() for p in profiles) != (2 * S,) * 4:
+    if tuple(p.numel() for p in profiles) != (2 * S,) * (2 * dims):
         raise ValueError(f"{name}: strip profiles must hold 2 x {S} values each")
-    for idx in (src_idx, rcv_idx):
+    for idx, least in ((src_idx, 1), (rcv_idx, min_rcv)):
         if (idx.device != dev or idx.dtype != torch.int64 or not idx.is_contiguous()
-                or idx.ndim != 2 or idx.shape[1] != 2 or idx.shape[0] == 0):
-            raise ValueError(f"{name}: indices must be contiguous (n>0, 2) int64 on {dev}")
+                or idx.ndim != 2 or idx.shape[1] != dims or idx.shape[0] < least):
+            raise ValueError(f"{name}: indices must be contiguous (n>0, {dims}) int64 on {dev}")
     if bounds:
         both = torch.cat([src_idx, rcv_idx])
-        hi = torch.tensor([NZ, NX], device=dev)
+        hi = torch.tensor(shape, device=dev)
         if bool(((both < 0) | (both >= hi)).any()):  # one host sync per call
             raise ValueError(f"{name}: source or receiver index outside the padded grid")
 

@@ -1,21 +1,28 @@
-"""User-facing 2D acoustic propagator (counterpart of
+"""User-facing 2D and 3D acoustic propagator (counterpart of
 ``tpufwi/propagators/acoustic2d.py``).
 
 Engines:
 - ``"eager"``: the exact boundary-saving adjoint in plain torch
-  (``adjoint.make_simulator``), on the CPU, fp32 or fp64; the counterpart of
-  the reference's ``'jnp'`` engine. ``tape_dtype`` is its option only.
+  (``adjoint.make_simulator``), on the CPU, fp32 or fp64, 2D or 3D; the
+  counterpart of the reference's ``'jnp'`` engine. ``tape_dtype`` is its
+  option only.
 - ``"cuda_scansnap"``: the whole-scan CUDA engine with the bf16 snapshot
   tape (two sweeps per gradient, nt * NZ * NX * 2 bytes of tape).
 - ``"cuda_scanres"``: the whole-scan CUDA engine with the fp32 ring tape
   (three sweeps, the field reconstructed backwards).
 - ``"cuda_step"``: the single-step CUDA engine, one kernel call per step
   from Python; explicit only, as the reference's ``'pallas'``.
+- ``"cuda3d"`` / ``"cuda3d_bf16"``: the fused 3D engine
+  (``adjoint3d.make_simulator3d``) with an fp32 or bf16 ring tape, the
+  reference's ``'pallas3d'`` / ``'pallas3d_bf16'``; 3D grids only.
 
 ``impl="auto"`` resolves from the propagator's ``device``, ``dtype`` and
-grid: "eager" on the CPU; on CUDA "cuda_scansnap" when its tape fits the
-card's budget, else "cuda_scanres", with the reason in ``resolve_note``.
-It raises where no ported engine fits (3D grids, fp64 on CUDA).
+grid: "eager" on the CPU; on CUDA in 2D "cuda_scansnap" when its tape fits
+the card's budget, else "cuda_scanres"; in 3D "cuda3d" when one shot's fp32
+ring tape fits the card's budget, else "cuda3d_bf16" when the bf16 tape
+does; the reason goes to ``resolve_note``. It raises where no ported engine
+fits (a 3D tape over budget, fp64 on CUDA): it never falls back to a slow
+engine.
 """
 
 from __future__ import annotations
@@ -28,8 +35,11 @@ import torch
 from ..cpml import build_profiles
 from ..grid import Grid, pad_model
 from ..kernels.acoustic2d_eager import AcousticParams, make_acoustic_step, zero_state
+from .boundary import RingSpec, tape_budget_bytes
 
-ENGINES = ("eager", "cuda_scansnap", "cuda_scanres", "cuda_step")
+ENGINES_2D = ("cuda_scansnap", "cuda_scanres", "cuda_step")
+ENGINES_3D = ("cuda3d", "cuda3d_bf16")
+ENGINES = ("eager",) + ENGINES_2D + ENGINES_3D
 
 
 class AcousticPropagator:
@@ -40,12 +50,17 @@ class AcousticPropagator:
         seis = prop(vp, geom, wavelet)   # differentiable in vp and wavelet
     """
 
-    # Share of the card's memory the snapshot tapes may take, sized for two
-    # shots' tapes alive at once (the next shot's forward may start before
-    # the last backward's tape is released); the rest holds the model,
-    # data, fields and workspace.
-    SNAP_TAPE_SHARE = 0.8
-    SNAP_TAPES_IN_FLIGHT = 2
+    # (share of the card's memory, shots' tapes alive at once) of each
+    # tape's budget (boundary.tape_budget_bytes); the rest of the card holds
+    # the model, the data, the engine's fields and workspace. Snapshot
+    # tapes (2D): two in flight, since the next shot's forward may start
+    # before the last backward's tape is released. 3D ring tapes: one, since
+    # the host shot loop releases a shot's tape when its backward ends; the
+    # other 30% holds 7.9 GiB of fields, CPML strips and data beside the
+    # 41.8 GiB bf16 tape of one shot on the full SEG/EAGE Overthrust grid
+    # (147.8 M cells) on an 80 GB card.
+    SNAP_TAPE_BUDGET = (0.8, 2)
+    TAPE3D_BUDGET = (0.7, 1)
 
     def __init__(
         self,
@@ -80,11 +95,12 @@ class AcousticPropagator:
     # -- engine selection ----------------------------------------------------
 
     def _check_engine(self, impl: str) -> None:
-        if self.grid.ndim != 2:
-            raise NotImplementedError(
-                f"{self.grid.ndim}D grid: only the 2D acoustic engines are "
-                "ported (3D kernels: ROADMAP Queue B items 12-18)"
-            )
+        if self.grid.ndim not in (2, 3):
+            raise NotImplementedError(f"{self.grid.ndim}D grid: the engines are 2D or 3D")
+        if impl in ENGINES_3D and self.grid.ndim != 3:
+            raise ValueError(f"{impl} is the 3D engine; the grid is 2D")
+        if impl in ENGINES_2D and self.grid.ndim != 2:
+            raise ValueError(f"{impl} is a 2D engine; on a 3D grid use cuda3d or cuda3d_bf16")
         if impl == "eager":
             if self.device.type != "cpu":
                 raise ValueError("the eager engine runs in plain torch on the CPU")
@@ -101,21 +117,55 @@ class AcousticPropagator:
 
     def snap_tape_budget_bytes(self) -> int:
         """Bytes one shot's bf16 snapshot tape may take on this card."""
-        total = torch.cuda.get_device_properties(self.device).total_memory
-        return int(self.SNAP_TAPE_SHARE * total) // self.SNAP_TAPES_IN_FLIGHT
+        return tape_budget_bytes(self.device, *self.SNAP_TAPE_BUDGET)
+
+    def tape3d_budget_bytes(self) -> int:
+        """Bytes one shot's 3D ring tape may take on this card."""
+        return tape_budget_bytes(self.device, *self.TAPE3D_BUDGET)
+
+    def tape3d_bytes(self, nt: int, dtype_bytes: int = 4) -> int:
+        """One shot's 3D ring tape: nt rows of the ring cells."""
+        return nt * RingSpec.build(self.grid).tape_bytes_per_step(dtype_bytes)
+
+    def _resolve_3d(self, nt: int | None) -> str:
+        """'auto' on the card for a 3D grid: the fp32 tape when it fits the
+        budget, else the bf16 tape, else raise with the reason."""
+        self._check_engine("cuda3d")
+        budget = self.tape3d_budget_bytes()
+        if nt is None:
+            reason = "the wavelet length is unknown, so the ring tape cannot be sized"
+        elif self.tape3d_bytes(nt, 4) <= budget:
+            self.resolve_note = (f"auto: CUDA 3D engine, fp32 ring tape "
+                                 f"{self.tape3d_bytes(nt, 4) / 2**30:.1f} GiB")
+            return "cuda3d"
+        elif self.tape3d_bytes(nt, 2) <= budget:
+            self.resolve_note = (f"auto: CUDA 3D engine, bf16 ring tape "
+                                 f"{self.tape3d_bytes(nt, 2) / 2**30:.1f} GiB (fp32 tape "
+                                 f"{self.tape3d_bytes(nt, 4) / 2**30:.1f} GiB over the "
+                                 f"{budget / 2**30:.1f} GiB budget)")
+            return "cuda3d_bf16"
+        else:
+            reason = (f"the bf16 ring tape {self.tape3d_bytes(nt, 2) / 2**30:.1f} GiB exceeds "
+                      f"the {budget / 2**30:.1f} GiB budget of this card")
+        raise NotImplementedError(
+            f"3D grid: no ported engine fits: {reason} (the checkpointed gradient and the "
+            "domain-sharded engine are not ported, ROADMAP Queue A item 10)")
 
     def resolve_impl(self, nt: int | None = None) -> str:
         """The engine a call with a length-``nt`` wavelet will use. For
-        impl='auto': "eager" on the CPU; on CUDA "cuda_scansnap" when the
-        grid is 2D fp32 and its snapshot tape fits the card's budget, else
-        the rings engine "cuda_scanres". Every other case raises with the
-        reason."""
+        impl='auto': "eager" on the CPU; on CUDA in 2D "cuda_scansnap" when
+        the grid is fp32 and its snapshot tape fits the card's budget, else
+        the rings engine "cuda_scanres"; in 3D "cuda3d" when the fp32 ring
+        tape fits, else "cuda3d_bf16" when the bf16 tape does. Every other
+        case raises with the reason."""
         if self.impl != "auto":
             self._check_engine(self.impl)
             return self.impl
         if self.device.type == "cpu":
             self._check_engine("eager")
             impl, self.resolve_note = "eager", "auto: CPU tensor -> exact eager engine"
+        elif self.grid.ndim == 3:
+            impl = self._resolve_3d(nt)
         else:
             self._check_engine("cuda_scansnap")
             NZ, NX = self.grid.padded_shape
@@ -147,6 +197,12 @@ class AcousticPropagator:
 
                 sim = make_simulator(self.grid, self.dt, self.f0, self.c_max,
                                      tape_dtype=self._tape_dtype)
+            elif impl in ENGINES_3D:
+                from ..adjoint3d import make_simulator3d
+
+                sim = make_simulator3d(
+                    self.grid, self.dt, self.f0, self.c_max,
+                    tape_dtype=torch.bfloat16 if impl == "cuda3d_bf16" else None)
             elif impl == "cuda_step":
                 from ..adjoint_step import make_simulator_step
 
@@ -203,9 +259,14 @@ class AcousticPropagator:
     @torch.no_grad()
     def illumination(self, vp, geom, wavelet):
         """Source illumination sum_t p_t^2 on the physical grid (the
-        pseudo-Hessian diagonal for preconditioning). A plain torch loop of
-        the step twin on the propagator's device: no engine kernel computes
-        it yet (ROADMAP Queue C)."""
+        pseudo-Hessian diagonal for preconditioning). The engine's own
+        kernel computes it where the engine has one (the 3D engine);
+        elsewhere a plain torch loop of the step twin on the propagator's
+        device (ROADMAP Queue C)."""
+        fused = getattr(self._sim(self.resolve_impl(nt=int(wavelet.shape[0]))),
+                        "illumination", None)
+        if fused is not None:
+            return fused(self.c2dt2(vp), wavelet.to(self.dtype), geom.src_idx)
         interior = self.grid.interior
         illum = torch.zeros(self.grid.shape, dtype=self.dtype, device=self.device)
         for state, _ in self._twin_loop(vp, geom, wavelet):

@@ -24,6 +24,14 @@ import torch
 from ..grid import Grid
 
 
+def tape_budget_bytes(device, share: float, in_flight: int = 1) -> int:
+    """Bytes one shot's tape may take on the card ``device``: ``share`` of
+    its memory, split among the ``in_flight`` shots whose tapes may be
+    alive at once."""
+    total = torch.cuda.get_device_properties(device).total_memory
+    return int(share * total) // in_flight
+
+
 @dataclasses.dataclass(frozen=True)
 class RingSpec:
     """Static slicing plan for the boundary ring of a padded grid.

@@ -43,7 +43,7 @@ from ..kernels.elastic2d_eager import (
     zero_elastic_state,
 )
 from ..kernels.elastic2d_scan import escan_forward_plain, escan_reverse_plain
-from .boundary import RingSpec
+from .boundary import RingSpec, tape_budget_bytes
 
 ENGINES = ("eager", "cuda_escan", "cuda_estep")
 _ESTEP = ("the per-step elastic engine (the reference's 'pallas', TPU kernels "
@@ -162,10 +162,9 @@ class ElasticPropagator:
     cotangent next to the boundary ring reads unreconstructible PML cells).
     """
 
-    # Share of the card's memory the ring tapes may take, sized for two
-    # shots' tapes alive at once (as AcousticPropagator's snapshot tapes).
-    TAPE_SHARE = 0.8
-    TAPES_IN_FLIGHT = 2
+    # (share of the card's memory, shots' tapes alive at once) of the ring
+    # tape's budget, as AcousticPropagator's snapshot tapes.
+    TAPE_BUDGET = (0.8, 2)
 
     def __init__(self, grid: Grid, dt: float, f0: float, vp_max: float, dtype=torch.float32,
                  source_type: str = "pressure", record: str = "v", impl: str = "auto",
@@ -217,8 +216,7 @@ class ElasticPropagator:
 
     def tape_budget_bytes(self) -> int:
         """Bytes one shot's ring tape may take on this card."""
-        total = torch.cuda.get_device_properties(self.device).total_memory
-        return int(self.TAPE_SHARE * total) // self.TAPES_IN_FLIGHT
+        return tape_budget_bytes(self.device, *self.TAPE_BUDGET)
 
     def resolve_impl(self, geom=None, nt: int | None = None) -> str:
         """The engine a call with a length-``nt`` wavelet will use. The port
