@@ -5,8 +5,8 @@
 Phases, each printing its own lines; any failure exits non-zero.
   1. device: the card's name and power limit (nvidia-smi); no CUDA -> exit 1
   2. build: three nvcc calls, started together, build the acoustic library
-     (six kernels), the elastic library (two kernels) and the 3D library
-     (two kernels) from tpufwi_torch/csrc
+     (six kernels), the elastic library (six kernels: two whole-scan, four
+     per-step) and the 3D library (two kernels) from tpufwi_torch/csrc
   3. kernels vs plain: each CUDA kernel against its plain torch version on
      the card, at the main path's padded grid (399 x 1749), nt = 512, one
      shot: the whole-scan forward (snapshot and ring tapes), the snapshot
@@ -20,8 +20,8 @@ Phases, each printing its own lines; any failure exits non-zero.
      engine and gives a finite gradient
   7. main paths: tpufwi_torch.invert.main on the card at the Marmousi2-scale
      grid (351 x 1701 at 10 m, order 8, pml 20, t_max 4 s: nt = 4842):
-     a. snapshot engine (auto), 8 shots, stages 3 and 5 Hz of 2 iterations
-     b. rings engine, 8 shots, one 3 Hz stage of 2 iterations
+     a. snapshot engine (auto), 4 shots, stages 3 and 5 Hz of 2 iterations
+     b. rings engine, 4 shots, one 3 Hz stage of 2 iterations
      c. single-step engine, 4 shots, one 3 Hz stage of 2 iterations,
         without the illumination preconditioner (a plain-twin loop that no
         kernel of this engine runs)
@@ -32,22 +32,36 @@ Phases, each printing its own lines; any failure exits non-zero.
      record, nt = 512; and a pressure / p-record free-surface case, nt = 128
   9. elastic shot: one shot's forward and value-and-grad on cuda_escan at
      nt = 4885, its ring-tape bytes and peak memory
- 10. 3D kernels vs plain: a3d_forward (no tape, fp32 and bf16 ring tapes,
+ 10. elastic per-step kernels vs plain: estep_v, estep_s, estep_rs and
+     estep_rv, each fed its plain version's state at every step, at the
+     elastic main path's grid, force_z / v, nt = 512, and a pressure /
+     p-record free-surface case, nt = 128; each kernel's ms per call (CUDA
+     events), host ms per call and device ms per call (torch.profiler)
+ 11. elastic per-step shot: one shot at nt = 4885 through cuda_estep and
+     cuda_escan: seismograms, forward_fused and the five material gradients
+     against each other within 1e-5 of max; times and peak memory
+ 12. 3D kernels vs plain: a3d_forward (no tape, fp32 and bf16 ring tapes,
      illumination) and a3d_reverse (fed the plain forward's tape, fields and
      seismogram; fp32 and bf16 tapes) against their plain versions at the 3D
      main path's padded grid (428 x 188 x 588), one surface shot, nt = 64;
      and a free-surface case on a smaller grid, nt = 128
- 11. full Overthrust: one shot on the SEG/EAGE Overthrust grid (801 x 187 x
+ 13. full Overthrust: one shot on the SEG/EAGE Overthrust grid (801 x 187 x
      801 at 25 m, padded 829 x 215 x 829, nt = 3028): 'auto' resolves to the
      bf16 ring tape; a tape-free forward and a value-and-grad
- 12. main path elastic: tpufwi_torch.invert.main physics=elastic on the card
+ 14. main path elastic: tpufwi_torch.invert.main physics=elastic on the card
      (351 x 1701 land model at 10 m, order 8, pml 20, t_max 4 s: nt = 4885),
      8 shots, one 3 Hz stage of 2 iterations, counters reset just before
- 13. main path 3D: tpufwi_torch.invert.invert on a 3D FwiProblem, the
+ 15. main path elastic per-step: tpufwi_torch.invert.invert_elastic with
+     ElasticPropagator(impl="cuda_estep") on a VSP survey of the same land
+     model: 4 surface shots, the surface line every 4 cells and a borehole
+     at x = nx / 2 from z = 10 to 340 every 2 cells, one 3 Hz stage of 2
+     iterations, counters reset just before
+ 16. main path 3D: tpufwi_torch.invert.invert on a 3D FwiProblem, the
      large-scale single-card survey of scripts/overthrust_ms.py
      (overthrust_like 160 x 400 x 560 at 25 m, order 8, pml 10, nt 900,
-     12 surface shots, 3,420 receivers), one 3 Hz stage of 2 iterations with
-     the illumination preconditioner, counters reset just before
+     cut to 8 surface shots, 3,420 receivers), one 3 Hz stage of 2
+     iterations with the illumination preconditioner, counters reset just
+     before
 The second-to-last line is the kernels' JSON record, the last one
 {"ok": true, "device": {...}}.
 """
@@ -70,11 +84,11 @@ GRID_10M = ["model.nz=351", "model.nx=1701", "model.dx=10"]
 PATHS = {
     "snap": dict(engine="cuda_scansnap", kernels=("scanres_forward", "scanres_reverse_snap"),
                  overrides=GRID_10M + [
-                     "acq.n_shots=8",
+                     "acq.n_shots=4",
                      'stages=[{"fmax": 3.0, "iterations": 2}, {"fmax": 5.0, "iterations": 2}]']),
     "rings": dict(engine="cuda_scanres", kernels=("scanres_forward", "scanres_reverse"),
                   overrides=GRID_10M + [
-                      "acq.n_shots=8", "prop.impl=cuda_scanres",
+                      "acq.n_shots=4", "prop.impl=cuda_scanres",
                       'stages=[{"fmax": 3.0, "iterations": 2}]']),
     "step": dict(engine="cuda_step",
                  kernels=("fused_forward_step", "recon_step", "fused_adjoint_step"),
@@ -91,6 +105,7 @@ SNAP_GTOL, STEP_GTOL = 5e-3, 1e-4  # engine against engine, on the valid region
 SCANRES_SRC = "tpufwi_torch/csrc/acoustic2d_scanres.cu"
 STEP_SRC = "tpufwi_torch/csrc/acoustic2d_step.cu"
 ESCAN_SRC = "tpufwi_torch/csrc/elastic2d_scan.cu"
+ESTEP_SRC = "tpufwi_torch/csrc/elastic2d_step.cu"
 A3D_SRC = "tpufwi_torch/csrc/acoustic3d_scan.cu"
 KERNELS = {  # name: (source, the TPU kernel's pallas_call)
     "scanres_forward": (SCANRES_SRC, "tpufwi/kernels/acoustic2d_pallas_scanres.py:586"),
@@ -101,6 +116,10 @@ KERNELS = {  # name: (source, the TPU kernel's pallas_call)
     "fused_adjoint_step": (STEP_SRC, "tpufwi/kernels/acoustic2d_pallas_bwd.py:289"),
     "escan_forward": (ESCAN_SRC, "tpufwi/kernels/elastic2d_pallas_scan.py:398"),
     "escan_reverse": (ESCAN_SRC, "tpufwi/kernels/elastic2d_pallas_scan.py:907"),
+    "estep_v": (ESTEP_SRC, "tpufwi/kernels/elastic2d_pallas.py:218"),
+    "estep_s": (ESTEP_SRC, "tpufwi/kernels/elastic2d_pallas.py:228"),
+    "estep_rs": (ESTEP_SRC, "tpufwi/kernels/elastic2d_pallas_bwd.py:328"),
+    "estep_rv": (ESTEP_SRC, "tpufwi/kernels/elastic2d_pallas_bwd.py:352"),
     # one kernel for each pair: the y/z face kernels ride in the same launches
     "a3d_forward": (A3D_SRC, "; ".join(
         f"tpufwi/kernels/acoustic3d_fused2.py:{n}" for n in (1116, 167, 259))),
@@ -110,6 +129,15 @@ KERNELS = {  # name: (source, the TPU kernel's pallas_call)
 }
 ELASTIC_MAIN = GRID_10M + ["physics=elastic", "acq.n_shots=8",
                            'stages=[{"fmax": 3.0, "iterations": 2}]']
+ESTEP_NAMES = ("estep_v", "estep_s", "estep_rs", "estep_rv")
+# the per-step engine's main path: the elastic lane's land model with 4
+# surface shots, the surface receiver line every 4 cells and a borehole at
+# x = nx / 2 from z = 10 to 340 every 2 cells (a VSP survey: its receivers
+# span 331 rows, past the reference's 16-row whole-scan slab, so the
+# reference's 'auto' takes its per-step engine)
+ESTEP_MAIN = GRID_10M + ["physics=elastic", "acq.n_shots=4", "acq.rcv_dx=4",
+                         'stages=[{"fmax": 3.0, "iterations": 2}]']
+ESTEP_BOREHOLE = (10, 341, 2)
 # of max|plain| per output: fp32 summation order, the reverse fed the plain
 # forward's tape, final fields and seismogram
 ETOL = {"seis": 1e-5, "finals": 1e-5, "tape": 1e-5, "grads": 1e-4, "srcrow": 1e-4}
@@ -128,7 +156,7 @@ A3D_TOL = {"seis": 1e-5, "fields": 1e-5, "tape": 1e-5, "tape_bf16": 0.0, "illum"
 # relative on the valid region, a surface shot (its source in the ring);
 # the CPU test measured 1.8e-2 at its small grid (tests/test_torch_acoustic3d.py)
 A3D_BF16_GTOL = 5e-2
-MAIN3D = dict(model=(160, 400, 560), nt=900, shots=(3, 4), fmax=3.0, iterations=2,
+MAIN3D = dict(model=(160, 400, 560), nt=900, shots=(2, 4), fmax=3.0, iterations=2,
               mask_top=5, vmin=2000.0, vmax=6000.0)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA's data sheet
 FP32_FLOPS = 67e12  # outside the tensor cores
@@ -170,6 +198,12 @@ def elastic_module():
     return ke
 
 
+def estep_module():
+    from tpufwi_torch.kernels import elastic2d_step as kes
+
+    return kes
+
+
 def a3d_module():
     from tpufwi_torch.kernels import acoustic3d_scan as k3
 
@@ -178,7 +212,7 @@ def a3d_module():
 
 def wrapper(name):
     ks, kst = kernel_modules()
-    for mod in (ks, kst, elastic_module(), a3d_module()):
+    for mod in (ks, kst, elastic_module(), estep_module(), a3d_module()):
         if hasattr(mod, name):
             return getattr(mod, name)
     raise KeyError(name)
@@ -237,10 +271,24 @@ def elastic_step_counts(grid, nrec_cols, nsrc, n_ring):
     fwd = cells * (16 * R + 20) + strips * 12 + 2 * nsrc
     rev = cells * (32 * R + 60) + strips * 20 + 4 * nsrc
     f = 4
+    # the per-step kernels: each stage half its step's operations, and per
+    # call its state in and out of device memory (a memory or dual plane
+    # only on its strips): stage V reads vx, vz, the three stresses, bx, bz
+    # and writes vx, vz; stage S reads the five fields, lam, lam2mu, mu_xz
+    # and writes the stresses; R-S reads the five fields, the five
+    # cotangents, three materials and three gradients and writes three
+    # stresses, two cotangents and three gradients; R-V reads the same
+    # fields and cotangents, bx, bz and two gradients and writes two
+    # velocities, three cotangents and two gradients
+    mem = 4 * strips * f  # four strip planes in and out
     return {
         "escan_forward_rings": (fwd, (1 + nrec_cols + 5 * n_ring) * f, 10 * cells * f),
         "escan_forward": (fwd, (1 + nrec_cols) * f, 10 * cells * f),
         "escan_reverse": (rev, (1 + nrec_cols + nsrc + 5 * n_ring) * f, 15 * cells * f),
+        "estep_v": (fwd // 2 - nsrc, 9 * cells * f + mem, 0),
+        "estep_s": (fwd // 2 + nsrc, 11 * cells * f + mem + (1 + nrec_cols + 5 * n_ring) * f, 0),
+        "estep_rs": (rev // 2, 24 * cells * f + mem + (1 + nrec_cols + nsrc + 3 * n_ring) * f, 0),
+        "estep_rv": (rev // 2, 21 * cells * f + mem + 2 * n_ring * f, 0),
     }
 
 
@@ -354,9 +402,11 @@ class _Err:
         self.d = torch.zeros((), dtype=torch.float64, device=dev)
         self.r = torch.zeros((), dtype=torch.float64, device=dev)
 
-    def add(self, got, ref):
+    def add(self, got, ref, scale=None):
+        """``scale``: the reference's magnitude, when not max |ref|."""
         self.d = torch.maximum(self.d, (got.double() - ref.double()).abs().max())
-        self.r = torch.maximum(self.r, ref.double().abs().max())
+        self.r = torch.maximum(self.r, ref.double().abs().max() if scale is None
+                               else scale.double())
 
     def rel(self):
         return float(self.d / self.r) if float(self.r) > 0 else float(self.d)
@@ -968,6 +1018,322 @@ def phase_elastic_shot(dev, smi):
         fail("the elastic one-shot gradient is not finite and nonzero on cuda_escan")
 
 
+# ------------------------------------------------------- elastic per-step
+
+
+# the ETOL key of each output group of the per-step kernels
+ESTEP_TOL = {"fields_v": "finals", "mem_v": "finals", "fields_s": "finals", "mem_s": "finals",
+             "seis": "seis", "tape": "tape", "recon_s": "finals", "cot_s": "grads",
+             "dual_s": "grads", "grads_s": "grads", "srcrow": "srcrow", "recon_v": "finals",
+             "cot_v": "grads", "dual_v": "grads", "grads_v": "grads"}
+
+
+def estep_kernels_vs_plain(args, w, si, ri, nt, source_type, record):
+    """Kernels 10a-11b against their plain versions over nt steps of one
+    shot: before each call the kernel's state is set to the plain one's, so
+    each kernel is held on its own, and the plain state carries on; the
+    reverse starts from the plain forward's last state and takes its tape
+    and seismogram. Errors are per plane (each field, memory, cotangent,
+    dual and gradient against its own max; a tape row's part against its
+    field's max). Returns ({group: rel err}, {kernel: max abs err},
+    {kernel: plain ms per call}, (forward state, tape, seismogram) of the
+    plain run)."""
+    kes = estep_module()
+    grid, dt, mats, prof = args
+    dev = mats[0].device
+    kind = (source_type, record)
+    nrec, nsrc = ri.shape[0], si.shape[0]
+    n = kernel_modules()[0].ring_plan(grid, dev)[0].shape[0]
+    errs = {k: [] for k in ESTEP_TOL}
+    plain_ev = {k: [] for k in ESTEP_NAMES}
+
+    def add(group, got, ref, scales=None):
+        """Running errors of each plane (along dim 0) of got."""
+        while len(errs[group]) < got.shape[0]:
+            errs[group].append(_Err(dev))
+        for k in range(got.shape[0]):
+            errs[group][k].add(got[k], ref[k], None if scales is None else scales[k])
+
+    def plain(name, fn, *a):
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        fn(*a)
+        e1.record()
+        plain_ev[name].append((e0, e1))
+
+    z = lambda *s: torch.zeros(s, dtype=torch.float32, device=dev)  # noqa: E731
+    sp, sk = (kes.zero_elastic_step_state(grid, device=dev) for _ in range(2))
+    shape = (nt, nrec, 2) if record == "v" else (nt, nrec)
+    seis_p, seis_k = z(*shape), z(*shape)
+    tape_p, tape_k = z(nt, 5 * n), z(nt, 5 * n)
+    for t in range(nt):
+        kes.copy_into(sk, sp)
+        kes.estep_v(grid, dt, mats, prof, sk)
+        plain("estep_v", kes.estep_v_plain, grid, dt, mats, prof, sp)
+        add("fields_v", sk.fields[:2], sp.fields[:2])
+        add("mem_v", sk.mem[:4], sp.mem[:4])
+        kes.copy_into(sk, sp)
+        kes.estep_s(grid, dt, mats, prof, sk, w, t, si, ri, seis_k, tape_k[t], *kind)
+        plain("estep_s", kes.estep_s_plain, grid, dt, mats, prof, sp, w, t, si, ri, seis_p,
+              tape_p[t], *kind)
+        add("fields_s", sk.fields, sp.fields)
+        add("mem_s", sk.mem[4:], sp.mem[4:])
+        scales = sp.fields.abs().amax((1, 2))
+        add("tape", tape_k[t].view(5, n), tape_p[t].view(5, n), scales)
+    add("seis", seis_k[None], seis_p[None])
+
+    ybar = seis_p.contiguous()
+    rp, rk = (kes.zero_elastic_reverse_state(grid, device=dev) for _ in range(2))
+    rp.fields.copy_(sp.fields)
+    srcrow_p, srcrow_k = z(nt, nsrc), z(nt, nsrc)
+    chain = torch.empty(2 * nrec, dtype=torch.int32, device=dev)
+    for t in reversed(range(nt)):
+        row = tape_p[t - 1] if t >= 1 else None
+        kes.copy_into(rk, rp)
+        kes.estep_rs(grid, dt, mats, prof, rk, w, ybar, t, si, ri, srcrow_k, row, *kind, chain,
+                     init_chain=t == nt - 1)
+        plain("estep_rs", kes.estep_rs_plain, grid, dt, mats, prof, rp, w, ybar, t, si, ri,
+              srcrow_p, row, *kind)
+        add("recon_s", rk.fields, rp.fields)
+        add("cot_s", rk.cot, rp.cot)
+        add("dual_s", rk.dual[:4], rp.dual[:4])
+        add("grads_s", rk.grads[:3], rp.grads[:3])
+        kes.copy_into(rk, rp)
+        kes.estep_rv(grid, dt, mats, prof, rk, row)
+        plain("estep_rv", kes.estep_rv_plain, grid, dt, mats, prof, rp, row)
+        add("recon_v", rk.fields, rp.fields)
+        add("cot_v", rk.cot, rp.cot)
+        add("dual_v", rk.dual[4:], rp.dual[4:])
+        add("grads_v", rk.grads[3:], rp.grads[3:])
+    add("srcrow", srcrow_k[None], srcrow_p[None])
+    torch.cuda.synchronize()
+    rel = {g: max(e.rel() for e in es) for g, es in errs.items()}
+    abs_err = {"estep_v": max(e.abs() for e in errs["fields_v"]),
+               "estep_s": errs["seis"][0].abs(),
+               "estep_rs": max(e.abs() for e in errs["grads_s"]),
+               "estep_rv": max(e.abs() for e in errs["grads_v"])}
+    plain_ms = {k: sum(a.elapsed_time(b) for a, b in ev) / len(ev) for k, ev in plain_ev.items()}
+    return rel, abs_err, plain_ms, (sp, tape_p, ybar)
+
+
+def time_estep_kernels(args, w, si, ri, nt, final, source_type, record, nt_prof=64):
+    """Kernel-only loops of each per-step kernel over nt calls from the
+    plain run's states: ms per call on the card (CUDA events; the host's
+    pace where the Python call outlasts the kernels), the host's own time
+    per call (enqueue rate), and the device's us per call summed over the
+    stage's CUDA kernels (torch.profiler, nt_prof calls; None when it sees
+    no device time)."""
+    kes = estep_module()
+    grid, dt, mats, prof = args
+    dev = mats[0].device
+    kind = (source_type, record)
+    state, tape, ybar = final
+    fwd = kes.zero_elastic_step_state(grid, device=dev)
+    kes.copy_into(fwd, state)
+    seis = torch.zeros_like(ybar)
+    rows = torch.zeros_like(tape)
+    rev = kes.zero_elastic_reverse_state(grid, device=dev)
+    rev.fields.copy_(state.fields)
+    srcrow = torch.zeros((ybar.shape[0], si.shape[0]), device=dev)
+    chain = torch.empty(2 * ri.shape[0], dtype=torch.int32, device=dev)
+    kes.estep_rs(grid, dt, mats, prof, rev, w, ybar, nt - 1, si, ri, srcrow, None, *kind, chain,
+                 init_chain=True)
+
+    def loops(m):
+        return {
+            "estep_v": lambda: [kes.estep_v(grid, dt, mats, prof, fwd) for _ in range(m)],
+            "estep_s": lambda: [kes.estep_s(grid, dt, mats, prof, fwd, w, t, si, ri, seis,
+                                            rows[t], *kind) for t in range(m)],
+            "estep_rs": lambda: [kes.estep_rs(grid, dt, mats, prof, rev, w, ybar, t, si, ri,
+                                              srcrow, tape[t], *kind, chain)
+                                 for t in reversed(range(m))],
+            "estep_rv": lambda: [kes.estep_rv(grid, dt, mats, prof, rev, tape[t])
+                                 for t in reversed(range(m))],
+        }
+
+    out = {}
+    for name, fn in loops(nt).items():
+        ms, _ = timed_ms(fn)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        host_ms = 1e3 * (time.perf_counter() - t0) / nt
+        torch.cuda.synchronize()
+        m = min(nt_prof, nt)
+        prof_rows = device_us_per_step(loops(m)[name], m, r"::(e[fr]?_\w+?)[<(]")
+        out[name] = (ms / nt, host_ms, sum(us for _, us in prof_rows) or None, prof_rows)
+    return out
+
+
+def phase_estep_kernels(dev, smi, nt=NT_CHECK, nt_fs=128):
+    """estep_v, estep_s, estep_rs and estep_rv against their plain versions
+    step by step: the elastic main path's force / v case at nt, and a
+    pressure / p free-surface case at nt_fs; then each kernel's times."""
+    warm = elastic_shot(dev, 8)
+    estep_kernels_vs_plain(*warm[:4], 8, "force_z", "v")  # first-use costs
+    args, w, si, ri, _ = elastic_shot(dev, nt)
+    rel, abs_err, plain_ms, final = estep_kernels_vs_plain(args, w, si, ri, nt, "force_z", "v")
+    times = time_estep_kernels(args, w, si, ri, nt, final, "force_z", "v")
+    fs_args, fs_w, fs_si, fs_ri, _ = elastic_shot(dev, nt_fs, "pressure", "p", free_surface=True)
+    rel_fs, _, _, _ = estep_kernels_vs_plain(fs_args, fs_w, fs_si, fs_ri, nt_fs, "pressure", "p")
+    counts = elastic_step_counts(args[0], 2 * ri.shape[0], si.shape[0],
+                                 final[1].shape[1] // 5)
+    entries = [entry(name, abs_err[name], times[name][0], plain_ms[name], counts[name], nt)
+               for name in ESTEP_NAMES]
+    print(f"[estep kernels] {smi}: grid {'x'.join(map(str, args[0].padded_shape))} order 8, "
+          f"force_z / v, nt {nt}, ms per call, kernel by CUDA events (host per call; device "
+          "per call by torch.profiler; plain; bound):", flush=True)
+    for e in entries:
+        _, host_ms, dev_us, rows = times[e["name"]]
+        dev_ms = "not measured" if dev_us is None else f"{dev_us / 1e3:.5f}"
+        print(f"[estep kernels]   {e['name']}: {e['ms']:.5f} ({host_ms:.5f}; {dev_ms}; "
+              f"{e['plain_ms']:.4f}; {e['bound_ms']:.5f} by {e['bound_by']}); device us: "
+              + ", ".join(f"{k} {us:.2f}" for k, us in rows), flush=True)
+    print(f"[estep kernels] rel err force/v {json.dumps(rel)}; pressure/p free surface nt "
+          f"{nt_fs} {json.dumps(rel_fs)}; tolerances {json.dumps(ETOL)}", flush=True)
+    for group in (rel, rel_fs):
+        for name, err in group.items():
+            if not err <= ETOL[ESTEP_TOL[name]]:
+                fail(f"per-step elastic {name} disagrees with the plain version: {err:.3e} > "
+                     f"{ETOL[ESTEP_TOL[name]]:.0e}")
+    return entries
+
+
+def phase_estep_shot(dev, smi):
+    """One shot at the main path's nt (t_max 4 s) through cuda_estep and
+    cuda_escan: the tape-free seismograms and forward_fused, then a
+    value-and-grad of 0.5 |seis(m0) - d|^2 in the five material fields on
+    each engine; each against the other within the reference's 1e-5 of
+    the maximum (tests/test_elastic_pallas.py)."""
+    from tpufwi_torch.acquisition import Geometry
+    from tpufwi_torch.adjoint_elastic_scan import make_elastic_simulator_scan
+    from tpufwi_torch.adjoint_elastic_step import make_elastic_simulator_fused
+    from tpufwi_torch.propagators.elastic2d import ElasticPropagator
+
+    nt = elastic_nt(4.0)
+    args, w, si, ri, (vp, vs, rho, f0, vp_max) = elastic_shot(dev, nt)
+    grid, dt = args[0], args[1]
+    geom = Geometry(si, ri)
+    kw = dict(source_type="force_z", record="v", device=dev)
+    props = {impl: ElasticPropagator(grid, dt, f0, vp_max, impl=impl, **kw)
+             for impl in ("cuda_escan", "cuda_estep")}
+    fwd = {}
+    with torch.no_grad():
+        for impl, prop in props.items():
+            fwd[impl] = timed_ms(lambda p=prop: p(vp, vs, rho, geom, w), warmup=False)
+    fused_ms, fused = timed_ms(lambda: props["cuda_estep"].forward_fused(vp, vs, rho, geom, w),
+                               warmup=False)
+    d = fwd["cuda_escan"][1]
+    smooth = [torch.nn.functional.avg_pool2d(x[None, None], 9, 1, 4,
+                                             count_include_pad=False)[0, 0] for x in (vp, vs)]
+    mats0 = tuple(m.detach().contiguous() for m in props["cuda_escan"].material_fields(*smooth,
+                                                                                       rho))
+    sims = {"cuda_escan": make_elastic_simulator_scan(grid, dt, f0, vp_max, "force_z", "v"),
+            "cuda_estep": make_elastic_simulator_fused(grid, dt, f0, vp_max, "force_z", "v")}
+
+    def value_and_grad(sim):
+        m = [x.clone().requires_grad_(True) for x in mats0]
+        seis = sim(*m, w, si, ri)
+        J = 0.5 * ((seis - d) ** 2).sum()
+        return (J.detach(), seis.detach(), *torch.autograd.grad(J, m))
+
+    vg = {}
+    for impl, sim in sims.items():
+        torch.cuda.reset_peak_memory_stats()
+        ms, out = timed_ms(lambda s=sim: value_and_grad(s), warmup=False)
+        vg[impl] = (ms, out, torch.cuda.max_memory_allocated())
+    a, b = vg["cuda_estep"][1], vg["cuda_escan"][1]
+    errs = {"seis": rel_err(fwd["cuda_estep"][1], d), "seis_vg": rel_err(a[1], b[1]),
+            "J": abs(float(a[0]) - float(b[0])) / abs(float(b[0])),
+            "grads": max(rel_err(x, y) for x, y in zip(a[2:], b[2:])),
+            "fused_vs_escan": rel_err(fused, d), "fused_vs_estep": rel_err(fused, fwd["cuda_estep"][1])}
+    bitwise = all(bool(torch.equal(x, y)) for x, y in zip(a[1:], b[1:]))
+    print(f"[estep shot] {smi}: nt {nt}, one shot, force_z / v: tape-free forward cuda_estep "
+          f"{fwd['cuda_estep'][0] / 1e3:.3f} s, cuda_escan {fwd['cuda_escan'][0] / 1e3:.3f} s, "
+          f"forward_fused {fused_ms / 1e3:.3f} s; value-and-grad cuda_estep "
+          f"{vg['cuda_estep'][0] / 1e3:.3f} s (peak {vg['cuda_estep'][2] / 2**30:.2f} GiB), "
+          f"cuda_escan {vg['cuda_escan'][0] / 1e3:.3f} s (peak "
+          f"{vg['cuda_escan'][2] / 2**30:.2f} GiB); J {float(a[0]):.6e}", flush=True)
+    print(f"[estep shot] cuda_estep against cuda_escan, of max: {json.dumps(errs)}; seismogram "
+          f"and five gradients bitwise equal: {bitwise}", flush=True)
+    if not all(bool(torch.isfinite(x).all()) for x in a[1:]) or float(a[2].abs().max()) == 0.0:
+        fail("the cuda_estep gradient is not finite and nonzero")
+    for name, err in errs.items():
+        if not err <= 1e-5:
+            fail(f"cuda_estep {name} off cuda_escan's by {err:.3e} > 1e-5")
+
+
+def phase_main_estep(smi, dev):
+    """invert_elastic on an ElasticFwiProblem whose propagator is
+    ElasticPropagator(impl="cuda_estep"): the VSP survey of ESTEP_MAIN,
+    observed data on the same engine, then every launch counter set to 0
+    just before the inversion."""
+    from tpufwi_torch import invert
+    from tpufwi_torch.config import FwiConfig
+
+    cfg = FwiConfig().with_overrides(list(ESTEP_MAIN))
+    shape = (cfg.model.nz, cfg.model.nx)
+    bz = np.arange(*ESTEP_BOREHOLE)
+    borehole = np.stack([bz, np.full_like(bz, shape[1] // 2)], 1)
+    t0 = time.perf_counter()
+    problem, m0, bounds, precond = invert.build_synthetic_elastic_problem(
+        cfg, device=dev, impl="cuda_estep", extra_rcv=borehole)
+    torch.cuda.synchronize()
+    setup = time.perf_counter() - t0
+    rz = problem.geoms.rcv_idx[0, :, 0]
+    span = int(rz.max() - rz.min()) + 1
+    recs = []
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    m = invert.invert_elastic(problem, m0, cfg.stages, bounds=bounds, lbfgs_m=cfg.opt.lbfgs_m,
+                              scales="auto", precond=precond, log_fn=recs.append)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    its = [r for r in recs if "event" not in r]
+    engines = [r["engine"] for r in recs if r.get("event") == "engine"]
+    n_shots = cfg.acq.n_shots
+    nt = int(problem.wavelet.shape[0])
+    mine = {k: launches[k] for k in ESTEP_NAMES}
+    print(f"[main estep] {smi}: {shape[0]}x{shape[1]} at {cfg.model.dx:g} m, order "
+          f"{cfg.prop.order}, pml {cfg.prop.pml}, nt {nt}, "
+          f"{n_shots} shots, {problem.geoms.rcv_idx.shape[1]} receivers ({len(bz)} in the "
+          f"borehole; rows span {span}); observed data {setup:.1f} s; inversion {wall:.1f} s, "
+          f"peak memory {peak / 2**30:.2f} GiB, launches {json.dumps(mine)}", flush=True)
+    for r in its:
+        print(f"[main estep] stage {r['stage']} f<{r['fmax']} Hz it {r['iter']}: "
+              f"J={r['J']:.6e} {r['seconds']} s/iter evals {r['evals']}", flush=True)
+    if engines != ["cuda_estep"] * len(cfg.stages):
+        fail(f"engine records {engines}, expected cuda_estep per stage")
+    if len(its) != sum(s.iterations for s in cfg.stages):
+        fail(f"{len(its)} iterations logged")
+    J = [r["J"] for r in its]
+    if not all(np.isfinite(J)) or not all(b < a for a, b in zip(J, J[1:])):
+        fail(f"per-step elastic J not finite and falling: {J}")
+    others = {k: v for k, v in launches.items() if k not in mine and v}
+    if others:
+        fail(f"the per-step elastic path launched kernels of another engine: {others}")
+    rev = n_shots * (len(cfg.stages) + len(its))
+    for name in ("estep_rs", "estep_rv"):
+        if mine[name] != nt * rev:
+            fail(f"{name} launches {mine[name]} != nt x {rev} reverses")
+    fwd_min = n_shots * (len(cfg.stages) + sum(r["evals"] for r in its))
+    fwd = mine["estep_v"]
+    if mine["estep_s"] != fwd or fwd % nt or fwd // nt < fwd_min:
+        fail(f"estep_v / estep_s launches {fwd} / {mine['estep_s']} not nt x (>= {fwd_min}) "
+             "forward evaluations")
+    print(f"[main estep] evaluations: forward {fwd // nt} (>= {fwd_min}), reverse {rev}",
+          flush=True)
+    bounds_vs = ((cfg.opt.vmin, cfg.opt.vmax), (cfg.opt.vmin / 1.9, cfg.opt.vmax / 1.9))
+    for leaf, (lo, hi) in zip(m, bounds_vs):
+        x = leaf.detach().cpu().numpy()
+        if x.shape != shape or not np.isfinite(x).all() or not (lo <= x.min() and x.max() <= hi):
+            fail("final (vp, vs) not finite, of the model's shape, within the bounds")
+    return mine
+
+
 def phase_main_elastic(smi, device="cuda"):
     from tpufwi_torch import invert
     from tpufwi_torch.config import FwiConfig
@@ -1375,6 +1741,8 @@ def main() -> int:
     phase_over_budget(dev, smi)
     kernels += phase_elastic_kernels(dev, smi)
     phase_elastic_shot(dev, smi)
+    kernels += phase_estep_kernels(dev, smi)
+    phase_estep_shot(dev, smi)
     kernels += phase_a3d_kernels(dev, smi)
     phase_a3d_fullscale(dev, smi)
     launches = dict.fromkeys(KERNELS, 0)
@@ -1382,6 +1750,7 @@ def main() -> int:
         for name, n in phase_main(smi, path).items():
             launches[name] += n
     launches.update(phase_main_elastic(smi))
+    launches.update(phase_main_estep(smi, dev))
     launches.update(phase_main_3d(smi, dev))
     order = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
              "plain_ms", "bound_ms", "bound_by", "library_ms")

@@ -1,5 +1,5 @@
 """The CUDA kernels == their plain torch versions, on the card (2D acoustic,
-elastic and 3D acoustic).
+elastic whole-scan and per-step, and 3D acoustic).
 
 Skips without a CUDA device. Imports no JAX, so it runs where only the
 port is installed: ``python -m pytest tests/test_torch_cuda.py -m cuda
@@ -213,6 +213,77 @@ def test_elastic_wrapper_raises_instead_of_falling_back(device):
     seis, tape, finals = ke.escan_forward(grid, dt, mats, prof, w, *idx, tape=True)
     with pytest.raises(ValueError, match="tape"):
         ke.escan_reverse(grid, dt, mats, prof, w, seis, tape[:-1].contiguous(), finals, *idx)
+
+
+# ------------------------------------------------------- elastic (10-11)
+
+
+@pytest.mark.parametrize("source_type,record,order,free_surface", [
+    ("force_z", "v", 8, False), ("pressure", "p", 8, True), ("pressure", "v", 4, False),
+    ("force_z", "p", 4, True),
+])
+def test_estep_kernels_match_plain(device, source_type, record, order, free_surface):
+    """The four per-step kernels, each fed its plain version's state at
+    every step, with chip_smoke.py's tolerances; one launch per call."""
+    from tpufwi_torch.kernels import elastic2d_step as kes
+
+    args, w, idx = _elastic_case(device, source_type, record, free_surface, order, nt=60)
+    nt = w.shape[0]
+    before = [getattr(kes, k).launches for k in chip_smoke.ESTEP_NAMES]
+    rel, _, _, _ = chip_smoke.estep_kernels_vs_plain(args, w, *idx, nt, source_type, record)
+    torch.cuda.synchronize()
+    assert [getattr(kes, k).launches - b for k, b in zip(chip_smoke.ESTEP_NAMES, before)] \
+        == [nt] * 4
+    for name, err in rel.items():
+        assert err <= chip_smoke.ETOL[chip_smoke.ESTEP_TOL[name]], (name, err)
+
+
+def test_estep_wrapper_raises_instead_of_falling_back(device):
+    from tpufwi_torch.kernels import elastic2d_step as kes
+
+    (grid, dt, mats, prof), w, (si, ri) = _elastic_case(device, "force_z", "v", False, 8, nt=8)
+    state = kes.zero_elastic_step_state(grid, device=device)
+    with pytest.raises(ValueError, match="fp32"):
+        kes.estep_v(grid, dt, (mats[0].double(),) + mats[1:], prof, state)
+    with pytest.raises(ValueError, match="state.mem"):
+        kes.estep_v(grid, dt, mats, prof, state._replace(mem=state.mem[:4]))
+    seis = torch.zeros((8, ri.shape[0], 2), device=device)
+    with pytest.raises(ValueError, match="ring_row"):
+        kes.estep_s(grid, dt, mats, prof, state, w, 0, si, ri, seis, seis[0, 0], "force_z", "v")
+    with pytest.raises(ValueError, match="seis"):
+        kes.estep_s(grid, dt, mats, prof, state, w, 0, si, ri, seis[:, :, 0].contiguous(),
+                    None, "force_z", "v")
+    rstate = kes.zero_elastic_reverse_state(grid, device=device)
+    srcrow = torch.zeros((8, si.shape[0]), device=device)
+    with pytest.raises(ValueError, match="chain"):
+        kes.estep_rs(grid, dt, mats, prof, rstate, w, seis, 7, si, ri, srcrow, None, "force_z",
+                     "v")
+    with pytest.raises(ValueError, match="contiguous fp32"):
+        kes.estep_rv(grid, dt, mats, prof, rstate._replace(fields=rstate.fields.cpu()))
+
+
+@pytest.mark.parametrize("source_type,record,free_surface", [
+    ("force_z", "v", False), ("pressure", "p", True),
+])
+def test_estep_gradient_matches_escan(device, source_type, record, free_surface):
+    """cuda_estep's seismogram and five material and wavelet gradients
+    against cuda_escan's: the same kernels in the same order (bitwise
+    equal expected), bound at 1e-5 of the maximum."""
+    from tpufwi_torch.adjoint_elastic_scan import make_elastic_simulator_scan
+    from tpufwi_torch.adjoint_elastic_step import make_elastic_simulator_fused
+
+    (grid, dt, mats, _), w, idx = _elastic_case(device, source_type, record, free_surface, 8,
+                                                nt=150)
+    out = []
+    for make in (make_elastic_simulator_scan, make_elastic_simulator_fused):
+        sim = make(grid, dt, 14.0, 2600.0, source_type, record)
+        args = [x.clone().requires_grad_(True) for x in (*mats, w)]
+        seis = sim(*args, *idx)
+        out.append((seis.detach(), torch.autograd.grad(0.5 * (seis**2).sum(), args)))
+    (seis_a, g_a), (seis_b, g_b) = out
+    assert _rel(seis_b, seis_a) <= 1e-5
+    for a, b in zip(g_a, g_b):
+        assert _rel(b, a) <= 1e-5
 
 
 # ------------------------------------------------------------- 3D (12-17)

@@ -293,14 +293,15 @@ def test_unported_or_misplaced_engines_raise():
         _prop(device="cuda", dtype=torch.float64).resolve_impl(nt=100)
     with pytest.raises(ValueError, match="fp32 only"):
         _prop(device="cuda", dtype=torch.float64, impl="cuda_escan")
-    with pytest.raises(NotImplementedError, match="Queue B items 10-11"):
-        _prop(device="cuda", impl="cuda_estep")
+    with pytest.raises(ValueError, match="needs a CUDA device"):
+        _prop(impl="cuda_estep")
+    assert _prop(device="cuda", impl="cuda_estep").resolve_impl(nt=100) == "cuda_estep"
     grid3 = Grid(shape=(24, 30, 40), h=(10.0,) * 3, pml=8, order=8)
     for device in ("cpu", "cuda"):
         with pytest.raises(NotImplementedError, match="3D grid"):
             _prop(device=device, grid=grid3).resolve_impl(nt=100)
-    with pytest.raises(NotImplementedError, match="Queue B items 10-11"):
-        _prop().forward_fused(None, None, None, None, None)
+    with pytest.raises(ValueError, match="fp32 only"):
+        _prop(device="cuda", dtype=torch.float64).forward_fused(None, None, None, None, None)
     with pytest.raises(ValueError, match="unknown elastic impl"):
         _prop(impl="pallas_scan")
 

@@ -1,8 +1,9 @@
 // Device code of the 2D elastic P-SV engines for Hopper (sm_90a): the
-// per-step kernels and the host functions that launch one forward or one
-// reverse time step on a stream. The whole-scan loops (elastic2d_scan.cu)
-// include it; a per-step engine launches the same functions. Every kernel
-// has internal linkage.
+// per-step kernels and the host functions that launch one stage of a
+// forward or reverse time step on a stream (estage_v, estage_s, estage_rs,
+// estage_rv). The whole-scan loops (elastic2d_scan.cu) and the per-step
+// entry points (elastic2d_step.cu) include it and launch the same
+// functions. Every kernel has internal linkage.
 //
 // Semantics (the step twin, tpufwi_torch/kernels/elastic2d_eager.py), with
 // D+ f[i] = sum_k c_k (f[i+1+k] - f[i-k]) and D- f[i] = sum_k c_k (f[i+k] -
@@ -508,18 +509,34 @@ inline ETaps load_etaps(const float* host) {
   return tp;
 }
 
-// One forward step: stage V, velocity image, stage S, sources, stress
-// image, receivers and (when ring_row is not null) the ring row.
-// mem: 8 compact planes, stage V's four then stage S's four.
+// ------------------------------------------------------------ stage launches
+//
+// One host function per TPU call of the per-step engine, each with the glue
+// the reference runs around that call as XLA ops. A forward step is
+// estage_v then estage_s, a reverse step estage_rs then estage_rv, in the
+// whole-scan loops (elastic2d_scan.cu) and behind the per-step entry points
+// (elastic2d_step.cu) alike, so the two engines launch the same kernels in
+// the same order. mem: 8 compact CPML memory planes, stage V's four then
+// stage S's four; dual: 8 compact dual planes, R-S's four then R-V's four.
+
+// Stage V (TPU kernel 10a), then the mid-step velocity image. mem: the 8
+// memory planes; stage V updates planes 0-3.
 template <int R>
-void elastic_forward_step(EFields f, float* mem, EMats mt, EProf pr, const float* w, int t,
-                          const long long* src, int nsrc, const long long* rcv, int nrec,
-                          float* seis, const int* ring, float* ring_row, int n_ring, int NZ,
-                          int NX, int S, int fs, int force, int rec_v, const ETaps& tp,
-                          cudaStream_t st) {
-  const size_t pl = (size_t)NZ * NX;
+void estage_v(EFields f, float* mem, EMats mt, EProf pr, int NZ, int NX, int S, int fs,
+              const ETaps& tp, cudaStream_t st) {
   ef_v<R><<<e_cell_grid(NZ, NX), kECellBlock, 0, st>>>(f, mem, mt, pr, NZ, NX, S, tp);
   if (fs >= 0) e_image_v<R><<<e_blocks(R * NX), kESmallBlock, 0, st>>>(f, NX, fs);
+}
+
+// Stage S (10b) on planes 4-7 of mem, then the step's sources, the stress
+// image, the receivers into seis row t and (when ring_row is not null) the
+// five fields' rings into ring_row.
+template <int R>
+void estage_s(EFields f, float* mem, EMats mt, EProf pr, const float* w, int t,
+              const long long* src, int nsrc, const long long* rcv, int nrec, float* seis,
+              const int* ring, float* ring_row, int n_ring, int NZ, int NX, int S, int fs,
+              int force, int rec_v, const ETaps& tp, cudaStream_t st) {
+  const size_t pl = (size_t)NZ * NX;
   ef_s<R><<<e_cell_grid(NZ, NX), kECellBlock, 0, st>>>(f, mem + 4 * pl, mt, pr, NZ, NX, S, tp);
   e_src<<<1, 1, 0, st>>>(f, mt.bz, w, t, src, nsrc, NX, R, tp.dt, force);
   if (fs >= 0) e_image_s<R><<<e_blocks((R + 1) * NX), kESmallBlock, 0, st>>>(f, NX, fs);
@@ -528,18 +545,21 @@ void elastic_forward_step(EFields f, float* mem, EMats mt, EProf pr, const float
                                                         ring_row, n_ring, NX, R);
 }
 
-// One reverse step t (the order in the header comment). cb: compact
-// cotangents; dual: 8 compact planes (R-S's four, then R-V's four); q: four
-// zero-halo dbar planes in the vx..szz slots; g: 5 compact gradient planes
-// (lam, l2m, muxz, bx, bz); ring_row: tape row t-1, or null for t = 0.
+// Reverse step t, first half (the order in the header comment): the
+// receiver-cotangent injection, the stress-image transpose, the
+// source-point cotangent and the source undone on the primal (once: the
+// reference undoes a force on local copies of vz in both of its reverse
+// kernels), R-S (11a) with the stress rings of ring_row (tape row t-1;
+// zeros when null) imposed and re-imaged, and the velocity-image
+// transpose. cb: compact cotangents; dual: the 8 dual planes, R-S updates
+// planes 0-3; q: four zero-halo dbar planes in the vx..szz slots; g: 5
+// compact gradient planes (lam, l2m, muxz, bx, bz).
 template <int R>
-void elastic_reverse_step(EFields f, EFields cb, float* dual, EFields q, float* g, EMats mt,
-                          EProf pr, const float* w, const float* ybar, int t,
-                          const long long* src, int nsrc, const long long* rcv, int nrec,
-                          const int* chain, float* srcrow, const int* ring,
-                          const float* ring_row, int n_ring, int NZ, int NX, int S, int fs,
-                          int force, int rec_v, const ETaps& tp, cudaStream_t st) {
-  const size_t pl = (size_t)NZ * NX;
+void estage_rs(EFields f, EFields cb, float* dual, EFields q, float* g, EMats mt, EProf pr,
+               const float* w, const float* ybar, int t, const long long* src, int nsrc,
+               const long long* rcv, int nrec, const int* chain, float* srcrow,
+               const int* ring, const float* ring_row, int n_ring, int NZ, int NX, int S,
+               int fs, int force, int rec_v, const ETaps& tp, cudaStream_t st) {
   er_inject<<<1, kESmallBlock, 0, st>>>(cb, ybar, t, rcv, chain, nrec, NX, rec_v);
   if (fs >= 0) er_image_s_t<R><<<e_blocks(R * NX), kESmallBlock, 0, st>>>(cb, NX, fs);
   er_src<<<1, 1, 0, st>>>(f, cb, mt.bz, w, t, src, nsrc, srcrow, NX, R, tp.dt, force);
@@ -550,6 +570,15 @@ void elastic_reverse_step(EFields f, EFields cb, float* dual, EFields q, float* 
   if (fs >= 0) e_image_s<R><<<e_blocks((R + 1) * NX), kESmallBlock, 0, st>>>(f, NX, fs);
   er_s2<R><<<e_cell_grid(NZ, NX), kECellBlock, 0, st>>>(cb, q, NZ, NX, tp);
   if (fs >= 0) er_image_v_t<R><<<e_blocks(R * NX), kESmallBlock, 0, st>>>(cb, NX, fs);
+}
+
+// Reverse step t, second half: R-V (11b) on dual planes 4-7, with the
+// velocity rings of ring_row imposed and re-imaged.
+template <int R>
+void estage_rv(EFields f, EFields cb, float* dual, EFields q, float* g, EMats mt, EProf pr,
+               const int* ring, const float* ring_row, int n_ring, int NZ, int NX, int S,
+               int fs, const ETaps& tp, cudaStream_t st) {
+  const size_t pl = (size_t)NZ * NX;
   er_v1<R><<<e_cell_grid(NZ, NX), kECellBlock, 0, st>>>(f, cb, dual + 4 * pl, q, g, mt, pr, NZ,
                                                         NX, S, tp);
   e_impose<<<e_blocks(2 * n_ring), kESmallBlock, 0, st>>>(f.vx, f.vz, nullptr, 2, ring,

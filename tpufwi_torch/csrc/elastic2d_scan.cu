@@ -44,9 +44,10 @@ int forward_loop(EMats mt, EProf pr, const float* w, const long long* src,
   EFields f{ws, ws + hp, ws + 2 * hp, ws + 3 * hp, ws + 4 * hp};
   float* mem = ws + 5 * hp;
   for (int t = 0; t < nt; ++t) {
-    elastic_forward_step<R>(f, mem, mt, pr, w, t, src, nsrc, rcv, nrec, seis, ring,
-                            ring_tape ? ring_tape + (size_t)t * 5 * n_ring : nullptr, n_ring,
-                            NZ, NX, S, fs, force, rec_v, tp, st);
+    estage_v<R>(f, mem, mt, pr, NZ, NX, S, fs, tp, st);
+    estage_s<R>(f, mem, mt, pr, w, t, src, nsrc, rcv, nrec, seis, ring,
+                ring_tape ? ring_tape + (size_t)t * 5 * n_ring : nullptr, n_ring, NZ, NX, S,
+                fs, force, rec_v, tp, st);
     if (t == 0) {
       const cudaError_t err = cudaGetLastError();
       if (err != cudaSuccess) return (int)err;
@@ -71,10 +72,10 @@ int reverse_loop(EMats mt, EProf pr, const float* w, const float* ybar, const fl
   float* dual = cbb + 5 * pl;
   er_chain<<<e_blocks(nrec), kESmallBlock, 0, st>>>(rcv, nrec, chain);
   for (int t = nt - 1; t >= 0; --t) {
-    elastic_reverse_step<R>(f, cb, dual, q, g, mt, pr, w, ybar, t, src, nsrc, rcv, nrec, chain,
-                            srcrow, ring,
-                            t >= 1 ? ring_tape + (size_t)(t - 1) * 5 * n_ring : nullptr,
-                            n_ring, NZ, NX, S, fs, force, rec_v, tp, st);
+    const float* row = t >= 1 ? ring_tape + (size_t)(t - 1) * 5 * n_ring : nullptr;
+    estage_rs<R>(f, cb, dual, q, g, mt, pr, w, ybar, t, src, nsrc, rcv, nrec, chain, srcrow,
+                 ring, row, n_ring, NZ, NX, S, fs, force, rec_v, tp, st);
+    estage_rv<R>(f, cb, dual, q, g, mt, pr, ring, row, n_ring, NZ, NX, S, fs, tp, st);
     if (t == nt - 1) {
       const cudaError_t err = cudaGetLastError();
       if (err != cudaSuccess) return (int)err;

@@ -469,14 +469,17 @@ def build_synthetic_problem(cfg: FwiConfig, vp_true: np.ndarray, dx: float,
     return problem, vp0
 
 
-def build_synthetic_elastic_problem(cfg: FwiConfig, mesh=None, device="cuda"):
+def build_synthetic_elastic_problem(cfg: FwiConfig, mesh=None, device="cuda", impl="auto",
+                                    extra_rcv=None):
     """A joint (vp, vs) P-SV problem on the land variant of
     ``marmousi_like`` (no water: mu > 0 everywhere; vs = vp / 1.9, rho from
     Gardner's law), a vertical-force source and two-component receivers.
     Returns (problem, m0, bounds, precond): smooth starts for vp and vs,
     rho fixed at the truth, and the acquisition-row taper + smoothing
     preconditioner (without it the raw elastic gradient concentrates at the
-    sources and receivers)."""
+    sources and receivers). ``impl`` is the ``ElasticPropagator``'s engine;
+    ``extra_rcv`` (n, 2) physical (z, x) cells join every shot's surface
+    receiver line (e.g. a borehole array, a VSP survey)."""
     from scipy.ndimage import gaussian_filter
 
     from .io import marmousi_like
@@ -495,11 +498,13 @@ def build_synthetic_elastic_problem(cfg: FwiConfig, mesh=None, device="cuda"):
     nt = int(cfg.acq.t_max / dt)
     w = ricker(cfg.acq.f0, dt, nt, dtype=dtype, device=device)
     prop = ElasticPropagator(grid, dt, cfg.acq.f0, vp_max, dtype=dtype, record="v",
-                             source_type="force_z", device=device)
+                             source_type="force_z", impl=impl, device=device)
     nz, nx = grid.shape
     sx = np.linspace(6, nx - 7, cfg.acq.n_shots).astype(int)
     rx = np.arange(4, nx - 4, cfg.acq.rcv_dx)
     rcv = np.stack([np.full_like(rx, cfg.acq.rcv_z), rx], 1)
+    if extra_rcv is not None:
+        rcv = np.concatenate([rcv, np.asarray(extra_rcv, rcv.dtype).reshape(-1, 2)])
     geoms = Geometry.stack([
         Geometry.from_physical(grid, np.array([[cfg.acq.src_z, s]]), rcv, device=device)
         for s in sx])

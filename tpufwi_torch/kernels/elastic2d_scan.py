@@ -12,8 +12,9 @@ runs the exact transposed stages, and returns the five material-field
 cotangents (lam, lam2mu, mu_xz, buoy_x, buoy_z, before the source-point
 chain and the valid-region mask) and the per-step source-point cotangent
 ``srcrow``. The CUDA sources are ``csrc/elastic2d_scan.cu`` and
-``csrc/elastic2d_kernels.cuh``, built into their own library by one nvcc
-call at first use (``kernels/build.py``).
+``csrc/elastic2d_kernels.cuh``, built at first use by one nvcc call into
+the elastic library (``kernels/build.py``), with the per-step kernels of
+``csrc/elastic2d_step.cu`` (``kernels/elastic2d_step.py``).
 
 Tape contract: row t holds rings(state after step t) of vx, vz, sxx, szz,
 sxz (``ring_plan`` order, field after field), unshifted; the reverse step t
@@ -46,12 +47,17 @@ from .elastic2d_eager import (
 
 LIBRARY = Library(
     "elastic2d",
-    (CSRC / "elastic2d_scan.cu",),
+    (CSRC / "elastic2d_scan.cu", CSRC / "elastic2d_step.cu"),
     (CSRC / "elastic2d_kernels.cuh",),
     lambda lib: declare_all(lib, {
         # pointers..., ints..., taps and dt, stream
         "tpufwi_escan_forward": (16, 11),
         "tpufwi_escan_reverse": (19, 11),
+        # the per-step kernels (kernels/elastic2d_step.py)
+        "tpufwi_estep_v": (11, 5),
+        "tpufwi_estep_s": (17, 11),
+        "tpufwi_estep_rs": (22, 12),
+        "tpufwi_estep_rv": (16, 6),
     }),
 )
 
@@ -61,7 +67,7 @@ _REV_HALO, _REV_COMPACT = 9, 13  # fields + dbar planes; cotangents + duals
 
 def load_library():
     """Build (once per version of the sources) and load the elastic
-    kernels' library."""
+    kernels' library: both sources in one nvcc call."""
     return LIBRARY.load()
 
 
@@ -105,83 +111,114 @@ def escan_forward_plain(grid, dt, mats, profiles, wavelet, src_idx, rcv_idx,
     return torch.stack(seis), (torch.stack(rows) if tape else None), finals
 
 
-def escan_reverse_plain(grid, dt, mats, profiles, wavelet, ybar, tape, finals, src_idx,
-                        rcv_idx, source_type="pressure", record="v"):
-    """The boundary-saving reverse, fed a tape, the final fields and the
-    receiver cotangent ``ybar`` (the seismogram's shape). Per step t
-    descending: receiver injection and stress-image transpose; the
-    source-point cotangent into ``srcrow[t]``; sigma_t reconstructed, the
-    stress rings of tape row t-1 imposed (zeros for t = 0) and the primal
-    re-imaged; the transposed stress update by ``torch.func.vjp`` at zero
-    CPML memory; the velocity-image transpose; v_{t-1/2} reconstructed,
-    its rings imposed and re-imaged; the transposed velocity update.
-    Returns (grads, srcrow): the five material cotangents (lam, lam2mu,
-    mu_xz, buoy_x, buoy_z) without the force source's buoy_z term and
-    unmasked, and srcrow (nt, nsrc)."""
-    params = _params(grid, mats, profiles, src_idx, rcv_idx)
+def make_elastic_reverse_stages(grid, dt, source_type="pressure", record="v"):
+    """The two halves of one boundary-saving reverse step t in plain torch,
+    on tuples of padded-grid tensors (the plain versions of the per-step
+    kernels R-S and R-V with their glue, and the body of
+    ``escan_reverse_plain``):
+
+      rev_s(params, fields, cot, dual_s, g3, w_t, ybar_t, row, ring_idx)
+          -> (fields, cot, dual_s, g3, srcrow_t): receiver injection of
+          ``ybar_t`` and stress-image transpose; the source-point cotangent
+          ``srcrow_t``; sigma_t reconstructed (the source undone), the
+          stress rings of ``row`` imposed and the primal re-imaged; the
+          transposed stress update by ``torch.func.vjp`` at zero CPML
+          memory; the velocity-image transpose;
+      rev_v(params, fields, cot, dual_v, g2, row, ring_idx)
+          -> (fields, cot, dual_v, g2): v_{t-1/2} reconstructed, its rings
+          imposed and re-imaged; the transposed velocity update.
+
+    ``fields`` (vx, vz, sxx, szz, sxz); ``cot`` their cotangents;
+    ``dual_s`` / ``dual_v`` the cotangents of stage S's / stage V's CPML
+    memories; ``g3`` / ``g2`` the (lam, lam2mu, mu_xz) / (buoy_x, buoy_z)
+    cotangents; ``row`` the tape row t-1 (None: zeros); ``ring_idx`` its
+    cells (``ring_plan``)."""
     step = make_elastic_step(grid, dt, source_type, record)
     recon_stress, recon_velocity = make_elastic_reverse_reconstruct(grid, dt, source_type)
     image = step.image
-    dtype, dev = mats[0].dtype, mats[0].device
-    ring_idx = ring_plan(grid, dev)[0]
-    n = ring_idx.shape[0]
-    z = torch.zeros(grid.padded_shape, dtype=dtype, device=dev)
-    zmem = (z, z, z, z)
-    sz, sx = src_idx[:, 0], src_idx[:, 1]
-    rz, rx = rcv_idx[:, 0], rcv_idx[:, 1]
 
-    def upd_s(vx, vz, memS, lam, l2m, mu, s3):
-        p = params._replace(lam=lam, lam2mu=l2m, mu_xz=mu)
-        return step.update_s(vx, vz, *s3, memS, p)
-
-    def upd_v(sxx, szz, sxz, memV, bxm, bzm):
-        p = params._replace(buoy_x=bxm, buoy_z=bzm)
-        return step.update_v(z, z, sxx, szz, sxz, memV, p)
-
-    vx, vz, sxx, szz, sxz = finals
-    vxb, vzb, sxxb, szzb, sxzb = (z,) * 5
-    dual_s, dual_v = zmem, zmem
-    g = [z] * 5
-    nt = wavelet.shape[0]
-    srcrow = torch.empty((nt, sz.shape[0]), dtype=dtype, device=dev)
-    for t in reversed(range(nt)):
+    def rev_s(params, fields, cot, dual_s, g3, w_t, ybar_t, row, ring_idx):
+        n = ring_idx.shape[0]
+        vxb, vzb, sxxb, szzb, sxzb = cot
+        z = torch.zeros_like(vxb)
+        rz, rx = params.rcv_idx[:, 0], params.rcv_idx[:, 1]
+        sz, sx = params.src_idx[:, 0], params.src_idx[:, 1]
         if record == "v":
-            vzb = vzb.index_put((rz, rx), ybar[t, :, 0], accumulate=True)
-            vxb = vxb.index_put((rz, rx), ybar[t, :, 1], accumulate=True)
+            vzb = vzb.index_put((rz, rx), ybar_t[:, 0], accumulate=True)
+            vxb = vxb.index_put((rz, rx), ybar_t[:, 1], accumulate=True)
         else:
-            sxxb = sxxb.index_put((rz, rx), -0.5 * ybar[t], accumulate=True)
-            szzb = szzb.index_put((rz, rx), -0.5 * ybar[t], accumulate=True)
+            sxxb = sxxb.index_put((rz, rx), -0.5 * ybar_t, accumulate=True)
+            szzb = szzb.index_put((rz, rx), -0.5 * ybar_t, accumulate=True)
         if image is not None:
             szzb, sxzb = image.s_t(szzb, sxzb)
-        srcrow[t] = vzb[sz, sx] if source_type == "force_z" else (sxxb + szzb)[sz, sx]
-        row = tape[t - 1] if t >= 1 else None
+        srcrow_t = vzb[sz, sx] if source_type == "force_z" else (sxxb + szzb)[sz, sx]
 
-        # R-S: sigma_t, its rings and image; the transposed stress update
-        vx, vz, sxx, szz, sxz = recon_stress(vx, vz, sxx, szz, sxz, params, wavelet[t])
+        vx, vz, sxx, szz, sxz = recon_stress(*fields, params, w_t)
         sxx, szz, sxz = impose_rings((sxx, szz, sxz), ring_idx,
                                      None if row is None else row[2 * n:])
         if image is not None:
             szz, sxz = image.s(szz, sxz)
-        _, pull = torch.func.vjp(
-            lambda vx_, vz_, m_, lam, l2m, mu: upd_s(vx_, vz_, m_, lam, l2m, mu,
-                                                     (sxx, szz, sxz)),
-            vx, vz, zmem, *mats[:3])
+
+        def upd_s(vx_, vz_, m_, lam, l2m, mu):
+            p = params._replace(lam=lam, lam2mu=l2m, mu_xz=mu)
+            return step.update_s(vx_, vz_, sxx, szz, sxz, m_, p)
+
+        _, pull = torch.func.vjp(upd_s, vx, vz, (z,) * 4, params.lam, params.lam2mu,
+                                 params.mu_xz)
         vxb_s, vzb_s, dual_s, *gm = pull((sxxb, szzb, sxzb, dual_s))
         vxb, vzb = vxb + vxb_s, vzb + vzb_s
-        g[:3] = [a + b for a, b in zip(g[:3], gm)]
+        g3 = tuple(a + b for a, b in zip(g3, gm))
         if image is not None:
             vxb, vzb = image.v_t(vxb, vzb)
+        return (vx, vz, sxx, szz, sxz), (vxb, vzb, sxxb, szzb, sxzb), dual_s, g3, srcrow_t
 
-        # R-V: v_{t-1/2}, its rings and image; the transposed velocity update
+    def rev_v(params, fields, cot, dual_v, g2, row, ring_idx):
+        n = ring_idx.shape[0]
+        vx, vz, sxx, szz, sxz = fields
+        vxb, vzb, sxxb, szzb, sxzb = cot
+        z = torch.zeros_like(vx)
         vx, vz = recon_velocity(vx, vz, sxx, szz, sxz, params)
         vx, vz = impose_rings((vx, vz), ring_idx, None if row is None else row[: 2 * n])
         if image is not None:
             vx, vz = image.v(vx, vz)
-        _, pull = torch.func.vjp(upd_v, sxx, szz, sxz, zmem, *mats[3:])
+
+        def upd_v(sxx_, szz_, sxz_, m_, bxm, bzm):
+            p = params._replace(buoy_x=bxm, buoy_z=bzm)
+            return step.update_v(z, z, sxx_, szz_, sxz_, m_, p)
+
+        _, pull = torch.func.vjp(upd_v, sxx, szz, sxz, (z,) * 4, params.buoy_x, params.buoy_z)
         sxxb_v, szzb_v, sxzb_v, dual_v, *gm = pull((vxb, vzb, dual_v))
-        sxxb, szzb, sxzb = sxxb + sxxb_v, szzb + szzb_v, sxzb + sxzb_v
-        g[3:] = [a + b for a, b in zip(g[3:], gm)]
-    return tuple(g), srcrow
+        cot = (vxb, vzb, sxxb + sxxb_v, szzb + szzb_v, sxzb + sxzb_v)
+        return (vx, vz, sxx, szz, sxz), cot, dual_v, tuple(a + b for a, b in zip(g2, gm))
+
+    return rev_s, rev_v
+
+
+def escan_reverse_plain(grid, dt, mats, profiles, wavelet, ybar, tape, finals, src_idx,
+                        rcv_idx, source_type="pressure", record="v"):
+    """The boundary-saving reverse, fed a tape, the final fields and the
+    receiver cotangent ``ybar`` (the seismogram's shape): for t descending,
+    ``make_elastic_reverse_stages``'s two halves with tape row t-1 (zeros
+    for t = 0). Returns (grads, srcrow): the five material cotangents (lam,
+    lam2mu, mu_xz, buoy_x, buoy_z) without the force source's buoy_z term
+    and unmasked, and srcrow (nt, nsrc), the source-point cotangent of each
+    step."""
+    params = _params(grid, mats, profiles, src_idx, rcv_idx)
+    rev_s, rev_v = make_elastic_reverse_stages(grid, dt, source_type, record)
+    dtype, dev = mats[0].dtype, mats[0].device
+    ring_idx = ring_plan(grid, dev)[0]
+    z = torch.zeros(grid.padded_shape, dtype=dtype, device=dev)
+    fields, cot = tuple(finals), (z,) * 5
+    dual_s = dual_v = (z,) * 4
+    g3, g2 = (z,) * 3, (z,) * 2
+    nt = wavelet.shape[0]
+    srcrow = torch.empty((nt, src_idx.shape[0]), dtype=dtype, device=dev)
+    for t in reversed(range(nt)):
+        row = tape[t - 1] if t >= 1 else None
+        fields, cot, dual_s, g3, srcrow[t] = rev_s(params, fields, cot, dual_s, g3, wavelet[t],
+                                                   ybar[t], row, ring_idx)
+        fields, cot, dual_v, g2 = rev_v(params, fields, cot, dual_v, g2, row, ring_idx)
+    return g3 + g2, srcrow
 
 
 # ---------------------------------------------------------------- wrappers

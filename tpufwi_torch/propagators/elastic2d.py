@@ -16,13 +16,19 @@ Engines:
 - ``"cuda_escan"``: the whole-scan CUDA engine
   (``adjoint_elastic_scan.make_elastic_simulator_scan``), fp32 on a card;
   the counterpart of ``'pallas_scan'``.
-- ``"cuda_estep"``: the per-step engine (the reference's ``'pallas'``),
-  not ported yet (ROADMAP Queue B items 10-11): it raises.
+- ``"cuda_estep"``: the per-step engine
+  (``adjoint_elastic_step.make_elastic_simulator_fused``), four CUDA
+  kernels called once per time step from a Python loop, fp32 on a card;
+  the counterpart of ``'pallas'``. ``forward_fused`` runs its tape-free
+  forward.
 
 ``impl="auto"`` resolves from the propagator's device: "eager" on the CPU,
 "cuda_escan" on CUDA, where it raises when one shot's ring tape exceeds
-the card's budget (the reference has no such guard). 3D grids and fp64 on
-CUDA raise with the reason.
+the card's budget (the reference has no such guard). It never picks
+"cuda_estep": the reference falls back to its per-step engine when a
+shot's receivers span more than its whole-scan engine's 16-row slab, and
+the port's whole-scan kernels gather receivers by index, with no slab. 3D
+grids and fp64 on CUDA raise with the reason.
 """
 
 from __future__ import annotations
@@ -43,11 +49,10 @@ from ..kernels.elastic2d_eager import (
     zero_elastic_state,
 )
 from ..kernels.elastic2d_scan import escan_forward_plain, escan_reverse_plain
+from ..kernels.elastic2d_step import make_elastic_forward_fused
 from .boundary import RingSpec, tape_budget_bytes
 
 ENGINES = ("eager", "cuda_escan", "cuda_estep")
-_ESTEP = ("the per-step elastic engine (the reference's 'pallas', TPU kernels "
-          "10-11) is not ported yet (ROADMAP Queue B items 10-11)")
 
 
 def elastic_cfl_dt(h, vp_max: float, order: int = 4, safety: float = 0.8) -> float:
@@ -190,6 +195,7 @@ class ElasticPropagator:
         if impl != "auto":
             self._check_engine(impl)
         self._sims = {}
+        self._fused = None
 
     # -- engine selection ----------------------------------------------------
 
@@ -198,8 +204,6 @@ class ElasticPropagator:
             raise NotImplementedError(
                 f"{self.grid.ndim}D grid: the elastic engines are 2D (elastic 3D: "
                 "ROADMAP Queue A item 11)")
-        if impl == "cuda_estep":
-            raise NotImplementedError(_ESTEP)
         if impl == "eager":
             if self.device.type != "cpu":
                 raise ValueError("the eager engine runs in plain torch on the CPU")
@@ -221,9 +225,10 @@ class ElasticPropagator:
     def resolve_impl(self, geom=None, nt: int | None = None) -> str:
         """The engine a call with a length-``nt`` wavelet will use. The port
         gathers receivers by index, so ``geom`` does not enter (no receiver
-        slab). For impl='auto': "eager" on the CPU; "cuda_escan" on CUDA
-        when one shot's ring tape fits the card's budget; every other case
-        raises with the reason."""
+        slab), and 'auto' never picks "cuda_estep" (the reference's fallback
+        for receivers beyond its scan slab). For impl='auto': "eager" on the
+        CPU; "cuda_escan" on CUDA when one shot's ring tape fits the card's
+        budget; every other case raises with the reason."""
         if self.impl != "auto":
             self._check_engine(self.impl)
             return self.impl
@@ -259,10 +264,14 @@ class ElasticPropagator:
             kw = dict(source_type=self.source_type, record=self.record)
             if impl == "eager":
                 sim = make_elastic_simulator(*args, **kw)
-            else:
+            elif impl == "cuda_escan":
                 from ..adjoint_elastic_scan import make_elastic_simulator_scan
 
                 sim = make_elastic_simulator_scan(*args, **kw)
+            else:
+                from ..adjoint_elastic_step import make_elastic_simulator_fused
+
+                sim = make_elastic_simulator_fused(*args, **kw)
             self._sims[impl] = sim
         return self._sims[impl]
 
@@ -321,9 +330,17 @@ class ElasticPropagator:
         return torch.stack(seis), torch.stack(snaps)
 
     def forward_fused(self, vp, vs, rho, geom, wavelet):
-        """The reference's fast forward on its per-step fused kernels (TPU
-        kernel 10): not ported yet."""
-        raise NotImplementedError(
-            "forward_fused runs the per-step elastic kernels (TPU kernel 10), which are "
-            "not ported yet (ROADMAP Queue B items 10-11); the forward of __call__ "
-            "without grad records no tape")
+        """The tape-free forward on the per-step kernels (the reference's
+        fast forward for line-search and synthetic-data evaluations, TPU
+        kernel 10): ``make_elastic_forward_fused`` on the propagator's
+        device, the kernels on the card (fp32) and their plain versions on
+        the CPU. Not differentiable; gradients go through ``__call__``."""
+        if self.grid.ndim != 2:
+            raise NotImplementedError(f"{self.grid.ndim}D grid: the elastic engines are 2D")
+        if self.device.type == "cuda" and self.dtype != torch.float32:
+            raise ValueError(f"{self.dtype} on CUDA: the per-step kernels are fp32 only")
+        if self._fused is None:
+            self._fused = make_elastic_forward_fused(self.grid, self.dt, self.f0, self.vp_max,
+                                                     self.source_type, self.record)
+        mats = self.material_fields(vp, vs, rho)
+        return self._fused(mats, wavelet.to(self.dtype), geom.src_idx, geom.rcv_idx)
