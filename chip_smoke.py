@@ -5,16 +5,22 @@
 Phases, each printing its own lines; any failure exits non-zero.
   1. device: the card's name and power limit (nvidia-smi); no CUDA -> exit 1
   2. build: three nvcc calls, started together, build the acoustic library
-     (six kernels), the elastic library (six kernels: two whole-scan, four
+     (ten kernels), the elastic library (six kernels: two whole-scan, four
      per-step) and the 3D library (two kernels) from tpufwi_torch/csrc
   3. kernels vs plain: each CUDA kernel against its plain torch version on
      the card, at the main path's padded grid (399 x 1749), nt = 512, one
      shot: the whole-scan forward (snapshot and ring tapes), the snapshot
-     and rings reverses, and the three single-step kernels step by step
+     and rings reverses, and the three single-step kernels step by step;
+     then (phase_kstep_kernels) the K-step forward and reverse (K = 4), the
+     merged reverse step and the bare leapfrog, each fed its plain
+     version's state, with a free-surface case at nt = 128; ms per call and
+     per step (CUDA events), host ms per call, device ms (torch.profiler)
   4. shot: one shot's forward + adjoint and illumination at nt = 4842
-  5. gradients: one shot at nt = 4842 through the three CUDA engines:
-     cuda_scanres against cuda_scansnap and cuda_step against cuda_scanres,
-     and the rings reverse's reconstruction error
+  5. gradients: one shot at nt = 4842 through the CUDA engines:
+     cuda_scanres against cuda_scansnap, cuda_step against cuda_scanres,
+     cuda_kstep against cuda_step and the merged cuda_step against the
+     split one (bitwise equality reported), and the rings reverse's
+     reconstruction error
   6. over budget: the 5 m Marmousi2-scale survey (701 x 3401, nt = 9684),
      whose snapshot tape exceeds the card's budget, resolves to the rings
      engine and gives a finite gradient
@@ -25,6 +31,10 @@ Phases, each printing its own lines; any failure exits non-zero.
      c. single-step engine, 4 shots, one 3 Hz stage of 2 iterations,
         without the illumination preconditioner (a plain-twin loop that no
         kernel of this engine runs)
+     d. K-step engine (prop.impl=cuda_kstep), as c
+     e. the single-step engine with the merged reverse step, as c, through
+        tpufwi_torch.invert.invert from Python with
+        AcousticPropagator(impl="cuda_step", merged_reverse=True)
      each with every launch counter set to 0 just before it and read after
   8. elastic kernels vs plain: escan_forward (with and without the ring
      tape) and escan_reverse against their plain versions at the elastic
@@ -95,7 +105,20 @@ PATHS = {
                  overrides=GRID_10M + [
                      "acq.n_shots=4", "prop.impl=cuda_step", "precond.use_illumination=false",
                      'stages=[{"fmax": 3.0, "iterations": 2}]']),
+    "kstep": dict(engine="cuda_kstep", kernels=("kstep_forward", "kstep_reverse"),
+                  overrides=GRID_10M + [
+                      "acq.n_shots=4", "prop.impl=cuda_kstep", "precond.use_illumination=false",
+                      'stages=[{"fmax": 3.0, "iterations": 2}]']),
+    # driven through invert() with AcousticPropagator(merged_reverse=True),
+    # which no config key selects; observed data before the counters reset
+    "step_merged": dict(engine="cuda_step", kernels=("fused_forward_step", "fused_reverse_step"),
+                        merged_reverse=True,
+                        overrides=GRID_10M + [
+                            "acq.n_shots=4", "prop.impl=cuda_step",
+                            "precond.use_illumination=false",
+                            'stages=[{"fmax": 3.0, "iterations": 2}]']),
 }
+K_CHECK = 4  # steps per K-step call: cuda_kstep's K
 # of max|plain|: fp32 summation order (FMA chains against torch's separate
 # products), the reverses fed the same tape and cotangent as their plain
 # versions, each single-step kernel fed its plain version's inputs
@@ -107,6 +130,7 @@ STEP_SRC = "tpufwi_torch/csrc/acoustic2d_step.cu"
 ESCAN_SRC = "tpufwi_torch/csrc/elastic2d_scan.cu"
 ESTEP_SRC = "tpufwi_torch/csrc/elastic2d_step.cu"
 A3D_SRC = "tpufwi_torch/csrc/acoustic3d_scan.cu"
+KSTEP_SRC = "tpufwi_torch/csrc/acoustic2d_kstep.cu"
 KERNELS = {  # name: (source, the TPU kernel's pallas_call)
     "scanres_forward": (SCANRES_SRC, "tpufwi/kernels/acoustic2d_pallas_scanres.py:586"),
     "scanres_reverse_snap": (SCANRES_SRC, "tpufwi/kernels/acoustic2d_pallas_scanres.py:1112"),
@@ -114,6 +138,12 @@ KERNELS = {  # name: (source, the TPU kernel's pallas_call)
     "fused_forward_step": (STEP_SRC, "tpufwi/kernels/acoustic2d_pallas.py:309"),
     "recon_step": (STEP_SRC, "tpufwi/kernels/acoustic2d_pallas_bwd.py:110"),
     "fused_adjoint_step": (STEP_SRC, "tpufwi/kernels/acoustic2d_pallas_bwd.py:289"),
+    "kstep_forward": (KSTEP_SRC, "tpufwi/kernels/acoustic2d_pallas_kstep.py:282"),
+    "kstep_reverse": (KSTEP_SRC, "tpufwi/kernels/acoustic2d_pallas_kstep.py:555"),
+    "fused_reverse_step": (KSTEP_SRC, "tpufwi/kernels/acoustic2d_pallas_bwd.py:502"),
+    # no engine runs it (nor does the reference's): its launches are its
+    # kernel phase's leapfrog run (LEAPFROG_ROUTE)
+    "leapfrog": (STEP_SRC, "tpufwi/kernels/acoustic2d_pallas.py:386"),
     "escan_forward": (ESCAN_SRC, "tpufwi/kernels/elastic2d_pallas_scan.py:398"),
     "escan_reverse": (ESCAN_SRC, "tpufwi/kernels/elastic2d_pallas_scan.py:907"),
     "estep_v": (ESTEP_SRC, "tpufwi/kernels/elastic2d_pallas.py:218"),
@@ -127,6 +157,8 @@ KERNELS = {  # name: (source, the TPU kernel's pallas_call)
     "a3d_reverse": (A3D_SRC, "; ".join(
         f"tpufwi/kernels/acoustic3d_bwd_pallas.py:{n}" for n in (321, 851, 419, 521))),
 }
+LEAPFROG_ROUTE = (f"cuda; launches from its kernel phase's leapfrog run of {NT_CHECK} steps, "
+                  "not a main path: no engine runs it, in the port or the reference")
 ELASTIC_MAIN = GRID_10M + ["physics=elastic", "acq.n_shots=8",
                            'stages=[{"fmax": 3.0, "iterations": 2}]']
 ESTEP_NAMES = ("estep_v", "estep_s", "estep_rs", "estep_rv")
@@ -192,6 +224,12 @@ def kernel_modules():
     return ks, kst
 
 
+def kstep_module():
+    from tpufwi_torch.kernels import acoustic2d_kstep as kk
+
+    return kk
+
+
 def elastic_module():
     from tpufwi_torch.kernels import elastic2d_scan as ke
 
@@ -212,7 +250,7 @@ def a3d_module():
 
 def wrapper(name):
     ks, kst = kernel_modules()
-    for mod in (ks, kst, elastic_module(), estep_module(), a3d_module()):
+    for mod in (ks, kst, kstep_module(), elastic_module(), estep_module(), a3d_module()):
         if hasattr(mod, name):
             return getattr(mod, name)
     raise KeyError(name)
@@ -254,6 +292,21 @@ def step_counts(grid, nrec, nsrc, n_ring):
         "fused_forward_step": (fwd, 4 * cells * f + 4 * strips * f + (nrec + n_ring) * f, 0),
         "recon_step": (recon, 5 * cells * f + n_ring * f, 0),
         "fused_adjoint_step": (rev, 8 * cells * f + 4 * strips * f + (nrec + nsrc) * f, 0),
+        # rows 5 and 6 in one call: p_t, p_tp1, q, q_other, C and gacc in
+        # (C once), p_tp1, q_other and gacc out, q out at the receivers
+        # only, the strip duals in and out
+        "fused_reverse_step": (rev + recon, 9 * cells * f + 4 * strips * f
+                               + (2 * nrec + nsrc + n_ring) * f, 0),
+        # a K-step call: per step its rows; per call (spread over its steps
+        # by the caller, bound(counts, k)) the state in and out once: two
+        # fields and C in, two fields out, the strip state in and out
+        # (forward); two fields, two lambdas, C and gacc in, the same less C
+        # out, the strip duals in and out (reverse)
+        "kstep_forward": (fwd, (nrec + n_ring) * f, 5 * cells * f + 4 * strips * f),
+        "kstep_reverse": (rev + recon, (nrec + nsrc + n_ring) * f,
+                          11 * cells * f + 4 * strips * f),
+        # p and C in, p_other in and out, Lap(p) out
+        "leapfrog": (recon - 2 * nsrc, 5 * cells * f, 0),
     }
 
 
@@ -368,7 +421,7 @@ def phase_build():
                 kernel = None
 
 
-def one_shot(dev, nz=351, nx=1701, dx=10.0, t_max=None, nt=None):
+def one_shot(dev, nz=351, nx=1701, dx=10.0, t_max=None, nt=None, free_surface=False):
     """The main path's kernel inputs for one mid-line surface shot:
     (grid, c2, profiles), wavelet, src_idx, rcv_idx on ``dev``, and
     (vp, dt, f0, c_max)."""
@@ -378,7 +431,7 @@ def one_shot(dev, nz=351, nx=1701, dx=10.0, t_max=None, nt=None):
     from tpufwi_torch.wavelets import ricker_np
 
     vp, dx = marmousi_like(nz=nz, nx=nx, dx=dx)
-    grid = Grid(shape=vp.shape, h=(dx, dx), pml=20, order=8)
+    grid = Grid(shape=vp.shape, h=(dx, dx), pml=20, order=8, free_surface=free_surface)
     c_max, f0 = 4700.0, 12.0
     dt = grid.cfl_dt(c_max, safety=0.7)
     nt = nt or int(t_max / dt)
@@ -415,6 +468,55 @@ class _Err:
         return float(self.d)
 
 
+class _Held:
+    """Kernels held against their plain versions call by call: before each
+    call the kernel's state is set to the plain one's, so each kernel is
+    held on its own while the plain state carries on; the plain calls are
+    timed by CUDA events."""
+
+    def __init__(self, names):
+        self.ev = {name: [] for name in names}
+
+    def call(self, name, kernel, plain, state=()):
+        """``state``: (kernel's, plain's) tensor pairs, copied before the call."""
+        for dst, src in state:
+            dst.copy_(src)
+        kernel()
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        plain()
+        e1.record()
+        self.ev[name].append((e0, e1))
+
+    def plain_ms(self):
+        """Mean ms per plain call of each kernel."""
+        torch.cuda.synchronize()
+        return {name: sum(a.elapsed_time(b) for a, b in ev) / len(ev)
+                for name, ev in self.ev.items()}
+
+
+def time_loops(loops, nt, nt_prof=64):
+    """Times of kernel-only loops. ``loops(m)`` gives {kernel: (fn, calls,
+    pattern)}, fn running the kernel's calls over m steps. Per kernel, at
+    nt steps: (calls, ms per call on the card by CUDA events (the host's
+    pace where the Python call outlasts the kernels), the host's own ms per
+    call (enqueue rate), the device's us per call summed over the CUDA
+    kernels ``pattern`` captures by torch.profiler at nt_prof steps (None
+    when it sees no device time), the profiler's rows)."""
+    out = {}
+    for name, (fn, calls, pattern) in loops(nt).items():
+        ms, _ = timed_ms(fn)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        host_ms = 1e3 * (time.perf_counter() - t0) / calls
+        torch.cuda.synchronize()
+        pfn, pcalls, _ = loops(min(nt_prof, nt))[name]
+        rows = device_us_per_step(pfn, pcalls, pattern)
+        out[name] = (calls, ms / calls, host_ms, sum(us for _, us in rows) or None, rows)
+    return out
+
+
 def step_kernels_vs_plain(args, w, si, ri, nt):
     """Kernels 4-6 against their plain versions over nt steps: at each step
     the kernel gets the plain version's inputs (so each kernel is held on
@@ -430,14 +532,7 @@ def step_kernels_vs_plain(args, w, si, ri, nt):
     z = lambda *s: torch.zeros(s, dtype=torch.float32, device=dev)  # noqa: E731
     errs = {k: _Err(dev) for k in ("seis", "fields", "rings", "recon", "lapw", "adjoint",
                                    "gbar", "lam_src")}
-    plain_ev = {k: [] for k in ("fused_forward_step", "recon_step", "fused_adjoint_step")}
-
-    def plain(name, fn, *a, **kw):
-        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        e0.record()
-        fn(*a, **kw)
-        e1.record()
-        plain_ev[name].append((e0, e1))
+    held = _Held(("fused_forward_step", "recon_step", "fused_adjoint_step"))
 
     # forward: kernel 4
     fp, fk = z(2, *halo), z(2, *halo)
@@ -446,12 +541,13 @@ def step_kernels_vs_plain(args, w, si, ri, nt):
     tape_p, tape_k = z(nt, n_ring), z(nt, n_ring)
     cur, prev = 1, 0
     for t in range(nt):
-        fk.copy_(fp)
-        ck.copy_(cp)
-        kst.fused_forward_step(grid, c2, prof, fk[cur], fk[prev], ck, w, t, si, ri, seis_k,
-                               tape_k[t])
-        plain("fused_forward_step", kst.fused_forward_step_plain, grid, c2, prof, fp[cur],
-              fp[prev], cp, w, t, si, ri, seis_p, tape_p[t])
+        held.call(
+            "fused_forward_step",
+            lambda: kst.fused_forward_step(grid, c2, prof, fk[cur], fk[prev], ck, w, t, si, ri,
+                                           seis_k, tape_k[t]),
+            lambda: kst.fused_forward_step_plain(grid, c2, prof, fp[cur], fp[prev], cp, w, t, si,
+                                                 ri, seis_p, tape_p[t]),
+            ((fk, fp), (ck, cp)))
         errs["fields"].add(fk[prev], fp[prev])
         errs["fields"].add(ck, cp)
         cur, prev = prev, cur
@@ -471,26 +567,26 @@ def step_kernels_vs_plain(args, w, si, ri, nt):
     p_t, p_tp1, q, qo = 0, 1, 0, 1
     for t in reversed(range(nt)):
         row = tape_p[t - 2] if t >= 2 else None
-        pk.copy_(pp)
-        kst.recon_step(grid, c2, pk[p_t], pk[p_tp1], lap_k, w, t, si, row)
-        plain("recon_step", kst.recon_step_plain, grid, c2, pp[p_t], pp[p_tp1], lap_p, w, t,
-              si, row)
+        held.call("recon_step",
+                  lambda: kst.recon_step(grid, c2, pk[p_t], pk[p_tp1], lap_k, w, t, si, row),
+                  lambda: kst.recon_step_plain(grid, c2, pp[p_t], pp[p_tp1], lap_p, w, t, si,
+                                               row),
+                  ((pk, pp),))
         errs["recon"].add(pk[p_tp1], pp[p_tp1])
         errs["lapw"].add(lap_k, lap_p)
-        qk.copy_(qp)
-        ak.copy_(ap)
-        gk.copy_(gp)
-        kst.fused_adjoint_step(grid, c2, prof, qk[q], qk[qo], ak, lap_p, gk, ybar, t, si, ri,
-                               lsk, chain, init_chain=t == nt - 1)
-        plain("fused_adjoint_step", kst.fused_adjoint_step_plain, grid, c2, prof, qp[q], qp[qo],
-              ap, lap_p, gp, ybar, t, si, ri, lsp)
+        held.call("fused_adjoint_step",
+                  lambda: kst.fused_adjoint_step(grid, c2, prof, qk[q], qk[qo], ak, lap_p, gk,
+                                                 ybar, t, si, ri, lsk, chain,
+                                                 init_chain=t == nt - 1),
+                  lambda: kst.fused_adjoint_step_plain(grid, c2, prof, qp[q], qp[qo], ap, lap_p,
+                                                       gp, ybar, t, si, ri, lsp),
+                  ((qk, qp), (ak, ap), (gk, gp)))
         errs["adjoint"].add(qk, qp)
         errs["adjoint"].add(ak[[1, 3, 5, 7]], ap[[1, 3, 5, 7]])
         errs["gbar"].add(gk, gp)
         p_t, p_tp1, q, qo = p_tp1, p_t, qo, q
     errs["lam_src"].add(lsk, lsp)
-    torch.cuda.synchronize()
-    plain_ms = {k: sum(a.elapsed_time(b) for a, b in ev) / len(ev) for k, ev in plain_ev.items()}
+    plain_ms = held.plain_ms()
     rel = {k: e.rel() for k, e in errs.items()}
     abs_err = {"fused_forward_step": errs["seis"].abs(), "recon_step": errs["recon"].abs(),
                "fused_adjoint_step": errs["gbar"].abs()}
@@ -498,9 +594,8 @@ def step_kernels_vs_plain(args, w, si, ri, nt):
 
 
 def time_step_kernels(args, w, si, ri, nt, final):
-    """Kernel-only loops of kernels 4, 5 and 6 at nt steps: ms per call on
-    the card (host-bound where the Python call outlasts the kernels), and
-    the host's own time per call (enqueue rate)."""
+    """time_loops of kernels 4, 5 and 6 over nt steps from the plain run's
+    last state."""
     _, kst = kernel_modules()
     grid, c2, prof = args
     dev, R = c2.device, grid.radius
@@ -512,16 +607,16 @@ def time_step_kernels(args, w, si, ri, nt, final):
     seis = torch.zeros((nt, ri.shape[0]), device=dev)
     rows = torch.zeros_like(tape)
 
-    def fwd():
-        for t in range(nt):
+    def fwd(m=nt):
+        for t in range(m):
             kst.fused_forward_step(grid, c2, prof, f[(t + 1) % 2], f[t % 2], cpml, w, t, si, ri,
                                    seis, rows[t])
 
     lapw = torch.zeros((NZ, NX), device=dev)
     p = torch.stack([ppen, plast])
 
-    def recon():
-        for t in reversed(range(nt)):
+    def recon(m=nt):
+        for t in reversed(range(nt - m, nt)):
             kst.recon_step(grid, c2, p[(nt - 1 - t) % 2], p[(nt - t) % 2], lapw, w, t, si,
                            tape[t - 2] if t >= 2 else None)
 
@@ -532,23 +627,17 @@ def time_step_kernels(args, w, si, ri, nt, final):
     chain = torch.empty(2 * ri.shape[0], dtype=torch.int32, device=dev)
     ybar = torch.randn((nt, ri.shape[0]), device=dev)
 
-    def adjoint():
-        for t in reversed(range(nt)):
+    def adjoint(m=nt):
+        for t in reversed(range(nt - m, nt)):
             kst.fused_adjoint_step(grid, c2, prof, q[(nt - 1 - t) % 2], q[(nt - t) % 2], adj,
                                    lapw, gacc, ybar, t, si, ri, lam, chain,
                                    init_chain=t == nt - 1)
 
-    out = {}
-    for name, fn in (("fused_forward_step", fwd), ("recon_step", recon),
-                     ("fused_adjoint_step", adjoint)):
-        ms, _ = timed_ms(fn)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        fn()
-        host_ms = 1e3 * (time.perf_counter() - t0) / nt
-        torch.cuda.synchronize()
-        out[name] = (ms / nt, host_ms)
-    return out
+    pattern = r"::((?:fwd|rev|rec|ring)_\w+?)[<(]"
+    return time_loops(lambda m: {
+        name: (lambda fn=fn: fn(m), m, pattern)
+        for name, fn in (("fused_forward_step", fwd), ("recon_step", recon),
+                         ("fused_adjoint_step", adjoint))}, nt)
 
 
 def phase_kernels(dev, smi, nz=351, nx=1701, nt=NT_CHECK, quiet=False):
@@ -607,7 +696,7 @@ def phase_kernels(dev, smi, nz=351, nx=1701, nt=NT_CHECK, quiet=False):
     errs["step"] = step_rel
     step_ms = time_step_kernels(args, w, si, ri, nt, final)
     for name in ("fused_forward_step", "recon_step", "fused_adjoint_step"):
-        entries.append(entry(name, step_abs[name], step_ms[name][0], step_plain_ms[name],
+        entries.append(entry(name, step_abs[name], step_ms[name][1], step_plain_ms[name],
                              counts[name], nt))
 
     if quiet:
@@ -619,8 +708,10 @@ def phase_kernels(dev, smi, nz=351, nx=1701, nt=NT_CHECK, quiet=False):
               f"{e['bound_ms']:.5f} by {e['bound_by']})", flush=True)
     print(f"[kernels]   scanres_forward with the ring tape: {rf_ms / nt:.5f} "
           f"({plain_rf_ms / nt:.4f}; {rings_bound[0]:.5f} by {rings_bound[1]})", flush=True)
-    for name, (ms, host_ms) in step_ms.items():
-        print(f"[kernels]   {name}: host time per call {host_ms:.5f} ms", flush=True)
+    for name, (_, _, host_ms, dev_us, _) in step_ms.items():
+        dev_ms = "not measured" if dev_us is None else f"{dev_us / 1e3:.5f} ms"
+        print(f"[kernels]   {name}: host time per call {host_ms:.5f} ms, device time per call "
+              f"(torch.profiler) {dev_ms}", flush=True)
     print(f"[kernels] rel err {json.dumps(errs)}; snapshot max err {snap_err:.3e} vs 1 bf16 "
           f"ulp {snap_ulp:.3e}", flush=True)
     for group in errs.values():
@@ -629,6 +720,268 @@ def phase_kernels(dev, smi, nz=351, nx=1701, nt=NT_CHECK, quiet=False):
                 fail(f"{name} disagrees with the plain version: {err:.3e} > {TOL[name]:.0e}")
     if not snap_err <= snap_ulp:
         fail(f"snapshot tape disagrees with the plain version: {snap_err:.3e} > {snap_ulp:.3e}")
+    return entries
+
+
+def kstep_kernels_vs_plain(args, w, si, ri, nt, K=K_CHECK):
+    """Rows 20, 21 and 7 against their plain versions over nt steps: the
+    K-step forward and reverse in calls of K steps (the last the nt mod K
+    that remain), the merged reverse step step by step, and 8 leapfrog
+    calls (with Lap(p) on every other one); before each call the kernel's
+    state is set to the plain one's, so each kernel is held on its own,
+    and the plain state carries on. The reverses start from the plain
+    forward's last fields and take its ring tape and seismogram. Returns
+    ({kernel: {output: rel err}}, {kernel: max abs err}, {kernel: plain ms
+    per call}, (ring tape, P_{nt-2}, P_{nt-1}) of the plain run)."""
+    ks, kst = kernel_modules()
+    kk = kstep_module()
+    grid, c2, prof = args
+    dev, R = c2.device, grid.radius
+    NZ, NX = grid.padded_shape
+    halo = (NZ + 2 * R, NX + 2 * R)
+    n_ring = ks.ring_plan(grid, dev)[0].shape[0]
+    z = lambda *s: torch.zeros(s, dtype=torch.float32, device=dev)  # noqa: E731
+    groups = {"kstep_forward": ("fields", "seis", "rings"),
+              "kstep_reverse": ("recon", "adjoint", "gbar", "lam_src"),
+              "fused_reverse_step": ("recon", "adjoint", "gbar", "lam_src"),
+              "leapfrog": ("fields", "lapw")}
+    errs = {k: {g: _Err(dev) for g in gs} for k, gs in groups.items()}
+    held = _Held(groups)
+
+    # forward: row 20f
+    e = errs["kstep_forward"]
+    fp, fk, cp, ck = z(2, *halo), z(2, *halo), z(4, *halo), z(4, *halo)
+    seis_p, seis_k = z(nt, ri.shape[0]), z(nt, ri.shape[0])
+    tape_p, tape_k = z(nt, n_ring), z(nt, n_ring)
+    cur, prev = 1, 0
+    for t0 in range(0, nt, K):
+        k = min(K, nt - t0)
+        held.call("kstep_forward",
+                  lambda: kk.kstep_forward(grid, c2, prof, fk[cur], fk[prev], ck, w, t0, k, si,
+                                           ri, seis_k, tape_k),
+                  lambda: kk.kstep_forward_plain(grid, c2, prof, fp[cur], fp[prev], cp, w, t0, k,
+                                                 si, ri, seis_p, tape_p),
+                  ((fk, fp), (ck, cp)))
+        e["fields"].add(fk, fp)
+        e["fields"].add(ck, cp)
+        if k % 2:
+            cur, prev = prev, cur
+    e["seis"].add(seis_k, seis_p)
+    e["rings"].add(tape_k, tape_p)
+    final = (tape_p, fp[prev].clone(), fp[cur].clone())
+
+    # reverses: rows 20r and 21
+    ybar = seis_p.contiguous()
+    chain = torch.empty(2 * ri.shape[0], dtype=torch.int32, device=dev)
+    for name in ("kstep_reverse", "fused_reverse_step"):
+        e = errs[name]
+        pp, pk = torch.stack([fp[prev], fp[cur]]), z(2, *halo)  # P_{t-1}, P_t
+        qp, qk = z(2, *halo), z(2, *halo)
+        ap, ak = z(kst.ADJ_PLANES, *halo), z(kst.ADJ_PLANES, *halo)
+        gp, gk = z(NZ, NX), z(NZ, NX)
+        lsp, lsk = z(nt, si.shape[0]), z(nt, si.shape[0])
+        p_t, p_tp1, q, qo = 0, 1, 0, 1
+        top = nt
+        while top > 0:
+            k = min(K, top) if name == "kstep_reverse" else 1
+            t0 = top - k
+            state = (pk[p_t], pk[p_tp1], qk[q], qk[qo], ak, gk)
+            pstate = (pp[p_t], pp[p_tp1], qp[q], qp[qo], ap, gp)
+            copies = ((pk, pp), (qk, qp), (ak, ap), (gk, gp))
+            if name == "kstep_reverse":
+                held.call(name,
+                          lambda: kk.kstep_reverse(grid, c2, prof, *state, w, ybar, t0, k, si, ri,
+                                                   lsk, tape_p, chain, init_chain=top == nt),
+                          lambda: kk.kstep_reverse_plain(grid, c2, prof, *pstate, w, ybar, t0, k,
+                                                         si, ri, lsp, tape_p),
+                          copies)
+            else:
+                row = tape_p[t0 - 2] if t0 >= 2 else None
+                held.call(name,
+                          lambda: kst.fused_reverse_step(grid, c2, prof, *state, w, ybar, t0, si,
+                                                         ri, lsk, row, chain,
+                                                         init_chain=top == nt),
+                          lambda: kst.fused_reverse_step_plain(grid, c2, prof, *pstate, w, ybar,
+                                                               t0, si, ri, lsp, row),
+                          copies)
+            e["recon"].add(pk, pp)
+            e["adjoint"].add(qk, qp)
+            e["adjoint"].add(ak[[1, 3, 5, 7]], ap[[1, 3, 5, 7]])
+            e["gbar"].add(gk, gp)
+            if k % 2:
+                p_t, p_tp1, q, qo = p_tp1, p_t, qo, q
+            top = t0
+        e["lam_src"].add(lsk, lsp)
+
+    # row 7: the bare leapfrog from the last two fields
+    e = errs["leapfrog"]
+    lp, lk = torch.stack([fp[prev], fp[cur]]), z(2, *halo)
+    lap_p, lap_k = z(NZ, NX), z(NZ, NX)
+    a, b = 1, 0
+    for i in range(8):
+        with_lap = i % 2 == 0
+        held.call("leapfrog",
+                  lambda: kst.leapfrog(grid, c2, lk[a], lk[b], lap_k if with_lap else None),
+                  lambda: kst.leapfrog_plain(grid, c2, lp[a], lp[b], lap_p if with_lap else None),
+                  ((lk, lp),))
+        e["fields"].add(lk, lp)
+        if with_lap:
+            e["lapw"].add(lap_k, lap_p)
+        a, b = b, a
+    plain_ms = held.plain_ms()
+    rel = {k: {g: err.rel() for g, err in gs.items()} for k, gs in errs.items()}
+    abs_err = {"kstep_forward": errs["kstep_forward"]["seis"].abs(),
+               "kstep_reverse": errs["kstep_reverse"]["gbar"].abs(),
+               "fused_reverse_step": errs["fused_reverse_step"]["gbar"].abs(),
+               "leapfrog": errs["leapfrog"]["fields"].abs()}
+    return rel, abs_err, plain_ms, final
+
+
+def time_kstep_kernels(args, w, si, ri, nt, final, K=K_CHECK):
+    """time_loops of rows 20, 21 and 7 over nt steps from the plain run's
+    last state."""
+    _, kst = kernel_modules()
+    kk = kstep_module()
+    grid, c2, prof = args
+    dev, R = c2.device, grid.radius
+    NZ, NX = grid.padded_shape
+    halo = (NZ + 2 * R, NX + 2 * R)
+    tape, ppen, plast = final
+    f = torch.zeros((2, *halo), device=dev)
+    cpml = torch.zeros((4, *halo), device=dev)
+    seis = torch.zeros((nt, ri.shape[0]), device=dev)
+    rows = torch.zeros_like(tape)
+    p = torch.stack([ppen, plast])
+    q = torch.zeros((2, *halo), device=dev)
+    adj = torch.zeros((kst.ADJ_PLANES, *halo), device=dev)
+    gacc = torch.zeros((NZ, NX), device=dev)
+    lam = torch.zeros((nt, si.shape[0]), device=dev)
+    chain = torch.empty(2 * ri.shape[0], dtype=torch.int32, device=dev)
+    ybar = torch.randn((nt, ri.shape[0]), device=dev)
+    lapw = torch.zeros((NZ, NX), device=dev)
+    kst.fused_reverse_step(grid, c2, prof, p[0], p[1], q[0], q[1], adj, gacc, w, ybar, nt - 1,
+                           si, ri, lam, None, chain, init_chain=True)
+
+    def loops(m):
+        """Each kernel's loop over m steps (with the state's role swaps)."""
+
+        def fwd():
+            for t0 in range(0, m, K):
+                k = min(K, m - t0)
+                kk.kstep_forward(grid, c2, prof, f[1], f[0], cpml, w, t0, k, si, ri, seis, rows)
+
+        def rev():
+            for top in range(m, 0, -K):
+                k = min(K, top)
+                kk.kstep_reverse(grid, c2, prof, p[0], p[1], q[0], q[1], adj, gacc, w, ybar,
+                                 top - k, k, si, ri, lam, tape, chain)
+
+        def merged():
+            for t in reversed(range(m)):
+                kst.fused_reverse_step(grid, c2, prof, p[t % 2], p[1 - t % 2], q[t % 2],
+                                       q[1 - t % 2], adj, gacc, w, ybar, t, si, ri, lam,
+                                       tape[t - 2] if t >= 2 else None, chain)
+
+        def leap():
+            for t in range(m):
+                kst.leapfrog(grid, c2, f[t % 2], f[1 - t % 2], lapw)
+
+        return {"kstep_forward": (fwd, -(-m // K), r"::(kstep_\w+?)[<(]"),
+                "kstep_reverse": (rev, -(-m // K), r"::(kstep_\w+?)[<(]"),
+                "fused_reverse_step": (merged, m, r"::(kstep_\w+?)[<(]"),
+                "leapfrog": (leap, m, r"::(rec_cells)[<(]")}
+
+    return time_loops(loops, nt)
+
+
+def leapfrog_run(args, final, nt):
+    """Row 7 driven on its own, the one route the reference has to it (a
+    kernel function of its module): nt bare leapfrog steps from the plain
+    forward's last two fields, Lap(p) written at each, with the counter
+    set to 0 just before and read just after. Returns the launches."""
+    _, kst = kernel_modules()
+    grid, c2, _ = args
+    _, ppen, plast = final
+    f = torch.stack([ppen, plast])  # P_{t-1}, P_t
+    lapw = torch.zeros(grid.padded_shape, device=c2.device)
+    kst.leapfrog.launches = 0
+    for t in range(nt):
+        kst.leapfrog(grid, c2, f[(t + 1) % 2], f[t % 2], lapw)
+    launches = kst.leapfrog.launches
+    print(f"[kstep kernels] leapfrog run: {nt} steps from the last two fields, {launches} "
+          "launches", flush=True)
+    if not (bool(torch.isfinite(f).all()) and bool(torch.isfinite(lapw).all())):
+        fail("the leapfrog run's fields are not finite")
+    return launches
+
+
+def phase_kstep_kernels(dev, smi, nt=NT_CHECK, nt_fs=128, quiet=False):
+    """kstep_forward, kstep_reverse (K = 4), fused_reverse_step and
+    leapfrog against their plain versions at the main path's grid, one
+    shot, nt steps, and with the free surface at nt_fs; then their times."""
+    if not quiet:  # first-use costs out of the timings
+        phase_kstep_kernels(dev, smi, nt=8, nt_fs=8, quiet=True)
+    ks, _ = kernel_modules()
+    args, w, si, ri, _ = one_shot(dev, nt=nt)
+    rel, abs_err, plain_ms, final = kstep_kernels_vs_plain(args, w, si, ri, nt)
+    fs_args, fs_w, fs_si, fs_ri, _ = one_shot(dev, nt=nt_fs, free_surface=True)
+    rel_fs, _, _, _ = kstep_kernels_vs_plain(fs_args, fs_w, fs_si, fs_ri, nt_fs)
+    times = time_kstep_kernels(args, w, si, ri, nt, final)
+    grid = args[0]
+    # the same steps as ordinary launches: the whole-scan kernels' device
+    # time per step (no launch gaps) against the K-step kernels'
+    m = min(64, nt)
+    wp = w[:m].contiguous()
+    seis_m, tape_m, pen_m, last_m = ks.scanres_forward(*args, wp, si, ri, tape="rings")
+    scan_us = {
+        "forward": device_us_per_step(
+            lambda: ks.scanres_forward(*args, wp, si, ri, tape="rings"), m,
+            r"::((?:fwd|ring)_\w+?)[<(]"),
+        "reverse": device_us_per_step(
+            lambda: ks.scanres_reverse(*args, wp, seis_m.contiguous(), tape_m, pen_m, last_m,
+                                       si, ri), m, r"::((?:rev|rec)_\w+?)[<(]"),
+    }
+    counts = step_counts(grid, ri.shape[0], si.shape[0], ks.ring_plan(grid, dev)[0].shape[0])
+    steps = {"kstep_forward": K_CHECK, "kstep_reverse": K_CHECK, "fused_reverse_step": 1,
+             "leapfrog": 1}  # steps per call
+    entries = []
+    for name, k in steps.items():
+        # ms per step; the bound spreads a call's state over its k steps
+        entries.append(entry(name, abs_err[name], times[name][1] / k, plain_ms[name] / k,
+                             counts[name], k))
+    if quiet:
+        return entries
+    leapfrog_launches = leapfrog_run(args, final, nt)
+    for e in entries:
+        if e["name"] == "leapfrog":
+            e.update(route=LEAPFROG_ROUTE, launches=leapfrog_launches)
+    NZ, NX = grid.padded_shape
+    print(f"[kstep kernels] {smi}: grid {NZ}x{NX} nt {nt}, K {K_CHECK}: ms per call, kernel by "
+          "CUDA events (per step; host per call; device per call by torch.profiler; plain per "
+          "call; bound per step):", flush=True)
+    for e in entries:
+        calls, ms, host_ms, dev_us, rows = times[e["name"]]
+        k = steps[e["name"]]
+        dev_ms = "not measured" if dev_us is None else f"{dev_us / 1e3:.5f}"
+        print(f"[kstep kernels]   {e['name']}: {ms:.5f} ({e['ms']:.5f}; {host_ms:.5f}; {dev_ms}; "
+              f"{plain_ms[e['name']]:.4f}; {e['bound_ms']:.5f} by {e['bound_by']}), {calls} "
+              "calls; device us per call: " + ", ".join(f"{n} {us:.2f}" for n, us in rows),
+              flush=True)
+    per_step = {d: sum(us for _, us in rows) for d, rows in scan_us.items()}
+    coop = {"forward": times["kstep_forward"][3], "reverse": times["kstep_reverse"][3]}
+    print("[kstep kernels] device us per step, cooperative K-step kernel against the same steps "
+          "as ordinary launches (whole-scan kernels, torch.profiler, no launch gaps): " + "; ".join(
+              f"{d} {'not measured' if coop[d] is None else f'{coop[d] / K_CHECK:.2f}'} against "
+              f"{per_step[d]:.2f} (" + ", ".join(f"{n} {us:.2f}" for n, us in scan_us[d]) + ")"
+              for d in ("forward", "reverse")), flush=True)
+    print(f"[kstep kernels] rel err {json.dumps(rel)}; free surface nt {nt_fs} "
+          f"{json.dumps(rel_fs)}; tolerances {json.dumps(TOL)}", flush=True)
+    for group in (rel, rel_fs):
+        for name, errs in group.items():
+            for out, err in errs.items():
+                if not err <= TOL[out]:
+                    fail(f"{name} {out} disagrees with the plain version: {err:.3e} > "
+                         f"{TOL[out]:.0e}")
     return entries
 
 
@@ -675,9 +1028,10 @@ def _value_and_grad(prop, vp, geom, w, d):
 
 
 def phase_gradients(dev, smi):
-    """One shot's gradient through the three CUDA engines at nt = 4842,
-    against each other on the valid region, and the rings reverse's
-    reconstruction error."""
+    """One shot's gradient through the CUDA engines at nt = 4842, against
+    each other on the valid region (cuda_kstep and the merged cuda_step
+    against the split cuda_step, with bitwise equality reported), and the
+    rings reverse's reconstruction error."""
     ks, _ = kernel_modules()
     from tpufwi_torch.acquisition import Geometry
     from tpufwi_torch.propagators.acoustic2d import AcousticPropagator
@@ -691,7 +1045,9 @@ def phase_gradients(dev, smi):
     vp0 = torch.nn.functional.avg_pool2d(vp_true[None, None], 9, 1, 4,
                                          count_include_pad=False)[0, 0].contiguous()
     props = {impl: AcousticPropagator(grid, dt, f0, c_max, impl=impl, device=dev)
-             for impl in ("cuda_scansnap", "cuda_scanres", "cuda_step")}
+             for impl in ("cuda_scansnap", "cuda_scanres", "cuda_step", "cuda_kstep")}
+    props["cuda_step merged"] = AcousticPropagator(grid, dt, f0, c_max, impl="cuda_step",
+                                                   merged_reverse=True, device=dev)
     with torch.no_grad():
         d = props["cuda_scanres"](vp_true, geom, w)
     out = {}
@@ -702,6 +1058,12 @@ def phase_gradients(dev, smi):
     err_snap = rel_err(g["cuda_scanres"], g["cuda_scansnap"])
     err_step = rel_err(g["cuda_step"], g["cuda_scanres"])
     J_err = abs(out["cuda_step"][0] - out["cuda_scanres"][0]) / max(out["cuda_scanres"][0], 1e-30)
+    # against the split single-step engine: (gradient, J, bitwise equal)
+    vs_step = {k: (rel_err(g[k], g["cuda_step"]),
+                   abs(out[k][0] - out["cuda_step"][0]) / max(out["cuda_step"][0], 1e-30),
+                   bool(torch.equal(out[k][1], out["cuda_step"][1]))
+                   and out[k][0] == out["cuda_step"][0])
+               for k in ("cuda_kstep", "cuda_step merged")}
     seis, tape, ppen, plast = ks.scanres_forward(*args, w, si, ri, tape="rings")
     _, _, p_first = ks.scanres_reverse(*args, w, seis, tape, ppen, plast, si, ri,
                                        return_field=True)
@@ -715,6 +1077,9 @@ def phase_gradients(dev, smi):
           f"(bound {SNAP_GTOL:.0e}), cuda_step vs cuda_scanres {err_step:.3e} (bound "
           f"{STEP_GTOL:.0e}), J {J_err:.3e}; cuda_step costs {1e3 * step_extra:.4f} ms more per "
           f"step call than cuda_scanres", flush=True)
+    print("[gradients] against cuda_step (split), valid region: " + ", ".join(
+        f"{k} gradient {e:.3e}, J {j:.3e} (bound {STEP_GTOL:.0e}), bitwise equal {b}"
+        for k, (e, j, b) in vs_step.items()), flush=True)
     print(f"[gradients] reconstruction at t = 0: max |P_-1| on the valid region "
           f"{recon_abs:.3e} (exact 0), {recon_rel:.3e} of max |P_nt-1|", flush=True)
     if not all(bool(torch.isfinite(v[1]).all()) for v in out.values()):
@@ -724,6 +1089,9 @@ def phase_gradients(dev, smi):
     if not (err_step <= STEP_GTOL and J_err <= STEP_GTOL):
         fail(f"cuda_step vs cuda_scanres gradient {err_step:.3e} or J {J_err:.3e} "
              f"> {STEP_GTOL:.0e}")
+    for k, (e, j, _) in vs_step.items():
+        if not (e <= STEP_GTOL and j <= STEP_GTOL):
+            fail(f"{k} vs cuda_step gradient {e:.3e} or J {j:.3e} > {STEP_GTOL:.0e}")
 
 
 def phase_over_budget(dev, smi):
@@ -755,6 +1123,28 @@ def phase_over_budget(dev, smi):
         fail("the over-budget gradient is not finite and nonzero")
 
 
+def drive_merged(cfg, device):
+    """invert() on the CLI's synthetic problem with its propagator replaced
+    by AcousticPropagator(impl="cuda_step", merged_reverse=True); the
+    observed data come first, on the split engine. Returns (vp, the
+    inversion's wall seconds)."""
+    from tpufwi_torch import invert
+    from tpufwi_torch.io import marmousi_like
+    from tpufwi_torch.propagators.acoustic2d import AcousticPropagator
+
+    vp_true, dx = marmousi_like(nz=cfg.model.nz, nx=cfg.model.nx, dx=cfg.model.dx)
+    problem, vp0 = invert.build_synthetic_problem(cfg, vp_true, dx, device=device)
+    prop = problem.prop
+    problem.prop = AcousticPropagator(prop.grid, prop.dt, prop.f0, prop.c_max,
+                                      impl="cuda_step", merged_reverse=True, device=device)
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    vp = invert.invert(problem, vp0, cfg)
+    torch.cuda.synchronize()
+    return vp, time.perf_counter() - t0
+
+
 def phase_main(smi, path, device="cuda"):
     from tpufwi_torch import invert
     from tpufwi_torch.config import FwiConfig
@@ -766,11 +1156,15 @@ def phase_main(smi, path, device="cuda"):
     if os.path.exists(os.path.join(run_dir, "log.jsonl")):
         os.remove(os.path.join(run_dir, "log.jsonl"))
     torch.cuda.reset_peak_memory_stats()
-    reset_launches()
-    t0 = time.perf_counter()
-    vp = invert.main(["--device", device, f"run_dir={run_dir}", *overrides])
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    if spec.get("merged_reverse"):
+        cfg = FwiConfig().with_overrides([*overrides, f"run_dir={run_dir}"])
+        vp, wall = drive_merged(cfg, device)
+    else:
+        reset_launches()
+        t0 = time.perf_counter()
+        vp = invert.main(["--device", device, f"run_dir={run_dir}", *overrides])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
     launches = read_launches()
     peak = torch.cuda.max_memory_allocated()
 
@@ -784,10 +1178,12 @@ def phase_main(smi, path, device="cuda"):
     dt = Grid(shape=shape, h=cfg.model.dx, order=cfg.prop.order).cfl_dt(
         cfg.opt.vmax, cfg.prop.cfl_safety)
     nt = int(cfg.acq.t_max / dt)
-    # forward evaluations: observed data, then per stage the first
-    # value-and-grad and per iteration the line-search trials + one
-    # value-and-grad (a retried line search adds uncounted trials)
-    fwd_min = n_shots * (1 + len(cfg.stages) + sum(r["evals"] for r in its))
+    # forward evaluations: observed data (unless made before the reset),
+    # then per stage the first value-and-grad and per iteration the
+    # line-search trials + one value-and-grad (a retried line search adds
+    # uncounted trials)
+    observed = 0 if spec.get("merged_reverse") else 1
+    fwd_min = n_shots * (observed + len(cfg.stages) + sum(r["evals"] for r in its))
     rev = n_shots * (len(cfg.stages) + len(its))
     mine = {k: launches[k] for k in spec["kernels"]}
     print(f"[main {path}] {smi}: {wall:.1f} s total, peak memory {peak / 2**30:.2f} GiB, "
@@ -1045,7 +1441,7 @@ def estep_kernels_vs_plain(args, w, si, ri, nt, source_type, record):
     nrec, nsrc = ri.shape[0], si.shape[0]
     n = kernel_modules()[0].ring_plan(grid, dev)[0].shape[0]
     errs = {k: [] for k in ESTEP_TOL}
-    plain_ev = {k: [] for k in ESTEP_NAMES}
+    held = _Held(ESTEP_NAMES)
 
     def add(group, got, ref, scales=None):
         """Running errors of each plane (along dim 0) of got."""
@@ -1054,28 +1450,22 @@ def estep_kernels_vs_plain(args, w, si, ri, nt, source_type, record):
         for k in range(got.shape[0]):
             errs[group][k].add(got[k], ref[k], None if scales is None else scales[k])
 
-    def plain(name, fn, *a):
-        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        e0.record()
-        fn(*a)
-        e1.record()
-        plain_ev[name].append((e0, e1))
-
     z = lambda *s: torch.zeros(s, dtype=torch.float32, device=dev)  # noqa: E731
     sp, sk = (kes.zero_elastic_step_state(grid, device=dev) for _ in range(2))
     shape = (nt, nrec, 2) if record == "v" else (nt, nrec)
     seis_p, seis_k = z(*shape), z(*shape)
     tape_p, tape_k = z(nt, 5 * n), z(nt, 5 * n)
     for t in range(nt):
-        kes.copy_into(sk, sp)
-        kes.estep_v(grid, dt, mats, prof, sk)
-        plain("estep_v", kes.estep_v_plain, grid, dt, mats, prof, sp)
+        held.call("estep_v", lambda: kes.estep_v(grid, dt, mats, prof, sk),
+                  lambda: kes.estep_v_plain(grid, dt, mats, prof, sp), zip(sk, sp))
         add("fields_v", sk.fields[:2], sp.fields[:2])
         add("mem_v", sk.mem[:4], sp.mem[:4])
-        kes.copy_into(sk, sp)
-        kes.estep_s(grid, dt, mats, prof, sk, w, t, si, ri, seis_k, tape_k[t], *kind)
-        plain("estep_s", kes.estep_s_plain, grid, dt, mats, prof, sp, w, t, si, ri, seis_p,
-              tape_p[t], *kind)
+        held.call("estep_s",
+                  lambda: kes.estep_s(grid, dt, mats, prof, sk, w, t, si, ri, seis_k, tape_k[t],
+                                      *kind),
+                  lambda: kes.estep_s_plain(grid, dt, mats, prof, sp, w, t, si, ri, seis_p,
+                                            tape_p[t], *kind),
+                  zip(sk, sp))
         add("fields_s", sk.fields, sp.fields)
         add("mem_s", sk.mem[4:], sp.mem[4:])
         scales = sp.fields.abs().amax((1, 2))
@@ -1089,40 +1479,35 @@ def estep_kernels_vs_plain(args, w, si, ri, nt, source_type, record):
     chain = torch.empty(2 * nrec, dtype=torch.int32, device=dev)
     for t in reversed(range(nt)):
         row = tape_p[t - 1] if t >= 1 else None
-        kes.copy_into(rk, rp)
-        kes.estep_rs(grid, dt, mats, prof, rk, w, ybar, t, si, ri, srcrow_k, row, *kind, chain,
-                     init_chain=t == nt - 1)
-        plain("estep_rs", kes.estep_rs_plain, grid, dt, mats, prof, rp, w, ybar, t, si, ri,
-              srcrow_p, row, *kind)
+        held.call("estep_rs",
+                  lambda: kes.estep_rs(grid, dt, mats, prof, rk, w, ybar, t, si, ri, srcrow_k,
+                                       row, *kind, chain, init_chain=t == nt - 1),
+                  lambda: kes.estep_rs_plain(grid, dt, mats, prof, rp, w, ybar, t, si, ri,
+                                             srcrow_p, row, *kind),
+                  zip(rk, rp))
         add("recon_s", rk.fields, rp.fields)
         add("cot_s", rk.cot, rp.cot)
         add("dual_s", rk.dual[:4], rp.dual[:4])
         add("grads_s", rk.grads[:3], rp.grads[:3])
-        kes.copy_into(rk, rp)
-        kes.estep_rv(grid, dt, mats, prof, rk, row)
-        plain("estep_rv", kes.estep_rv_plain, grid, dt, mats, prof, rp, row)
+        held.call("estep_rv", lambda: kes.estep_rv(grid, dt, mats, prof, rk, row),
+                  lambda: kes.estep_rv_plain(grid, dt, mats, prof, rp, row), zip(rk, rp))
         add("recon_v", rk.fields, rp.fields)
         add("cot_v", rk.cot, rp.cot)
         add("dual_v", rk.dual[4:], rp.dual[4:])
         add("grads_v", rk.grads[3:], rp.grads[3:])
     add("srcrow", srcrow_k[None], srcrow_p[None])
-    torch.cuda.synchronize()
+    plain_ms = held.plain_ms()
     rel = {g: max(e.rel() for e in es) for g, es in errs.items()}
     abs_err = {"estep_v": max(e.abs() for e in errs["fields_v"]),
                "estep_s": errs["seis"][0].abs(),
                "estep_rs": max(e.abs() for e in errs["grads_s"]),
                "estep_rv": max(e.abs() for e in errs["grads_v"])}
-    plain_ms = {k: sum(a.elapsed_time(b) for a, b in ev) / len(ev) for k, ev in plain_ev.items()}
     return rel, abs_err, plain_ms, (sp, tape_p, ybar)
 
 
-def time_estep_kernels(args, w, si, ri, nt, final, source_type, record, nt_prof=64):
-    """Kernel-only loops of each per-step kernel over nt calls from the
-    plain run's states: ms per call on the card (CUDA events; the host's
-    pace where the Python call outlasts the kernels), the host's own time
-    per call (enqueue rate), and the device's us per call summed over the
-    stage's CUDA kernels (torch.profiler, nt_prof calls; None when it sees
-    no device time)."""
+def time_estep_kernels(args, w, si, ri, nt, final, source_type, record):
+    """time_loops of each per-step kernel over nt calls from the plain
+    run's states."""
     kes = estep_module()
     grid, dt, mats, prof = args
     dev = mats[0].device
@@ -1140,29 +1525,20 @@ def time_estep_kernels(args, w, si, ri, nt, final, source_type, record, nt_prof=
                  init_chain=True)
 
     def loops(m):
+        pattern = r"::(e[fr]?_\w+?)[<(]"
         return {
-            "estep_v": lambda: [kes.estep_v(grid, dt, mats, prof, fwd) for _ in range(m)],
-            "estep_s": lambda: [kes.estep_s(grid, dt, mats, prof, fwd, w, t, si, ri, seis,
-                                            rows[t], *kind) for t in range(m)],
-            "estep_rs": lambda: [kes.estep_rs(grid, dt, mats, prof, rev, w, ybar, t, si, ri,
-                                              srcrow, tape[t], *kind, chain)
-                                 for t in reversed(range(m))],
-            "estep_rv": lambda: [kes.estep_rv(grid, dt, mats, prof, rev, tape[t])
-                                 for t in reversed(range(m))],
+            "estep_v": (lambda: [kes.estep_v(grid, dt, mats, prof, fwd) for _ in range(m)], m,
+                        pattern),
+            "estep_s": (lambda: [kes.estep_s(grid, dt, mats, prof, fwd, w, t, si, ri, seis,
+                                             rows[t], *kind) for t in range(m)], m, pattern),
+            "estep_rs": (lambda: [kes.estep_rs(grid, dt, mats, prof, rev, w, ybar, t, si, ri,
+                                               srcrow, tape[t], *kind, chain)
+                                  for t in reversed(range(m))], m, pattern),
+            "estep_rv": (lambda: [kes.estep_rv(grid, dt, mats, prof, rev, tape[t])
+                                  for t in reversed(range(m))], m, pattern),
         }
 
-    out = {}
-    for name, fn in loops(nt).items():
-        ms, _ = timed_ms(fn)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        fn()
-        host_ms = 1e3 * (time.perf_counter() - t0) / nt
-        torch.cuda.synchronize()
-        m = min(nt_prof, nt)
-        prof_rows = device_us_per_step(loops(m)[name], m, r"::(e[fr]?_\w+?)[<(]")
-        out[name] = (ms / nt, host_ms, sum(us for _, us in prof_rows) or None, prof_rows)
-    return out
+    return time_loops(loops, nt)
 
 
 def phase_estep_kernels(dev, smi, nt=NT_CHECK, nt_fs=128):
@@ -1178,13 +1554,13 @@ def phase_estep_kernels(dev, smi, nt=NT_CHECK, nt_fs=128):
     rel_fs, _, _, _ = estep_kernels_vs_plain(fs_args, fs_w, fs_si, fs_ri, nt_fs, "pressure", "p")
     counts = elastic_step_counts(args[0], 2 * ri.shape[0], si.shape[0],
                                  final[1].shape[1] // 5)
-    entries = [entry(name, abs_err[name], times[name][0], plain_ms[name], counts[name], nt)
+    entries = [entry(name, abs_err[name], times[name][1], plain_ms[name], counts[name], nt)
                for name in ESTEP_NAMES]
     print(f"[estep kernels] {smi}: grid {'x'.join(map(str, args[0].padded_shape))} order 8, "
           f"force_z / v, nt {nt}, ms per call, kernel by CUDA events (host per call; device "
           "per call by torch.profiler; plain; bound):", flush=True)
     for e in entries:
-        _, host_ms, dev_us, rows = times[e["name"]]
+        _, _, host_ms, dev_us, rows = times[e["name"]]
         dev_ms = "not measured" if dev_us is None else f"{dev_us / 1e3:.5f}"
         print(f"[estep kernels]   {e['name']}: {e['ms']:.5f} ({host_ms:.5f}; {dev_ms}; "
               f"{e['plain_ms']:.4f}; {e['bound_ms']:.5f} by {e['bound_by']}); device us: "
@@ -1736,6 +2112,7 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     phase_build()
     kernels = phase_kernels(dev, smi)
+    kernels += phase_kstep_kernels(dev, smi)  # leapfrog's launches with it
     phase_shot(dev, smi)
     phase_gradients(dev, smi)
     phase_over_budget(dev, smi)
@@ -1755,9 +2132,9 @@ def main() -> int:
     order = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
              "plain_ms", "bound_ms", "bound_by", "library_ms")
     for k in kernels:
-        k["launches"] = launches[k["name"]]
+        k.setdefault("launches", launches[k["name"]])
     if min(k["launches"] for k in kernels) <= 0:
-        fail("a kernel was launched on no main path")
+        fail("a kernel was launched on no main path (leapfrog: in no leapfrog run)")
     print(json.dumps({"kernels": [{key: k[key] for key in order} for k in kernels]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

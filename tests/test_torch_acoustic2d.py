@@ -185,7 +185,36 @@ def test_explicit_impl_checked_against_device():
     with pytest.raises(ValueError, match="on the CPU"):
         _prop(impl="eager", device="cuda")
     with pytest.raises(ValueError, match="unknown impl"):
-        _prop(impl="pallas")
+        _prop(impl="pallas_kstep")  # the reference names no K-step engine
+
+
+def test_reference_impl_names_select_counterparts():
+    """A reference config's prop.impl drives the port: each reference
+    engine name selects its counterpart and resolve_note says so; the
+    counterpart is then checked against the device as usual."""
+    from tpufwi_torch.propagators.elastic2d import ElasticPropagator
+
+    grid3 = Grid(shape=(12, 14, 16), h=(10.0, 10.0, 10.0), pml=4, order=4)
+    for name, impl in (("jnp", "eager"), ("pallas_scansnap", "cuda_scansnap"),
+                       ("pallas_scanres", "cuda_scanres"), ("pallas", "cuda_step"),
+                       ("pallas3d", "cuda3d"), ("pallas3d_bf16", "cuda3d_bf16")):
+        kw = dict(device="cpu" if impl == "eager" else "cuda")
+        prop = _prop(impl=name, grid=grid3 if "3d" in name else None, **kw)
+        assert prop.resolve_impl(nt=10) == prop.impl == impl
+        assert prop.resolve_note == f"{name} -> {impl}"
+    with pytest.raises(ValueError, match="on the CPU"):
+        _prop(impl="jnp", device="cuda")
+    with pytest.raises(ValueError, match="CUDA device"):
+        _prop(impl="pallas_scanres")
+    grid = Grid(shape=(40, 56), h=(10.0, 10.0), pml=10, order=8)
+    for name, impl in (("jnp", "eager"), ("pallas_scan", "cuda_escan"),
+                       ("pallas", "cuda_estep")):
+        prop = ElasticPropagator(grid, 5e-4, 12.0, 3000.0, impl=name,
+                                 device="cpu" if impl == "eager" else "cuda")
+        assert prop.resolve_impl(nt=10) == prop.impl == impl
+        assert prop.resolve_note == f"{name} -> {impl}"
+    with pytest.raises(ValueError, match="unknown elastic impl"):
+        ElasticPropagator(grid, 5e-4, 12.0, 3000.0, impl="pallas3d", device="cuda")
 
 
 def test_fwi_problem_pins_engine_and_python_loop():

@@ -1,5 +1,6 @@
-"""The CUDA kernels == their plain torch versions, on the card (2D acoustic,
-elastic whole-scan and per-step, and 3D acoustic).
+"""The CUDA kernels == their plain torch versions, on the card (2D acoustic
+whole-scan, single-step and K-step, elastic whole-scan and per-step, and 3D
+acoustic).
 
 Skips without a CUDA device. Imports no JAX, so it runs where only the
 port is installed: ``python -m pytest tests/test_torch_cuda.py -m cuda
@@ -142,6 +143,78 @@ def test_step_kernels_match_plain(device, order, nsrc, free_surface, dup, in_rin
     rel, _, _, _ = chip_smoke.step_kernels_vs_plain(args, w, *idx, w.shape[0])
     for name, err in rel.items():
         assert err <= chip_smoke.TOL[name], (name, err)
+
+
+# ------------------------------------------------------- K-step (20, 21, 7)
+
+
+@pytest.mark.parametrize("order,nsrc,free_surface,dup,in_ring,nt", [
+    (8, 1, False, False, False, 64), (8, 3, True, True, True, 63), (4, 2, False, True, True, 62),
+])
+def test_kstep_kernels_match_plain(device, order, nsrc, free_surface, dup, in_ring, nt):
+    """kstep_forward and kstep_reverse (K = 4; nt 63 and 62 end on a call of
+    3 and 2 steps), fused_reverse_step and leapfrog, each fed its plain
+    version's state, with chip_smoke.py's tolerances; the K-step wrappers
+    count steps, the others calls."""
+    args, w, idx = _case(device, order, nsrc, free_surface, dup, nt=nt, in_ring=in_ring)
+    names = ("kstep_forward", "kstep_reverse", "fused_reverse_step", "leapfrog")
+    before = [chip_smoke.wrapper(k).launches for k in names]
+    rel, _, _, _ = chip_smoke.kstep_kernels_vs_plain(args, w, *idx, nt)
+    torch.cuda.synchronize()
+    assert [chip_smoke.wrapper(k).launches - b for k, b in zip(names, before)] \
+        == [nt, nt, nt, 8]
+    for name, errs in rel.items():
+        for out, err in errs.items():
+            assert err <= chip_smoke.TOL[out], (name, out, err)
+
+
+@pytest.mark.parametrize("free_surface", [False, True])
+def test_kstep_and_merged_gradients_match_cuda_step(device, free_surface):
+    """cuda_kstep (K = 4 over nt = 150: a last call of 2 steps) and the
+    merged cuda_step against the split cuda_step: seismogram and the
+    gradients in c2 and the wavelet within chip_smoke.py's STEP_GTOL (the
+    same kernels in the same order: bitwise equality is expected)."""
+    from tpufwi_torch.adjoint_kstep import make_simulator_kstep
+    from tpufwi_torch.adjoint_step import make_simulator_step
+
+    (grid, c2, _), w, idx = _case(device, 8, 2, free_surface, True, nt=150, in_ring=True)
+    dt = grid.cfl_dt(2500.0, safety=0.7)
+    out = []
+    for sim in (make_simulator_step(grid, dt, 14.0, 2500.0),
+                make_simulator_step(grid, dt, 14.0, 2500.0, merged_reverse=True),
+                make_simulator_kstep(grid, dt, 14.0, 2500.0)):
+        args = [x.clone().requires_grad_(True) for x in (c2, w)]
+        seis = sim(*args, *idx)
+        out.append((seis.detach(), *torch.autograd.grad(0.5 * (seis**2).sum(), args)))
+    for got in out[1:]:
+        for a, b in zip(got, out[0]):
+            assert _rel(a, b) <= chip_smoke.STEP_GTOL
+
+
+def test_kstep_wrappers_raise_instead_of_falling_back(device):
+    from tpufwi_torch.kernels import acoustic2d_kstep as kk
+    from tpufwi_torch.kernels import acoustic2d_step as kst
+
+    (grid, c2, prof), w, (si, ri) = _case(device, 8, 1, False, False, nt=8)
+    R = grid.radius
+    NZ, NX = grid.padded_shape
+    z = lambda *s: torch.zeros(s, device=device)  # noqa: E731
+    f, cpml, q, adj = z(2, NZ + 2 * R, NX + 2 * R), z(4, NZ + 2 * R, NX + 2 * R), \
+        z(2, NZ + 2 * R, NX + 2 * R), z(kst.ADJ_PLANES, NZ + 2 * R, NX + 2 * R)
+    seis, gacc, lam = z(8, ri.shape[0]), z(NZ, NX), z(8, 1)
+    with pytest.raises(ValueError, match="outside"):
+        kk.kstep_forward(grid, c2, prof, f[1], f[0], cpml, w, 6, 4, si, ri, seis)
+    with pytest.raises(ValueError, match="tape"):
+        kk.kstep_forward(grid, c2, prof, f[1], f[0], cpml, w, 0, 4, si, ri, seis, z(8, 3))
+    with pytest.raises(ValueError, match="chain"):
+        kk.kstep_reverse(grid, c2, prof, f[0], f[1], q[0], q[1], adj, gacc, w, seis, 4, 4, si,
+                         ri, lam)
+    with pytest.raises(ValueError, match="ring_row"):
+        kst.fused_reverse_step(grid, c2, prof, f[0], f[1], q[0], q[1], adj, gacc, w, seis, 7,
+                               si, ri, lam, z(3), torch.zeros(2 * ri.shape[0], dtype=torch.int32,
+                                                             device=device))
+    with pytest.raises(ValueError, match="fp32"):
+        kst.leapfrog(grid, c2.double(), f[0], f[1])
 
 
 # ------------------------------------------------------------ elastic (8-9)

@@ -303,7 +303,7 @@ def test_unported_or_misplaced_engines_raise():
     with pytest.raises(ValueError, match="fp32 only"):
         _prop(device="cuda", dtype=torch.float64).forward_fused(None, None, None, None, None)
     with pytest.raises(ValueError, match="unknown elastic impl"):
-        _prop(impl="pallas_scan")
+        _prop(impl="pallas_scansnap")  # an acoustic engine of the reference
 
 
 def test_auto_raises_when_ring_tape_over_budget(monkeypatch):

@@ -188,3 +188,64 @@ def test_cli_main_without_card_raises(monkeypatch, tmp_path):
         tinv.main(["model.nz=40", "model.nx=64", f"run_dir={tmp_path}"])
     with pytest.raises(RuntimeError, match="--device cpu"):
         tinv.main(["--device", "cuda:0", "model.nz=40", "model.nx=64", f"run_dir={tmp_path}"])
+
+
+def test_shot_loop_auto_is_the_python_loop(tmp_path):
+    """The reference's default shot_loop="auto" resolves to the port's host
+    loop, with the same loss; the loops the port lacks still raise."""
+    import dataclasses
+
+    cfg = FwiConfig.from_json(_cfg_json("auto", str(tmp_path / "run")))
+    problem, vp0 = tinv.build_synthetic_problem(cfg, _vp_true(), dx=10.0, device="cpu")
+    losses = {}
+    for loop in ("auto", "python"):
+        p = dataclasses.replace(problem, shot_loop=loop)
+        assert p.shot_loop == "python"
+        losses[loop] = float(p.stage_objectives(8.0)[1](vp0))
+    assert losses["auto"] == losses["python"] > 0
+    for loop in ("map", "unroll"):
+        with pytest.raises(NotImplementedError, match=f"shot_loop='{loop}'"):
+            dataclasses.replace(problem, shot_loop=loop)
+    assert tinv.ElasticFwiProblem(prop=None, geoms=problem.geoms, d_obs=problem.d_obs,
+                                  wavelet=problem.wavelet, dt=problem.dt,
+                                  shot_loop="auto").shot_loop == "python"
+
+
+def test_invert_writes_stage_figures(tmp_path):
+    """As the reference's _invert_loop: figs/stageNN_vp.png after each stage
+    (save_snapshots), in the checkpoint's run_dir."""
+    pytest.importorskip("matplotlib")
+    cfg = FwiConfig.from_json(_cfg_json("auto", str(tmp_path / "run"), iterations=1))
+    cfg = cfg.with_overrides(['stages=[{"fmax": 6.0, "iterations": 1}, '
+                              '{"fmax": 8.0, "iterations": 1}]',
+                              "precond.use_illumination=false"])
+    problem, vp0 = tinv.build_synthetic_problem(cfg, _vp_true(), dx=10.0, device="cpu")
+    tinv.invert(problem, vp0, cfg)
+    figs = sorted(os.listdir(os.path.join(cfg.run_dir, "figs")))
+    assert figs == ["stage00_vp.png", "stage01_vp.png"]
+    tinv.save_snapshots(cfg.run_dir, 2, vp0, g=torch.zeros(3, 4, 5))  # 3D: skipped
+    assert sorted(os.listdir(os.path.join(cfg.run_dir, "figs"))) == figs + ["stage02_vp.png"]
+
+
+def test_synthetic_start_model_of_a_3d_survey_keeps_no_water_layer(monkeypatch):
+    """A 3D (y, z, x) model whose z=0 plane is water speed: the 2D water-
+    layer rule does not apply, so the start model is the smoothed truth in
+    every y-plane (the reference's vp_true.ndim == 2 guard)."""
+    from scipy.ndimage import gaussian_filter
+
+    from tpufwi_torch.acquisition import Geometry
+
+    def survey(grid, n_shots, src_z, rcv_z, rcv_dx=1, device="cuda"):  # one 3D shot
+        rcv = np.array([[y, rcv_z, x] for y in (2, 7) for x in range(0, 12, 3)])
+        return Geometry.stack([Geometry.from_physical(grid, np.array([[5, src_z, 6]]), rcv,
+                                                      device=device)])
+
+    monkeypatch.setattr(tinv, "split_spread_survey", survey)
+    cfg = FwiConfig().with_overrides(["acq.n_shots=1", "acq.t_max=0.02", "prop.order=4",
+                                      "prop.pml=4", "opt.vmin=1400", "opt.vmax=2600"])
+    vp = np.full((10, 10, 12), 2000.0)
+    vp[:, 0, :] = 1500.0
+    _, vp0 = tinv.build_synthetic_problem(cfg, vp, dx=10.0, device="cpu")
+    smooth = np.clip(gaussian_filter(vp, sigma=12.0), 1400, 2600)
+    assert np.allclose(vp0.numpy(), smooth)
+    assert not np.array_equal(vp0[0].numpy(), vp[0])

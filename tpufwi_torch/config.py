@@ -37,7 +37,9 @@ class PropCfg:
     dtype: str = "float32"
     # engine: 'auto' (CPU -> 'eager'; CUDA -> 'cuda_scansnap' when its tape
     # fits the card, else 'cuda_scanres'), 'eager', 'cuda_scansnap',
-    # 'cuda_scanres' or 'cuda_step' (tpufwi_torch.propagators.acoustic2d)
+    # 'cuda_scanres', 'cuda_step' or 'cuda_kstep', or a reference name
+    # ('jnp', 'pallas', ...), which selects its counterpart
+    # (tpufwi_torch.propagators.acoustic2d.REFERENCE_IMPLS)
     impl: str = "auto"
 
 

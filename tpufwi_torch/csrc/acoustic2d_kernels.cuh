@@ -1,7 +1,8 @@
 // Device code of the 2D acoustic engines for Hopper (sm_90a), shared by the
-// whole-scan host loops (acoustic2d_scanres.cu) and the single-step entry
-// points (acoustic2d_step.cu). Both translation units include it; every
-// kernel has internal linkage.
+// whole-scan host loops (acoustic2d_scanres.cu), the single-step entry
+// points (acoustic2d_step.cu) and the cooperative K-step kernels
+// (acoustic2d_kstep.cu). Each translation unit includes it; every kernel
+// has internal linkage.
 //
 // Semantics (the step twin, tpufwi_torch/kernels/acoustic2d_eager.py):
 //   per axis d:  phi_d' = b phi_d + a D1_d p ;  v_d = D2_d p + D1_d phi_d'
@@ -34,7 +35,8 @@
 //             R2 rev_strips   phi-bar ring -> y (needs D1 u and D1 w)
 //             R3 rev_cells2   one thread per cell: lambda_{t-1} =
 //                             2 lambda_t - lambda_{t+1} + D2 u + D2 w - D1 y
-//   reconstruction: C1 rec_cells (lapw and the leapfrog, in place, pin)
+//   reconstruction: C1 rec_cells (lapw and the leapfrog, in place, pin;
+//                      with the pin off, the bare leapfrog)
 //                   C2 rec_src_ring (sources outside the ring, then the
 //                      ring imposed from the tape row, or zeros)
 // Every transposed stencil is a gather with flipped taps (D1^T = -D1,
@@ -102,16 +104,24 @@ __device__ __forceinline__ float d2_lap(const float* __restrict__ p, int i, int 
   return d2z + d2x;
 }
 
+// The per-cell bodies are __device__ functions, so the ordinary kernels
+// below and the cooperative K-step kernels (acoustic2d_kstep.cu) run one
+// arithmetic per cell: the engines agree bitwise.
+
 // --------------------------------------------------------------- forward
 
+// F1 for strip cell idx of [0, 2 S NX + 2 NZ S): z strips, then x strips
 template <int R>
-__global__ void fwd_strips(const float* __restrict__ p, float* __restrict__ phiz,
-                           float* __restrict__ phix, const float* __restrict__ az,
-                           const float* __restrict__ bz, const float* __restrict__ ax,
-                           const float* __restrict__ bx, int NZ, int NX, int S, Taps tp) {
+__device__ __forceinline__ void fwd_strip_cell(const float* __restrict__ p,
+                                               float* __restrict__ phiz,
+                                               float* __restrict__ phix,
+                                               const float* __restrict__ az,
+                                               const float* __restrict__ bz,
+                                               const float* __restrict__ ax,
+                                               const float* __restrict__ bx, int idx, int NZ,
+                                               int NX, int S, const Taps& tp) {
   const int ld = NX + 2 * R;
   const int nz_cells = 2 * S * NX;
-  int idx = blockIdx.x * blockDim.x + threadIdx.x;
   if (idx < nz_cells) {
     const int side = idx / (S * NX);
     const int rem = idx - side * S * NX;
@@ -127,7 +137,6 @@ __global__ void fwd_strips(const float* __restrict__ p, float* __restrict__ phiz
     return;
   }
   idx -= nz_cells;
-  if (idx >= 2 * NZ * S) return;
   const int side = idx / (NZ * S);
   const int rem = idx - side * NZ * S;
   const int z = rem / S;
@@ -141,17 +150,16 @@ __global__ void fwd_strips(const float* __restrict__ p, float* __restrict__ phiz
   phix[i] = bx[s] * phix[i] + ax[s] * d1;
 }
 
+// F2 for cell (z, x)
 template <int R>
-__global__ void fwd_cells(const float* __restrict__ p, float* __restrict__ pnext,
-                          const float* __restrict__ phiz, float* __restrict__ psiz,
-                          const float* __restrict__ phix, float* __restrict__ psix,
-                          const float* __restrict__ c2, const float* __restrict__ az,
-                          const float* __restrict__ bz, const float* __restrict__ ax,
-                          const float* __restrict__ bx, __nv_bfloat16* __restrict__ tape_row,
-                          int NZ, int NX, int S, int fs, Taps tp) {
-  const int x = blockIdx.x * blockDim.x + threadIdx.x;
-  const int z = blockIdx.y * blockDim.y + threadIdx.y;
-  if (x >= NX || z >= NZ) return;
+__device__ __forceinline__ void fwd_cell(const float* __restrict__ p, float* __restrict__ pnext,
+                                         const float* __restrict__ phiz, float* __restrict__ psiz,
+                                         const float* __restrict__ phix, float* __restrict__ psix,
+                                         const float* __restrict__ c2, const float* __restrict__ az,
+                                         const float* __restrict__ bz, const float* __restrict__ ax,
+                                         const float* __restrict__ bx,
+                                         __nv_bfloat16* __restrict__ tape_row, int z, int x,
+                                         int NZ, int NX, int S, int fs, const Taps& tp) {
   const int ld = NX + 2 * R;
   const int i = (z + R) * ld + x + R;
   float d2z = 0.f, d2x = 0.f;
@@ -194,38 +202,81 @@ __global__ void fwd_cells(const float* __restrict__ p, float* __restrict__ pnext
   pnext[i] = pn;
 }
 
+// F3's sources, by one thread (coinciding sources sum in index order)
+__device__ __forceinline__ void fwd_sources(float* __restrict__ p, const float* __restrict__ c2,
+                                            const float* __restrict__ w, int t,
+                                            const long long* __restrict__ src, int nsrc, int NX,
+                                            int R, int fs) {
+  const int ld = NX + 2 * R;
+  for (int k = 0; k < nsrc; ++k) {
+    const int z = (int)src[2 * k], x = (int)src[2 * k + 1];
+    // a source on the pinned surface row is overwritten by the pin
+    if (z != fs) p[(z + R) * ld + x + R] += c2[z * NX + x] * w[t];
+  }
+}
+
+// F3's receiver r, after the sources
+__device__ __forceinline__ void fwd_receiver(const float* __restrict__ p, int t,
+                                             const long long* __restrict__ rcv,
+                                             float* __restrict__ seis, int r, int nrec, int NX,
+                                             int R) {
+  const int z = (int)rcv[2 * r], x = (int)rcv[2 * r + 1];
+  seis[(size_t)t * nrec + r] = p[(z + R) * (NX + 2 * R) + x + R];
+}
+
+template <int R>
+__global__ void fwd_strips(const float* __restrict__ p, float* __restrict__ phiz,
+                           float* __restrict__ phix, const float* __restrict__ az,
+                           const float* __restrict__ bz, const float* __restrict__ ax,
+                           const float* __restrict__ bx, int NZ, int NX, int S, Taps tp) {
+  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx < 2 * S * NX + 2 * NZ * S) fwd_strip_cell<R>(p, phiz, phix, az, bz, ax, bx, idx, NZ, NX,
+                                                       S, tp);
+}
+
+template <int R>
+__global__ void fwd_cells(const float* __restrict__ p, float* __restrict__ pnext,
+                          const float* __restrict__ phiz, float* __restrict__ psiz,
+                          const float* __restrict__ phix, float* __restrict__ psix,
+                          const float* __restrict__ c2, const float* __restrict__ az,
+                          const float* __restrict__ bz, const float* __restrict__ ax,
+                          const float* __restrict__ bx, __nv_bfloat16* __restrict__ tape_row,
+                          int NZ, int NX, int S, int fs, Taps tp) {
+  const int x = blockIdx.x * blockDim.x + threadIdx.x;
+  const int z = blockIdx.y * blockDim.y + threadIdx.y;
+  if (x >= NX || z >= NZ) return;
+  fwd_cell<R>(p, pnext, phiz, psiz, phix, psix, c2, az, bz, ax, bx, tape_row, z, x, NZ, NX, S, fs,
+              tp);
+}
+
 __global__ void fwd_src_rcv(float* __restrict__ p, const float* __restrict__ c2,
                             const float* __restrict__ w, int t,
                             const long long* __restrict__ src,
                             const long long* __restrict__ rcv, float* __restrict__ seis,
                             int nsrc, int nrec, int NX, int R, int fs) {
-  const int ld = NX + 2 * R;
-  if (threadIdx.x == 0) {
-    for (int k = 0; k < nsrc; ++k) {
-      const int z = (int)src[2 * k], x = (int)src[2 * k + 1];
-      // a source on the pinned surface row is overwritten by the pin
-      if (z != fs) p[(z + R) * ld + x + R] += c2[z * NX + x] * w[t];
-    }
-  }
+  if (threadIdx.x == 0) fwd_sources(p, c2, w, t, src, nsrc, NX, R, fs);
   __syncthreads();
-  for (int r = threadIdx.x; r < nrec; r += blockDim.x) {
-    const int z = (int)rcv[2 * r], x = (int)rcv[2 * r + 1];
-    seis[(size_t)t * nrec + r] = p[(z + R) * ld + x + R];
-  }
+  for (int r = threadIdx.x; r < nrec; r += blockDim.x) fwd_receiver(p, t, rcv, seis, r, nrec, NX, R);
 }
 
 // row[k] = p[ring cell k]: after the sources, so in-ring sources are taped
+__device__ __forceinline__ void ring_cell(const float* __restrict__ p, const int* __restrict__ ring,
+                                          float* __restrict__ row, int k, int NX, int R) {
+  row[k] = p[halo_index(ring[k], NX, R)];
+}
+
 __global__ void ring_get(const float* __restrict__ p, const int* __restrict__ ring,
                          float* __restrict__ row, int n_ring, int NX, int R) {
   const int k = blockIdx.x * blockDim.x + threadIdx.x;
-  if (k < n_ring) row[k] = p[halo_index(ring[k], NX, R)];
+  if (k < n_ring) ring_cell(p, ring, row, k, NX, R);
 }
 
 // ---------------------------------------------------------- reconstruction
 
 // p_tp1 holds P_t on entry and 2 P_{t-1} - P_t + C lapw (surface pinned) on
-// exit; lapw = D2 laplacian of p_t = P_{t-1}. Each cell reads p_tp1 only
-// at itself, so the update is in place.
+// exit; lapw = D2 laplacian of p_t = P_{t-1}, written unless null. Each
+// cell reads p_tp1 only at itself, so the update is in place. With fs = -1
+// this is the bare leapfrog p_other <- 2 p - p_other + C Lap(p).
 template <int R>
 __global__ void rec_cells(const float* __restrict__ p_t, float* __restrict__ p_tp1,
                           const float* __restrict__ c2, float* __restrict__ lapw,
@@ -237,27 +288,39 @@ __global__ void rec_cells(const float* __restrict__ p_t, float* __restrict__ p_t
   const int i = (z + R) * ld + x + R;
   const int c = z * NX + x;
   const float lap = d2_lap<R>(p_t, i, ld, tp);
-  lapw[c] = lap;
+  if (lapw != nullptr) lapw[c] = lap;
   p_tp1[i] = (z == fs) ? 0.f : 2.f * p_t[i] - p_tp1[i] + c2[c] * lap;
 }
 
-// The reconstruction's sources (skipped on the surface row and in the ring,
-// where the pin and the tape win) and the ring imposition, from the tape
-// row or zeros when row is null. The two touch disjoint cells.
+// The reconstruction's sources, by one thread (skipped on the surface row
+// and in the ring, where the pin and the tape win)
+__device__ __forceinline__ void rec_sources(float* __restrict__ p, const float* __restrict__ c2,
+                                            const float* __restrict__ w, int t,
+                                            const long long* __restrict__ src, int nsrc, int NX,
+                                            int R, int fs, const RingFrame& frame) {
+  const int ld = NX + 2 * R;
+  for (int s = 0; s < nsrc; ++s) {
+    const int z = (int)src[2 * s], x = (int)src[2 * s + 1];
+    if (z != fs && !in_ring(z, x, frame)) p[(z + R) * ld + x + R] += c2[z * NX + x] * w[t];
+  }
+}
+
+// ring cell k imposed from the tape row, or zero when row is null
+__device__ __forceinline__ void ring_impose(float* __restrict__ p, const int* __restrict__ ring,
+                                            const float* __restrict__ row, int k, int NX, int R) {
+  p[halo_index(ring[k], NX, R)] = row ? row[k] : 0.f;
+}
+
+// The sources and the ring imposition, from the tape row or zeros when row
+// is null. The two touch disjoint cells.
 __global__ void rec_src_ring(float* __restrict__ p, const float* __restrict__ c2,
                              const float* __restrict__ w, int t,
                              const long long* __restrict__ src, int nsrc,
                              const int* __restrict__ ring, const float* __restrict__ row,
                              int n_ring, int NX, int R, int fs, RingFrame frame) {
-  const int ld = NX + 2 * R;
   const int k = blockIdx.x * blockDim.x + threadIdx.x;
-  if (k == 0) {
-    for (int s = 0; s < nsrc; ++s) {
-      const int z = (int)src[2 * s], x = (int)src[2 * s + 1];
-      if (z != fs && !in_ring(z, x, frame)) p[(z + R) * ld + x + R] += c2[z * NX + x] * w[t];
-    }
-  }
-  if (k < n_ring) p[halo_index(ring[k], NX, R)] = row ? row[k] : 0.f;
+  if (k == 0) rec_sources(p, c2, w, t, src, nsrc, NX, R, fs, frame);
+  if (k < n_ring) ring_impose(p, ring, row, k, NX, R);
 }
 
 // --------------------------------------------------------------- reverse
@@ -278,24 +341,39 @@ __global__ void rev_chain(const long long* __restrict__ rcv, int nrec, int* __re
   chain[nrec + r] = head;
 }
 
+// R0 for receiver r: the first receiver of a cell adds the cotangents of
+// all its cell's receivers, in index order
+__device__ __forceinline__ void inject_receiver(float* __restrict__ q,
+                                                const float* __restrict__ yb,
+                                                const long long* __restrict__ rcv,
+                                                const int* __restrict__ chain, int r, int nrec,
+                                                int NX, int R) {
+  if (!chain[nrec + r]) return;
+  float s = yb[r];
+  for (int n = chain[r]; n >= 0; n = chain[n]) s += yb[n];
+  const int z = (int)rcv[2 * r], x = (int)rcv[2 * r + 1];
+  q[(z + R) * (NX + 2 * R) + x + R] += s;
+}
+
+// R0's lambda_t at source k, after the injection
+__device__ __forceinline__ void lambda_at_source(const float* __restrict__ q, int t,
+                                                 const long long* __restrict__ src,
+                                                 float* __restrict__ lam_src, int k, int nsrc,
+                                                 int NX, int R, int fs) {
+  const int z = (int)src[2 * k], x = (int)src[2 * k + 1];
+  lam_src[(size_t)t * nsrc + k] = (z == fs) ? 0.f : q[(z + R) * (NX + 2 * R) + x + R];
+}
+
 __global__ void rev_inject(float* __restrict__ q, const float* __restrict__ ybar, int t,
                            const long long* __restrict__ rcv, const int* __restrict__ chain,
                            const long long* __restrict__ src, float* __restrict__ lam_src,
                            int nsrc, int nrec, int NX, int R, int fs) {
-  const int ld = NX + 2 * R;
   const float* yb = ybar + (size_t)t * nrec;
-  for (int r = threadIdx.x; r < nrec; r += blockDim.x) {
-    if (!chain[nrec + r]) continue;
-    float s = yb[r];
-    for (int n = chain[r]; n >= 0; n = chain[n]) s += yb[n];
-    const int z = (int)rcv[2 * r], x = (int)rcv[2 * r + 1];
-    q[(z + R) * ld + x + R] += s;
-  }
+  for (int r = threadIdx.x; r < nrec; r += blockDim.x)
+    inject_receiver(q, yb, rcv, chain, r, nrec, NX, R);
   __syncthreads();
-  for (int k = threadIdx.x; k < nsrc; k += blockDim.x) {
-    const int z = (int)src[2 * k], x = (int)src[2 * k + 1];
-    lam_src[(size_t)t * nsrc + k] = (z == fs) ? 0.f : q[(z + R) * ld + x + R];
-  }
+  for (int k = threadIdx.x; k < nsrc; k += blockDim.x)
+    lambda_at_source(q, t, src, lam_src, k, nsrc, NX, R, fs);
 }
 
 // R1 for one cell, imaging with img = the laplacian of the field step t
@@ -347,8 +425,25 @@ __global__ void rev_cells1(float* __restrict__ q, float* __restrict__ u,
                   fs, to_float(img_row[c]));
 }
 
-// rev_cells1 with the reconstruction fused in: lapw of p_t = P_{t-1} images
-// lambda_t, and P_{t-2} is written in place over p_tp1 = P_t
+// R1 with the reconstruction fused in, for cell (z, x): lapw of p_t =
+// P_{t-1} images lambda_t, and P_{t-2} is written in place over p_tp1 = P_t
+template <int R>
+__device__ __forceinline__ void rev_cell1_rings(
+    float* __restrict__ q, float* __restrict__ u, const float* __restrict__ c2,
+    const float* __restrict__ p_t, float* __restrict__ p_tp1, float* __restrict__ gacc,
+    float* __restrict__ psbz, float* __restrict__ wz, float* __restrict__ psbx,
+    float* __restrict__ wx, const float* __restrict__ az, const float* __restrict__ bz,
+    const float* __restrict__ ax, const float* __restrict__ bx, int z, int x, int NZ, int NX,
+    int S, int fs, const Taps& tp) {
+  const int ld = NX + 2 * R;
+  const int i = (z + R) * ld + x + R;
+  const int c = z * NX + x;
+  const float lap = d2_lap<R>(p_t, i, ld, tp);
+  p_tp1[i] = (z == fs) ? 0.f : 2.f * p_t[i] - p_tp1[i] + c2[c] * lap;
+  transposed_cell(q, u, c2, gacc, psbz, wz, psbx, wx, az, bz, ax, bx, z, x, i, c, NZ, NX, S,
+                  fs, lap);
+}
+
 template <int R>
 __global__ void rev_cells1_rings(float* __restrict__ q, float* __restrict__ u,
                                  const float* __restrict__ c2, const float* __restrict__ p_t,
@@ -361,25 +456,20 @@ __global__ void rev_cells1_rings(float* __restrict__ q, float* __restrict__ u,
   const int x = blockIdx.x * blockDim.x + threadIdx.x;
   const int z = blockIdx.y * blockDim.y + threadIdx.y;
   if (x >= NX || z >= NZ) return;
-  const int ld = NX + 2 * R;
-  const int i = (z + R) * ld + x + R;
-  const int c = z * NX + x;
-  const float lap = d2_lap<R>(p_t, i, ld, tp);
-  p_tp1[i] = (z == fs) ? 0.f : 2.f * p_t[i] - p_tp1[i] + c2[c] * lap;
-  transposed_cell(q, u, c2, gacc, psbz, wz, psbx, wx, az, bz, ax, bx, z, x, i, c, NZ, NX, S,
-                  fs, lap);
+  rev_cell1_rings<R>(q, u, c2, p_t, p_tp1, gacc, psbz, wz, psbx, wx, az, bz, ax, bx, z, x, NZ, NX,
+                     S, fs, tp);
 }
 
+// R2 for strip cell idx of [0, 2 S NX + 2 NZ S): z strips, then x strips
 template <int R>
-__global__ void rev_strips(const float* __restrict__ u, const float* __restrict__ wz,
-                           const float* __restrict__ wx, float* __restrict__ pbz,
-                           float* __restrict__ yz, float* __restrict__ pbx,
-                           float* __restrict__ yx, const float* __restrict__ az,
-                           const float* __restrict__ bz, const float* __restrict__ ax,
-                           const float* __restrict__ bx, int NZ, int NX, int S, Taps tp) {
+__device__ __forceinline__ void rev_strip_cell(
+    const float* __restrict__ u, const float* __restrict__ wz, const float* __restrict__ wx,
+    float* __restrict__ pbz, float* __restrict__ yz, float* __restrict__ pbx,
+    float* __restrict__ yx, const float* __restrict__ az, const float* __restrict__ bz,
+    const float* __restrict__ ax, const float* __restrict__ bx, int idx, int NZ, int NX, int S,
+    const Taps& tp) {
   const int ld = NX + 2 * R;
   const int nz_cells = 2 * S * NX;
-  int idx = blockIdx.x * blockDim.x + threadIdx.x;
   if (idx < nz_cells) {
     const int side = idx / (S * NX);
     const int rem = idx - side * S * NX;
@@ -400,7 +490,6 @@ __global__ void rev_strips(const float* __restrict__ u, const float* __restrict_
     return;
   }
   idx -= nz_cells;
-  if (idx >= 2 * NZ * S) return;
   const int side = idx / (NZ * S);
   const int rem = idx - side * NZ * S;
   const int z = rem / S;
@@ -417,13 +506,26 @@ __global__ void rev_strips(const float* __restrict__ u, const float* __restrict_
 }
 
 template <int R>
-__global__ void rev_cells2(const float* __restrict__ qcur, float* __restrict__ qoth,
-                           const float* __restrict__ u, const float* __restrict__ wz,
-                           const float* __restrict__ yz, const float* __restrict__ wx,
-                           const float* __restrict__ yx, int NZ, int NX, int S, Taps tp) {
-  const int x = blockIdx.x * blockDim.x + threadIdx.x;
-  const int z = blockIdx.y * blockDim.y + threadIdx.y;
-  if (x >= NX || z >= NZ) return;
+__global__ void rev_strips(const float* __restrict__ u, const float* __restrict__ wz,
+                           const float* __restrict__ wx, float* __restrict__ pbz,
+                           float* __restrict__ yz, float* __restrict__ pbx,
+                           float* __restrict__ yx, const float* __restrict__ az,
+                           const float* __restrict__ bz, const float* __restrict__ ax,
+                           const float* __restrict__ bx, int NZ, int NX, int S, Taps tp) {
+  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx < 2 * S * NX + 2 * NZ * S)
+    rev_strip_cell<R>(u, wz, wx, pbz, yz, pbx, yx, az, bz, ax, bx, idx, NZ, NX, S, tp);
+}
+
+// R3 for cell (z, x)
+template <int R>
+__device__ __forceinline__ void rev_cell2(const float* __restrict__ qcur,
+                                          float* __restrict__ qoth, const float* __restrict__ u,
+                                          const float* __restrict__ wz,
+                                          const float* __restrict__ yz,
+                                          const float* __restrict__ wx,
+                                          const float* __restrict__ yx, int z, int x, int NZ,
+                                          int NX, int S, const Taps& tp) {
   const int ld = NX + 2 * R;
   const int i = (z + R) * ld + x + R;
   float lap = 0.f;
@@ -451,6 +553,17 @@ __global__ void rev_cells2(const float* __restrict__ qcur, float* __restrict__ q
   // qoth holds lambda_{t+1} on entry and lambda_{t-1} (before its
   // receiver injection) on exit; each cell reads it only here
   qoth[i] = 2.f * qcur[i] - qoth[i] + lap;
+}
+
+template <int R>
+__global__ void rev_cells2(const float* __restrict__ qcur, float* __restrict__ qoth,
+                           const float* __restrict__ u, const float* __restrict__ wz,
+                           const float* __restrict__ yz, const float* __restrict__ wx,
+                           const float* __restrict__ yx, int NZ, int NX, int S, Taps tp) {
+  const int x = blockIdx.x * blockDim.x + threadIdx.x;
+  const int z = blockIdx.y * blockDim.y + threadIdx.y;
+  if (x >= NX || z >= NZ) return;
+  rev_cell2<R>(qcur, qoth, u, wz, yz, wx, yx, z, x, NZ, NX, S, tp);
 }
 
 // ------------------------------------------------------------ launch shapes

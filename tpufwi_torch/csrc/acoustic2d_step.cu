@@ -13,6 +13,12 @@
 //   fused_adjoint_step  <- acoustic2d_pallas_bwd.py::make_fused_adjoint_step
 //                          (receiver injection, transposed CPML step,
 //                          imaging gbar += lambda * lapw)
+//   leapfrog            <- acoustic2d_pallas.py::make_leapfrog_kernel (the
+//                          bare leapfrog 2 p - p_other + c2 Lap(p) on the
+//                          whole padded grid, Lap(p) on request; no CPML,
+//                          sources or surface pin)
+// The merged reverse step (tpufwi_step_reverse) is the K-step reverse
+// kernel with k = 1, in acoustic2d_kstep.cu.
 // Built into one library with acoustic2d_scanres.cu, whose kernels these
 // entry points launch (acoustic2d_kernels.cuh): a step here is the same few
 // ordered launches as a step of the whole-scan loops, so the two engines do
@@ -66,6 +72,13 @@ int step_adjoint(const float* c2, const float* az, const float* bz, const float*
   return (int)cudaGetLastError();
 }
 
+template <int R>
+int leapfrog(const float* c2, const float* p, float* p_other, float* lap, int NZ, int NX,
+             const Taps& tp, cudaStream_t st) {
+  rec_cells<R><<<cell_grid(NZ, NX), kCellBlock, 0, st>>>(p, p_other, c2, lap, NZ, NX, -1, tp);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -114,6 +127,15 @@ int tpufwi_step_adjoint(const float* c2, const float* az, const float* bz, const
   TPUFWI_DISPATCH_R(R, step_adjoint<kR>(c2, az, bz, ax, bx, ybar, t, lapw, src, rcv, chain,
                                         init_chain, gacc, lam_src, q, qo, adj, NZ, NX, S, nsrc,
                                         nrec, fs, tp, st))
+}
+
+// p_other <- 2 p - p_other + c2 Lap(p) in place on the padded grid's
+// interior (halo planes); lap (NZ, NX) <- Lap(p) unless null.
+int tpufwi_leapfrog(const float* c2, const float* p, float* p_other, float* lap, int NZ, int NX,
+                    int R, const float* taps, void* stream) {
+  const Taps tp = load_taps(taps);
+  auto st = static_cast<cudaStream_t>(stream);
+  TPUFWI_DISPATCH_R(R, leapfrog<kR>(c2, p, p_other, lap, NZ, NX, tp, st))
 }
 
 }  // extern "C"

@@ -43,6 +43,17 @@ from .propagators.elastic2d import ElasticPropagator, elastic_cfl_dt
 from .wavelets import ricker
 
 
+def resolve_shot_loop(shot_loop: str) -> str:
+    """The reference's shot_loop names: "auto" resolves to "python", the
+    port's only loop (shots one after another from the host); "map" and
+    "unroll" raise."""
+    if shot_loop == "auto":
+        return "python"
+    if shot_loop != "python":
+        raise NotImplementedError(f"shot_loop={shot_loop!r}: the port loops shots from the host")
+    return shot_loop
+
+
 @dataclasses.dataclass
 class FwiProblem:
     """Propagator + survey + observed data, with stage-filtered objectives.
@@ -56,16 +67,14 @@ class FwiProblem:
     wavelet: torch.Tensor  # (nt,)
     dt: float
     mesh: Optional[object] = None
-    shot_loop: str = "python"
+    shot_loop: str = "auto"  # resolved to "python" (resolve_shot_loop)
     misfit: str = "l2"
 
     def __post_init__(self):
         if self.mesh is not None:
             raise NotImplementedError(
                 "shot sharding over a device mesh is not ported yet (ROADMAP Queue A item 8)")
-        if self.shot_loop != "python":
-            raise NotImplementedError(
-                f"shot_loop={self.shot_loop!r}: the port loops shots from the host")
+        self.shot_loop = resolve_shot_loop(self.shot_loop)
 
     @property
     def n_shots(self) -> int:
@@ -118,6 +127,32 @@ class FwiProblem:
         w_f = self.wavelet if fmax is None else lowpass(self.wavelet, self.dt, fmax)
         return sum(self.prop.illumination(vp, self.geoms.shot(i), w_f)
                    for i in range(self.n_shots))
+
+
+def save_snapshots(run_dir: str, stage: int, vp, g=None):
+    """QC plots per stage: the model and (optionally) the gradient as PNGs
+    under <run_dir>/figs (``stageNN_vp.png``, ``stageNN_grad.png``), 2D
+    arrays only. No-op where matplotlib cannot be imported."""
+    try:
+        import matplotlib
+
+        matplotlib.use("Agg")
+        import matplotlib.pyplot as plt
+    except Exception:  # matplotlib is optional
+        return
+    figdir = os.path.join(run_dir, "figs")
+    os.makedirs(figdir, exist_ok=True)
+    arrs = [("vp", vp)] + ([("grad", g)] if g is not None else [])
+    for name, a in arrs:
+        a = np.asarray(a.detach().cpu() if isinstance(a, torch.Tensor) else a)
+        if a.ndim != 2:
+            continue
+        fig, ax = plt.subplots(figsize=(10, 3))
+        im = ax.imshow(a, aspect="auto", cmap="viridis" if name == "vp" else "seismic")
+        fig.colorbar(im, ax=ax, shrink=0.8)
+        ax.set_title(f"stage {stage}: {name}")
+        fig.savefig(os.path.join(figdir, f"stage{stage:02d}_{name}.png"), dpi=110)
+        plt.close(fig)
 
 
 def invert(
@@ -241,6 +276,7 @@ def _invert_loop(problem, vp, cfg, hist, init_alpha, start_stage, start_iter, ck
                      J=infos[-1].f, gnorm=infos[-1].gnorm, evals=infos[-1].n_evals))
         init_alpha = None
         start_iter = 0
+        save_snapshots(os.path.dirname(ckpt_path), si, vp)
         if wall["stopped"]:
             break
     return vp
@@ -252,7 +288,7 @@ class _MpStagesMixin:
     stage-filtered objectives and host-looped forwards over a model tuple.
     Subclasses define the dataclass fields and ``_forward(m, geom, wavelet)
     -> seis``. Shots run one after another from a host loop; ``mesh``
-    raises, as for ``FwiProblem``.
+    and ``shot_loop`` are taken as for ``FwiProblem``.
 
     Trace weights of lower rank than the seismogram (an (nt, nrec) mask
     against multicomponent elastic (nt, nrec, 2) data) broadcast over the
@@ -262,9 +298,7 @@ class _MpStagesMixin:
         if self.mesh is not None:
             raise NotImplementedError(
                 "shot sharding over a device mesh is not ported yet (ROADMAP Queue A item 8)")
-        if self.shot_loop != "python":
-            raise NotImplementedError(
-                f"shot_loop={self.shot_loop!r}: the port loops shots from the host")
+        self.shot_loop = resolve_shot_loop(self.shot_loop)
 
     @property
     def n_shots(self) -> int:
@@ -345,7 +379,7 @@ class ElasticFwiProblem(_MpStagesMixin):
     mesh: Optional[object] = None
     trace_weights: Optional[torch.Tensor] = None
     misfit: str = "l2"
-    shot_loop: str = "python"
+    shot_loop: str = "auto"  # resolved to "python" (resolve_shot_loop)
 
     def _forward(self, m, g, w):
         vp_, vs_, rho_ = m
@@ -459,7 +493,8 @@ def build_synthetic_problem(cfg: FwiConfig, vp_true: np.ndarray, dx: float,
     with torch.no_grad():
         d_obs = torch.stack([prop(vp_t, geoms.shot(i), w) for i in range(cfg.acq.n_shots)])
     vp0_np = gaussian_filter(np.asarray(vp_true, np.float64), sigma=12.0)
-    wd = int(np.sum(np.asarray(vp_true)[:, 0] <= 1500.0 + 1e-3))
+    # the water layer of a 2D model; a 3D model keeps none
+    wd = int(np.sum(np.asarray(vp_true)[:, 0] <= 1500.0 + 1e-3)) if vp_true.ndim == 2 else 0
     if wd > 0:
         vp0_np[:wd] = np.asarray(vp_true)[:wd]
     vp0 = torch.as_tensor(np.clip(vp0_np, cfg.opt.vmin, cfg.opt.vmax), dtype=dtype,

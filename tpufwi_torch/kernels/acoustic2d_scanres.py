@@ -19,10 +19,10 @@ then; on a CUDA tensor it launches the kernel or raises. ``launches`` on
 each wrapper counts the time steps its kernel ran (the C loop launches
 each step's kernels once), and stays 0 on the CPU path.
 
-``load_library`` builds ``csrc/acoustic2d_scanres.cu`` and
-``csrc/acoustic2d_step.cu`` into one library with one nvcc call at first
-use (``kernels/build.py``); neither this module's import nor the plain
-versions need CUDA.
+``load_library`` builds ``csrc/acoustic2d_scanres.cu``,
+``csrc/acoustic2d_step.cu`` and ``csrc/acoustic2d_kstep.cu`` into one
+library with one nvcc call at first use (``kernels/build.py``); neither
+this module's import nor the plain versions need CUDA.
 """
 
 from __future__ import annotations
@@ -217,7 +217,8 @@ def scanres_reverse_plain(grid, c2, profiles, wavelet, ybar, tape, p_penult, p_l
 
 LIBRARY = Library(
     "acoustic2d",
-    (CSRC / "acoustic2d_scanres.cu", CSRC / "acoustic2d_step.cu"),
+    (CSRC / "acoustic2d_scanres.cu", CSRC / "acoustic2d_step.cu",
+     CSRC / "acoustic2d_kstep.cu"),
     (CSRC / "acoustic2d_kernels.cuh",),
     lambda lib: declare_all(lib, {
         # pointers..., ints..., taps, stream
@@ -227,21 +228,27 @@ LIBRARY = Library(
         "tpufwi_step_forward": (14, 9),
         "tpufwi_step_recon": (8, 12),
         "tpufwi_step_adjoint": (15, 9),
+        "tpufwi_leapfrog": (4, 3),
+        "tpufwi_step_reverse": (19, 15),
+        "tpufwi_kstep_forward": (14, 10),
+        "tpufwi_kstep_reverse": (19, 16),
     }),
 )
 
 
 def load_library():
     """Build (once per version of the sources) and load the acoustic
-    kernels' library: both sources in one nvcc call."""
+    kernels' library: the three sources in one nvcc call."""
     return LIBRARY.load()
 
 
 # ---------------------------------------------------------------- wrappers
 
 
+@functools.lru_cache(maxsize=None)
 def taps_arg(grid: Grid):
-    """(d1z, d2z, d1x, d2x) as 4 x 9 fp32, zero-filled past 2R+1 taps."""
+    """(d1z, d2z, d1x, d2x) as 4 x 9 fp32, zero-filled past 2R+1 taps; built
+    once per grid (the kernels copy it at each call)."""
     taps = np.zeros((4, 9), np.float32)
     for row, (coeffs, h, power) in enumerate((
         (D1_COEFFS, grid.h[0], 1), (D2_COEFFS, grid.h[0], 2),

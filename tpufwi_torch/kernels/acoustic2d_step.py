@@ -1,8 +1,8 @@
-"""The single-step engine's three kernels: CUDA wrappers, their plain torch
+"""The single-step engine's kernels: CUDA wrappers, their plain torch
 versions and their launch counters (counterpart of
-``tpufwi/kernels/acoustic2d_pallas.py::make_fused_forward_step`` and
-``tpufwi/kernels/acoustic2d_pallas_bwd.py::make_recon_kernel`` /
-``make_fused_adjoint_step``).
+``tpufwi/kernels/acoustic2d_pallas.py::make_fused_forward_step`` /
+``make_leapfrog_kernel`` and ``tpufwi/kernels/acoustic2d_pallas_bwd.py::
+make_recon_kernel`` / ``make_fused_adjoint_step`` / ``make_fused_reverse_step``).
 
 Each call is one time step and updates the caller's state in place. Fields
 are laid out as the CUDA kernels keep them: (NZ + 2R, NX + 2R) with a zero
@@ -21,11 +21,18 @@ halo of R cells around the padded grid, which the kernels never write.
   ``adj`` holds 9 planes (u, then psibar, w, phibar, y for z and for x: the
   cotangents of psi and phi and their scratch), ``gacc += lambda_t * lapw``
   and ``lam_src[t]`` <- lambda_t at the sources.
+- ``fused_reverse_step``: ``recon_step`` then ``fused_adjoint_step`` in one
+  call, imaging with Lap(P_{t-1}) where ``lapw`` would carry it; the
+  K-step reverse kernel (``kernels/acoustic2d_kstep.py``) with k = 1.
+- ``leapfrog``: ``p_other`` <- 2 p - p_other + c2 Lap(p) on the whole
+  padded grid, and ``lap`` <- Lap(p) when given: no CPML, sources or
+  surface pin. No engine runs it; it is the reference's bare kernel.
 
 The plain versions run the step twin on views of the same tensors; the
 adjoint's is ``torch.func.vjp`` of the twin step, whose cotangent state
 maps onto the kernel's as (p_prev, p, phi, psi) = (-q_other, q, phibar,
-psibar). The CUDA source is ``csrc/acoustic2d_step.cu``. Each wrapper
+psibar). The CUDA sources are ``csrc/acoustic2d_step.cu`` and, for
+``fused_reverse_step``, ``csrc/acoustic2d_kstep.cu``. Each wrapper
 takes its plain version for CPU tensors only and counts one launch per
 call on CUDA. The per-call checks skip the index bounds (one host sync):
 the engine checks those once per propagation with ``check_args``.
@@ -63,13 +70,15 @@ def _inner(grid, x):
     return x[..., R:-R, R:-R]
 
 
-def _check_fields(name, grid, fields, n_planes=()):
+def check_fields(name, grid, device, fields, n_planes=()):
     NZ, NX = grid.padded_shape
     R = grid.radius
     for f, planes in zip(fields, n_planes):
         shape = (NZ + 2 * R, NX + 2 * R) if planes is None else (planes, NZ + 2 * R, NX + 2 * R)
-        if tuple(f.shape) != shape or f.dtype != torch.float32 or not f.is_contiguous():
-            raise ValueError(f"{name}: fields must be contiguous fp32 {shape} halo planes")
+        if (tuple(f.shape) != shape or f.dtype != torch.float32 or not f.is_contiguous()
+                or f.device != device):
+            raise ValueError(f"{name}: fields must be contiguous fp32 {shape} halo planes on "
+                             f"{device}")
 
 
 # ------------------------------------------------------------ plain versions
@@ -122,6 +131,22 @@ def fused_adjoint_step_plain(grid, c2, profiles, q, q_other, adj, lapw, gacc, yb
         ia[k].copy_(val)
 
 
+def fused_reverse_step_plain(grid, c2, profiles, p_t, p_tp1, q, q_other, adj, gacc, wavelet,
+                             ybar, t, src_idx, rcv_idx, lam_src, ring_row=None):
+    lapw = torch.empty(grid.padded_shape, dtype=c2.dtype, device=c2.device)
+    recon_step_plain(grid, c2, p_t, p_tp1, lapw, wavelet, t, src_idx, ring_row)
+    fused_adjoint_step_plain(grid, c2, profiles, q, q_other, adj, lapw, gacc, ybar, t, src_idx,
+                             rcv_idx, lam_src)
+
+
+def leapfrog_plain(grid, c2, p, p_other, lap=None):
+    ip, io = _inner(grid, p), _inner(grid, p_other)
+    lp = interior_lap(grid, ip)
+    io.copy_(2.0 * ip - io + c2 * lp)
+    if lap is not None:
+        lap.copy_(lp)
+
+
 # ---------------------------------------------------------------- wrappers
 
 
@@ -134,7 +159,7 @@ def fused_forward_step(grid, c2, profiles, cur, prev, cpml, wavelet, t, src_idx,
     require_cuda("fused_forward_step", c2)
     check_args("fused_forward_step", grid, c2, profiles, (wavelet, seis), src_idx, rcv_idx,
                bounds=False)
-    _check_fields("fused_forward_step", grid, (cur, prev, cpml), (None, None, 4))
+    check_fields("fused_forward_step", grid, c2.device, (cur, prev, cpml), (None, None, 4))
     _, ring, _ = ring_plan(grid, c2.device)
     if ring_row is not None and (tuple(ring_row.shape) != tuple(ring.shape)
                                  or ring_row.dtype != torch.float32):
@@ -169,7 +194,7 @@ def recon_step(grid, c2, p_t, p_tp1, lapw, wavelet, t, src_idx, ring_row=None):
             raise ValueError(f"recon_step: float tensors must be contiguous fp32 on {c2.device}")
     if tuple(c2.shape) != (NZ, NX) or tuple(lapw.shape) != (NZ, NX):
         raise ValueError(f"recon_step: c2 and lapw must be {(NZ, NX)}")
-    _check_fields("recon_step", grid, (p_t, p_tp1), (None, None))
+    check_fields("recon_step", grid, c2.device, (p_t, p_tp1), (None, None))
     if src_idx.dtype != torch.int64 or not src_idx.is_contiguous() or src_idx.shape[-1] != 2:
         raise ValueError("recon_step: src_idx must be contiguous (nsrc, 2) int64")
     _, ring, (z0, z1, x0, x1, rw) = ring_plan(grid, c2.device)
@@ -204,7 +229,8 @@ def fused_adjoint_step(grid, c2, profiles, q, q_other, adj, lapw, gacc, ybar, t,
     require_cuda("fused_adjoint_step", c2)
     check_args("fused_adjoint_step", grid, c2, profiles, (lapw, gacc, ybar, lam_src), src_idx,
                rcv_idx, bounds=False)
-    _check_fields("fused_adjoint_step", grid, (q, q_other, adj), (None, None, ADJ_PLANES))
+    check_fields("fused_adjoint_step", grid, c2.device, (q, q_other, adj),
+                 (None, None, ADJ_PLANES))
     nt, nrec = ybar.shape
     if (nrec != rcv_idx.shape[0] or tuple(lam_src.shape) != (nt, src_idx.shape[0])
             or not 0 <= t < nt):
@@ -225,3 +251,83 @@ def fused_adjoint_step(grid, c2, profiles, q, q_other, adj, lapw, gacc, ybar, t,
 
 
 fused_adjoint_step.launches = 0
+
+
+def check_reverse_args(name, grid, c2, profiles, fields, gacc, wavelet, ybar, lam_src, src_idx,
+                       rcv_idx, chain, ts):
+    """Raise on what the merged and K-step reverse kernels do not take:
+    ``fields`` (p_t, p_tp1, q, q_other, adj) in the halo layout, every step
+    of ``ts`` within the wavelet, ybar and lam_src."""
+    check_args(name, grid, c2, profiles, (gacc, wavelet, ybar, lam_src), src_idx, rcv_idx,
+               bounds=False)
+    check_fields(name, grid, c2.device, fields, (None, None, None, None, ADJ_PLANES))
+    nt, nrec = ybar.shape
+    if (tuple(wavelet.shape) != (nt,) or nrec != rcv_idx.shape[0]
+            or tuple(lam_src.shape) != (nt, src_idx.shape[0])
+            or tuple(gacc.shape) != grid.padded_shape or not (0 <= min(ts) and max(ts) < nt)):
+        raise ValueError(f"{name}: wavelet (nt,), ybar (nt, nrec), lam_src (nt, nsrc), gacc the "
+                         "padded grid, steps within nt")
+    if chain is None or chain.dtype != torch.int32 or chain.numel() != 2 * nrec:
+        raise ValueError(f"{name}: chain must be 2 * nrec int32")
+
+
+def fused_reverse_step(grid, c2, profiles, p_t, p_tp1, q, q_other, adj, gacc, wavelet, ybar, t,
+                       src_idx, rcv_idx, lam_src, ring_row=None, chain=None, init_chain=False):
+    """One reverse step in place: ``recon_step`` then ``fused_adjoint_step``
+    (see the module docstring) in one launch. ``ring_row`` is tape row t - 2
+    (None: zeros); ``chain`` as for ``fused_adjoint_step``."""
+    if c2.device.type == "cpu":
+        return fused_reverse_step_plain(grid, c2, profiles, p_t, p_tp1, q, q_other, adj, gacc,
+                                        wavelet, ybar, t, src_idx, rcv_idx, lam_src, ring_row)
+    require_cuda("fused_reverse_step", c2)
+    check_reverse_args("fused_reverse_step", grid, c2, profiles, (p_t, p_tp1, q, q_other, adj),
+                       gacc, wavelet, ybar, lam_src, src_idx, rcv_idx, chain, (t,))
+    _, ring, (z0, z1, x0, x1, rw) = ring_plan(grid, c2.device)
+    if ring_row is not None and (tuple(ring_row.shape) != tuple(ring.shape)
+                                 or ring_row.dtype != torch.float32
+                                 or ring_row.device != c2.device):
+        raise ValueError(f"fused_reverse_step: ring_row must be fp32 {tuple(ring.shape)} on "
+                         f"{c2.device}")
+    lib = load_library()
+    NZ, NX = grid.padded_shape
+    err = lib.tpufwi_step_reverse(
+        c2.data_ptr(), *(p.data_ptr() for p in profiles), wavelet.data_ptr(), ybar.data_ptr(),
+        src_idx.data_ptr(), rcv_idx.data_ptr(), chain.data_ptr(), ring.data_ptr(),
+        None if ring_row is None else ring_row.data_ptr(), p_t.data_ptr(), p_tp1.data_ptr(),
+        q.data_ptr(), q_other.data_ptr(), adj.data_ptr(), gacc.data_ptr(), lam_src.data_ptr(),
+        t, int(init_chain), ring.shape[0], NZ, NX, strip_depth(grid), grid.radius,
+        src_idx.shape[0], rcv_idx.shape[0], surface_row(grid), z0, z1, x0, x1, rw,
+        taps_arg(grid), torch.cuda.current_stream(c2.device).cuda_stream,
+    )
+    raise_on(lib, "fused_reverse_step", err)
+    fused_reverse_step.launches += 1
+
+
+fused_reverse_step.launches = 0
+
+
+def leapfrog(grid, c2, p, p_other, lap=None):
+    """The bare leapfrog in place (see the module docstring): ``p`` and
+    ``p_other`` halo planes, ``c2`` and ``lap`` the padded grid."""
+    if c2.device.type == "cpu":
+        return leapfrog_plain(grid, c2, p, p_other, lap)
+    require_cuda("leapfrog", c2)
+    NZ, NX = grid.padded_shape
+    if grid.ndim != 2 or grid.radius not in (1, 2, 4):
+        raise ValueError("leapfrog: the kernel is 2D, order 2, 4 or 8")
+    for v in (c2,) + (() if lap is None else (lap,)):
+        if (v.device != c2.device or v.dtype != torch.float32 or not v.is_contiguous()
+                or tuple(v.shape) != (NZ, NX)):
+            raise ValueError(f"leapfrog: c2 and lap must be contiguous fp32 {(NZ, NX)} on "
+                             f"{c2.device}")
+    check_fields("leapfrog", grid, c2.device, (p, p_other), (None, None))
+    lib = load_library()
+    err = lib.tpufwi_leapfrog(
+        c2.data_ptr(), p.data_ptr(), p_other.data_ptr(), None if lap is None else lap.data_ptr(),
+        NZ, NX, grid.radius, taps_arg(grid), torch.cuda.current_stream(c2.device).cuda_stream,
+    )
+    raise_on(lib, "leapfrog", err)
+    leapfrog.launches += 1
+
+
+leapfrog.launches = 0

@@ -11,10 +11,23 @@ Engines:
 - ``"cuda_scanres"``: the whole-scan CUDA engine with the fp32 ring tape
   (three sweeps, the field reconstructed backwards).
 - ``"cuda_step"``: the single-step CUDA engine, one kernel call per step
-  from Python; explicit only, as the reference's ``'pallas'``.
+  from Python; explicit only, as the reference's ``'pallas'``. Its option
+  ``merged_reverse`` makes each reverse step one call of the merged
+  reverse kernel instead of two. The two-call form stays the default for
+  two reasons: it is the reference the merged step is held against, and
+  it is the main path that runs ``recon_step`` and
+  ``fused_adjoint_step``. The merged form gives the same gradient in
+  fewer calls.
+- ``"cuda_kstep"``: the K-step CUDA engine (``adjoint_kstep``), K = 4
+  steps per cooperative kernel call; explicit only (the reference has no
+  impl name for its K-step engine).
 - ``"cuda3d"`` / ``"cuda3d_bf16"``: the fused 3D engine
   (``adjoint3d.make_simulator3d``) with an fp32 or bf16 ring tape, the
   reference's ``'pallas3d'`` / ``'pallas3d_bf16'``; 3D grids only.
+
+The reference's engine names (``REFERENCE_IMPLS``: ``'jnp'``,
+``'pallas'``, ``'pallas_scanres'``, ...) select their counterparts, and
+``resolve_note`` records the mapping.
 
 ``impl="auto"`` resolves from the propagator's ``device``, ``dtype`` and
 grid: "eager" on the CPU; on CUDA in 2D "cuda_scansnap" when its tape fits
@@ -37,9 +50,21 @@ from ..grid import Grid, pad_model
 from ..kernels.acoustic2d_eager import AcousticParams, make_acoustic_step, zero_state
 from .boundary import RingSpec, tape_budget_bytes
 
-ENGINES_2D = ("cuda_scansnap", "cuda_scanres", "cuda_step")
+ENGINES_2D = ("cuda_scansnap", "cuda_scanres", "cuda_step", "cuda_kstep")
 ENGINES_3D = ("cuda3d", "cuda3d_bf16")
 ENGINES = ("eager",) + ENGINES_2D + ENGINES_3D
+# the reference's impl names (tpufwi/propagators/acoustic2d.py) -> the port's
+REFERENCE_IMPLS = {"jnp": "eager", "pallas_scansnap": "cuda_scansnap",
+                   "pallas_scanres": "cuda_scanres", "pallas": "cuda_step",
+                   "pallas3d": "cuda3d", "pallas3d_bf16": "cuda3d_bf16"}
+
+
+def reference_impl(impl: str, table) -> tuple:
+    """(the port's engine, resolve_note) for an impl name that may be the
+    reference's."""
+    if impl in table:
+        return table[impl], f"{impl} -> {table[impl]}"
+    return impl, ("explicit" if impl != "auto" else "unresolved")
 
 
 class AcousticPropagator:
@@ -72,10 +97,14 @@ class AcousticPropagator:
         impl: str = "auto",
         device="cuda",
         tape_dtype=None,
+        merged_reverse: bool = False,
     ):
         grid.check_dt(dt, c_max)
+        # account of the engine choice, logged in the inversion's JSONL records
+        impl, self.resolve_note = reference_impl(impl, REFERENCE_IMPLS)
         if impl not in ("auto",) + ENGINES:
-            raise ValueError(f"unknown impl {impl!r}; choose from auto, {', '.join(ENGINES)}")
+            raise ValueError(f"unknown impl {impl!r}; choose from auto, {', '.join(ENGINES)} "
+                             f"or a reference name ({', '.join(REFERENCE_IMPLS)})")
         self.grid = grid
         self.dt = float(dt)
         self.f0 = float(f0)
@@ -84,8 +113,7 @@ class AcousticPropagator:
         self.device = torch.device(device)
         self.impl = impl
         self._tape_dtype = tape_dtype
-        # account of the engine choice, logged into the driver JSONL
-        self.resolve_note = "explicit" if impl != "auto" else "unresolved"
+        self._merged_reverse = bool(merged_reverse)
         if impl != "auto":
             self._check_engine(impl)
         self._profiles = build_profiles(grid, dt, c_max, f0, dtype=np.float64)
@@ -101,6 +129,8 @@ class AcousticPropagator:
             raise ValueError(f"{impl} is the 3D engine; the grid is 2D")
         if impl in ENGINES_2D and self.grid.ndim != 2:
             raise ValueError(f"{impl} is a 2D engine; on a 3D grid use cuda3d or cuda3d_bf16")
+        if self._merged_reverse and impl != "cuda_step":
+            raise ValueError("merged_reverse is a cuda_step option")
         if impl == "eager":
             if self.device.type != "cpu":
                 raise ValueError("the eager engine runs in plain torch on the CPU")
@@ -206,7 +236,12 @@ class AcousticPropagator:
             elif impl == "cuda_step":
                 from ..adjoint_step import make_simulator_step
 
-                sim = make_simulator_step(self.grid, self.dt, self.f0, self.c_max)
+                sim = make_simulator_step(self.grid, self.dt, self.f0, self.c_max,
+                                          merged_reverse=self._merged_reverse)
+            elif impl == "cuda_kstep":
+                from ..adjoint_kstep import make_simulator_kstep
+
+                sim = make_simulator_kstep(self.grid, self.dt, self.f0, self.c_max)
             else:
                 from ..adjoint_scanres import make_simulator_scanres
 

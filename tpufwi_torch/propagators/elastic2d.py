@@ -22,6 +22,9 @@ Engines:
   the counterpart of ``'pallas'``. ``forward_fused`` runs its tape-free
   forward.
 
+The reference's engine names (``REFERENCE_IMPLS``) select their
+counterparts, and ``resolve_note`` records the mapping.
+
 ``impl="auto"`` resolves from the propagator's device: "eager" on the CPU,
 "cuda_escan" on CUDA, where it raises when one shot's ring tape exceeds
 the card's budget (the reference has no such guard). It never picks
@@ -50,9 +53,12 @@ from ..kernels.elastic2d_eager import (
 )
 from ..kernels.elastic2d_scan import escan_forward_plain, escan_reverse_plain
 from ..kernels.elastic2d_step import make_elastic_forward_fused
+from .acoustic2d import reference_impl
 from .boundary import RingSpec, tape_budget_bytes
 
 ENGINES = ("eager", "cuda_escan", "cuda_estep")
+# the reference's impl names (tpufwi/propagators/elastic2d.py) -> the port's
+REFERENCE_IMPLS = {"jnp": "eager", "pallas_scan": "cuda_escan", "pallas": "cuda_estep"}
 
 
 def elastic_cfl_dt(h, vp_max: float, order: int = 4, safety: float = 0.8) -> float:
@@ -177,9 +183,12 @@ class ElasticPropagator:
         limit = elastic_cfl_dt(grid.h, vp_max, grid.order, safety=1.0)
         if dt > limit:
             raise ValueError(f"dt={dt:.6g} exceeds elastic CFL limit {limit:.6g}")
+        # account of the engine choice, logged in the inversion's JSONL records
+        impl, self.resolve_note = reference_impl(impl, REFERENCE_IMPLS)
         if impl not in ("auto",) + ENGINES:
             raise ValueError(f"unknown elastic impl {impl!r}; choose from auto, "
-                             f"{', '.join(ENGINES)}")
+                             f"{', '.join(ENGINES)} or a reference name "
+                             f"({', '.join(REFERENCE_IMPLS)})")
         check_kinds(source_type, record)
         self.grid = grid
         self.dt = float(dt)
@@ -190,8 +199,6 @@ class ElasticPropagator:
         self.record = record
         self.device = torch.device(device)
         self.impl = impl
-        # account of the engine choice, logged into the driver JSONL
-        self.resolve_note = "explicit" if impl != "auto" else "unresolved"
         if impl != "auto":
             self._check_engine(impl)
         self._sims = {}
