@@ -6,16 +6,19 @@ Phases, each printing its own lines; any failure exits non-zero.
   1. device: the card's name and power limit (nvidia-smi); no CUDA -> exit 1
   2. build: three nvcc calls, started together, build the acoustic library
      (ten kernels), the elastic library (six kernels: two whole-scan, four
-     per-step) and the 3D library (two kernels) from tpufwi_torch/csrc
+     per-step) and the 3D library (two whole-scan kernels and the two
+     per-step ones) from tpufwi_torch/csrc
   3. kernels vs plain: each CUDA kernel against its plain torch version on
      the card, at the main path's padded grid (399 x 1749), nt = 512, one
-     shot: the whole-scan forward (snapshot and ring tapes), the snapshot
-     and rings reverses, and the three single-step kernels step by step;
+     shot: the whole-scan forward (snapshot and ring tapes, illumination),
+     the snapshot and rings reverses, and the three single-step kernels
+     step by step;
      then (phase_kstep_kernels) the K-step forward and reverse (K = 4), the
      merged reverse step and the bare leapfrog, each fed its plain
      version's state, with a free-surface case at nt = 128; ms per call and
      per step (CUDA events), host ms per call, device ms (torch.profiler)
-  4. shot: one shot's forward + adjoint and illumination at nt = 4842
+  4. shot: one shot's forward + adjoint and illumination at nt = 4842 (the
+     illumination on the forward kernel, beside its plain version)
   5. gradients: one shot at nt = 4842 through the CUDA engines:
      cuda_scanres against cuda_scansnap, cuda_step against cuda_scanres,
      cuda_kstep against cuda_step and the merged cuda_step against the
@@ -29,8 +32,9 @@ Phases, each printing its own lines; any failure exits non-zero.
      a. snapshot engine (auto), 4 shots, stages 3 and 5 Hz of 2 iterations
      b. rings engine, 4 shots, one 3 Hz stage of 2 iterations
      c. single-step engine, 4 shots, one 3 Hz stage of 2 iterations,
-        without the illumination preconditioner (a plain-twin loop that no
-        kernel of this engine runs)
+        without the illumination preconditioner (every 2D engine's
+        illumination is the whole-scan forward kernel's, which the launch
+        check would count as another engine's)
      d. K-step engine (prop.impl=cuda_kstep), as c
      e. the single-step engine with the merged reverse step, as c, through
         tpufwi_torch.invert.invert from Python with
@@ -72,6 +76,18 @@ Phases, each printing its own lines; any failure exits non-zero.
      cut to 8 surface shots, 3,420 receivers), one 3 Hz stage of 2
      iterations with the illumination preconditioner, counters reset just
      before
+ 17. 3D per-step kernels vs plain: leapfrog3d and strip3d, each fed its
+     plain version's state at every step, at the 3D main path's padded grid
+     (428 x 188 x 588) from a random state, nt = 64, and a small grid with
+     order 4 and pml 7 at nt = 16; ms per call (CUDA events), host ms per
+     call, device ms per call (torch.profiler)
+ 18. bench_3d: tpufwi_torch.bench.bench_3d.main() at full SEG/EAGE
+     Overthrust width (801 x 187 x 801 at 25 m, pml 20, order 8: padded 849
+     x 235 x 849), counters set to 0 just before and read just after (the
+     launches of leapfrog3d and strip3d); then the two kernels against their
+     plain versions at that grid, and full_step against the leapfrog kernel
+     with torch-op strips and against full_step2 (a3d_forward) over 40 steps
+     from the impulse
 The second-to-last line is the kernels' JSON record, the last one
 {"ok": true, "device": {...}}.
 """
@@ -123,7 +139,7 @@ K_CHECK = 4  # steps per K-step call: cuda_kstep's K
 # products), the reverses fed the same tape and cotangent as their plain
 # versions, each single-step kernel fed its plain version's inputs
 TOL = {"seis": 1e-5, "fields": 1e-5, "rings": 1e-5, "gbar": 1e-4, "lam_src": 1e-4,
-       "recon": 1e-5, "lapw": 1e-5, "adjoint": 1e-5}
+       "recon": 1e-5, "lapw": 1e-5, "adjoint": 1e-5, "illum": 1e-5}
 SNAP_GTOL, STEP_GTOL = 5e-3, 1e-4  # engine against engine, on the valid region
 SCANRES_SRC = "tpufwi_torch/csrc/acoustic2d_scanres.cu"
 STEP_SRC = "tpufwi_torch/csrc/acoustic2d_step.cu"
@@ -131,6 +147,7 @@ ESCAN_SRC = "tpufwi_torch/csrc/elastic2d_scan.cu"
 ESTEP_SRC = "tpufwi_torch/csrc/elastic2d_step.cu"
 A3D_SRC = "tpufwi_torch/csrc/acoustic3d_scan.cu"
 KSTEP_SRC = "tpufwi_torch/csrc/acoustic2d_kstep.cu"
+STEP3D_SRC = "tpufwi_torch/csrc/acoustic3d_step.cu"
 KERNELS = {  # name: (source, the TPU kernel's pallas_call)
     "scanres_forward": (SCANRES_SRC, "tpufwi/kernels/acoustic2d_pallas_scanres.py:586"),
     "scanres_reverse_snap": (SCANRES_SRC, "tpufwi/kernels/acoustic2d_pallas_scanres.py:1112"),
@@ -156,6 +173,12 @@ KERNELS = {  # name: (source, the TPU kernel's pallas_call)
     # the reconstruction (15) fused into the transposed step (16, 17)
     "a3d_reverse": (A3D_SRC, "; ".join(
         f"tpufwi/kernels/acoustic3d_bwd_pallas.py:{n}" for n in (321, 851, 419, 521))),
+    # rows 19 and 14: one function, tiled two ways for the TPU
+    "leapfrog3d": (STEP3D_SRC, "tpufwi/kernels/acoustic3d_pallas.py:175; "
+                               "tpufwi/kernels/acoustic3d_pallas.py:336"),
+    # row 22: the y, z and x faces in one entry point
+    "strip3d": (STEP3D_SRC, "; ".join(
+        f"tpufwi/kernels/acoustic3d_strips_pallas.py:{n}" for n in (126, 196, 282))),
 }
 LEAPFROG_ROUTE = (f"cuda; launches from its kernel phase's leapfrog run of {NT_CHECK} steps, "
                   "not a main path: no engine runs it, in the port or the reference")
@@ -190,6 +213,12 @@ A3D_TOL = {"seis": 1e-5, "fields": 1e-5, "tape": 1e-5, "tape_bf16": 0.0, "illum"
 A3D_BF16_GTOL = 5e-2
 MAIN3D = dict(model=(160, 400, 560), nt=900, shots=(2, 4), fmax=3.0, iterations=2,
               mask_top=5, vmin=2000.0, vmax=6000.0)
+# of max|plain| per output, each per-step 3D kernel fed its plain version's
+# state at every step (fp32 summation order); "bench" the bench's full_step
+# field against the torch-op strips' and against full_step2's after
+# BENCH_CHECK_NT steps from the impulse
+A3D_STEP_TOL = {"fields": 1e-5, "strips": 1e-5, "bench": 1e-5}
+BENCH_CHECK_NT = 40
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA's data sheet
 FP32_FLOPS = 67e12  # outside the tensor cores
 
@@ -248,9 +277,17 @@ def a3d_module():
     return k3
 
 
+def a3d_step_modules():
+    from tpufwi_torch.kernels import acoustic3d_step as k3s
+    from tpufwi_torch.kernels import acoustic3d_strips as k3f
+
+    return k3s, k3f
+
+
 def wrapper(name):
     ks, kst = kernel_modules()
-    for mod in (ks, kst, kstep_module(), elastic_module(), estep_module(), a3d_module()):
+    for mod in (ks, kst, kstep_module(), elastic_module(), estep_module(), a3d_module(),
+                *a3d_step_modules()):
         if hasattr(mod, name):
             return getattr(mod, name)
     raise KeyError(name)
@@ -286,6 +323,8 @@ def step_counts(grid, nrec, nsrc, n_ring):
         # per step, plus once per shot (c2, final fields or gradient)
         "scanres_forward_snap": (fwd, nrec * f + cells * 2, 3 * cells * f),
         "scanres_forward_rings": (fwd, nrec * f + n_ring * f, 3 * cells * f),
+        # no receivers; the (NZ, NX) sum read and written once per shot
+        "scanres_forward_illum": (fwd + 2 * cells, 0, 5 * cells * f),
         "scanres_reverse_snap": (rev, nrec * f + nsrc * f + cells * 2, 2 * cells * f),
         "scanres_reverse": (rev + recon, nrec * f + nsrc * f + n_ring * f, 4 * cells * f),
         # one call: the fields and strip state in and out
@@ -650,19 +689,23 @@ def phase_kernels(dev, smi, nz=351, nx=1701, nt=NT_CHECK, quiet=False):
     counts = step_counts(grid, ri.shape[0], si.shape[0], ks.ring_plan(grid, dev)[0].shape[0])
     entries, errs = [], {}
 
-    # kernel 1, both tape modes
-    plain_fwd_ms, (seis_p, snap_p, ppen_p, plast_p) = timed_ms(
+    # kernel 1, both tape modes, and its illumination (the plain one with
+    # the ring tape's plain run)
+    plain_fwd_ms, (seis_p, snap_p, ppen_p, plast_p, _) = timed_ms(
         lambda: ks.scanres_forward_plain(*args, w, si, ri, "snap"), warmup=False)
-    fwd_ms, (seis, snap, ppen, plast) = timed_ms(
+    fwd_ms, (seis, snap, ppen, plast, _) = timed_ms(
         lambda: ks.scanres_forward(*args, w, si, ri, tape="snap"), reps=3)
-    plain_rf_ms, (_, rings_p, rpen_p, rlast_p) = timed_ms(
-        lambda: ks.scanres_forward_plain(*args, w, si, ri, "rings"), warmup=False)
-    rf_ms, (seis_r, rings, rpen, rlast) = timed_ms(
+    plain_rf_ms, (_, rings_p, rpen_p, rlast_p, il_p) = timed_ms(
+        lambda: ks.scanres_forward_plain(*args, w, si, ri, "rings", illum=True), warmup=False)
+    rf_ms, (seis_r, rings, rpen, rlast, _) = timed_ms(
         lambda: ks.scanres_forward(*args, w, si, ri, tape="rings"), reps=3)
+    no_rcv = ri[:0]
+    il_ms, (_, _, _, _, il) = timed_ms(
+        lambda: ks.scanres_forward(*args, w, si, no_rcv, illum=True), reps=3)
     errs["fwd"] = {"seis": max(rel_err(seis, seis_p), rel_err(seis_r, seis_p)),
                    "fields": max(rel_err(ppen, ppen_p), rel_err(plast, plast_p),
                                  rel_err(rpen, rpen_p), rel_err(rlast, rlast_p)),
-                   "rings": rel_err(rings, rings_p)}
+                   "rings": rel_err(rings, rings_p), "illum": rel_err(il, il_p)}
     snap_err = float((snap.float() - snap_p.float()).abs().max())
     snap_ulp = float(snap_p.float().abs().max()) * 2.0**-7  # one bf16 ulp at max
     fwd_abs = float((torch.cat([seis, seis_r]).double()
@@ -670,6 +713,7 @@ def phase_kernels(dev, smi, nz=351, nx=1701, nt=NT_CHECK, quiet=False):
     entries.append(entry("scanres_forward", fwd_abs, fwd_ms / nt, plain_fwd_ms / nt,
                          counts["scanres_forward_snap"], nt))
     rings_bound = bound(counts["scanres_forward_rings"], nt)
+    illum_bound = bound(counts["scanres_forward_illum"], nt)
 
     # kernels 2 and 3, fed the plain forward's tapes and fields
     ybar = seis_p.contiguous()
@@ -707,7 +751,10 @@ def phase_kernels(dev, smi, nz=351, nx=1701, nt=NT_CHECK, quiet=False):
         print(f"[kernels]   {e['name']}: {e['ms']:.5f} ({e['plain_ms']:.4f}; "
               f"{e['bound_ms']:.5f} by {e['bound_by']})", flush=True)
     print(f"[kernels]   scanres_forward with the ring tape: {rf_ms / nt:.5f} "
-          f"({plain_rf_ms / nt:.4f}; {rings_bound[0]:.5f} by {rings_bound[1]})", flush=True)
+          f"({plain_rf_ms / nt:.4f} with illumination; {rings_bound[0]:.5f} by "
+          f"{rings_bound[1]})", flush=True)
+    print(f"[kernels]   scanres_forward with illumination, no receivers: {il_ms / nt:.5f} "
+          f"({illum_bound[0]:.5f} by {illum_bound[1]})", flush=True)
     for name, (_, _, host_ms, dev_us, _) in step_ms.items():
         dev_ms = "not measured" if dev_us is None else f"{dev_us / 1e3:.5f} ms"
         print(f"[kernels]   {name}: host time per call {host_ms:.5f} ms, device time per call "
@@ -932,7 +979,7 @@ def phase_kstep_kernels(dev, smi, nt=NT_CHECK, nt_fs=128, quiet=False):
     # time per step (no launch gaps) against the K-step kernels'
     m = min(64, nt)
     wp = w[:m].contiguous()
-    seis_m, tape_m, pen_m, last_m = ks.scanres_forward(*args, wp, si, ri, tape="rings")
+    seis_m, tape_m, pen_m, last_m, _ = ks.scanres_forward(*args, wp, si, ri, tape="rings")
     scan_us = {
         "forward": device_us_per_step(
             lambda: ks.scanres_forward(*args, wp, si, ri, tape="rings"), m,
@@ -987,8 +1034,10 @@ def phase_kstep_kernels(dev, smi, nt=NT_CHECK, nt_fs=128, quiet=False):
 
 def phase_shot(dev, smi):
     """Kernel time of one shot's forward (with tape) + adjoint at the main
-    path's nt (t_max = 4 s), and of the shot's illumination (plain step
-    twin, what the preconditioner runs per shot and stage)."""
+    path's nt (t_max = 4 s), and of the shot's illumination, what the
+    preconditioner runs per shot and stage: the engine's (the forward
+    kernel's illum mode) beside its plain version (the step twin's loop,
+    what ran on the card before the kernel took it over)."""
     ks, _ = kernel_modules()
     from tpufwi_torch.acquisition import Geometry
     from tpufwi_torch.propagators.acoustic2d import AcousticPropagator
@@ -997,24 +1046,34 @@ def phase_shot(dev, smi):
     nt = w.shape[0]
 
     def fwd_adj():
-        seis, tape, _, _ = ks.scanres_forward(*args, w, si, ri, tape="snap")
+        seis, tape, _, _, _ = ks.scanres_forward(*args, w, si, ri, tape="snap")
         return ks.scanres_reverse_snap(*args, seis, tape, si, ri)
 
     def fwd_adj_rings():
-        seis, tape, ppen, plast = ks.scanres_forward(*args, w, si, ri, tape="rings")
+        seis, tape, ppen, plast, _ = ks.scanres_forward(*args, w, si, ri, tape="rings")
         return ks.scanres_reverse(*args, w, seis, tape, ppen, plast, si, ri)
 
     ms, (g, _) = timed_ms(fwd_adj, reps=2)
     rings_ms, (gr, _) = timed_ms(fwd_adj_rings, reps=2)
     fwd_ms, _ = timed_ms(lambda: ks.scanres_forward(*args, w, si, ri, tape=None))
     prop = AcousticPropagator(args[0], dt, f0, c_max, device=dev)
-    illum_ms, illum = timed_ms(lambda: prop.illumination(vp, Geometry(si, ri), w),
-                               warmup=False)
+    launched = ks.scanres_forward.launches
+    illum_ms, illum = timed_ms(lambda: prop.illumination(vp, Geometry(si, ri), w), reps=2)
+    launched = ks.scanres_forward.launches - launched
+    plain_ms, out_p = timed_ms(
+        lambda: ks.scanres_forward_plain(*args, w, si, ri[:0], illum=True), warmup=False)
+    err = rel_err(illum, out_p[4][args[0].interior])
     if not all(bool(torch.isfinite(x).all()) for x in (g, gr, illum)):
         fail("one-shot gradient or illumination is not finite")
     print(f"[shot] {smi}: nt {nt}: forward+adjoint {ms / 1e3:.3f} s/shot (snapshot), "
           f"{rings_ms / 1e3:.3f} s/shot (rings), tape-free forward {fwd_ms / 1e3:.3f} s/shot, "
-          f"illumination (plain twin) {illum_ms / 1e3:.3f} s/shot", flush=True)
+          f"illumination (kernel) {illum_ms / 1e3:.4f} s/shot ({prop.resolve_impl(nt)}, "
+          f"{launched} forward-kernel steps in 3 calls), its plain version {plain_ms / 1e3:.3f} "
+          f"s/shot, error {err:.3e} of max (tolerance {TOL['illum']:.0e})", flush=True)
+    if launched != 3 * nt:
+        fail(f"the illumination launched the forward kernel for {launched} steps, not 3 x {nt}")
+    if not err <= TOL["illum"]:
+        fail(f"the illumination disagrees with its plain version: {err:.3e}")
 
 
 def _value_and_grad(prop, vp, geom, w, d):
@@ -1064,7 +1123,7 @@ def phase_gradients(dev, smi):
                    bool(torch.equal(out[k][1], out["cuda_step"][1]))
                    and out[k][0] == out["cuda_step"][0])
                for k in ("cuda_kstep", "cuda_step merged")}
-    seis, tape, ppen, plast = ks.scanres_forward(*args, w, si, ri, tape="rings")
+    seis, tape, ppen, plast, _ = ks.scanres_forward(*args, w, si, ri, tape="rings")
     _, _, p_first = ks.scanres_reverse(*args, w, seis, tape, ppen, plast, si, ri,
                                        return_field=True)
     pv = RingSpec.build(grid).valid
@@ -1179,11 +1238,13 @@ def phase_main(smi, path, device="cuda"):
         cfg.opt.vmax, cfg.prop.cfl_safety)
     nt = int(cfg.acq.t_max / dt)
     # forward evaluations: observed data (unless made before the reset),
-    # then per stage the first value-and-grad and per iteration the
-    # line-search trials + one value-and-grad (a retried line search adds
-    # uncounted trials)
+    # then per stage the illumination (on the whole-scan forward kernel,
+    # where the preconditioner asks for it) and the first value-and-grad,
+    # and per iteration the line-search trials + one value-and-grad (a
+    # retried line search adds uncounted trials)
     observed = 0 if spec.get("merged_reverse") else 1
-    fwd_min = n_shots * (observed + len(cfg.stages) + sum(r["evals"] for r in its))
+    per_stage = 2 if cfg.precond.use_illumination else 1
+    fwd_min = n_shots * (observed + per_stage * len(cfg.stages) + sum(r["evals"] for r in its))
     rev = n_shots * (len(cfg.stages) + len(its))
     mine = {k: launches[k] for k in spec["kernels"]}
     print(f"[main {path}] {smi}: {wall:.1f} s total, peak memory {peak / 2**30:.2f} GiB, "
@@ -2107,6 +2168,235 @@ def phase_main_3d(smi, dev):
     return mine
 
 
+# ------------------------------------------------------------ 3D per-step
+
+
+def a3d_perstep_counts(grid):
+    """Operations and bytes of one call of each per-step 3D kernel, each
+    input read once and each output written once: leapfrog3d reads p_prev,
+    p and C and writes p_next (16 B/cell); strip3d reads p and C and
+    reads and writes p_next on the union of the correction bands (S + R
+    deep on each face), and reads and writes phi and psi on the strips (16
+    B/strip cell). Operations: three (2R+1)-tap D2 stencils and the update
+    a cell; D1 p and the phi update a strip cell; D2 p, D1 phi', the psi
+    update and the two additions a band cell."""
+    NY, NZ, NX = grid.padded_shape
+    R, taps = grid.radius, 2 * grid.radius + 1
+    S = grid.pml + R
+    cells = NY * NZ * NX
+    union = cells - int(np.prod([n - 2 * (S + R) for n in grid.padded_shape]))
+    bands = sum(2 * (S + R) * (cells // n) for n in grid.padded_shape)
+    strips = 2 * S * (NZ * NX + NY * NX + NY * NZ)
+    return {"leapfrog3d": (cells * (6 * taps + 4), 16 * cells, 0),
+            "strip3d": (strips * (2 * taps + 3) + bands * (4 * taps + 8),
+                        16 * union + 16 * strips, 0)}
+
+
+def a3d_step_state(grid, dev, seed):
+    """A random state (p_prev, p, strips) of the per-step kernels: every
+    cell and every face's strips active, no two faces alike."""
+    _, k3f = a3d_step_modules()
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    rand = lambda *s: torch.randn(s, generator=gen, device=dev)  # noqa: E731
+    return (rand(*grid.padded_shape), rand(*grid.padded_shape),
+            0.1 * rand(2 * k3f.strip_cells(grid)))
+
+
+def a3d_step_kernels_vs_plain(grid, c2, prof, nt, seed=0):
+    """leapfrog3d and strip3d against their plain versions over nt fused
+    steps from a random state: before each call the kernel's state is set
+    to the plain one's, so each kernel is held on its own, and the plain
+    state carries on. Returns ({kernel: {output: rel err}}, {kernel: max
+    abs err}, {kernel: plain ms per call})."""
+    k3s, k3f = a3d_step_modules()
+    dev = c2.device
+    p_prev, p, sp = a3d_step_state(grid, dev, seed)
+    fp = torch.stack([p_prev, p])  # P_{t-2} (becomes P_t), P_{t-1}
+    del p_prev, p
+    fk, sk = torch.empty_like(fp), torch.empty_like(sp)
+    errs = {"leapfrog3d": {"fields": _Err(dev)},
+            "strip3d": {"fields": _Err(dev), "strips": _Err(dev)}}
+    held = _Held(errs)
+    prev, cur = 0, 1
+    for _ in range(nt):
+        held.call("leapfrog3d", lambda: k3s.leapfrog3d(grid, fk[prev], fk[cur], c2),
+                  lambda: k3s.leapfrog3d_plain(grid, fp[prev], fp[cur], c2), ((fk, fp),))
+        errs["leapfrog3d"]["fields"].add(fk[prev], fp[prev])
+        held.call("strip3d", lambda: k3f.strip3d(grid, fk[cur], fk[prev], sk, prof, c2),
+                  lambda: k3f.strip3d_plain(grid, fp[cur], fp[prev], sp, prof, c2),
+                  ((fk, fp), (sk, sp)))
+        errs["strip3d"]["fields"].add(fk[prev], fp[prev])
+        errs["strip3d"]["strips"].add(sk, sp)
+        prev, cur = cur, prev
+    plain_ms = held.plain_ms()
+    if not (bool(torch.isfinite(fp).all()) and bool(torch.isfinite(sp).all())):
+        fail("the per-step 3D plain state is not finite")
+    rel = {k: {o: e.rel() for o, e in outs.items()} for k, outs in errs.items()}
+    abs_err = {k: max(e.abs() for e in outs.values()) for k, outs in errs.items()}
+    return rel, abs_err, plain_ms
+
+
+def time_a3d_step_kernels(grid, c2, prof, nt, seed=1):
+    """time_loops of leapfrog3d (nt steps) and strip3d (nt calls on one
+    field pair) from a random state."""
+    k3s, k3f = a3d_step_modules()
+    p_prev, p, strips = a3d_step_state(grid, c2.device, seed)
+    f = torch.stack([p_prev, p])
+    del p_prev, p
+    pattern = r"::(s3_\w+?)[<(]"
+
+    def loops(m):
+        def leap():
+            for t in range(m):
+                k3s.leapfrog3d(grid, f[t % 2], f[1 - t % 2], c2)
+
+        def strip():
+            for _ in range(m):
+                k3f.strip3d(grid, f[1], f[0], strips, prof, c2)
+
+        return {"leapfrog3d": (leap, m, pattern), "strip3d": (strip, m, pattern)}
+
+    return time_loops(loops, nt)
+
+
+def leapfrog3d_clocks(grid, c2, m=32, seed=2):
+    """leapfrog3d's ms a call by two more clocks than time_loops': the
+    median of CUDA events around each of m calls, and the host clock
+    around m calls that end in a synchronize."""
+    k3s, _ = a3d_step_modules()
+    p_prev, p, _ = a3d_step_state(grid, c2.device, seed)
+    f = torch.stack([p_prev, p])
+    del p_prev, p
+    evs = []
+    for t in range(m):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        k3s.leapfrog3d(grid, f[t % 2], f[1 - t % 2], c2)
+        b.record()
+        evs.append((a, b))
+    torch.cuda.synchronize()
+    each = sorted(a.elapsed_time(b) for a, b in evs)
+    t0 = time.perf_counter()
+    for t in range(m):
+        k3s.leapfrog3d(grid, f[t % 2], f[1 - t % 2], c2)
+    torch.cuda.synchronize()
+    return each[m // 2], 1e3 * (time.perf_counter() - t0) / m
+
+
+def a3d_step_case(grid, dt, f0, c_max, c2_np, dev):
+    """(c2, prof) of the per-step kernels on ``dev`` from a numpy C."""
+    _, k3f = a3d_step_modules()
+    c2 = torch.as_tensor(np.ascontiguousarray(c2_np, dtype=np.float32), device=dev)
+    return c2, k3f.strip_prof_source(grid, dt, f0, c_max)(c2)
+
+
+def check_a3d_step(label, rel):
+    for kernel, outs in rel.items():
+        for out, err in outs.items():
+            if not err <= A3D_STEP_TOL[out]:
+                fail(f"{label}: {kernel} {out} disagrees with the plain version: {err:.3e} > "
+                     f"{A3D_STEP_TOL[out]:.0e}")
+
+
+def print_a3d_step_times(tag, smi, grid, nt, times, plain_ms):
+    counts = a3d_perstep_counts(grid)
+    print(f"[{tag}] {smi}: grid {'x'.join(map(str, grid.padded_shape))} order {grid.order} "
+          f"pml {grid.pml}, {nt} calls: ms per call, kernel by CUDA events (host per call; "
+          "device per call by torch.profiler; plain per call; bound):", flush=True)
+    for name, (calls, ms, host_ms, dev_us, rows) in times.items():
+        b = bound(counts[name], 1)
+        dev_ms = "not measured" if dev_us is None else f"{dev_us / 1e3:.5f}"
+        print(f"[{tag}]   {name}: {ms:.5f} ({host_ms:.5f}; {dev_ms}; {plain_ms[name]:.4f}; "
+              f"{b[0]:.5f} by {b[1]}), device us per call: "
+              + ", ".join(f"{n} {us:.2f}" for n, us in rows), flush=True)
+
+
+def phase_a3d_step_kernels(dev, smi, nt=64, nt_small=16):
+    """leapfrog3d and strip3d against their plain versions at the 3D main
+    path's padded grid (its survey's C), nt fused steps from a random
+    state, and on a small grid with order 4 and pml 7 (nt_small); then
+    their times per call at the main path's grid."""
+    from tpufwi_torch.grid import Grid
+
+    small = Grid(shape=(30, 26, 34), h=(10.0, 11.0, 12.0), pml=7, order=4)
+    dt_s = small.cfl_dt(2600.0, safety=0.7)
+    rng = np.random.default_rng(17)
+    c2_s = ((2200 + 150 * rng.standard_normal(small.padded_shape)) * dt_s) ** 2
+    args_s = a3d_step_case(small, dt_s, 18.0, 2600.0, c2_s, dev)
+    a3d_step_kernels_vs_plain(small, *args_s, 2)  # first-use costs out of the timings
+    rel_s, _, _ = a3d_step_kernels_vs_plain(small, *args_s, nt_small, seed=3)
+    grid, vp, dt, f0, c_max, _, _, _ = overthrust_survey(*MAIN3D["model"], nt=8,
+                                                         shots=MAIN3D["shots"])
+    args = a3d_step_case(grid, dt, f0, c_max, (np.pad(vp, grid.pad, mode="edge") * dt) ** 2,
+                         dev)
+    rel, _, plain_ms = a3d_step_kernels_vs_plain(grid, *args, nt)
+    times = time_a3d_step_kernels(grid, *args, nt)
+    print_a3d_step_times("a3d step kernels", smi, grid, nt, times, plain_ms)
+    print(f"[a3d step kernels] rel err {json.dumps(rel)}; order 4 pml 7 grid "
+          f"{'x'.join(map(str, small.padded_shape))} nt {nt_small} {json.dumps(rel_s)}; "
+          f"tolerances {json.dumps(A3D_STEP_TOL)}", flush=True)
+    check_a3d_step("3D main path's grid", rel)
+    check_a3d_step("order 4 pml 7 grid", rel_s)
+
+
+def phase_bench_3d(dev, smi, check_nt=BENCH_CHECK_NT, nt_held=8, nt_time=32):
+    """bench_3d.main() at its default, full SEG/EAGE Overthrust width, with
+    every launch counter set to 0 just before it and read just after; then
+    the fused step against the torch-op strips and against full_step2 over
+    check_nt steps from the impulse, and leapfrog3d and strip3d against
+    their plain versions and timed at that grid. Returns the two kernels'
+    entries, with their launches in the bench run."""
+    from tpufwi_torch.bench import bench_3d
+
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    out = bench_3d.main([])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    ran = {k: v for k, v in launches.items() if v}
+    grid, dt = bench_3d.bench_grid()
+    cells = int(np.prod(grid.padded_shape))
+    print(f"[bench 3d] {smi}: padded {'x'.join(map(str, grid.padded_shape))} ({cells} cells), "
+          f"{wall:.1f} s with set-up; ms per step and Gcu/s " + "; ".join(
+              f"{k} {v['ms_per_step']} ms, {v['gcups']} Gcu/s" for k, v in out.items())
+          + f"; launches {json.dumps(ran)}", flush=True)
+    if set(ran) != {"leapfrog3d", "strip3d", "a3d_forward"}:
+        fail(f"the bench launched {ran}, not leapfrog3d, strip3d and a3d_forward")
+
+    c2 = bench_3d.bench_c2(grid, dt, dev)
+    runs = bench_3d.make_runs(grid, dt)
+    fused = runs["full_step"](c2, check_nt)
+    errs = {name: rel_err(fused, runs[name](c2, check_nt)) for name in ("strip_step", "full_step2")}
+    if not bool(torch.isfinite(fused).all()) or float(fused.abs().max()) == 0:
+        fail("the fused 3D step's field is not finite and nonzero")
+    del fused
+    prof = a3d_step_modules()[1].strip_prof_source(grid, dt, bench_3d.F0, bench_3d.C_MAX)(c2)
+    rel, abs_err, plain_ms = a3d_step_kernels_vs_plain(grid, c2, prof, nt_held)
+    times = time_a3d_step_kernels(grid, c2, prof, nt_time)
+    print_a3d_step_times("bench 3d", smi, grid, nt_time, times, plain_ms)
+    each_ms, host_ms = leapfrog3d_clocks(grid, c2, nt_time)
+    print(f"[bench 3d] leapfrog3d ms a call by two more clocks: {each_ms:.5f} (median of CUDA "
+          f"events around each of {nt_time} calls), {host_ms:.5f} (host clock around "
+          f"{nt_time} calls and a synchronize)", flush=True)
+    print(f"[bench 3d] full_step against the torch-op strips and against full_step2 after "
+          f"{check_nt} steps from the impulse, of max: {json.dumps(errs)}; kernels vs plain, "
+          f"{nt_held} steps: {json.dumps(rel)}; tolerances {json.dumps(A3D_STEP_TOL)}",
+          flush=True)
+    for name, err in errs.items():
+        if not err <= A3D_STEP_TOL["bench"]:
+            fail(f"full_step disagrees with {name}: {err:.3e} > {A3D_STEP_TOL['bench']:.0e}")
+    check_a3d_step("bench grid", rel)
+    counts = a3d_perstep_counts(grid)
+    entries = []
+    for name in ("leapfrog3d", "strip3d"):
+        e = entry(name, abs_err[name], times[name][1], plain_ms[name], counts[name], 1)
+        e["launches"] = launches[name]
+        entries.append(e)
+    return entries
+
+
 def main() -> int:
     smi = phase_device()
     dev = torch.device("cuda", 0)
@@ -2122,6 +2412,8 @@ def main() -> int:
     phase_estep_shot(dev, smi)
     kernels += phase_a3d_kernels(dev, smi)
     phase_a3d_fullscale(dev, smi)
+    phase_a3d_step_kernels(dev, smi)
+    kernels += phase_bench_3d(dev, smi)
     launches = dict.fromkeys(KERNELS, 0)
     for path in PATHS:
         for name, n in phase_main(smi, path).items():

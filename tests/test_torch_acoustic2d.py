@@ -111,6 +111,60 @@ def test_illumination_matches_reference():
     assert np.abs(got - ref).max() <= 1e-12 * np.abs(ref).max()
 
 
+@pytest.mark.parametrize("free_surface", [False, True])
+def test_forward_kernel_illumination_matches_reference(free_surface):
+    """What every 2D CUDA engine's illumination runs: the whole-scan
+    forward's illum mode, here its plain version in fp32, against the
+    reference's (fp32, impl='jnp'); 1e-5 of max (fp32 sums in another
+    order). The free surface pins P_t before it is summed."""
+    from tpufwi_torch.adjoint_scanres import make_illumination, profile_source
+    from tpufwi_torch.kernels.acoustic2d_scanres import scanres_forward_plain, strip_profiles
+
+    kw, dt, f0, c_max, vp, src, rcv, w = _setup(free_surface, nsrc=2, nt=100)
+    jprop = JProp(JGrid(**kw), dt, f0, c_max, dtype=jnp.float32, impl="jnp")
+    jg = JGeometry.from_physical(JGrid(**kw), src, rcv)
+    ref = np.asarray(jprop.illumination(jnp.asarray(vp, jnp.float32), jg,
+                                        jnp.asarray(w, jnp.float32)))
+    grid = Grid(**kw)
+    c2 = torch.tensor((np.pad(vp, grid.pad, mode="edge") * dt) ** 2, dtype=torch.float32)
+    prof = tuple(torch.tensor(p) for p in strip_profiles(grid, dt, c_max, f0))
+    src_idx = torch.tensor(src + grid.pad)
+    w_t = torch.tensor(w, dtype=torch.float32)
+    acc = scanres_forward_plain(grid, c2, prof, w_t, src_idx, src_idx.new_zeros((0, 2)),
+                                illum=True)[4]
+    got = acc[grid.interior].numpy()
+    assert np.abs(got - ref).max() <= 1e-5 * np.abs(ref).max()
+    # the engines' entry point: the interior of the same accumulator, on
+    # every 2D CUDA engine (cuda_scansnap, cuda_scanres, cuda_step, cuda_kstep)
+    from tpufwi_torch.adjoint_kstep import make_simulator_kstep
+    from tpufwi_torch.adjoint_scanres import make_simulator_scanres
+    from tpufwi_torch.adjoint_step import make_simulator_step
+
+    engine = make_illumination(grid, profile_source(grid, dt, f0, c_max))(c2, w_t, src_idx)
+    assert torch.equal(engine, acc[grid.interior])
+    sims = [make_simulator_scanres(grid, dt, f0, c_max, tape_mode=m) for m in ("snap", "rings")]
+    sims += [make_simulator_step(grid, dt, f0, c_max), make_simulator_kstep(grid, dt, f0, c_max)]
+    for sim in sims:
+        assert torch.equal(sim.illumination(c2, w_t, src_idx), engine)
+
+
+def test_illumination_raises_on_a_card_engine_without_a_kernel(monkeypatch):
+    """No quiet fallback to the plain step twin on a CUDA device: an engine
+    there without ``illumination`` raises (the engine is mocked: no card
+    here)."""
+    kw, dt, f0, c_max, vp, src, rcv, w = _setup(nt=8)
+    grid = Grid(**kw)
+    prop = AcousticPropagator(grid, dt, f0, c_max, device="cuda")
+    monkeypatch.setattr(prop, "resolve_impl", lambda nt=None: "cuda_step")
+    prop._sims["cuda_step"] = lambda *args: None  # an engine with no illumination
+    twin = []
+    monkeypatch.setattr(prop, "_twin_loop", lambda *a: twin.append(1) or iter(()))
+    geom = Geometry.from_physical(grid, src, rcv, device="cpu")
+    with pytest.raises(NotImplementedError, match="no illumination kernel"):
+        prop.illumination(torch.tensor(vp), geom, torch.tensor(w))
+    assert not twin
+
+
 # ---- engine resolution (mirrors tests/test_engine_select.py) ----
 
 

@@ -1,6 +1,6 @@
 """The CUDA kernels == their plain torch versions, on the card (2D acoustic
-whole-scan, single-step and K-step, elastic whole-scan and per-step, and 3D
-acoustic).
+whole-scan, single-step and K-step, elastic whole-scan and per-step, 3D
+acoustic whole-scan and per-step, and the 3D bench).
 
 Skips without a CUDA device. Imports no JAX, so it runs where only the
 port is installed: ``python -m pytest tests/test_torch_cuda.py -m cuda
@@ -73,8 +73,8 @@ def test_kernels_match_plain(device, order, nsrc, free_surface, dup):
     args, w, idx = _case(device, order, nsrc, free_surface, dup)
     nt = w.shape[0]
     f0, r0 = ks.scanres_forward.launches, ks.scanres_reverse_snap.launches
-    seis, tape, ppen, plast = ks.scanres_forward(*args, w, *idx, tape="snap")
-    seis_p, tape_p, ppen_p, plast_p = ks.scanres_forward_plain(*args, w, *idx, "snap")
+    seis, tape, ppen, plast, _ = ks.scanres_forward(*args, w, *idx, tape="snap")
+    seis_p, tape_p, ppen_p, plast_p, _ = ks.scanres_forward_plain(*args, w, *idx, "snap")
     torch.cuda.synchronize()
     assert ks.scanres_forward.launches - f0 == nt
     for got, ref in ((seis, seis_p), (ppen, ppen_p), (plast, plast_p)):
@@ -97,7 +97,7 @@ def test_cuda_wrapper_raises_instead_of_falling_back(device):
         ks.scanres_forward(grid, c2.double(), prof, w, *idx, tape="snap")
     with pytest.raises(ValueError, match="outside the padded grid"):
         ks.scanres_forward(grid, c2, prof, w, idx[0] + 10_000, idx[1], tape="rings")
-    seis, tape, ppen, plast = ks.scanres_forward(grid, c2, prof, w, *idx, tape="rings")
+    seis, tape, ppen, plast, _ = ks.scanres_forward(grid, c2, prof, w, *idx, tape="rings")
     with pytest.raises(ValueError, match="tape"):
         ks.scanres_reverse(grid, c2, prof, w, seis, tape[:-1], ppen, plast, *idx)
 
@@ -113,8 +113,8 @@ def test_rings_kernels_match_plain(device, order, nsrc, free_surface, dup, in_ri
     args, w, idx = _case(device, order, nsrc, free_surface, dup, nt=160, in_ring=in_ring)
     nt = w.shape[0]
     f0, r0 = ks.scanres_forward.launches, ks.scanres_reverse.launches
-    seis, rings, ppen, plast = ks.scanres_forward(*args, w, *idx, tape="rings")
-    seis_p, rings_p, ppen_p, plast_p = ks.scanres_forward_plain(*args, w, *idx, "rings")
+    seis, rings, ppen, plast, _ = ks.scanres_forward(*args, w, *idx, tape="rings")
+    seis_p, rings_p, ppen_p, plast_p, _ = ks.scanres_forward_plain(*args, w, *idx, "rings")
     torch.cuda.synchronize()
     assert ks.scanres_forward.launches - f0 == nt
     assert tuple(rings.shape) == (nt, RingSpec.build(args[0]).tape_bytes_per_step() // 4)
@@ -412,3 +412,77 @@ def test_a3d_wrapper_raises_instead_of_falling_back(device):
         k3.a3d_reverse(grid, c2, prof, w, seis, tape[:-1].contiguous(), ppen, plast, si, ri)
     with pytest.raises(ValueError, match="tape"):
         k3.a3d_reverse(grid, c2, prof, w, seis, tape.double(), ppen, plast, si, ri)
+
+
+def test_scanres_illumination_matches_plain(device):
+    """The whole-scan forward's illum mode (what every 2D CUDA engine's
+    illumination runs, with no receivers) against its plain version, with
+    chip_smoke.py's tolerance, on the free surface."""
+    args, w, (si, ri) = _case(device, 8, 2, True, False, nt=96)
+    f0 = ks.scanres_forward.launches
+    il = ks.scanres_forward(*args, w, si, ri[:0], illum=True)[4]
+    il_p = ks.scanres_forward_plain(*args, w, si, ri[:0], illum=True)[4]
+    torch.cuda.synchronize()
+    assert ks.scanres_forward.launches - f0 == w.shape[0]
+    assert _rel(il, il_p) <= chip_smoke.TOL["illum"]
+
+
+# --------------------------------------------------- 3D per-step (14, 19, 22)
+
+
+def _a3d_step_case(device, order, pml):
+    grid = Grid(shape=(20, 24, 28), h=(10.0, 11.0, 12.0), pml=pml, order=order)
+    dt = grid.cfl_dt(2600.0, safety=0.7)
+    rng = np.random.default_rng(order + pml)
+    c2 = ((2200 + 150 * rng.standard_normal(grid.padded_shape)) * dt) ** 2
+    return grid, chip_smoke.a3d_step_case(grid, dt, 18.0, 2600.0, c2, device)
+
+
+@pytest.mark.parametrize("order,pml", [(8, 6), (4, 7), (2, 5)])
+def test_a3d_step_kernels_match_plain(device, order, pml):
+    """leapfrog3d and strip3d, each fed its plain version's state at every
+    step of 24 from a random state (every face active, no two alike), with
+    chip_smoke.py's tolerances; one launch per call each."""
+    from tpufwi_torch.kernels import acoustic3d_step as k3s
+    from tpufwi_torch.kernels import acoustic3d_strips as k3f
+
+    grid, (c2, prof) = _a3d_step_case(device, order, pml)
+    l0, s0 = k3s.leapfrog3d.launches, k3f.strip3d.launches
+    rel, _, _ = chip_smoke.a3d_step_kernels_vs_plain(grid, c2, prof, 24)
+    assert (k3s.leapfrog3d.launches - l0, k3f.strip3d.launches - s0) == (24, 24)
+    for kernel, outs in rel.items():
+        for out, err in outs.items():
+            assert err <= chip_smoke.A3D_STEP_TOL[out], (kernel, out, err)
+
+
+def test_a3d_step_wrappers_raise_instead_of_falling_back(device):
+    from tpufwi_torch.kernels import acoustic3d_step as k3s
+    from tpufwi_torch.kernels import acoustic3d_strips as k3f
+
+    grid, (c2, prof) = _a3d_step_case(device, 8, 6)
+    p_prev, p, strips = k3f.zero_strip_state(grid, device)
+    with pytest.raises(ValueError, match="fp32"):
+        k3s.leapfrog3d(grid, p_prev.double(), p, c2)
+    with pytest.raises(ValueError, match="distinct"):
+        k3s.leapfrog3d(grid, p, p, c2)
+    with pytest.raises(ValueError, match="strips and prof"):
+        k3f.strip3d(grid, p, p_prev, strips[:-1], prof, c2)
+    with pytest.raises(ValueError, match="fp32"):
+        k3f.strip3d(grid, p[:, :, :-1], p_prev, strips, prof, c2)
+
+
+def test_bench_3d_on_the_card(device):
+    """Three positive ms/step at a small grid (enough steps that the slope
+    is the card's work), and the fused step against the torch-op strips and
+    full_step2 over 40 steps from the impulse within 1e-5 of max."""
+    from tpufwi_torch.bench import bench_3d
+
+    dims = dict(ny=40, nz=32, nx=48, pml=8, order=8)
+    out = bench_3d.bench_3d_step(**dims, nts=(8, 200), device=device)
+    assert all(np.isfinite(v["ms_per_step"]) and v["ms_per_step"] > 0 for v in out.values())
+    grid, dt = bench_3d.bench_grid(**dims)
+    c2 = bench_3d.bench_c2(grid, dt, device)
+    runs = bench_3d.make_runs(grid, dt)
+    fused = runs["full_step"](c2, 40)
+    for name in ("strip_step", "full_step2"):
+        assert _rel(fused, runs[name](c2, 40)) <= chip_smoke.A3D_STEP_TOL["bench"], name

@@ -152,7 +152,7 @@ def test_reverse_reconstructs_the_first_field():
     args = (grid, torch.tensor(c2, dtype=torch.float64), prof)
     idx = (torch.tensor(src_p), torch.tensor(rcv_p))
     wt = torch.tensor(w, dtype=torch.float64)
-    seis, tape, ppen, plast = ks.scanres_forward(*args, wt, *idx, tape="rings")
+    seis, tape, ppen, plast, _ = ks.scanres_forward(*args, wt, *idx, tape="rings")
     _, _, p_first = ks.scanres_reverse(*args, wt, seis, tape, ppen, plast, *idx,
                                        return_field=True)
     valid = RingSpec.build(grid).valid
@@ -166,13 +166,13 @@ def test_tape_row_is_laplacian_of_previous_field():
     prof = tuple(torch.tensor(p) for p in ks.strip_profiles(grid, dt, c_max, f0))
     args = (grid, torch.tensor(c2), prof)
     idx = (torch.tensor(src_p), torch.tensor(rcv_p))
-    _, tape, _, _ = ks.scanres_forward(*args, torch.tensor(w), *idx, tape="snap")
-    _, _, _, p_last = ks.scanres_forward(*args, torch.tensor(w[:-1]), *idx, tape=None)
+    _, tape, _, _, _ = ks.scanres_forward(*args, torch.tensor(w), *idx, tape="snap")
+    _, _, _, p_last, _ = ks.scanres_forward(*args, torch.tensor(w[:-1]), *idx, tape=None)
     assert torch.count_nonzero(tape[0]) == 0
     ref = ks.interior_lap(grid, p_last).to(torch.bfloat16)
     assert torch.equal(tape[-1], ref)
     # ring row t holds the ring cells of P_t, in RingSpec.extract order
-    _, rows, _, p_nt = ks.scanres_forward(*args, torch.tensor(w), *idx, tape="rings")
+    _, rows, _, p_nt, _ = ks.scanres_forward(*args, torch.tensor(w), *idx, tape="rings")
     assert torch.equal(rows[-1], torch.cat(RingSpec.build(grid).extract(p_nt)))
     with pytest.raises(ValueError, match="unknown tape mode"):
         ks.scanres_forward(*args, torch.tensor(w), *idx, tape="full")

@@ -12,8 +12,10 @@ Two tape modes, as in the reference:
   two fields; the reverse kernel reconstructs the source field backwards
   while it runs the transposed step: three sweeps, no tape rounding.
 
-The source-cell term, the wavelet cotangent and the valid-region mask are
-plain torch. Forward without grad (line-search losses, observed data)
+``simulate.illumination(c2dt2, wavelet, src_idx)`` is the forward kernel's
+``sum_t P_t^2`` on the physical grid (``make_illumination``, which the
+single-step and K-step engines share). The source-cell term, the wavelet
+cotangent and the valid-region mask are plain torch. Forward without grad (line-search losses, observed data)
 records no tape. Receivers are gathered by index, so there is no
 receiver-slab contract and no NaN-poisoning of out-of-slab receivers
 (ROADMAP Queue C). Indices are grid-padded. Runs fp32 on CUDA, fp32 or
@@ -76,7 +78,7 @@ def make_simulator_scanres(grid: Grid, dt: float, f0: float, c_max: float,
     class Simulate(torch.autograd.Function):
         @staticmethod
         def forward(ctx, c2dt2, wavelet, src_idx, rcv_idx):
-            seis, tape, ppen, plast = scanres_forward(
+            seis, tape, ppen, plast, _ = scanres_forward(
                 grid, c2dt2, profiles_for(c2dt2), wavelet, src_idx, rcv_idx, tape=tape_mode)
             if tape_mode == "snap":  # the last fields are not needed
                 ppen = plast = None
@@ -106,4 +108,23 @@ def make_simulator_scanres(grid: Grid, dt: float, f0: float, c_max: float,
             grid, c2dt2, profiles_for(c2dt2), wavelet, src_idx, rcv_idx, tape=None)[0]
 
     simulate.rings = rings
+    simulate.illumination = make_illumination(grid, profiles_for)
     return simulate
+
+
+def make_illumination(grid: Grid, profiles_for):
+    """``illumination(c2dt2, wavelet, src_idx)``: ``sum_t P_t^2`` on the
+    physical grid from the whole-scan forward kernel's ``illum`` mode (no
+    receivers, no tape), P_t after the sources and the surface pin. Every
+    2D CUDA engine takes it: illumination is forward-only, and the engines
+    agree on the forward."""
+
+    @torch.no_grad()
+    def illumination(c2dt2, wavelet, src_idx):
+        c2dt2 = c2dt2.contiguous()
+        no_rcv = src_idx.new_zeros((0, 2))
+        acc = scanres_forward(grid, c2dt2, profiles_for(c2dt2), wavelet.contiguous(),
+                              src_idx.contiguous(), no_rcv, illum=True)[4]
+        return acc[grid.interior]
+
+    return illumination

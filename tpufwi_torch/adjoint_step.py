@@ -31,7 +31,7 @@ from __future__ import annotations
 
 import torch
 
-from .adjoint_scanres import finish_gradient, profile_source
+from .adjoint_scanres import finish_gradient, make_illumination, profile_source
 from .grid import Grid
 from .kernels.acoustic2d_scanres import check_args, ring_plan
 from .kernels.acoustic2d_step import (
@@ -57,7 +57,9 @@ def step_simulator(grid: Grid, dt: float, f0: float, c_max: float, name: str, fo
     on zeroed halo-laid state (``cur`` = P_{-1}, ``prev`` = P_{-2}; ``p_t``
     = P_{nt-2}, ``p_tp1`` = P_{nt-1}); ``tape`` is the (nt, n_ring) ring
     tape, None in a forward without grad. ``name`` labels the index-bound
-    check."""
+    check. ``simulate.illumination`` is the whole-scan forward kernel's
+    (``adjoint_scanres.make_illumination``): it is forward-only, and the
+    engines agree on the forward."""
     if grid.ndim != 2:
         raise ValueError(f"the {name} engine is 2D")
     profiles_for = profile_source(grid, dt, f0, c_max)
@@ -113,6 +115,7 @@ def step_simulator(grid: Grid, dt: float, f0: float, c_max: float, name: str, fo
         return run_forward(c2dt2, wavelet, src_idx, rcv_idx, False)[0]
 
     simulate.rings = rings
+    simulate.illumination = make_illumination(grid, profiles_for)
     return simulate
 
 

@@ -25,6 +25,8 @@
 //                             sources sum in a fixed order), then receivers
 //             F4 ring_get     optional: one thread per ring cell, the ring
 //                             of the post-source field into a tape row
+//             F5 illum_add    optional (whole-scan forward): one thread per
+//                             cell, illum += P_t^2 after the sources and pin
 //   reverse:  R0 rev_inject   one block: receiver-cotangent injection (each
 //                             cell owned by its first receiver, which sums
 //                             the others in index order), lambda at sources
@@ -269,6 +271,17 @@ __global__ void ring_get(const float* __restrict__ p, const int* __restrict__ ri
                          float* __restrict__ row, int n_ring, int NX, int R) {
   const int k = blockIdx.x * blockDim.x + threadIdx.x;
   if (k < n_ring) ring_cell(p, ring, row, k, NX, R);
+}
+
+// F5 (optional): illum += P_t^2 on the (NZ, NX) grid, P_t after the sources
+// and the surface pin, the field the reference's illumination sums
+__global__ void illum_add(const float* __restrict__ p, float* __restrict__ illum, int NZ,
+                          int NX, int R) {
+  const int x = blockIdx.x * blockDim.x + threadIdx.x;
+  const int z = blockIdx.y * blockDim.y + threadIdx.y;
+  if (x >= NX || z >= NZ) return;
+  const float v = p[(z + R) * (NX + 2 * R) + x + R];
+  illum[z * NX + x] = fmaf(v, v, illum[z * NX + x]);
 }
 
 // ---------------------------------------------------------- reconstruction

@@ -4,7 +4,10 @@
 //
 // Replaces three TPU kernels of tpufwi/kernels/acoustic2d_pallas_scanres.py:
 //   scanres_forward       <- make_scanres_forward (snap_tape=True, with_tape
-//                            (rings) or no tape)
+//                            (rings) or no tape); its optional illumination
+//                            (sum_t P_t^2, one more launch a step) is what
+//                            the reference's AcousticPropagator.illumination
+//                            computes in XLA
 //   scanres_reverse_snap  <- make_scanres_reverse_snap
 //   scanres_reverse       <- make_scanres_reverse (reconstruction + exact
 //                            transposed CPML step + imaging)
@@ -43,8 +46,8 @@ template <int R>
 int forward_loop(const float* c2, const float* az, const float* bz, const float* ax,
                  const float* bx, const float* w, const long long* src,
                  const long long* rcv, float* seis, __nv_bfloat16* snap, const int* ring,
-                 float* ring_tape, int n_ring, float* ws, int NZ, int NX, int S, int nt,
-                 int nsrc, int nrec, int fs, const Taps& tp, cudaStream_t st) {
+                 float* ring_tape, int n_ring, float* illum, float* ws, int NZ, int NX, int S,
+                 int nt, int nsrc, int nrec, int fs, const Taps& tp, cudaStream_t st) {
   const size_t plane = (size_t)(NZ + 2 * R) * (NX + 2 * R);
   float* pa = ws;          // P_t for even t
   float* pb = ws + plane;  // P_t for odd t
@@ -56,6 +59,8 @@ int forward_loop(const float* c2, const float* az, const float* bz, const float*
                     ring_tape ? ring_tape + (size_t)t * n_ring : nullptr, n_ring, cur, prev,
                     ws + 2 * plane, ws + 3 * plane, ws + 4 * plane, ws + 5 * plane, NZ, NX, S,
                     nsrc, nrec, fs, tp, st);
+    if (illum != nullptr)
+      illum_add<<<cell_grid(NZ, NX), kCellBlock, 0, st>>>(prev, illum, NZ, NX, R);
     if (t == 0) {
       const cudaError_t err = cudaGetLastError();
       if (err != cudaSuccess) return (int)err;
@@ -131,19 +136,20 @@ int reverse_rings_loop(const float* c2, const float* az, const float* bz, const 
 extern "C" {
 
 // ws: 6 zeroed halo planes (pa, pb, phiz, psiz, phix, psix); snap, ring and
-// ring_tape may be null (ring and ring_tape together).
+// ring_tape may be null (ring and ring_tape together); illum, when given, is
+// a (NZ, NX) accumulator that gains P_t^2 for every step t.
 int tpufwi_scanres_forward(const float* c2, const float* az, const float* bz,
                            const float* ax, const float* bx, const float* w,
                            const long long* src, const long long* rcv, float* seis,
-                           void* snap, const int* ring, float* ring_tape, float* ws, int NZ,
-                           int NX, int S, int R, int nt, int nsrc, int nrec, int fs, int n_ring,
-                           const float* taps, void* stream) {
+                           void* snap, const int* ring, float* ring_tape, float* illum,
+                           float* ws, int NZ, int NX, int S, int R, int nt, int nsrc, int nrec,
+                           int fs, int n_ring, const float* taps, void* stream) {
   const Taps tp = load_taps(taps);
   auto* sb = static_cast<__nv_bfloat16*>(snap);
   auto st = static_cast<cudaStream_t>(stream);
   TPUFWI_DISPATCH_R(R, forward_loop<kR>(c2, az, bz, ax, bx, w, src, rcv, seis, sb, ring,
-                                        ring_tape, n_ring, ws, NZ, NX, S, nt, nsrc, nrec, fs,
-                                        tp, st))
+                                        ring_tape, n_ring, illum, ws, NZ, NX, S, nt, nsrc,
+                                        nrec, fs, tp, st))
 }
 
 // ws: 11 zeroed halo planes; gacc (NZ, NX) zeroed; chain: 2 * nrec ints.

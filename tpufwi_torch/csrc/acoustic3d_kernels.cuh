@@ -1,5 +1,6 @@
-// Device code of the 3D acoustic engine for Hopper (sm_90a), included by
-// acoustic3d_scan.cu; every kernel has internal linkage.
+// Device code of the 3D acoustic engines for Hopper (sm_90a), included by
+// acoustic3d_scan.cu (the whole-scan engine) and acoustic3d_step.cu (the
+// per-step leapfrog and strip kernels); every kernel has internal linkage.
 //
 // Semantics (the step twin, tpufwi_torch/kernels/acoustic2d_eager.py, on a
 // (y, z, x) grid, z the depth axis):
@@ -45,6 +46,8 @@
 // Layout. The wavefields (p, lambda) and C are stored with a zero halo of R
 // cells on every side ((NY+2R) x (NZ+2R) x (NX+2R), x contiguous), so the
 // stencil gathers need no bounds tests; kernels write only the interior.
+// (The per-step kernels of acoustic3d_step.cu keep their fields on the
+// padded grid with no halo, read through GridField.)
 // u = C lambda is formed on the fly from the two halo fields. The CPML
 // memories live on their strips only (width S = pml + R on each face): the
 // axis-d strip array has the padded grid's extent on the other two axes and
@@ -183,32 +186,97 @@ inline size_t strip_total(int NY, int NZ, int NX, int S) {
   return (size_t)2 * S * ((size_t)NZ * NX + (size_t)NY * NX + (size_t)NY * NZ);
 }
 
+// Field readers: the value k cells along axis AX from (y, z, x), zero past
+// the padded grid. HaloField reads the whole-scan engine's halo layout,
+// whose zero halo makes the test needless; GridField reads a field on the
+// padded grid as it is (the per-step engine, acoustic3d_step.cu). Either
+// gives the same value, so a per-cell function templated on the reader runs
+// one arithmetic in both engines.
+template <int R>
+struct HaloField {
+  const float* p;
+  template <int AX>
+  __device__ __forceinline__ float along(int y, int z, int x, int k, const Dims& D) const {
+    return p[halo_at<R>(y, z, x, D) + k * axis_stride<AX>(D)];
+  }
+};
+
+// the (NY, NZ, NX) strides of axis AX
+template <int AX>
+__device__ __forceinline__ int grid_stride(const Dims& D) {
+  return AX == 0 ? D.n[1] * D.n[2] : (AX == 1 ? D.n[2] : 1);
+}
+
+__device__ __forceinline__ int grid_at(int y, int z, int x, const Dims& D) {
+  return (y * D.n[1] + z) * D.n[2] + x;
+}
+
+struct GridField {
+  const float* p;
+  template <int AX>
+  __device__ __forceinline__ float along(int y, int z, int x, int k, const Dims& D) const {
+    const int c = coord<AX>(y, z, x) + k;
+    return (c < 0 || c >= D.n[AX]) ? 0.f : p[grid_at(y, z, x, D) + k * grid_stride<AX>(D)];
+  }
+};
+
 // --------------------------------------------------------------- forward
 
-template <int R, int AX>
-__device__ __forceinline__ void phi_cell(const float* __restrict__ p, float* __restrict__ phi,
+template <int R, int AX, typename F>
+__device__ __forceinline__ void phi_cell(F p, float* __restrict__ phi,
                                          const float* __restrict__ prof, int e, const Dims& D,
                                          const Taps3& tp) {
   int y, z, x, j;
   strip_cell<AX>(e, D, y, z, x, j);
-  const int i = halo_at<R>(y, z, x, D);
-  const int st = axis_stride<AX>(D);
   float d1 = 0.f;
 #pragma unroll
-  for (int k = 0; k <= 2 * R; ++k) d1 = fmaf(tp.d1[AX][k], p[i + (k - R) * st], d1);
+  for (int k = 0; k <= 2 * R; ++k)
+    d1 = fmaf(tp.d1[AX][k], p.template along<AX>(y, z, x, k - R, D), d1);
   phi[e] = prof_b(prof, AX, D.S)[j] * phi[e] + prof_a(prof, AX, D.S)[j] * d1;
 }
 
-template <int R>
-__global__ void f3_phi(const float* __restrict__ p, Strips phi, const float* __restrict__ prof,
-                       Dims D, Taps3 tp) {
-  int e = blockIdx.x * blockDim.x + threadIdx.x;
+// phi' of every strip cell of the three axes, from p read through F
+template <int R, typename F>
+__device__ __forceinline__ void phi_cells(F p, const Strips& phi,
+                                          const float* __restrict__ prof, int e, const Dims& D,
+                                          const Taps3& tp) {
   const int ny = strip_cells<0>(D), nz = strip_cells<1>(D), nx = strip_cells<2>(D);
   if (e < ny) return phi_cell<R, 0>(p, phi.s[0], prof, e, D, tp);
   e -= ny;
   if (e < nz) return phi_cell<R, 1>(p, phi.s[1], prof, e, D, tp);
   e -= nz;
   if (e < nx) phi_cell<R, 2>(p, phi.s[2], prof, e, D, tp);
+}
+
+template <int R>
+__global__ void f3_phi(const float* __restrict__ p, Strips phi, const float* __restrict__ prof,
+                       Dims D, Taps3 tp) {
+  phi_cells<R>(HaloField<R>{p}, phi, prof, blockIdx.x * blockDim.x + threadIdx.x, D, tp);
+}
+
+// axis AX's CPML parts at (y, z, x), given d2 = D2_AX p at the cell:
+// corr = D1 phi' within R of the strips and, inside them, psi' (updated in
+// place) as ps. Returns 0 outside that reach, 1 in it outside the strips,
+// 2 inside a strip.
+template <int R, int AX>
+__device__ __forceinline__ int cpml_parts(const float* __restrict__ phi,
+                                          float* __restrict__ psi,
+                                          const float* __restrict__ prof, int y, int z, int x,
+                                          float d2, const Dims& D, const Taps3& tp, float& corr,
+                                          float& ps) {
+  const int c = coord<AX>(y, z, x);
+  const int SE = D.S + R;
+  if (c >= SE && c < D.n[AX] - SE) return 0;
+  corr = 0.f;
+#pragma unroll
+  for (int k = 0; k <= 2 * R; ++k)
+    if (k != R) corr = fmaf(tp.d1[AX][k], strip_at<AX>(phi, y, z, x, k - R, D), corr);
+  const int j = strip_coord(c, D.n[AX], D.S);
+  if (j < 0) return 1;
+  const int o = strip_off<AX>(y, z, x, j, D);
+  ps = prof_b(prof, AX, D.S)[j] * psi[o] + prof_a(prof, AX, D.S)[j] * (d2 + corr);
+  psi[o] = ps;
+  return 2;
 }
 
 // axis AX's CPML terms at (y, z, x): D1 phi' within R of the strips, and
@@ -218,19 +286,9 @@ __device__ __forceinline__ float cpml_terms(const float* __restrict__ phi,
                                             float* __restrict__ psi,
                                             const float* __restrict__ prof, int y, int z, int x,
                                             float d2, const Dims& D, const Taps3& tp) {
-  const int c = coord<AX>(y, z, x);
-  const int SE = D.S + R;
-  if (c >= SE && c < D.n[AX] - SE) return 0.f;
-  float corr = 0.f;
-#pragma unroll
-  for (int k = 0; k <= 2 * R; ++k)
-    if (k != R) corr = fmaf(tp.d1[AX][k], strip_at<AX>(phi, y, z, x, k - R, D), corr);
-  const int j = strip_coord(c, D.n[AX], D.S);
-  if (j < 0) return corr;
-  const int o = strip_off<AX>(y, z, x, j, D);
-  const float ps = prof_b(prof, AX, D.S)[j] * psi[o] + prof_a(prof, AX, D.S)[j] * (d2 + corr);
-  psi[o] = ps;
-  return corr + ps;
+  float corr, ps;
+  const int where = cpml_parts<R, AX>(phi, psi, prof, y, z, x, d2, D, tp, corr, ps);
+  return where == 0 ? 0.f : (where == 1 ? corr : corr + ps);
 }
 
 // pnext holds P_{t-2} on entry and P_t (before the sources) on exit; each

@@ -14,6 +14,7 @@ import torch
 
 from .acquisition import Geometry
 from .grid import Grid
+from .kernels.acoustic2d_scanres import strip_depth
 from .optimize import LbfgsHistory
 
 
@@ -96,3 +97,49 @@ def load_reference_mp_checkpoint(path, device="cuda", dtype=torch.float32,
                                           dtype=dtype, device=device),
             scale_tag=str(ck["scale_tag"]),
         )
+
+
+def strips3d_from_reference(strips, grid: Grid) -> np.ndarray:
+    """The reference's v1 3D strip state (``make_acoustic3d_strip_step`` /
+    ``make_acoustic3d_fused_step``: per axis y, z, x the slabs (phi_lo,
+    psi_lo, phi_hi, psi_hi), each S deep along its axis, on the reference's
+    block-extended arrays) as the port's packed ``strips``
+    (``kernels/acoustic3d_strips.py``): one flat fp32 array, cropped to the
+    padded grid."""
+    NY, NZ, NX = grid.padded_shape
+    crop = (slice(NY), slice(NZ), slice(NX))
+    phis, psis = [], []
+    for ax, slabs in enumerate(strips):
+        keep = list(crop)
+        keep[ax] = slice(None)
+        phi_lo, psi_lo, phi_hi, psi_hi = (np.asarray(s)[tuple(keep)] for s in slabs)
+        phis.append(np.concatenate([phi_lo, phi_hi], axis=ax).ravel())
+        psis.append(np.concatenate([psi_lo, psi_hi], axis=ax).ravel())
+    return np.concatenate(phis + psis).astype(np.float32)
+
+
+def strips3d_to_reference(strips, grid: Grid, extended_shape=None) -> tuple:
+    """The port's packed ``strips`` (numpy) as the reference's v1 strip
+    state: per axis the slabs (phi_lo, psi_lo, phi_hi, psi_hi), zero-padded
+    to ``extended_shape`` (the reference's block-extended field shape; the
+    padded grid's by default). The inverse of ``strips3d_from_reference``."""
+    NY, NZ, NX = grid.padded_shape
+    S = strip_depth(grid)
+    ext = tuple(extended_shape or grid.padded_shape)
+    flat = np.asarray(strips, np.float32).reshape(-1)
+    quantities, off = [], 0
+    for _ in range(2):
+        per_axis = []
+        for ax in range(3):
+            shape = [NY, NZ, NX]
+            shape[ax] = 2 * S
+            n = shape[0] * shape[1] * shape[2]
+            arr = flat[off:off + n].reshape(shape)
+            off += n
+            pad = [(0, e - s) for e, s in zip(ext, (NY, NZ, NX))]
+            pad[ax] = (0, 0)
+            lo, hi = np.split(arr, 2, axis=ax)
+            per_axis.append((np.pad(lo, pad), np.pad(hi, pad)))
+        quantities.append(per_axis)
+    phis, psis = quantities
+    return tuple((phis[ax][0], psis[ax][0], phis[ax][1], psis[ax][1]) for ax in range(3))

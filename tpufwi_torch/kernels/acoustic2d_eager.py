@@ -2,8 +2,8 @@
 (counterpart of ``tpufwi/kernels/acoustic2d_jnp.py``).
 
 The exact CPU engine (``adjoint.make_simulator``) and the plain versions of
-the CUDA kernels are loops of this step, and the propagator's
-``illumination`` runs it on the card. The step is affine in the wavefield
+the CUDA kernels are loops of this step, and so is the propagator's
+``illumination`` on the CPU. The step is affine in the wavefield
 state, which the reverse passes use to transpose it with
 ``torch.func.vjp``; ``make_reverse_reconstruct_step`` runs the interior
 leapfrog backwards for the boundary-saving reverse.

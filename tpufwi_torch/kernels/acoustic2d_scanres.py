@@ -7,7 +7,8 @@ of the kernels' library.
 ``scanres_forward`` runs the whole 2D acoustic time loop and, on request,
 records a tape: ``"snap"``, the bf16 D2-only interior laplacian of the field
 each step starts from, or ``"rings"``, the fp32 boundary ring of the field
-each step ends with. ``scanres_reverse_snap`` runs the exact transposed step
+each step ends with; and the illumination ``sum_t P_t^2``, which every 2D
+CUDA engine's ``illumination`` takes from it. ``scanres_reverse_snap`` runs the exact transposed step
 backwards over the snapshot tape; ``scanres_reverse`` reconstructs the
 field backwards from the last two fields and the ring tape, and images with
 the laplacian of the reconstruction. Both return the imaged gradient and
@@ -132,12 +133,15 @@ def impose_ring(p: torch.Tensor, ring_idx: torch.Tensor, row) -> torch.Tensor:
 # ------------------------------------------------------------ plain versions
 
 
-def scanres_forward_plain(grid, c2, profiles, wavelet, src_idx, rcv_idx, tape=None):
+def scanres_forward_plain(grid, c2, profiles, wavelet, src_idx, rcv_idx, tape=None,
+                          illum=False):
     """Loop of the step twin. Returns (seis (nt, nrec), tape, P_{nt-2},
-    P_{nt-1}). ``tape="snap"``: (nt, NZ, NX) bf16, row t the D2-only
+    P_{nt-1}, illum). ``tape="snap"``: (nt, NZ, NX) bf16, row t the D2-only
     laplacian of P_{t-1}, the field step t starts from. ``tape="rings"``:
     (nt, n_ring) in the wavefield dtype, row t the ring cells of P_t
-    (``ring_plan`` order). ``tape=None``: no tape."""
+    (``ring_plan`` order). ``tape=None``: no tape. ``illum``: also ``sum_t
+    P_t^2`` on the padded grid (P_t after the sources and the surface pin),
+    else None."""
     if tape not in TAPE_MODES:
         raise ValueError(f"unknown tape mode {tape!r}")
     NZ, NX = grid.padded_shape
@@ -147,6 +151,7 @@ def scanres_forward_plain(grid, c2, profiles, wavelet, src_idx, rcv_idx, tape=No
     step = make_acoustic_step(grid)
     state = zero_state((NZ, NX), 2, c2.dtype, c2.device)
     ring_idx = ring_plan(grid, c2.device)[0] if tape == "rings" else None
+    acc = torch.zeros_like(c2) if illum else None
     rows, seis = [], []
     for t in range(nt):
         if tape == "snap":
@@ -155,7 +160,10 @@ def scanres_forward_plain(grid, c2, profiles, wavelet, src_idx, rcv_idx, tape=No
         seis.append(rec)
         if tape == "rings":
             rows.append(state.p.reshape(-1)[ring_idx])
-    return torch.stack(seis), (torch.stack(rows) if tape else None), state.p_prev, state.p
+        if illum:
+            acc += state.p**2
+    return (torch.stack(seis), (torch.stack(rows) if tape else None), state.p_prev, state.p,
+            acc)
 
 
 def _reverse_plain(grid, c2, profiles, ybar, src_idx, rcv_idx, image):
@@ -222,7 +230,7 @@ LIBRARY = Library(
     (CSRC / "acoustic2d_kernels.cuh",),
     lambda lib: declare_all(lib, {
         # pointers..., ints..., taps, stream
-        "tpufwi_scanres_forward": (13, 9),
+        "tpufwi_scanres_forward": (14, 9),
         "tpufwi_scanres_reverse_snap": (13, 8),
         "tpufwi_scanres_reverse_rings": (15, 14),
         "tpufwi_step_forward": (14, 9),
@@ -306,15 +314,17 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
-def scanres_forward(grid, c2, profiles, wavelet, src_idx, rcv_idx, tape=None):
+def scanres_forward(grid, c2, profiles, wavelet, src_idx, rcv_idx, tape=None, illum=False):
     """Whole forward propagation (see ``scanres_forward_plain`` for the
-    contract). ``profiles`` are the strip profiles as tensors."""
+    contract). ``profiles`` are the strip profiles as tensors; ``rcv_idx``
+    may hold no receiver."""
     if c2.device.type == "cpu":
-        return scanres_forward_plain(grid, c2, profiles, wavelet, src_idx, rcv_idx, tape)
+        return scanres_forward_plain(grid, c2, profiles, wavelet, src_idx, rcv_idx, tape,
+                                     illum)
     require_cuda("scanres_forward", c2)
     if tape not in TAPE_MODES:
         raise ValueError(f"unknown tape mode {tape!r}")
-    check_args("scanres_forward", grid, c2, profiles, (wavelet,), src_idx, rcv_idx)
+    check_args("scanres_forward", grid, c2, profiles, (wavelet,), src_idx, rcv_idx, min_rcv=0)
     if wavelet.ndim != 1 or wavelet.shape[0] == 0:
         raise ValueError("scanres_forward: wavelet must be (nt,) with nt > 0")
     lib = load_library()
@@ -331,20 +341,22 @@ def scanres_forward(grid, c2, profiles, wavelet, src_idx, rcv_idx, tape=None):
         ring = ring_plan(grid, dev)[1]
         n_ring = ring.shape[0]
         rows = torch.empty((nt, n_ring), dtype=torch.float32, device=dev)
+    acc = torch.zeros((NZ, NX), dtype=torch.float32, device=dev) if illum else None
     ws = torch.zeros((_FWD_PLANES, NZ + 2 * R, NX + 2 * R), dtype=torch.float32, device=dev)
     fs = surface_row(grid)
     with torch.cuda.device(dev):
         err = lib.tpufwi_scanres_forward(
             c2.data_ptr(), *(p.data_ptr() for p in profiles), wavelet.data_ptr(),
             src_idx.data_ptr(), rcv_idx.data_ptr(), seis.data_ptr(), _ptr(snap), _ptr(ring),
-            _ptr(rows), ws.data_ptr(),
+            _ptr(rows), _ptr(acc), ws.data_ptr(),
             NZ, NX, S, R, nt, src_idx.shape[0], nrec, fs, n_ring, taps_arg(grid),
             torch.cuda.current_stream().cuda_stream,
         )
     raise_on(lib, "scanres_forward", err)
     scanres_forward.launches += nt
     last, penult = (ws[0], ws[1]) if (nt - 1) % 2 == 0 else (ws[1], ws[0])
-    return seis, (snap if tape == "snap" else rows), penult[R:-R, R:-R], last[R:-R, R:-R]
+    return (seis, (snap if tape == "snap" else rows), penult[R:-R, R:-R], last[R:-R, R:-R],
+            acc)
 
 
 scanres_forward.launches = 0

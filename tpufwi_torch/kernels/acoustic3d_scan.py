@@ -16,13 +16,15 @@ Each wrapper takes its plain version for tensors on the CPU, and only then;
 on a CUDA tensor it launches the kernel or raises. ``launches`` on each
 wrapper counts the time steps its kernel ran (the C loop launches each
 step's kernels once), and stays 0 on the CPU path. ``LIBRARY`` is built by
-one nvcc call at first use (``kernels/build.py``); neither this module's
+one nvcc call at first use (``kernels/build.py``), together with the
+per-step 3D kernels' ``csrc/acoustic3d_step.cu``; neither this module's
 import nor the plain versions need CUDA.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import numpy as np
 import torch
@@ -86,12 +88,15 @@ a3d_reverse_plain = scanres_reverse_plain
 
 LIBRARY = Library(
     "acoustic3d",
-    (CSRC / "acoustic3d_scan.cu",),
+    (CSRC / "acoustic3d_scan.cu", CSRC / "acoustic3d_step.cu"),
     (CSRC / "acoustic3d_kernels.cuh",),
     lambda lib: declare_all(lib, {
         # pointers..., ints..., taps, stream
         "tpufwi_a3d_forward": (12, 11),
         "tpufwi_a3d_reverse": (16, 18),
+        # the per-step kernels (kernels/acoustic3d_step.py, acoustic3d_strips.py)
+        "tpufwi_leap3d": (3, 4),
+        "tpufwi_strip3d": (5, 5),
     }),
 )
 
@@ -99,8 +104,10 @@ LIBRARY = Library(
 # ---------------------------------------------------------------- wrappers
 
 
+@functools.lru_cache(maxsize=None)
 def taps_arg(grid: Grid):
-    """(d1 y, z, x; d2 y, z, x) as 6 x 9 fp32, zero-filled past 2R+1 taps."""
+    """(d1 y, z, x; d2 y, z, x) as 6 x 9 fp32, zero-filled past 2R+1 taps;
+    built once per grid (the kernels copy it at each call)."""
     taps = np.zeros((6, 9), np.float32)
     for row, (coeffs, power) in enumerate(((D1_COEFFS, 1), (D2_COEFFS, 2))):
         for ax, h in enumerate(grid.h):
@@ -124,7 +131,10 @@ def _halo(grid, f=None, device=None):
                        device=device)
 
 
-def _packed_profiles(profiles):
+def packed_profiles(profiles):
+    """The six strip profiles (``strip_profiles``' order) as the kernels
+    take them: per axis y, z, x, its a then its b, each low strip then
+    high (12 S values)."""
     return torch.cat([p.reshape(-1) for p in profiles]).contiguous()
 
 
@@ -164,7 +174,7 @@ def a3d_forward(grid, c2, profiles, wavelet, src_idx, rcv_idx, tape_dtype=None, 
     strips = torch.zeros(2 * strip_cells(grid), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         err = lib.tpufwi_a3d_forward(
-            c2h.data_ptr(), _packed_profiles(profiles).data_ptr(), wavelet.data_ptr(),
+            c2h.data_ptr(), packed_profiles(profiles).data_ptr(), wavelet.data_ptr(),
             src_idx.data_ptr(), rcv_idx.data_ptr(), seis.data_ptr(),
             None if ring is None else ring.data_ptr(), None if tape is None else tape.data_ptr(),
             None if acc is None else acc.data_ptr(), pa.data_ptr(), pb.data_ptr(),
@@ -219,7 +229,7 @@ def a3d_reverse(grid, c2, profiles, wavelet, ybar, tape, p_penult, p_last, src_i
     chain = torch.empty(2 * nrec, dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         err = lib.tpufwi_a3d_reverse(
-            c2h.data_ptr(), _packed_profiles(profiles).data_ptr(), wavelet.data_ptr(),
+            c2h.data_ptr(), packed_profiles(profiles).data_ptr(), wavelet.data_ptr(),
             ybar.data_ptr(), tape.data_ptr(), ring.data_ptr(), src_idx.data_ptr(),
             rcv_idx.data_ptr(), gbar.data_ptr(), lam_src.data_ptr(), p_tp1.data_ptr(),
             p_t.data_ptr(), qa.data_ptr(), qb.data_ptr(), strips.data_ptr(), chain.data_ptr(),

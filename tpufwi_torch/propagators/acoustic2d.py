@@ -294,14 +294,18 @@ class AcousticPropagator:
     @torch.no_grad()
     def illumination(self, vp, geom, wavelet):
         """Source illumination sum_t p_t^2 on the physical grid (the
-        pseudo-Hessian diagonal for preconditioning). The engine's own
-        kernel computes it where the engine has one (the 3D engine);
-        elsewhere a plain torch loop of the step twin on the propagator's
-        device (ROADMAP Queue C)."""
-        fused = getattr(self._sim(self.resolve_impl(nt=int(wavelet.shape[0]))),
-                        "illumination", None)
+        pseudo-Hessian diagonal for preconditioning). Every CUDA engine
+        computes it in its forward kernel (``simulate.illumination``); an
+        engine on the card without one raises. The CPU engine ``eager``
+        runs a plain torch loop of the step twin."""
+        impl = self.resolve_impl(nt=int(wavelet.shape[0]))
+        fused = getattr(self._sim(impl), "illumination", None)
         if fused is not None:
             return fused(self.c2dt2(vp), wavelet.to(self.dtype), geom.src_idx)
+        if self.device.type != "cpu":
+            raise NotImplementedError(
+                f"engine {impl} has no illumination kernel; the plain step twin runs on the "
+                "CPU only")
         interior = self.grid.interior
         illum = torch.zeros(self.grid.shape, dtype=self.dtype, device=self.device)
         for state, _ in self._twin_loop(vp, geom, wavelet):
