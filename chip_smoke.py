@@ -4,10 +4,11 @@
 
 Phases, each printing its own lines; any failure exits non-zero.
   1. device: the card's name and power limit (nvidia-smi); no CUDA -> exit 1
-  2. build: three nvcc calls, started together, build the acoustic library
+  2. build: four nvcc calls, started together, build the acoustic library
      (ten kernels), the elastic library (six kernels: two whole-scan, four
-     per-step) and the 3D library (two whole-scan kernels and the two
-     per-step ones) from tpufwi_torch/csrc
+     per-step), the 3D library (two whole-scan kernels and the two
+     per-step ones) and the probes library (the five machine-model probes)
+     from tpufwi_torch/csrc
   3. kernels vs plain: each CUDA kernel against its plain torch version on
      the card, at the main path's padded grid (399 x 1749), nt = 512, one
      shot: the whole-scan forward (snapshot and ring tapes, illumination),
@@ -88,6 +89,15 @@ Phases, each printing its own lines; any failure exits non-zero.
      plain versions at that grid, and full_step against the leapfrog kernel
      with torch-op strips and against full_step2 (a3d_forward) over 40 steps
      from the impulse
+ 19. probes: the port's probe scripts tpufwi_torch.bench.exp_2d_scanres and
+     exp_3d_lap (all modes) at the reference's full sizes, counters set to
+     0 just before and read just after (the probes' launches: no engine
+     runs them); then each probe kernel against its plain version at full
+     size (the 2D probe at nt 256 with and without its strips, the tap
+     probe at K = 5 and 25, every copy variant, step5 staged and not,
+     step5x), and their times: ms per call (CUDA events), host ms per call,
+     plain ms, bound, GB/s, ms per tap, the 2D strip cost, and the copy's
+     library call (torch.add)
 The second-to-last line is the kernels' JSON record, the last one
 {"ok": true, "device": {...}}.
 """
@@ -148,6 +158,8 @@ ESTEP_SRC = "tpufwi_torch/csrc/elastic2d_step.cu"
 A3D_SRC = "tpufwi_torch/csrc/acoustic3d_scan.cu"
 KSTEP_SRC = "tpufwi_torch/csrc/acoustic2d_kstep.cu"
 STEP3D_SRC = "tpufwi_torch/csrc/acoustic3d_step.cu"
+PROBE2D_SRC = "tpufwi_torch/csrc/acoustic2d_probe.cu"
+PROBE3D_SRC = "tpufwi_torch/csrc/acoustic3d_probes.cu"
 KERNELS = {  # name: (source, the TPU kernel's pallas_call)
     "scanres_forward": (SCANRES_SRC, "tpufwi/kernels/acoustic2d_pallas_scanres.py:586"),
     "scanres_reverse_snap": (SCANRES_SRC, "tpufwi/kernels/acoustic2d_pallas_scanres.py:1112"),
@@ -179,9 +191,21 @@ KERNELS = {  # name: (source, the TPU kernel's pallas_call)
     # row 22: the y, z and x faces in one entry point
     "strip3d": (STEP3D_SRC, "; ".join(
         f"tpufwi/kernels/acoustic3d_strips_pallas.py:{n}" for n in (126, 196, 282))),
+    # the machine-model probes: no engine runs them (PROBE_ROUTE)
+    "scan_probe": (PROBE2D_SRC, "scripts/exp_2d_scanres.py:208"),
+    "tap_probe": (PROBE3D_SRC, "scripts/exp_3d_lap.py:225"),
+    # copy1 and its block-shape sweep
+    "stream_copy": (PROBE3D_SRC, "scripts/exp_3d_lap.py:349; scripts/exp_3d_lap.py:380"),
+    # step5 and step5s
+    "stream_step5": (PROBE3D_SRC, "scripts/exp_3d_lap.py:356; scripts/exp_3d_lap.py:360"),
+    "stream_step5x": (PROBE3D_SRC, "scripts/exp_3d_lap.py:435"),
 }
+PROBE_NAMES = ("scan_probe", "tap_probe", "stream_copy", "stream_step5", "stream_step5x")
 LEAPFROG_ROUTE = (f"cuda; launches from its kernel phase's leapfrog run of {NT_CHECK} steps, "
                   "not a main path: no engine runs it, in the port or the reference")
+PROBE_ROUTE = ("cuda; launches from the probe scripts (exp_2d_scanres, exp_3d_lap, all modes), "
+               "counted from 0 just before them, not a main path: no engine runs them, in the "
+               "port or the reference")
 ELASTIC_MAIN = GRID_10M + ["physics=elastic", "acq.n_shots=8",
                            'stages=[{"fmax": 3.0, "iterations": 2}]']
 ESTEP_NAMES = ("estep_v", "estep_s", "estep_rs", "estep_rv")
@@ -219,6 +243,11 @@ MAIN3D = dict(model=(160, 400, 560), nt=900, shots=(2, 4), fmax=3.0, iterations=
 # BENCH_CHECK_NT steps from the impulse
 A3D_STEP_TOL = {"fields": 1e-5, "strips": 1e-5, "bench": 1e-5}
 BENCH_CHECK_NT = 40
+# of max|plain|: the 2D probe after 256 steps (fp32 FMA chains against
+# torch's separate products, as TOL["fields"]); the 3D probes one call
+# (sums in the same order; the taps FMA against products and sums)
+PROBE_TOL = {"scan_probe": 1e-5, "3d": 1e-6}
+PROBE_NT = 256
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA's data sheet
 FP32_FLOPS = 67e12  # outside the tensor cores
 
@@ -284,10 +313,16 @@ def a3d_step_modules():
     return k3s, k3f
 
 
+def probes_module():
+    from tpufwi_torch.kernels import probes as kp
+
+    return kp
+
+
 def wrapper(name):
     ks, kst = kernel_modules()
     for mod in (ks, kst, kstep_module(), elastic_module(), estep_module(), a3d_module(),
-                *a3d_step_modules()):
+                *a3d_step_modules(), probes_module()):
         if hasattr(mod, name):
             return getattr(mod, name)
     raise KeyError(name)
@@ -418,12 +453,13 @@ def phase_device() -> str:
 
 
 def phase_build():
-    """The three libraries' nvcc calls at once, then each kernel's registers
-    and spills at order 8 (R = 4) from ptxas -v."""
+    """The four libraries' nvcc calls at once, then each kernel's registers
+    and spills (the stencil kernels' at order 8, R = 4) from ptxas -v."""
     import threading
 
     ks, _ = kernel_modules()
-    libs = (ks.LIBRARY, elastic_module().LIBRARY, a3d_module().LIBRARY)
+    libs = (ks.LIBRARY, elastic_module().LIBRARY, a3d_module().LIBRARY,
+            probes_module().LIBRARY)
     errors = []
 
     def build(lib):
@@ -450,7 +486,7 @@ def phase_build():
                           r"[0-9a-f]{8}(\d+)(\w+)", line)
             if m:
                 name = m.group(3)[:int(m.group(2))]
-                order = re.match(r"ILi(\d)E", m.group(3)[int(m.group(2)):])
+                order = re.match(r"ILi([124])E", m.group(3)[int(m.group(2)):])
                 at_r4 = order is None or order.group(1) == "4"
                 kernel = f"{m.group(1)}.cu {name}" if at_r4 else None
             elif kernel and "spill" in line:
@@ -2397,6 +2433,177 @@ def phase_bench_3d(dev, smi, check_nt=BENCH_CHECK_NT, nt_held=8, nt_time=32):
     return entries
 
 
+def probe_counts(grid, shape, nt):
+    """Operations and bytes of one call of each probe kernel, as ``bound``
+    takes them: each input read once, each output written once. The 2D
+    probe per step as ``step_counts`` counts its forward, no sources or
+    receivers, its fields in and out once a call (C, P_{-1}, P_0 in, P_nt
+    out; a 2D field fits the L2); the 3D probes per call: the taps 2K
+    operations and 8 B a cell, the copy 1 and 8 B, step5 3 additions and 2
+    H / BZ of a halo one and 16 B a cell, step5x also 4 additions and 12
+    values a small-stream cell."""
+    kp = probes_module()
+    NZ, NX = grid.padded_shape
+    taps = 2 * grid.radius + 1
+    cells2 = NZ * NX
+    fwd = step_counts(grid, 0, 0, 0)["scanres_forward_snap"][0]
+    NY3, NZ3, NX3 = shape
+    cells, small = NY3 * NZ3 * NX3, NY3 * NZ3 * kp.SS
+    step5 = cells * (3 + 2 * kp.H / kp.BZ)
+    return {"scan_probe": (fwd, 0, 4 * cells2 * 4),
+            "scan_probe_P0": (cells2 * (4 * taps + 4), 0, 4 * cells2 * 4),
+            "tap_probe_5": (10 * cells, 8 * cells, 0),
+            "tap_probe": (50 * cells, 8 * cells, 0),
+            "stream_copy": (cells, 8 * cells, 0),
+            "stream_step5": (step5, 16 * cells, 0),
+            "stream_step5x": (step5 + 4 * small, 16 * cells + 12 * 4 * small, 0)}
+
+
+def events_ms(fn, calls):
+    """(ms per call by CUDA events, host ms per call) of ``calls`` calls of
+    ``fn`` after one warm-up call."""
+    fn()
+    torch.cuda.synchronize()
+    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    e0.record()
+    for _ in range(calls):
+        fn()
+    e1.record()
+    host = 1e3 * (time.perf_counter() - t0) / calls
+    torch.cuda.synchronize()
+    return e0.elapsed_time(e1) / calls, host
+
+
+def sm_clock_mhz():
+    """(current, max) SM clock in MHz from nvidia-smi."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60, check=True).stdout.splitlines()[0]
+    return tuple(float(v) for v in out.split(","))
+
+
+def phase_probes(dev, smi, nt_2d=PROBE_NT, calls=20):
+    """The port's two probe scripts, all modes, at the reference's full
+    sizes, with every launch counter set to 0 just before and read just
+    after (the probes' launches); then each probe kernel against its plain
+    version at full size and its times. Returns the five kernels' entries."""
+    from tpufwi_torch.bench import exp_2d_scanres, exp_3d_lap
+
+    kp = probes_module()
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    res2 = exp_2d_scanres.main([])
+    res3 = exp_3d_lap.main([])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches(PROBE_NAMES)
+    print(f"[probes] {smi}: the probe scripts took {wall:.1f} s with set-up; launches "
+          f"{json.dumps(launches)}", flush=True)
+    if min(launches.values()) <= 0:
+        fail(f"the probe scripts launched {launches}, not every probe kernel")
+
+    # the kernels against their plain versions, and their times
+    errs, abs_err, ms, plain = {}, dict.fromkeys(PROBE_NAMES, 0.0), {}, {}
+
+    def hold(name, key, got, ref):
+        d = float((got.double() - ref.double()).abs().max())
+        errs[key] = d / float(ref.double().abs().max())
+        abs_err[name] = max(abs_err[name], d)
+
+    def time_pair(key, kernel, plain_fn, per=1):
+        ms[key] = tuple(v / per for v in events_ms(kernel, calls))
+        plain[key] = events_ms(plain_fn, 2)[0] / per
+
+    grid, dt = exp_2d_scanres.probe_grid()
+    c2, prof, seed = exp_2d_scanres.probe_inputs(grid, dt, dev)
+    for tag, strips in (("P0", False), ("P1", True)):
+        args = (grid, c2, prof, seed, 0.999 * seed, nt_2d, strips)
+        hold("scan_probe", f"scan_probe {tag}", kp.scan_probe(*args), kp.scan_probe_plain(*args))
+        time_pair(f"scan_probe {tag}", lambda: kp.scan_probe(*args),
+                  lambda: kp.scan_probe_plain(*args), per=nt_2d)
+    del c2, prof, seed
+    shape = exp_3d_lap.probe_shape()
+    x = exp_3d_lap.randn(shape, 0, dev)
+    for K in kp.TAP_KS:
+        hold("tap_probe", f"tap_probe K={K}", kp.tap_probe(x, K), kp.tap_probe_plain(x, K))
+        time_pair(f"tap_probe K={K}", lambda: kp.tap_probe(x, K), lambda: kp.tap_probe_plain(x, K))
+    for v in kp.COPY_VARIANTS:
+        hold("stream_copy", f"stream_copy {v}", kp.stream_copy(x, v), kp.stream_copy_plain(x))
+        time_pair(f"stream_copy {v}", lambda: kp.stream_copy(x, v),
+                  lambda: kp.stream_copy_plain(x))
+    lib_out = torch.empty_like(x)
+    library_ms = events_ms(lambda: torch.add(x, 1.0, out=lib_out), calls)[0]
+    del lib_out
+    pp, c2 = 0.5 * x, exp_3d_lap.randn(shape, 1, dev)
+    small = [exp_3d_lap.randn(shape[:2] + (kp.SS,), 2 + i, dev) for i in range(8)]
+    for staged in (False, True):
+        key = f"stream_step5 staged={staged}"
+        hold("stream_step5", key, kp.stream_step5(pp, x, c2, staged),
+             kp.stream_step5_plain(pp, x, c2, staged))
+        time_pair(key, lambda: kp.stream_step5(pp, x, c2, staged),
+                  lambda: kp.stream_step5_plain(pp, x, c2, staged))
+    got, ref = kp.stream_step5x(pp, x, c2, small), kp.stream_step5x_plain(pp, x, c2, small)
+    for i, (g, r) in enumerate(zip((got[0],) + got[1], (ref[0],) + ref[1])):
+        hold("stream_step5x", f"stream_step5x out {i}", g, r)
+    del got, ref
+    time_pair("stream_step5x", lambda: kp.stream_step5x(pp, x, c2, small),
+              lambda: kp.stream_step5x_plain(pp, x, c2, small))
+    del x, pp, c2, small
+
+    counts = probe_counts(grid, shape, nt_2d)
+    count_of = {"scan_probe P0": "scan_probe_P0", "scan_probe P1": "scan_probe",
+                "tap_probe K=5": "tap_probe_5", "tap_probe K=25": "tap_probe",
+                **{f"stream_copy {v}": "stream_copy" for v in kp.COPY_VARIANTS},
+                **{f"stream_step5 staged={s}": "stream_step5" for s in (False, True)},
+                "stream_step5x": "stream_step5x"}
+    bounds = {key: bound(counts[c], nt_2d if c.startswith("scan") else 1)
+              for key, c in count_of.items()}
+    clock, clock_max = sm_clock_mhz()
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    print(f"[probes] {smi}: 2D {'x'.join(map(str, grid.padded_shape))} ms per step at nt "
+          f"{nt_2d}, 3D {'x'.join(map(str, shape))} ms per call: kernel by CUDA events (host "
+          "per call; plain per call; bound; GB/s of the bound's bytes):", flush=True)
+    for key, (k_ms, host_ms) in ms.items():
+        b_ms, b_by = bounds[key]
+        rate = ("" if key.startswith("scan")
+                else f"; {counts[count_of[key]][1] / k_ms / 1e6:.1f} GB/s")
+        print(f"[probes]   {key}: {k_ms:.5f} ({host_ms:.5f}; {plain[key]:.4f}; {b_ms:.5f} by "
+              f"{b_by}{rate})", flush=True)
+    per_tap = (ms["tap_probe K=25"][0] - ms["tap_probe K=5"][0]) / 20
+    spec = sms * 128 * clock_max * 1e6
+    print(f"[probes] per tap {per_tap:.5f} ms by CUDA events: {4 * np.prod(shape) / per_tap / 1e6:.1f}"
+          f" GB/s of shared-memory reads; the card's specification: {sms} SMs x 128 B/clock x "
+          f"{clock_max:.0f} MHz (max SM clock; {clock:.0f} MHz now) = {spec / 1e9:.0f} GB/s",
+          flush=True)
+    print(f"[probes] 2D strip cost (P1 - P0) {ms['scan_probe P1'][0] - ms['scan_probe P0'][0]:.5f}"
+          " ms per step by CUDA events; stream_copy's library call torch.add(x, 1, out=o) "
+          f"{library_ms:.5f} ms", flush=True)
+    print(f"[probes] scripts: 2D {json.dumps(res2)}; 3D {json.dumps(res3)}", flush=True)
+    print(f"[probes] rel err {json.dumps(errs)}; tolerances {json.dumps(PROBE_TOL)}", flush=True)
+    for key, err in errs.items():
+        tol = PROBE_TOL["scan_probe" if key.startswith("scan_probe") else "3d"]
+        if not err <= tol:
+            fail(f"{key} disagrees with its plain version: {err:.3e} > {tol:.0e}")
+    # each entry's configuration: the 2D probe with its strips (the
+    # production forward's step), the taps at K = 25 (an order-8 3D
+    # stencil's), the flat float4 copy (the stream's ceiling), step5
+    # unstaged; max_abs_err over every configuration held
+    shown = {"scan_probe": "scan_probe P1", "tap_probe": "tap_probe K=25",
+             "stream_copy": "stream_copy vec4", "stream_step5": "stream_step5 staged=False",
+             "stream_step5x": "stream_step5x"}
+    entries = []
+    for name, key in shown.items():
+        b_ms, b_by = bounds[key]
+        source, replaces = KERNELS[name]
+        entries.append(dict(name=name, route=PROBE_ROUTE, source=source, replaces=replaces,
+                            launches=launches[name], max_abs_err=abs_err[name], ms=ms[key][0],
+                            plain_ms=plain[key], bound_ms=b_ms, bound_by=b_by,
+                            library_ms=library_ms if name == "stream_copy" else None))
+    return entries
+
+
 def main() -> int:
     smi = phase_device()
     dev = torch.device("cuda", 0)
@@ -2414,6 +2621,7 @@ def main() -> int:
     phase_a3d_fullscale(dev, smi)
     phase_a3d_step_kernels(dev, smi)
     kernels += phase_bench_3d(dev, smi)
+    kernels += phase_probes(dev, smi)
     launches = dict.fromkeys(KERNELS, 0)
     for path in PATHS:
         for name, n in phase_main(smi, path).items():
@@ -2426,7 +2634,8 @@ def main() -> int:
     for k in kernels:
         k.setdefault("launches", launches[k["name"]])
     if min(k["launches"] for k in kernels) <= 0:
-        fail("a kernel was launched on no main path (leapfrog: in no leapfrog run)")
+        fail("a kernel was launched on no main path (leapfrog: in no leapfrog run; the "
+             "probes: in no probe script)")
     print(json.dumps({"kernels": [{key: k[key] for key in order} for k in kernels]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

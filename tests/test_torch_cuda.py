@@ -1,6 +1,7 @@
 """The CUDA kernels == their plain torch versions, on the card (2D acoustic
 whole-scan, single-step and K-step, elastic whole-scan and per-step, 3D
-acoustic whole-scan and per-step, and the 3D bench).
+acoustic whole-scan and per-step, the 3D bench, and the machine-model
+probes and their scripts).
 
 Skips without a CUDA device. Imports no JAX, so it runs where only the
 port is installed: ``python -m pytest tests/test_torch_cuda.py -m cuda
@@ -486,3 +487,93 @@ def test_bench_3d_on_the_card(device):
     fused = runs["full_step"](c2, 40)
     for name in ("strip_step", "full_step2"):
         assert _rel(fused, runs[name](c2, 40)) <= chip_smoke.A3D_STEP_TOL["bench"], name
+
+
+# ------------------------------------------------------- the machine-model probes
+
+
+def _probe_arrays(device, shape=(48, 256, 37), seed=0):
+    """pp, p, c2 and eight (NY, NZ, 24) arrays: inner, first and last
+    blocks along y and z, an odd NX."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    rand = lambda *s: torch.randn(s, generator=gen, device=device)  # noqa: E731
+    return rand(*shape), rand(*shape), rand(*shape), [rand(*shape[:2], 24) for _ in range(8)]
+
+
+@pytest.mark.parametrize("strips", [False, True])
+def test_scan_probe_matches_plain(device, strips):
+    from tpufwi_torch.bench import exp_2d_scanres
+    from tpufwi_torch.kernels import probes as kp
+
+    grid, dt = exp_2d_scanres.probe_grid(20, 110)
+    c2, prof, seed = exp_2d_scanres.probe_inputs(grid, dt, device)
+    for nt in (31, 32):  # P_nt in either buffer
+        args = (grid, c2, prof, seed, 0.999 * seed, nt, strips)
+        n0 = kp.scan_probe.launches
+        got = kp.scan_probe(*args)
+        assert kp.scan_probe.launches - n0 == nt
+        assert _rel(got, kp.scan_probe_plain(*args)) <= chip_smoke.PROBE_TOL["scan_probe"]
+
+
+def test_3d_probes_match_plain(device):
+    from tpufwi_torch.kernels import probes as kp
+
+    pp, p, c2, small = _probe_arrays(device)
+    tol = chip_smoke.PROBE_TOL["3d"]
+    for K in kp.TAP_KS:
+        assert _rel(kp.tap_probe(p, K), kp.tap_probe_plain(p, K)) <= tol, K
+    for variant in kp.COPY_VARIANTS:
+        assert torch.equal(kp.stream_copy(p, variant), p + 1.0), variant
+    odd = p[:3, :5, :7].contiguous()  # 105 values: a float4 loop and a tail
+    assert torch.equal(kp.stream_copy(odd), odd + 1.0)
+    for staged in (False, True):
+        for c in (c2, p):  # distinct, and aliased as the reference passes them
+            got = kp.stream_step5(pp, p, c, staged)
+            assert _rel(got, kp.stream_step5_plain(pp, p, c, staged)) <= tol, staged
+    o, so = kp.stream_step5x(pp, p, c2, small)
+    o_p, so_p = kp.stream_step5x_plain(pp, p, c2, small)
+    for got, ref in zip((o,) + so, (o_p,) + so_p):
+        assert _rel(got, ref) <= tol
+    n = (kp.tap_probe.launches, kp.stream_copy.launches, kp.stream_step5.launches,
+         kp.stream_step5x.launches)
+    kp.tap_probe(p, 5), kp.stream_copy(p), kp.stream_step5(pp, p, c2), kp.stream_step5x(
+        pp, p, c2, small)
+    assert (kp.tap_probe.launches, kp.stream_copy.launches, kp.stream_step5.launches,
+            kp.stream_step5x.launches) == tuple(v + 1 for v in n)
+
+
+def test_probe_wrappers_raise_instead_of_falling_back(device):
+    from tpufwi_torch.bench import exp_2d_scanres
+    from tpufwi_torch.kernels import probes as kp
+
+    pp, p, c2, small = _probe_arrays(device)
+    with pytest.raises(ValueError, match="fp32"):
+        kp.tap_probe(p.double(), 25)
+    with pytest.raises(ValueError, match="K must be"):
+        kp.tap_probe(p, 9)
+    with pytest.raises(ValueError, match="multiples"):
+        kp.stream_step5(pp[:40], p[:40], c2[:40])
+    with pytest.raises(ValueError, match="variant"):
+        kp.stream_copy(p, "rows2x2")
+    with pytest.raises(ValueError, match="aligned"):
+        kp.stream_copy(torch.empty(p.numel() + 1, device=device)[1:].view(p.shape), "vec4")
+    with pytest.raises(ValueError, match="eight"):
+        kp.stream_step5x(pp, p, c2, small[:7])
+    grid, dt = exp_2d_scanres.probe_grid(20, 110)
+    c2d, prof, seed = exp_2d_scanres.probe_inputs(grid, dt, device)
+    with pytest.raises(ValueError, match="fp32"):
+        kp.scan_probe(grid, c2d.double(), prof, seed, seed, 4)
+    with pytest.raises(ValueError, match="strip profiles"):
+        kp.scan_probe(grid, c2d, prof[:3] + (prof[3][:, :, :-1].contiguous(),), seed, seed, 4)
+
+
+def test_probe_scripts_on_the_card(device):
+    """Both probe scripts at small sizes: positive times, and the JSON lines."""
+    from tpufwi_torch.bench import exp_2d_scanres, exp_3d_lap
+
+    out2 = exp_2d_scanres.main(["40", "200", "--nts", "64", "512"])
+    assert all(v["us_per_step"] > 0 for v in out2.values())
+    out3 = exp_3d_lap.main(["--dims", "40", "30", "48"])
+    assert out3["taps"]["per_tap_ms"] > 0
+    assert all(v["ms_per_call"] > 0 for v in out3["stream"].values())
+    assert all(v["leapfrog"] > 0 for v in out3["merged"].values())

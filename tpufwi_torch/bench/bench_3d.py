@@ -114,13 +114,30 @@ def per_step_seconds(times, nts, name):
     return slope
 
 
-def _run_seconds(run, c2, nt):
-    if c2.device.type == "cuda":
-        torch.cuda.synchronize(c2.device)
+def run_seconds(run, arg, nt):
+    """Host seconds of ``run(arg, nt)`` and a host read of the sum of the
+    squares of what it returns, which waits for the card."""
+    if arg.device.type == "cuda":
+        torch.cuda.synchronize(arg.device)
     t0 = time.perf_counter()
-    p = run(c2, nt)
+    p = run(arg, nt)
     float((p * p).sum())  # waits for the card
     return time.perf_counter() - t0
+
+
+def median(ts):
+    return sorted(ts)[len(ts) // 2]
+
+
+def slope_seconds(run, arg, nts, reps, name, pick=median):
+    """Seconds per step of ``run(arg, nt)``: the slope between the two
+    ``nts`` of ``pick`` of ``reps`` timed runs each, after one untimed run
+    (``per_step_seconds``: raises when not positive)."""
+    times = {}
+    for nt in nts:
+        run_seconds(run, arg, nt)
+        times[nt] = pick([run_seconds(run, arg, nt) for _ in range(reps)])
+    return per_step_seconds(times, nts, name)
 
 
 def bench_3d_step(ny=801, nz=187, nx=801, pml=20, order=8, nts=(8, 40), reps=3, which=MODES,
@@ -136,12 +153,7 @@ def bench_3d_step(ny=801, nz=187, nx=801, pml=20, order=8, nts=(8, 40), reps=3, 
     runs = make_runs(grid, dt)
     out = {}
     for name in which:
-        times = {}
-        for nt in nts:
-            _run_seconds(runs[name], c2, nt)
-            ts = sorted(_run_seconds(runs[name], c2, nt) for _ in range(reps))
-            times[nt] = ts[len(ts) // 2]
-        per_step = per_step_seconds(times, nts, name)
+        per_step = slope_seconds(runs[name], c2, nts, reps, name)
         out[name] = {"ms_per_step": per_step * 1e3, "gcups": cells / per_step / 1e9}
         print(f"{name}: {per_step * 1e3:.4f} ms/step = {out[name]['gcups']:.2f} Gcu/s "
               f"({cells / 1e6:.0f}M cells)", flush=True)

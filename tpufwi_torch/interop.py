@@ -99,6 +99,27 @@ def load_reference_mp_checkpoint(path, device="cuda", dtype=torch.float32,
         )
 
 
+# the zero borders of the reference's 2D whole-scan buffers (sublane- and
+# lane-aligned: tpufwi/kernels/acoustic2d_pallas.py PZ, PX)
+PZ, PX = 8, 128
+
+
+def probe2d_from_reference(grid: Grid, seed_ext, c2_ext) -> tuple:
+    """The reference's 2D probe inputs (``scripts/exp_2d_scanres.py``: the
+    seed and C on its extended (NZ + 2 PZ, NX + 2 PX) layout) cropped to the
+    padded grid, as fp32 numpy arrays (seed, c2) for
+    ``kernels/probes.py::scan_probe``."""
+    NZ, NX = grid.padded_shape
+    out = []
+    for a in (seed_ext, c2_ext):
+        a = np.asarray(a, np.float32)
+        if a.shape != (NZ + 2 * PZ, NX + 2 * PX):
+            raise ValueError(f"probe2d_from_reference: {a.shape} is not the extended layout "
+                             f"{(NZ + 2 * PZ, NX + 2 * PX)} of {grid.padded_shape}")
+        out.append(np.ascontiguousarray(a[PZ:PZ + NZ, PX:PX + NX]))
+    return tuple(out)
+
+
 def strips3d_from_reference(strips, grid: Grid) -> np.ndarray:
     """The reference's v1 3D strip state (``make_acoustic3d_strip_step`` /
     ``make_acoustic3d_fused_step``: per axis y, z, x the slabs (phi_lo,
