@@ -59,7 +59,11 @@ Phases, each printing its own lines; any failure exits non-zero.
      illumination) and a3d_reverse (fed the plain forward's tape, fields and
      seismogram; fp32 and bf16 tapes) against their plain versions at the 3D
      main path's padded grid (428 x 188 x 588), one surface shot, nt = 64;
-     and a free-surface case on a smaller grid, nt = 128
+     and a free-surface case on a smaller grid, nt = 128; at both, the
+     tiled cell passes (the default: 2.5D tiles over the interior box, the
+     gather cell code over the CPML shell) against the gather ones
+     (variant="gather"), bitwise on every output, with each variant's ms
+     per step and torch.profiler's device us per pass
  13. full Overthrust: one shot on the SEG/EAGE Overthrust grid (801 x 187 x
      801 at 25 m, padded 829 x 215 x 829, nt = 3028): 'auto' resolves to the
      bf16 ring tape; a tape-free forward and a value-and-grad
@@ -1929,7 +1933,8 @@ def a3d_step_counts(grid, nrec, nsrc, n_ring):
     read. Per shot: C and the final
     fields. Operations: three 9-tap D2 stencils a cell (forward), five
     (reverse: the imaging laplacian and the transposed one of C lambda), the
-    strips' D1 stencils and updates."""
+    strips' D1 stencils and updates. With illumination the forward also
+    reads and writes the (NY, NZ, NX) sum (8 B/cell)."""
     NY, NZ, NX = grid.padded_shape
     taps = 2 * grid.radius + 1
     S = grid.pml + grid.radius
@@ -1940,6 +1945,9 @@ def a3d_step_counts(grid, nrec, nsrc, n_ring):
     f = 4
     return {
         "a3d_forward": (fwd, 16 * cells + 16 * strips + nrec * f, 3 * cells * f),
+        # illum read and written each step, one FMA a cell
+        "a3d_forward_illum": (fwd + 2 * cells, 24 * cells + 16 * strips + nrec * f,
+                              3 * cells * f),
         "a3d_forward_tape": (fwd, 16 * cells + 16 * strips + (nrec + n_ring) * f, 3 * cells * f),
         "a3d_reverse": (rev, 36 * cells + 16 * strips + (nrec + nsrc + n_ring) * f,
                         3 * cells * f),
@@ -2001,6 +2009,45 @@ def a3d_kernels_vs_plain(args, w, si, ri, reps=2):
     return errs, nums
 
 
+def a3d_variants_bitwise(args, w, si, ri, reps=2):
+    """The tiled cell passes (the default) against the gather ones on every
+    output: a3d_forward with the fp32 tape, without tape, with the bf16
+    tape and with illumination; a3d_reverse fed the tiled forward's fp32
+    tape, last fields and seismogram, with that tape and with it rounded
+    to bf16, and the reconstructed P_{-1}. Returns ({output: max abs
+    difference}, {variant: (forward ms a step with the fp32 tape, reverse
+    ms a step)}), CUDA events."""
+    k3 = a3d_module()
+    nt = w.shape[0]
+    outs, ms = {}, {}
+    for v in k3.VARIANTS:
+        o = {}
+        f_ms, (o["seis"], o["tape"], o["penult"], o["last"], _) = timed_ms(
+            lambda: k3.a3d_forward(*args, w, si, ri, torch.float32, variant=v), reps=reps)
+        o["seis_notape"], _, o["penult_notape"], o["last_notape"], _ = k3.a3d_forward(
+            *args, w, si, ri, variant=v)
+        o["seis_bf16"], o["tape_bf16"], _, _, _ = k3.a3d_forward(*args, w, si, ri,
+                                                                 torch.bfloat16, variant=v)
+        o["illum"] = k3.a3d_forward(*args, w, si, ri, illum=True, variant=v)[4]
+        outs[v] = o
+        ms[v] = [f_ms / nt]
+    base = outs["tiled"]
+    ybar, tape16 = base["seis"].contiguous(), base["tape"].to(torch.bfloat16)
+    fields = (base["penult"], base["last"])
+    for v in k3.VARIANTS:
+        o = outs[v]
+        r_ms, (o["gbar"], o["lam_src"], o["recon"]) = timed_ms(
+            lambda: k3.a3d_reverse(*args, w, ybar, base["tape"], *fields, si, ri,
+                                   return_field=True, variant=v), reps=reps)
+        o["gbar_bf16"], o["lam_src_bf16"] = k3.a3d_reverse(*args, w, ybar, tape16, *fields, si,
+                                                           ri, variant=v)
+        ms[v].append(r_ms / nt)
+    diffs = {key: float((outs["tiled"][key].double() - outs["gather"][key].double())
+                        .abs().max()) if not torch.equal(outs["tiled"][key], outs["gather"][key])
+             else 0.0 for key in base}
+    return diffs, ms
+
+
 def a3d_bf16_gradient(dev, nt):
     """The kernels' gradient image with the bf16 ring tape against the fp32
     tape's, one surface shot (its source in the ring) on the small survey
@@ -2036,14 +2083,22 @@ def phase_a3d_kernels(dev, smi, nt=64, nt_fs=128, nt_bf16=400):
     src = np.concatenate([fs[6][0], [[30, 0, 40]]])  # a second source, on the surface row
     rcv = np.concatenate([fs[7], [[y, 0, 40] for y in range(10, 54, 6)], fs[7][:3]])
     errs_fs, nums_fs = a3d_kernels_vs_plain(*a3d_inputs(dev, *fs[:6], src, rcv))
+    bits, var_ms = a3d_variants_bitwise(*a3d_inputs(dev, *survey[:6], mid, survey[7]))
+    bits_fs, var_ms_fs = a3d_variants_bitwise(*a3d_inputs(dev, *fs[:6], src, rcv))
     bf16_rel, bf16_cos = a3d_bf16_gradient(dev, nt_bf16)
     args, w, si, ri = a3d_inputs(dev, *survey[:5], 16, mid, survey[7])
 
-    def fwd_rev():
-        seis, tape, ppen, plast, _ = k3.a3d_forward(*args, w, si, ri, torch.float32)
-        k3.a3d_reverse(*args, w, seis.contiguous(), tape, ppen, plast, si, ri)
+    def fwd_rev(variant):
+        def run():
+            seis, tape, ppen, plast, _ = k3.a3d_forward(*args, w, si, ri, torch.float32,
+                                                        variant=variant)
+            k3.a3d_reverse(*args, w, seis.contiguous(), tape, ppen, plast, si, ri,
+                           variant=variant)
+        return run
 
-    prof = device_us_per_step(fwd_rev, 16, r"::([fr]3_\w+?)[<(]")
+    # the default call first: what the engines run
+    prof = {v: device_us_per_step(fwd_rev(v), 16, r"::([fr]3_\w+?)[<(]")
+            for v in ("tiled", "gather")}
     launched = (k3.a3d_forward.launches - before[0], k3.a3d_reverse.launches - before[1])
     c = nums["counts"]
     entries = [entry("a3d_forward", *nums["fwd"], c["a3d_forward_tape"], nt),
@@ -2055,7 +2110,7 @@ def phase_a3d_kernels(dev, smi, nt=64, nt_fs=128, nt_bf16=400):
               f"{e['bound_ms']:.5f} by {e['bound_by']})", flush=True)
     for label, ms, key in (("a3d_forward without tape", nums["free_ms"], "a3d_forward"),
                            ("a3d_forward with the bf16 tape", nums["bf_ms"], "a3d_forward_tape"),
-                           ("a3d_forward with illumination", nums["il_ms"], "a3d_forward"),
+                           ("a3d_forward with illumination", nums["il_ms"], "a3d_forward_illum"),
                            ("a3d_reverse with the bf16 tape", nums["rev_bf_ms"], "a3d_reverse")):
         b = bound(c[key], nt)
         print(f"[a3d kernels]   {label}: {ms:.5f} ({b[0]:.5f} by {b[1]})", flush=True)
@@ -2067,9 +2122,30 @@ def phase_a3d_kernels(dev, smi, nt=64, nt_fs=128, nt_bf16=400):
           f"surface shot, nt {nt_bf16}: {bf16_rel:.3e} (norm, valid region; bound "
           f"{A3D_BF16_GTOL:.0e}), cosine {bf16_cos:.6f}; launches in these checks: "
           f"a3d_forward {launched[0]}, a3d_reverse {launched[1]}", flush=True)
-    print("[a3d kernels] torch.profiler device us per step (forward with the fp32 tape + "
-          "reverse, nt 16): " + (", ".join(f"{k} {us:.2f}" for k, us in prof)
-                                  or "not measured"), flush=True)
+    for tag, vm, g in (("main grid", var_ms, nums["grid"]),
+                       ("free surface", var_ms_fs, nums_fs["grid"])):
+        print(f"[a3d kernels] tiled vs gather cell passes, {tag} {g}, ms per step (CUDA "
+              "events): forward with the fp32 tape " + ", ".join(
+                  f"{v} {m[0]:.5f}" for v, m in vm.items()) + "; reverse " + ", ".join(
+                  f"{v} {m[1]:.5f}" for v, m in vm.items()), flush=True)
+    print(f"[a3d kernels] tiled against gather, max abs difference per output (0.0: bitwise): "
+          f"main grid {json.dumps(bits)}; free surface {json.dumps(bits_fs)}", flush=True)
+    for v, rows in prof.items():
+        print(f"[a3d kernels] torch.profiler device us per step, variant {v} (forward with the "
+              "fp32 tape + reverse, nt 16): " + (", ".join(f"{k} {us:.2f}" for k, us in rows)
+                                                 or "not measured"), flush=True)
+    gather_names = {"f3_cells", "r3_cells1", "r3_cells2"}
+    tiled_names = {"f3_cells_tiled", "r3_cells1_tiled", "r3_cells2_tiled", "f3_shell",
+                   "r3_shell1", "r3_shell2"}
+    ran = {v: {k for k, _ in rows} for v, rows in prof.items()}
+    if ran["tiled"] and (ran["tiled"] & gather_names or not tiled_names <= ran["tiled"]):
+        fail(f"the default 3D call's cell passes were {sorted(ran['tiled'])}, not the tiled ones")
+    if ran["gather"] and (ran["gather"] & tiled_names or not gather_names <= ran["gather"]):
+        fail(f"variant='gather' ran {sorted(ran['gather'])}, not the gather cell passes")
+    for tag, group in (("main grid", bits), ("free surface", bits_fs)):
+        unequal = {k: d for k, d in group.items() if d != 0.0}
+        if unequal:
+            fail(f"3D tiled cell passes differ from the gather ones ({tag}): {unequal}")
     for group in (errs, errs_fs):
         for name, err in group.items():
             if not err <= A3D_TOL[name]:
@@ -2581,6 +2657,12 @@ def phase_probes(dev, smi, nt_2d=PROBE_NT, calls=20):
           " ms per step by CUDA events; stream_copy's library call torch.add(x, 1, out=o) "
           f"{library_ms:.5f} ms", flush=True)
     print(f"[probes] scripts: 2D {json.dumps(res2)}; 3D {json.dumps(res3)}", flush=True)
+    merged = res3.get("merged", {})
+    if 8 in merged and 2 in merged:
+        d = merged[8]["full_step2"] - merged[2]["full_step2"]
+        print(f"[probes] merged: a3d_forward (full_step2, tiled cell passes) order 8 - order 2 "
+              f"{d:.5f} ms a step ({d / 18:.5f} a tap, 25 - 7 taps); the gather cell passes "
+              "measured 0.93-0.94 (PERF.md, row 12)", flush=True)
     print(f"[probes] rel err {json.dumps(errs)}; tolerances {json.dumps(PROBE_TOL)}", flush=True)
     for key, err in errs.items():
         tol = PROBE_TOL["scan_probe" if key.startswith("scan_probe") else "3d"]

@@ -363,11 +363,11 @@ def test_estep_gradient_matches_escan(device, source_type, record, free_surface)
 # ------------------------------------------------------------- 3D (12-17)
 
 
-def _a3d_case(device, order, free_surface, nt):
+def _a3d_case(device, order, free_surface, nt, shape=(20, 24, 28), pml=6):
     """A surface source (in the boundary ring) and a deeper one, a receiver
     carpet at depth 3 with a coinciding pair; with the free surface a source
     and a receiver on the pinned surface row."""
-    grid = Grid(shape=(20, 24, 28), h=(10.0, 11.0, 12.0), pml=6, order=order,
+    grid = Grid(shape=shape, h=(10.0, 11.0, 12.0), pml=pml, order=order,
                 free_surface=free_surface)
     c_max, f0 = 2600.0, 18.0
     dt = grid.cfl_dt(c_max, safety=0.7)
@@ -381,11 +381,12 @@ def _a3d_case(device, order, free_surface, nt):
     return chip_smoke.a3d_inputs(device, grid, vp, dt, f0, c_max, nt, src, np.array(rcv))
 
 
-@pytest.mark.parametrize("order,free_surface", [(8, False), (8, True), (4, True)])
+@pytest.mark.parametrize("order,free_surface", [(8, False), (8, True), (4, True), (2, False)])
 def test_a3d_kernels_match_plain(device, order, free_surface):
     """a3d_forward (no tape, fp32 and bf16 tapes, illumination) and
-    a3d_reverse (fp32 and bf16 tapes) against their plain versions, with
-    chip_smoke.py's tolerances; each wrapper counts nt launches per call."""
+    a3d_reverse (fp32 and bf16 tapes), their tiled cell passes (the
+    default), against their plain versions, with chip_smoke.py's
+    tolerances; each wrapper counts nt launches per call."""
     from tpufwi_torch.kernels import acoustic3d_scan as k3
 
     args, w, si, ri = _a3d_case(device, order, free_surface, nt=100)
@@ -400,6 +401,46 @@ def test_a3d_kernels_match_plain(device, order, free_surface):
         assert err <= chip_smoke.A3D_TOL[name], (name, err)
 
 
+# (physical shape, pml): padded 37 x 29 x 53 at every order (every padded
+# dimension odd); padded 97 x 41 x 57 at order 8, its interior box (the
+# physical grid less R a side: 73 x 17 x 33) one past a multiple of the
+# plan's (16, 32) tile in z and x
+A3D_RAGGED = {
+    "odd": {8: ((25, 17, 41), 2), 4: ((25, 17, 41), 4), 2: ((27, 19, 43), 4)},
+    "tile_plus_one": {8: ((81, 25, 41), 4)},
+}
+
+
+@pytest.mark.parametrize("cy", ["plan", "one_chunk", 7])
+@pytest.mark.parametrize("order,free_surface,shape", [
+    (8, False, None), (8, True, None), (4, True, None), (2, False, None), (2, True, None),
+    (8, True, "odd"), (4, False, "odd"), (2, True, "odd"), (8, False, "tile_plus_one"),
+    (8, True, "tile_plus_one"),
+])
+def test_a3d_tiled_matches_gather_bitwise(device, monkeypatch, order, free_surface, shape, cy):
+    """The tiled cell passes against the gather ones (variant="gather"),
+    bitwise on every output: the seismogram and both last fields with and
+    without the tape, the fp32 and bf16 tape rows, the illumination, and
+    the reverse's gradient, lambda at the sources (fp32 and bf16 tapes) and
+    reconstructed P_{-1}; with the free surface a source and receivers on
+    the pinned row, and on ragged grids. These fields fit the L2, so the
+    plan's chunks are 1 plane deep: the walk is also run in one chunk of
+    the whole box and in chunks of 7 with a ragged last one."""
+    from tpufwi_torch.kernels import acoustic3d_scan as k3
+
+    kw = {} if shape is None else dict(zip(("shape", "pml"), A3D_RAGGED[shape][order]))
+    args, w, si, ri = _a3d_case(device, order, free_surface, nt=48, **kw)
+    if cy != "plan":
+        plan = k3.a3d_tile_plan
+        NY = args[0].padded_shape[0]
+        monkeypatch.setattr(k3, "a3d_tile_plan", lambda grid: plan(grid)._replace(
+            cy=NY if cy == "one_chunk" else cy))
+    diffs, _ = chip_smoke.a3d_variants_bitwise(args, w, si, ri, reps=1)
+    torch.cuda.synchronize()
+    assert len(diffs) == 15
+    assert all(d == 0.0 for d in diffs.values()), diffs
+
+
 def test_a3d_wrapper_raises_instead_of_falling_back(device):
     from tpufwi_torch.kernels import acoustic3d_scan as k3
 
@@ -408,7 +449,11 @@ def test_a3d_wrapper_raises_instead_of_falling_back(device):
         k3.a3d_forward(grid, c2.double(), prof, w, si, ri)
     with pytest.raises(ValueError, match="outside the padded grid"):
         k3.a3d_forward(grid, c2, prof, w, si + 10_000, ri)
+    with pytest.raises(ValueError, match="variant"):
+        k3.a3d_forward(grid, c2, prof, w, si, ri, variant="tiles")
     seis, tape, ppen, plast, _ = k3.a3d_forward(grid, c2, prof, w, si, ri, torch.float32)
+    with pytest.raises(ValueError, match="variant"):
+        k3.a3d_reverse(grid, c2, prof, w, seis, tape, ppen, plast, si, ri, variant="gathered")
     with pytest.raises(ValueError, match="tape"):
         k3.a3d_reverse(grid, c2, prof, w, seis, tape[:-1].contiguous(), ppen, plast, si, ri)
     with pytest.raises(ValueError, match="tape"):

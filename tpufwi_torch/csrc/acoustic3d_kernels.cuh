@@ -26,10 +26,16 @@
 // Kernels, in the order a step launches them:
 //   forward:  F1 f3_phi     one thread per strip cell of the three axes:
 //                           phi_d' (D1_d of p)
-//             F2 f3_cells   one thread per cell: the three 9-tap D2 stencils,
-//                           D1_d phi_d' and psi_d' in the CPML reach of each
-//                           axis, the leapfrog in place over P_{t-2}, the
-//                           surface pin; optionally illum += P_{t-1}^2
+//             F2 the cell pass: f3_cells_tiled over the interior box, one
+//                           thread per cell of a 2.5D tile (see "2.5D
+//                           marching tiles"): the three 9-tap D2 stencils
+//                           of P_{t-1} from a register column and a shared
+//                           plane tile; beside it, on a side stream, f3_shell
+//                           over the CPML shell, one thread per cell; both
+//                           end in f3_tail: D1_d phi_d' and psi_d' in the
+//                           CPML reach of each axis, the leapfrog in place
+//                           over P_{t-2}, the surface pin; optionally
+//                           illum += P_{t-1}^2
 //             F3 f3_src_rcv one block: sources (serially: coinciding sources
 //                           sum in a fixed order), then receivers
 //             F4 f3_ring_get optional: the ring of the post-source field into
@@ -37,11 +43,20 @@
 //   reverse:  R0 r3_inject  one block: receiver-cotangent injection (each
 //                           cell owned by its first receiver, which sums the
 //                           others in index order), lambda at the sources
-//             R1 r3_cells1  one thread per cell: reconstruction of P_{t-2}
-//                           over P_t, lapw, imaging, surface mask, psibar -> w
+//             R1 r3_cells1_tiled (box, P_t tiled) + r3_shell1 (shell): lapw,
+//                           then r3_tail1: reconstruction of P_{t-2} over
+//                           P_t, imaging, surface mask, psibar -> w
 //             R1b r3_src_ring the reconstruction's sources, the ring imposed
 //             R2 r3_strips  one thread per strip cell: phibar -> y
-//             R3 r3_cells2  one thread per cell: lambda_{t-1}
+//             R3 r3_cells2_tiled (box, C and lambda_t tiled: u = C lambda
+//                           formed once a tap read) + r3_shell2 (shell):
+//                           D2 u, then r3_tail2: lambda_{t-1}
+// The gather variants f3_cells, r3_cells1 and r3_cells2 (one thread per
+// cell of the whole grid, every tap a global load; u formed 25 times a
+// cell) compute the same values in the same order: the shell kernels run
+// their cell code, and the tiles share their tails, so the tiled variant
+// is bitwise equal to them. They run only when a check asks for them
+// (variant 1 of the entry points).
 //
 // Layout. The wavefields (p, lambda) and C are stored with a zero halo of R
 // cells on every side ((NY+2R) x (NZ+2R) x (NX+2R), x contiguous), so the
@@ -220,6 +235,294 @@ struct GridField {
   }
 };
 
+// ------------------------------------------------- interior box and shell
+//
+// The interior box holds the cells at least S + R from every face (the
+// physical grid less R a side): there every axis's cpml_terms and
+// tcpml_terms is 0 without a load and no psibar strip exists. The shell is
+// the rest, the CPML reach (30% of the cells at the 3D main path's grid):
+// cells whose tails gather strip values.
+struct Box {
+  int lo;    // S + R: the box's first cell on every axis
+  int n[3];  // its extents, all 0 when it is empty
+};
+
+__host__ __device__ inline Box interior_box(const Dims& D, int R) {
+  Box b;
+  b.lo = D.S + R;
+  bool empty = false;
+  for (int d = 0; d < 3; ++d) {
+    b.n[d] = D.n[d] - 2 * b.lo;
+    empty = empty || b.n[d] <= 0;
+  }
+  if (empty) b.n[0] = b.n[1] = b.n[2] = 0;
+  return b;
+}
+
+__host__ __device__ inline int shell_count(const Dims& D, const Box& b) {
+  return D.n[0] * D.n[1] * D.n[2] - b.n[0] * b.n[1] * b.n[2];
+}
+
+// (y, z, x) of shell cell e: the low y slab, then per middle plane its low
+// z slab, the x slabs of its middle rows and its high z slab, then the high
+// y slab (with an empty box, the whole grid in order). Consecutive cells
+// are consecutive in x wherever the shell runs along x, so the shell
+// kernels' loads coalesce.
+__device__ __forceinline__ void shell_cell(int e, const Dims& D, const Box& b, int& y, int& z,
+                                           int& x) {
+  const int NX = D.n[2], plane = D.n[1] * NX, L = b.lo;
+  const int low = b.n[0] == 0 ? D.n[0] * plane : L * plane;
+  const int mid = plane - b.n[1] * b.n[2];  // the shell cells of a middle plane
+  int r;
+  if (e < low || e >= low + b.n[0] * mid) {  // a y slab: whole planes
+    const int yy = e < low ? 0 : L + b.n[0];
+    const int f = e < low ? e : e - low - b.n[0] * mid;
+    y = yy + f / plane;
+    r = f - (y - yy) * plane;
+    z = r / NX;
+    x = r - z * NX;
+    return;
+  }
+  e -= low;
+  y = L + e / mid;
+  r = e - (y - L) * mid;
+  if (r < L * NX) {  // the low z slab
+    z = r / NX;
+    x = r - z * NX;
+    return;
+  }
+  r -= L * NX;
+  if (r < 2 * L * b.n[1]) {  // the x slabs of the middle rows
+    z = L + r / (2 * L);
+    const int j = r - (z - L) * 2 * L;
+    x = j < L ? j : NX - 2 * L + j;
+    return;
+  }
+  r -= 2 * L * b.n[1];  // the high z slab
+  z = L + b.n[1] + r / NX;
+  x = r - (z - L - b.n[1]) * NX;
+}
+
+// this thread's shell cell in a shell launch (1D, kStripBlock threads a
+// block); false past the shell
+template <int R>
+__device__ __forceinline__ bool my_shell_cell(const Dims& D, int& y, int& z, int& x) {
+  const Box b = interior_box(D, R);
+  const int e = blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= shell_count(D, b)) return false;
+  shell_cell(e, D, b, y, z, x);
+  return true;
+}
+
+// this thread's cell of the 3D cell grid (cell_grid); false past the grid
+__device__ __forceinline__ bool my_grid_cell(const Dims& D, int& y, int& z, int& x) {
+  x = blockIdx.x * blockDim.x + threadIdx.x;
+  z = blockIdx.y * blockDim.y + threadIdx.y;
+  y = blockIdx.z;
+  return x < D.n[2] && z < D.n[1];
+}
+
+// ---------------------------------------------------- 2.5D marching tiles
+//
+// The tiled cell passes share one walk, march(), over the interior box
+// (the shell around it runs one thread a cell). A block of kTZ x kTX
+// threads (x contiguous: a warp is the 32 x of one z row) owns a (z, x)
+// tile of the box and marches along y over a chunk of its cy planes. Each
+// thread keeps its column's 2R+1 values of the stencil field along y in
+// registers (q[k] at plane y - R + k), shifted one plane a step; each
+// value enters the column once, as plane y + R. The z and x taps come from
+// the plane tile, (kTZ + 2R) x (kTX + 2R) values in shared memory: each
+// value of the field is loaded from device memory once for its own tile
+// (its halo ring, at order 8 448 cells a 512-cell plane, are the neighbour
+// tiles' cells, mostly L2 hits).
+// A plane's loads must be in flight long before it is computed, and a
+// thread can hold only a few of them in registers. So every load goes
+// global -> shared by cp.async (4 bytes, zero-filled where masked), kAhead
+// planes ahead, into two rings: the field's plane tiles (planes y .. y +
+// R + kAhead) and the cell's own operands of the pass's tail (planes y ..
+// y + kAhead), one cp.async group a plane. One __syncthreads() a plane:
+// after it every thread has finished the previous plane, whose slots the
+// next group then refills. A warp reads 32 consecutive words of one tile
+// row at every tap, so the row stride kTX + 2R is free of bank conflicts
+// without padding.
+// Ragged edges: every thread copies its share and joins the barriers; a
+// copy from outside the halo layout ((NY+2R) x (NZ+2R) x (NX+2R)) reads
+// nothing and fills zero (never read by a cell of the box); only threads
+// on the box run the cell. The launch plan (chunk depth cy and the largest
+// pass's shared bytes, checked against these shapes) is computed in
+// Python: kernels/acoustic3d_scan.py a3d_tile_plan.
+constexpr int kTZ = 16;
+constexpr int kTX = 32;
+constexpr int kAhead = 3;
+constexpr int kTileThreads = kTZ * kTX;
+// ring slots, powers of two so that a plane's slot is a mask: the field's
+// planes y .. y + R + kAhead (R <= 4), the operands' y .. y + kAhead
+constexpr int kFieldSlots = 8;
+constexpr int kOpSlots = 4;
+static_assert(4 + kAhead + 1 <= kFieldSlots && kAhead + 1 <= kOpSlots, "ring slots");
+
+// NF field tiles (the stencil field is their product when NF = 2: u = C
+// lambda), NH tail operands at the cell's halo offset, NG at its (NY, NZ,
+// NX) offset
+template <int R, int NF_, int NH_, int NG_>
+struct Ring {
+  static constexpr int NF = NF_, NH = NH_, NOP = NH_ + NG_;
+  static constexpr int W = kTX + 2 * R;  // row stride, floats
+  static constexpr int PLANE = (kTZ + 2 * R) * W;
+  static constexpr int NS = kFieldSlots;
+  static constexpr int NO = kOpSlots;
+  static constexpr int PER = (PLANE + kTileThreads - 1) / kTileThreads;  // copies a thread
+  static constexpr int FIELD = NF * NS * PLANE;  // floats
+  static constexpr int OPS = NOP * NO * kTileThreads;
+  static constexpr int BYTES = (FIELD + OPS) * (int)sizeof(float);
+};
+// the three passes' rings: f3 (P_{t-1}; P_{t-2}, C, illum), r3_cells1 (P_{t-1};
+// C, P_t, lambda_t, gacc), r3_cells2 (C and lambda_t; lambda_{t+1})
+template <int R> using RingF3 = Ring<R, 1, 2, 1>;
+template <int R> using RingR1 = Ring<R, 1, 3, 1>;
+template <int R> using RingR2 = Ring<R, 2, 1, 0>;
+static_assert(RingR2<4>::BYTES <= 227 * 1024, "the rings fit one block's shared memory");
+
+template <int R>
+constexpr int ring_bytes_max() {
+  return RingR2<R>::BYTES > RingR1<R>::BYTES ? RingR2<R>::BYTES : RingR1<R>::BYTES;
+}
+
+// 4-byte global -> shared copy, zero-filled (nothing read) unless ok
+__device__ __forceinline__ void cp_async4(float* dst, const float* src, bool ok) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d), "l"(src),
+               "r"(ok ? 4 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// The stencil field at slot offset o of the NF field tiles f (stride
+// RG::NS * RG::PLANE between them): the tile's value, or C * lambda
+template <int NF>
+__device__ __forceinline__ float field_val(const float* f, int stride, int o) {
+  if (NF == 1) return f[o];
+  return __fmul_rn(f[o], f[stride + o]);
+}
+
+// Walk this block's tile over its chunk of planes. fields: the NF halo
+// fields whose value (field_val) is stenciled; ops: the tail's operand
+// arrays, the first RG::NH indexed by the cell's halo offset, the rest by
+// its (NY, NZ, NX) offset (a null pointer reads zeros); cell(y, z, x, i,
+// c, o, q, f) runs each cell of the grid: i its halo offset, c its (NY,
+// NZ, NX) offset, o its operands, q its column, f its slot in plane y's
+// first field tile (f[dz * W + dx] at (y, z + dz, x + dx); the second
+// tile RG::NS * RG::PLANE further).
+template <int R, typename RG, typename Cell>
+__device__ __forceinline__ void march(const float* const (&fields)[RG::NF],
+                                      const float* const (&ops)[RG::NOP], const Dims& D, int cy,
+                                      const Cell& cell) {
+  constexpr int NF = RG::NF, NOP = RG::NOP;
+  constexpr int FS = RG::NS * RG::PLANE;  // stride between the field tiles' rings
+  extern __shared__ float smem[];
+  float* const ring = smem;                // [NF][NS][PLANE]
+  float* const oring = smem + RG::FIELD;   // [NO][NOP][kTileThreads]
+  const Box B = interior_box(D, R);
+  const int gx = (B.n[2] + kTX - 1) / kTX, gz = (B.n[1] + kTZ - 1) / kTZ;
+  const int bx = blockIdx.x % gx, bz = (blockIdx.x / gx) % gz, by = blockIdx.x / (gx * gz);
+  const int tx = threadIdx.x, tz = threadIdx.y, t = tz * kTX + tx;
+  const int x0 = B.lo + bx * kTX, z0 = B.lo + bz * kTZ;  // the tile's first cell
+  const int x = x0 + tx, z = z0 + tz;
+  const int y0 = B.lo + by * cy, y1 = min(y0 + cy, B.lo + B.n[0]);
+  const int ez = D.n[1] + 2 * R;  // the halo layout's z extent; D.lx its x extent
+  const bool on_grid = z < B.lo + B.n[1] && x < B.lo + B.n[2];  // in the box
+  // this thread's cells of a plane tile: slot t + j * kTileThreads, its
+  // in-plane halo offset (-1: masked; -2: past the tile)
+  int goff[RG::PER];
+#pragma unroll
+  for (int j = 0; j < RG::PER; ++j) {
+    const int e = t + j * kTileThreads;
+    const int r = e / RG::W, c = e - r * RG::W;
+    const int zh = z0 + r, xh = x0 + c;  // halo coordinates of (z0 - R + r, x0 - R + c)
+    goff[j] = e >= RG::PLANE ? -2 : (zh < ez && xh < D.lx ? zh * D.lx + xh : -1);
+  }
+  const int own = on_grid ? (z + R) * D.lx + x + R : 0;  // in-plane halo offset
+  const int own_g = on_grid ? z * D.n[2] + x : 0;         // in-plane grid offset
+  const int plane_g = D.n[1] * D.n[2];
+  // grid plane p's field tiles into their slot
+  auto copy_field = [&](int p) {
+    float* dst = ring + (p & (RG::NS - 1)) * RG::PLANE;
+#pragma unroll
+    for (int f = 0; f < NF; ++f) {
+      const float* src = fields[f] + (p + R) * D.ly;
+#pragma unroll
+      for (int j = 0; j < RG::PER; ++j)
+        if (goff[j] != -2)
+          cp_async4(dst + f * FS + t + j * kTileThreads, src + max(goff[j], 0), goff[j] >= 0);
+    }
+  };
+  // grid plane p's operands of this cell into their slot
+  auto copy_ops = [&](int p) {
+    float* dst = oring + (p & (RG::NO - 1)) * NOP * kTileThreads + t;
+#pragma unroll
+    for (int k = 0; k < NOP; ++k) {
+      const float* a = ops[k];
+      const int o = k < RG::NH ? (p + R) * D.ly + own : p * plane_g + own_g;
+      cp_async4(dst + k * kTileThreads, a != nullptr ? a + o : fields[0], a != nullptr && on_grid);
+    }
+  };
+  // the column below the chunk (grid planes y0 - R .. y0 - 1): plain loads
+  float q[2 * R + 1];
+  const int mine = (tz + R) * RG::W + tx + R;
+#pragma unroll
+  for (int k = 1; k <= R; ++k) {
+    const int o = (y0 + k - 1) * D.ly + own;
+    q[k] = !on_grid ? 0.f : (NF == 1 ? fields[0][o] : __fmul_rn(fields[0][o], fields[NF - 1][o]));
+  }
+  // planes y0 .. y0 + R - 1 in one group, then kAhead groups: the field's
+  // plane y0 + R + a and the operands of plane y0 + a
+  for (int p = y0; p < y0 + R; ++p) copy_field(p);
+  cp_async_commit();
+#pragma unroll
+  for (int a = 0; a < kAhead; ++a) {
+    if (y0 + R + a < y1 + R) copy_field(y0 + R + a);
+    if (y0 + a < y1) copy_ops(y0 + a);
+    cp_async_commit();
+  }
+  cp_async_wait<kAhead>();
+  __syncthreads();
+#pragma unroll
+  for (int k = R + 1; k <= 2 * R; ++k)
+    q[k] = field_val<NF>(ring + ((y0 + k - R - 1) & (RG::NS - 1)) * RG::PLANE, FS, mine);
+  for (int y = y0; y < y1; ++y) {
+    cp_async_wait<kAhead - 1>();  // this thread's copies of field plane y + R, operands of y
+    __syncthreads();              // everyone's; and everyone is done with plane y - 1
+    if (y + R + kAhead < y1 + R) copy_field(y + R + kAhead);
+    if (y + kAhead < y1) copy_ops(y + kAhead);
+    cp_async_commit();
+    const float* f = ring + (y & (RG::NS - 1)) * RG::PLANE + mine;
+#pragma unroll
+    for (int k = 0; k < 2 * R; ++k) q[k] = q[k + 1];
+    q[2 * R] = field_val<NF>(ring + ((y + R) & (RG::NS - 1)) * RG::PLANE, FS, mine);
+    if (on_grid) {
+      float o[NOP];
+      const float* os = oring + (y & (RG::NO - 1)) * NOP * kTileThreads + t;
+#pragma unroll
+      for (int k = 0; k < NOP; ++k) o[k] = os[k * kTileThreads];
+      cell(y, z, x, halo_at<R>(y, z, x, D), (y * D.n[1] + z) * D.n[2] + x, o, q, f);
+    }
+  }
+  cp_async_wait<0>();
+}
+
+// the tiles of the box: x fastest, then z, then the y chunks
+template <int R>
+__host__ __device__ inline int tile_blocks(const Dims& D, int cy) {
+  const Box b = interior_box(D, R);
+  return ((b.n[2] + kTX - 1) / kTX) * ((b.n[1] + kTZ - 1) / kTZ) * ((b.n[0] + cy - 1) / cy);
+}
+
 // --------------------------------------------------------------- forward
 
 template <int R, int AX, typename F>
@@ -291,19 +594,52 @@ __device__ __forceinline__ float cpml_terms(const float* __restrict__ phi,
   return where == 0 ? 0.f : (where == 1 ? corr : corr + ps);
 }
 
-// pnext holds P_{t-2} on entry and P_t (before the sources) on exit; each
-// cell reads it only at itself. illum, when given, accumulates P_{t-1}^2
-// on the (NY, NZ, NX) grid.
+// The forward cell pass's tail, shared by both variants so that they round
+// alike: d2y, d2z, d2x are D2_d P_{t-1} at the cell (halo offset i,
+// (NY, NZ, NX) offset c), pc = P_{t-1} there, and the cell's operands as
+// F3Ops: pold = P_{t-2}, cc = C, il = the illumination sum (when illum is
+// given). The leapfrog's C * lap is fused explicitly (fmaf) rather than
+// left to the compiler's contraction. pnext holds P_{t-2} on entry and P_t
+// (before the sources) on exit; each cell reads and writes it only at
+// itself. illum, when given, accumulates P_{t-1}^2 on the (NY, NZ, NX)
+// grid.
+struct F3Ops {
+  float pold, cc, il;
+};
+
+// (no __restrict__ on the arrays the pass writes: their loads must not take
+// the read-only cache)
+__device__ __forceinline__ F3Ops f3_fetch(const float* pnext, const float* __restrict__ c2,
+                                          const float* illum, int i, int c) {
+  return F3Ops{pnext[i], c2[i], illum != nullptr ? illum[c] : 0.f};
+}
+
 template <int R>
-__global__ void f3_cells(const float* __restrict__ p, float* __restrict__ pnext,
-                         const float* __restrict__ c2, Strips phi, Strips psi,
-                         const float* __restrict__ prof, float* __restrict__ illum, Dims D,
-                         int fs, Taps3 tp) {
-  const int x = blockIdx.x * blockDim.x + threadIdx.x;
-  const int z = blockIdx.y * blockDim.y + threadIdx.y;
-  const int y = blockIdx.z;
-  if (x >= D.n[2] || z >= D.n[1]) return;
-  const int i = halo_at<R>(y, z, x, D);
+__device__ __forceinline__ void f3_tail(float d2y, float d2z, float d2x, float pc,
+                                        const F3Ops& o, float* __restrict__ pnext,
+                                        const Strips& phi, const Strips& psi,
+                                        const float* __restrict__ prof, float* __restrict__ illum,
+                                        int y, int z, int x, int i, int c, const Dims& D, int fs,
+                                        const Taps3& tp) {
+  float acc = d2y + d2z + d2x;
+  acc += cpml_terms<R, 0>(phi.s[0], psi.s[0], prof, y, z, x, d2y, D, tp);
+  acc += cpml_terms<R, 1>(phi.s[1], psi.s[1], prof, y, z, x, d2z, D, tp);
+  acc += cpml_terms<R, 2>(phi.s[2], psi.s[2], prof, y, z, x, d2x, D, tp);
+  if (illum != nullptr) illum[c] = fmaf(pc, pc, o.il);
+  const float pn = fmaf(o.cc, acc, 2.f * pc - o.pold);
+  pnext[i] = (z == fs) ? 0.f : pn;
+}
+
+// the gather variant's cell: every tap of P_{t-1} a global load
+template <int R>
+__device__ __forceinline__ void f3_gather_cell(const float* __restrict__ p,
+                                               float* __restrict__ pnext,
+                                               const float* __restrict__ c2, const Strips& phi,
+                                               const Strips& psi,
+                                               const float* __restrict__ prof,
+                                               float* __restrict__ illum, const Dims& D, int fs,
+                                               const Taps3& tp, int y, int z, int x) {
+  const int i = halo_at<R>(y, z, x, D), c = (y * D.n[1] + z) * D.n[2] + x;
   float d2y = 0.f, d2z = 0.f, d2x = 0.f;
 #pragma unroll
   for (int k = 0; k <= 2 * R; ++k) {
@@ -311,18 +647,57 @@ __global__ void f3_cells(const float* __restrict__ p, float* __restrict__ pnext,
     d2z = fmaf(tp.d2[1][k], p[i + (k - R) * D.lx], d2z);
     d2x = fmaf(tp.d2[2][k], p[i + k - R], d2x);
   }
-  float acc = d2y + d2z + d2x;
-  acc += cpml_terms<R, 0>(phi.s[0], psi.s[0], prof, y, z, x, d2y, D, tp);
-  acc += cpml_terms<R, 1>(phi.s[1], psi.s[1], prof, y, z, x, d2z, D, tp);
-  acc += cpml_terms<R, 2>(phi.s[2], psi.s[2], prof, y, z, x, d2x, D, tp);
-  const float pc = p[i];
-  if (illum != nullptr) {
-    const int c = (y * D.n[1] + z) * D.n[2] + x;
-    illum[c] = fmaf(pc, pc, illum[c]);
-  }
-  float pn = 2.f * pc - pnext[i] + c2[i] * acc;
-  if (z == fs) pn = 0.f;
-  pnext[i] = pn;
+  f3_tail<R>(d2y, d2z, d2x, p[i], f3_fetch(pnext, c2, illum, i, c), pnext, phi, psi, prof, illum,
+             y, z, x, i, c, D, fs, tp);
+}
+
+// the gather variant: one thread per cell of the grid
+template <int R>
+__global__ void f3_cells(const float* __restrict__ p, float* __restrict__ pnext,
+                         const float* __restrict__ c2, Strips phi, Strips psi,
+                         const float* __restrict__ prof, float* __restrict__ illum, Dims D,
+                         int fs, Taps3 tp) {
+  int y, z, x;
+  if (my_grid_cell(D, y, z, x))
+    f3_gather_cell<R>(p, pnext, c2, phi, psi, prof, illum, D, fs, tp, y, z, x);
+}
+
+// the tiled variant's shell: the gather cell, one thread per shell cell
+// (kStripBlock threads a block, held to 32 registers so that an SM holds
+// 2048 of them: the shell's strip gathers are latency-bound)
+template <int R>
+__global__ void __launch_bounds__(256, 8)
+    f3_shell(const float* __restrict__ p, float* __restrict__ pnext, const float* __restrict__ c2,
+             Strips phi, Strips psi, const float* __restrict__ prof, float* __restrict__ illum,
+             Dims D, int fs, Taps3 tp) {
+  int y, z, x;
+  if (my_shell_cell<R>(D, y, z, x))
+    f3_gather_cell<R>(p, pnext, c2, phi, psi, prof, illum, D, fs, tp, y, z, x);
+}
+
+// the tiled variant's box: P_{t-1} marched through the 2.5D tiles
+template <int R>
+__global__ void __launch_bounds__(kTileThreads, 2)
+    f3_cells_tiled(const float* __restrict__ p, float* __restrict__ pnext,
+                   const float* __restrict__ c2, Strips phi, Strips psi,
+                   const float* __restrict__ prof, float* __restrict__ illum, Dims D, int fs,
+                   Taps3 tp, int cy) {
+  constexpr int W = RingF3<R>::W;
+  const float* const fields[1] = {p};
+  const float* const ops[3] = {pnext, c2, illum};
+  auto cell = [&](int y, int z, int x, int i, int c, const float (&o)[3],
+                  const float (&q)[2 * R + 1], const float* t) {
+    float d2y = 0.f, d2z = 0.f, d2x = 0.f;
+#pragma unroll
+    for (int k = 0; k <= 2 * R; ++k) {
+      d2y = fmaf(tp.d2[0][k], q[k], d2y);
+      d2z = fmaf(tp.d2[1][k], t[(k - R) * W], d2z);
+      d2x = fmaf(tp.d2[2][k], t[k - R], d2x);
+    }
+    f3_tail<R>(d2y, d2z, d2x, q[R], F3Ops{o[0], o[1], o[2]}, pnext, phi, psi, prof, illum, y,
+               z, x, i, c, D, fs, tp);
+  };
+  march<R, RingF3<R>>(fields, ops, D, cy, cell);
 }
 
 template <int R>
@@ -428,19 +803,52 @@ __device__ __forceinline__ void psibar_cell(const Strips& psb, const Strips& w, 
   w.s[AX][o] = prof_a(prof, AX, D.S)[j] * ps;
 }
 
-// p_tp1 holds P_t on entry and P_{t-2} (before its sources and ring) on
-// exit; lapw = D2 laplacian of p_t = P_{t-1} images lambda_t. q = lambda_t
-// (after injection) is masked on the surface row in place.
+// The first reverse cell pass's tail, shared by both variants: lap = lapw,
+// the D2 laplacian of p_t = P_{t-1} at the cell, pt = P_{t-1} there, and
+// the cell's operands as R1Ops: cc = C, pnew = P_t (p_tp1 on entry), lam =
+// lambda_t (q after injection), g = the gradient sum. p_tp1 holds P_t on
+// entry and P_{t-2} (before its sources and ring) on exit; lapw images
+// lambda_t. q is masked on the surface row in place. Each cell reads and
+// writes q, p_tp1 and gacc only at itself. C * lap is fused and u = C
+// lambda rounded explicitly, as f3_tail.
+struct R1Ops {
+  float cc, pnew, lam, g;
+};
+
+__device__ __forceinline__ R1Ops r1_fetch(const float* q, const float* __restrict__ c2,
+                                          const float* p_tp1, const float* gacc, int i, int c) {
+  return R1Ops{c2[i], p_tp1[i], q[i], gacc[c]};
+}
+
 template <int R>
-__global__ void r3_cells1(float* __restrict__ q, const float* __restrict__ c2,
-                          const float* __restrict__ p_t, float* __restrict__ p_tp1,
-                          float* __restrict__ gacc, Strips psb, Strips w,
-                          const float* __restrict__ prof, Dims D, int fs, Taps3 tp) {
-  const int x = blockIdx.x * blockDim.x + threadIdx.x;
-  const int z = blockIdx.y * blockDim.y + threadIdx.y;
-  const int y = blockIdx.z;
-  if (x >= D.n[2] || z >= D.n[1]) return;
-  const int i = halo_at<R>(y, z, x, D);
+__device__ __forceinline__ void r3_tail1(float lap, float pt, const R1Ops& o,
+                                         float* __restrict__ q, float* __restrict__ p_tp1,
+                                         float* __restrict__ gacc, const Strips& psb,
+                                         const Strips& w, const float* __restrict__ prof, int y,
+                                         int z, int x, int i, int c, const Dims& D, int fs) {
+  p_tp1[i] = (z == fs) ? 0.f : fmaf(o.cc, lap, 2.f * pt - o.pnew);
+  float lam = o.lam;
+  if (z == fs) {  // transpose of the surface pin
+    lam = 0.f;
+    q[i] = 0.f;
+  }
+  gacc[c] = fmaf(lam, lap, o.g);
+  const float u = __fmul_rn(o.cc, lam);
+  psibar_cell<0>(psb, w, prof, y, z, x, u, D);
+  psibar_cell<1>(psb, w, prof, y, z, x, u, D);
+  psibar_cell<2>(psb, w, prof, y, z, x, u, D);
+}
+
+template <int R>
+__device__ __forceinline__ void r3_gather_cell1(float* __restrict__ q,
+                                                const float* __restrict__ c2,
+                                                const float* __restrict__ p_t,
+                                                float* __restrict__ p_tp1,
+                                                float* __restrict__ gacc, const Strips& psb,
+                                                const Strips& w, const float* __restrict__ prof,
+                                                const Dims& D, int fs, const Taps3& tp, int y,
+                                                int z, int x) {
+  const int i = halo_at<R>(y, z, x, D), c = (y * D.n[1] + z) * D.n[2] + x;
   float lap = 0.f;
 #pragma unroll
   for (int k = 0; k <= 2 * R; ++k) {
@@ -448,19 +856,52 @@ __global__ void r3_cells1(float* __restrict__ q, const float* __restrict__ c2,
     lap = fmaf(tp.d2[1][k], p_t[i + (k - R) * D.lx], lap);
     lap = fmaf(tp.d2[2][k], p_t[i + k - R], lap);
   }
-  const float cc = c2[i];
-  p_tp1[i] = (z == fs) ? 0.f : 2.f * p_t[i] - p_tp1[i] + cc * lap;
-  float lam = q[i];
-  if (z == fs) {  // transpose of the surface pin
-    lam = 0.f;
-    q[i] = 0.f;
-  }
-  const int c = (y * D.n[1] + z) * D.n[2] + x;
-  gacc[c] = fmaf(lam, lap, gacc[c]);
-  const float u = cc * lam;
-  psibar_cell<0>(psb, w, prof, y, z, x, u, D);
-  psibar_cell<1>(psb, w, prof, y, z, x, u, D);
-  psibar_cell<2>(psb, w, prof, y, z, x, u, D);
+  r3_tail1<R>(lap, p_t[i], r1_fetch(q, c2, p_tp1, gacc, i, c), q, p_tp1, gacc, psb, w, prof, y,
+              z, x, i, c, D, fs);
+}
+
+template <int R>
+__global__ void r3_cells1(float* __restrict__ q, const float* __restrict__ c2,
+                          const float* __restrict__ p_t, float* __restrict__ p_tp1,
+                          float* __restrict__ gacc, Strips psb, Strips w,
+                          const float* __restrict__ prof, Dims D, int fs, Taps3 tp) {
+  int y, z, x;
+  if (my_grid_cell(D, y, z, x))
+    r3_gather_cell1<R>(q, c2, p_t, p_tp1, gacc, psb, w, prof, D, fs, tp, y, z, x);
+}
+
+template <int R>
+__global__ void r3_shell1(float* __restrict__ q, const float* __restrict__ c2,
+                          const float* __restrict__ p_t, float* __restrict__ p_tp1,
+                          float* __restrict__ gacc, Strips psb, Strips w,
+                          const float* __restrict__ prof, Dims D, int fs, Taps3 tp) {
+  int y, z, x;
+  if (my_shell_cell<R>(D, y, z, x))
+    r3_gather_cell1<R>(q, c2, p_t, p_tp1, gacc, psb, w, prof, D, fs, tp, y, z, x);
+}
+
+template <int R>
+__global__ void __launch_bounds__(kTileThreads, 2)
+    r3_cells1_tiled(float* __restrict__ q, const float* __restrict__ c2,
+                    const float* __restrict__ p_t, float* __restrict__ p_tp1,
+                    float* __restrict__ gacc, Strips psb, Strips w,
+                    const float* __restrict__ prof, Dims D, int fs, Taps3 tp, int cy) {
+  constexpr int W = RingR1<R>::W;
+  const float* const fields[1] = {p_t};
+  const float* const ops[4] = {c2, p_tp1, q, gacc};
+  auto cell = [&](int y, int z, int x, int i, int c, const float (&o)[4],
+                  const float (&v)[2 * R + 1], const float* t) {
+    float lap = 0.f;
+#pragma unroll
+    for (int k = 0; k <= 2 * R; ++k) {
+      lap = fmaf(tp.d2[0][k], v[k], lap);
+      lap = fmaf(tp.d2[1][k], t[(k - R) * W], lap);
+      lap = fmaf(tp.d2[2][k], t[k - R], lap);
+    }
+    r3_tail1<R>(lap, v[R], R1Ops{o[0], o[1], o[2], o[3]}, q, p_tp1, gacc, psb, w, prof, y, z,
+                x, i, c, D, fs);
+  };
+  march<R, RingR1<R>>(fields, ops, D, cy, cell);
 }
 
 __device__ __forceinline__ bool in_ring(int y, int z, int x, const RingFrame3& f) {
@@ -547,29 +988,85 @@ __device__ __forceinline__ float tcpml_terms(const Strips& w, const Strips& yv, 
   return acc;
 }
 
-// qoth holds lambda_{t+1} on entry and lambda_{t-1} (before its receiver
-// injection) on exit; each cell reads it only at itself
+// The second reverse cell pass's tail, shared by both variants: lap is the
+// D2 laplacian of u = C lambda_t at the cell, and the cell's operands as
+// R2Ops: qc = lambda_t, qold = lambda_{t+1} (qoth on entry). qoth holds
+// lambda_{t+1} on entry and lambda_{t-1} (before its receiver injection)
+// on exit; each cell reads and writes it only at itself.
+struct R2Ops {
+  float qc, qold;
+};
+
+__device__ __forceinline__ R2Ops r2_fetch(const float* __restrict__ qcur, const float* qoth,
+                                          int i) {
+  return R2Ops{qcur[i], qoth[i]};
+}
+
 template <int R>
-__global__ void r3_cells2(const float* __restrict__ qcur, float* __restrict__ qoth,
-                          const float* __restrict__ c2, Strips w, Strips yv, Dims D,
-                          Taps3 tp) {
-  const int x = blockIdx.x * blockDim.x + threadIdx.x;
-  const int z = blockIdx.y * blockDim.y + threadIdx.y;
-  const int y = blockIdx.z;
-  if (x >= D.n[2] || z >= D.n[1]) return;
+__device__ __forceinline__ void r3_tail2(float lap, const R2Ops& o, float* __restrict__ qoth,
+                                         const Strips& w, const Strips& yv, int y, int z, int x,
+                                         int i, const Dims& D, const Taps3& tp) {
+  lap += tcpml_terms<R, 0>(w, yv, y, z, x, D, tp);
+  lap += tcpml_terms<R, 1>(w, yv, y, z, x, D, tp);
+  lap += tcpml_terms<R, 2>(w, yv, y, z, x, D, tp);
+  qoth[i] = 2.f * o.qc - o.qold + lap;
+}
+
+template <int R>
+__device__ __forceinline__ void r3_gather_cell2(const float* __restrict__ qcur,
+                                                float* __restrict__ qoth,
+                                                const float* __restrict__ c2, const Strips& w,
+                                                const Strips& yv, const Dims& D, const Taps3& tp,
+                                                int y, int z, int x) {
   const int i = halo_at<R>(y, z, x, D);
   float lap = 0.f;
 #pragma unroll
   for (int k = 0; k <= 2 * R; ++k) {
     const int oy = i + (k - R) * D.ly, oz = i + (k - R) * D.lx, ox = i + k - R;
-    lap = fmaf(tp.d2[0][k], c2[oy] * qcur[oy], lap);
-    lap = fmaf(tp.d2[1][k], c2[oz] * qcur[oz], lap);
-    lap = fmaf(tp.d2[2][k], c2[ox] * qcur[ox], lap);
+    lap = fmaf(tp.d2[0][k], __fmul_rn(c2[oy], qcur[oy]), lap);
+    lap = fmaf(tp.d2[1][k], __fmul_rn(c2[oz], qcur[oz]), lap);
+    lap = fmaf(tp.d2[2][k], __fmul_rn(c2[ox], qcur[ox]), lap);
   }
-  lap += tcpml_terms<R, 0>(w, yv, y, z, x, D, tp);
-  lap += tcpml_terms<R, 1>(w, yv, y, z, x, D, tp);
-  lap += tcpml_terms<R, 2>(w, yv, y, z, x, D, tp);
-  qoth[i] = 2.f * qcur[i] - qoth[i] + lap;
+  r3_tail2<R>(lap, r2_fetch(qcur, qoth, i), qoth, w, yv, y, z, x, i, D, tp);
+}
+
+template <int R>
+__global__ void r3_cells2(const float* __restrict__ qcur, float* __restrict__ qoth,
+                          const float* __restrict__ c2, Strips w, Strips yv, Dims D, Taps3 tp) {
+  int y, z, x;
+  if (my_grid_cell(D, y, z, x)) r3_gather_cell2<R>(qcur, qoth, c2, w, yv, D, tp, y, z, x);
+}
+
+template <int R>
+__global__ void r3_shell2(const float* __restrict__ qcur, float* __restrict__ qoth,
+                          const float* __restrict__ c2, Strips w, Strips yv, Dims D, Taps3 tp) {
+  int y, z, x;
+  if (my_shell_cell<R>(D, y, z, x)) r3_gather_cell2<R>(qcur, qoth, c2, w, yv, D, tp, y, z, x);
+}
+
+// C and lambda_t tiled; u = C lambda_t formed from them at each tap read
+// (the same rounded product as the gather variant's)
+template <int R>
+__global__ void __launch_bounds__(kTileThreads, 2)
+    r3_cells2_tiled(const float* __restrict__ qcur, float* __restrict__ qoth,
+                    const float* __restrict__ c2, Strips w, Strips yv, Dims D, Taps3 tp,
+                    int cy) {
+  using RG = RingR2<R>;
+  constexpr int W = RG::W, FS = RG::NS * RG::PLANE;
+  const float* const fields[2] = {c2, qcur};
+  const float* const ops[1] = {qoth};
+  auto cell = [&](int y, int z, int x, int i, int, const float (&o)[1],
+                  const float (&u)[2 * R + 1], const float* t) {
+    float lap = 0.f;
+#pragma unroll
+    for (int k = 0; k <= 2 * R; ++k) {
+      lap = fmaf(tp.d2[0][k], u[k], lap);
+      lap = fmaf(tp.d2[1][k], field_val<2>(t, FS, (k - R) * W), lap);
+      lap = fmaf(tp.d2[2][k], field_val<2>(t, FS, k - R), lap);
+    }
+    r3_tail2<R>(lap, R2Ops{t[FS], o[0]}, qoth, w, yv, y, z, x, i, D, tp);
+  };
+  march<R, RG>(fields, ops, D, cy, cell);
 }
 
 // ------------------------------------------------------------ launch shapes
@@ -581,6 +1078,36 @@ const int kSmallBlock = 256;
 inline dim3 cell_grid(const Dims& D) {
   return dim3((D.n[2] + kCellBlock.x - 1) / kCellBlock.x,
               (D.n[1] + kCellBlock.y - 1) / kCellBlock.y, D.n[0]);
+}
+
+// the tiled passes: one block per (z, x) tile and y chunk of cy planes
+const dim3 kTileBlock(kTX, kTZ, 1);
+
+// the shell kernels: one thread per shell cell, kStripBlock a block
+template <int R>
+inline int shell_blocks(const Dims& D) {
+  return (shell_count(D, interior_box(D, R)) + kStripBlock - 1) / kStripBlock;
+}
+
+// the launch plan a3d_tile_plan computes (kernels/acoustic3d_scan.py)
+struct TilePlan {
+  int tz, tx, cy, smem;
+};
+
+// a plan this library was built for: the compiled tile, a chunk depth on
+// the grid and the largest pass's shared bytes
+template <int R>
+inline bool plan_ok(const TilePlan& pl, const Dims& D) {
+  return pl.tz == kTZ && pl.tx == kTX && pl.cy >= 1 && pl.cy <= D.n[0] &&
+         pl.smem == ring_bytes_max<R>();
+}
+
+// let kernel take its rings' bytes of dynamic shared memory (above the
+// default 48 KB only by this attribute)
+template <typename K>
+inline int allow_smem(K kernel, int bytes) {
+  return (int)cudaFuncSetAttribute(reinterpret_cast<const void*>(kernel),
+                                   cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
 }
 
 inline int strip_blocks(const Dims& D) {

@@ -17,21 +17,35 @@
 // library and called through ctypes (tpufwi_torch/kernels/acoustic3d_scan.py).
 // The kernels and their semantics are in acoustic3d_kernels.cuh.
 //
-// What bounds it: memory traffic. At the 428 x 188 x 588 grid of the 3D main
-// path (47.3 M cells, 189 MB a field) a forward step must at least read
-// P_{t-1}, P_{t-2}, C and write P_t (16 B/cell, 0.76 GB: 0.23 ms at
-// 3.35 TB/s) and a reverse step P_{t-1}, P_t, C, lambda_t, lambda_{t+1} and
-// gacc and write P_{t-2}, lambda_{t-1} and gacc (36 B/cell, 0.51 ms); the
-// stencils' operations are ~10x below that. A field is far larger than the
-// 50 MB L2, so the design keeps each pass a single sweep in (y, z, x) order:
-// one thread per cell, x contiguous, blocks ordered so a y plane's +-4
-// neighbours (9 x 0.44 MB) stay in L2 while it is swept. The CPML memories
-// are stored on their strips only (20% of the cells at this grid, touched by
-// one extra strip launch per step), u = C lambda is never written, and the
-// reverse fuses the reconstruction into the first cell pass, so the reverse
-// reads each full field about twice per step. Left for later: shared-memory
-// 2.5D tiling of the stencils, a persistent kernel or CUDA graph instead of
-// 3-5 launches per step, and the one-block source and receiver kernels.
+// What bounds it: memory traffic, in principle. At the 428 x 188 x 588 grid
+// of the 3D main path (47.3 M cells, 189 MB a field) a forward step must at
+// least read P_{t-1}, P_{t-2}, C and write P_t (16 B/cell, 0.76 GB: 0.23 ms
+// at 3.35 TB/s) and a reverse step P_{t-1}, P_t, C, lambda_t, lambda_{t+1}
+// and gacc and write P_{t-2}, lambda_{t-1} and gacc (36 B/cell, 0.51 ms);
+// the stencils' operations are ~10x below that. A field is far larger than
+// the 50 MB L2, so each cell pass is a single sweep. The tiled passes (the
+// default) split it: in the interior box (the physical grid less R a
+// side, 70% of the cells there) 2.5D tiles march along y
+// (acoustic3d_kernels.cuh, "2.5D marching tiles"), each value of the
+// stencil field loaded from device memory about once, its 25 taps from
+// registers and shared memory; in the CPML shell around it, where every
+// cell's tail gathers strip values from device memory, one thread per
+// cell runs the gather variant's cell code, on a side stream beside the
+// tiles. Measured on the card (PERF.md), the shell is not bandwidth- but
+// latency-bound: with its strip gathers inside a tile's per-plane barrier
+// the whole tile waits on them, which made fully tiled passes slower than
+// the gather ones. The CPML memories are stored on their strips only (20%
+// of the cells at this grid, touched by one extra strip launch per step),
+// u = C lambda is never written, and the reverse fuses the reconstruction
+// into the first cell pass, so the reverse reads each full field about
+// twice per step. variant 1 launches the gather passes over the whole grid
+// instead (one thread per cell, every tap a global load), which compute the
+// same values bitwise: checks hold the tiled passes against them. Left for
+// later: tiling the shell's slabs with their strip values staged through
+// shared memory, TMA tile loads and warp specialisation, fewer integer
+// operations a tiled cell (several cells a thread, vector copies), a
+// persistent kernel or CUDA graph instead of 4-7 launches per step, and the
+// one-block source and receiver kernels.
 //
 // Tapes. Row t holds rings(P_t) after the sources, in RingSpec order
 // (tpufwi_torch/propagators/boundary.py), fp32 or bf16 (rounded to nearest
@@ -43,11 +57,120 @@
 
 namespace {
 
+// variant 0: tiled cell passes on plan; 1: the gather passes
+template <int R>
+int check_variant(int variant, const TilePlan& plan, const Dims& D) {
+  if (variant == 1 || (variant == 0 && plan_ok<R>(plan, D))) return 0;
+  return (int)cudaErrorInvalidValue;
+}
+
+// The tiled variant's side stream: each cell pass forks it from the
+// caller's stream, runs the box's tiles on the caller's stream and the
+// shell on the side one, and joins it back, so the shell's latency-bound
+// strip work fills the SMs the tiles' last wave leaves idle. Created and
+// destroyed by each loop (destruction waits for nothing: the CUDA runtime
+// frees the stream and events once their work is done).
+struct Side {
+  cudaStream_t s = nullptr;
+  cudaEvent_t fork = nullptr, join = nullptr;
+  int open() {
+    cudaError_t e = cudaStreamCreateWithFlags(&s, cudaStreamNonBlocking);
+    if (e == cudaSuccess) e = cudaEventCreateWithFlags(&fork, cudaEventDisableTiming);
+    if (e == cudaSuccess) e = cudaEventCreateWithFlags(&join, cudaEventDisableTiming);
+    return (int)e;
+  }
+  ~Side() {
+    if (join) cudaEventDestroy(join);
+    if (fork) cudaEventDestroy(fork);
+    if (s) cudaStreamDestroy(s);
+  }
+  // launch tiles(st) and shell(s) as one pass of the caller's stream st
+  template <typename Tiles, typename Shell>
+  void pass(cudaStream_t st, const Tiles& tiles, const Shell& shell) const {
+    cudaEventRecord(fork, st);
+    cudaStreamWaitEvent(s, fork, 0);
+    tiles(st);
+    shell(s);
+    cudaEventRecord(join, s);
+    cudaStreamWaitEvent(st, join, 0);
+  }
+};
+
+// The tiled variant's cell passes: the box's tiles (none when the box is
+// empty) and the shell
+template <int R>
+void f3_tiled(const float* p, float* pnext, const float* c2, const Strips& phi,
+              const Strips& psi, const float* prof, float* illum, const Dims& D, int fs,
+              const Taps3& tp, int cy, const Side& side, cudaStream_t st) {
+  side.pass(
+      st,
+      [&](cudaStream_t s) {
+        if (const int n = tile_blocks<R>(D, cy))
+          f3_cells_tiled<R><<<n, kTileBlock, RingF3<R>::BYTES, s>>>(p, pnext, c2, phi, psi, prof,
+                                                                     illum, D, fs, tp, cy);
+      },
+      [&](cudaStream_t s) {
+        f3_shell<R><<<shell_blocks<R>(D), kStripBlock, 0, s>>>(p, pnext, c2, phi, psi, prof,
+                                                               illum, D, fs, tp);
+      });
+}
+
+template <int R>
+void r3_tiled1(float* q, const float* c2, const float* p_t, float* p_tp1, float* gacc,
+               const Strips& psb, const Strips& w, const float* prof, const Dims& D, int fs,
+               const Taps3& tp, int cy, const Side& side, cudaStream_t st) {
+  side.pass(
+      st,
+      [&](cudaStream_t s) {
+        if (const int n = tile_blocks<R>(D, cy))
+          r3_cells1_tiled<R><<<n, kTileBlock, RingR1<R>::BYTES, s>>>(q, c2, p_t, p_tp1, gacc, psb,
+                                                                      w, prof, D, fs, tp, cy);
+      },
+      [&](cudaStream_t s) {
+        r3_shell1<R><<<shell_blocks<R>(D), kStripBlock, 0, s>>>(q, c2, p_t, p_tp1, gacc, psb, w,
+                                                                prof, D, fs, tp);
+      });
+}
+
+template <int R>
+void r3_tiled2(const float* qcur, float* qoth, const float* c2, const Strips& w,
+               const Strips& yv, const Dims& D, const Taps3& tp, int cy, const Side& side,
+               cudaStream_t st) {
+  side.pass(
+      st,
+      [&](cudaStream_t s) {
+        if (const int n = tile_blocks<R>(D, cy))
+          r3_cells2_tiled<R><<<n, kTileBlock, RingR2<R>::BYTES, s>>>(qcur, qoth, c2, w, yv, D,
+                                                                      tp, cy);
+      },
+      [&](cudaStream_t s) {
+        r3_shell2<R><<<shell_blocks<R>(D), kStripBlock, 0, s>>>(qcur, qoth, c2, w, yv, D, tp);
+      });
+}
+
+template <int R>
+int allow_forward_smem(int variant) {
+  return variant == 0 ? allow_smem(f3_cells_tiled<R>, RingF3<R>::BYTES) : 0;
+}
+
+template <int R>
+int allow_reverse_smem(int variant) {
+  if (variant != 0) return 0;
+  if (const int err = allow_smem(r3_cells1_tiled<R>, RingR1<R>::BYTES)) return err;
+  return allow_smem(r3_cells2_tiled<R>, RingR2<R>::BYTES);
+}
+
 template <int R, typename T>
 int forward_loop(const float* c2, const float* prof, const float* w, const long long* src,
                  const long long* rcv, float* seis, const int* ring, T* tape, float* illum,
                  float* pa, float* pb, float* strips, const Dims& D, int nt, int nsrc, int nrec,
-                 int fs, int n_ring, const Taps3& tp, cudaStream_t st) {
+                 int fs, int n_ring, const Taps3& tp, int variant, const TilePlan& plan,
+                 cudaStream_t st) {
+  if (const int err = check_variant<R>(variant, plan, D)) return err;
+  if (const int err = allow_forward_smem<R>(variant)) return err;
+  Side side;
+  if (variant == 0)
+    if (const int err = side.open()) return err;
   const Strips phi = strips_at(strips, D.n[0], D.n[1], D.n[2], D.S);
   const Strips psi = strips_at(strips + strip_total(D.n[0], D.n[1], D.n[2], D.S), D.n[0],
                                D.n[1], D.n[2], D.S);
@@ -55,8 +178,11 @@ int forward_loop(const float* c2, const float* prof, const float* w, const long 
   float* prev = pa;  // P_{t-2}, overwritten by P_t
   for (int t = 0; t < nt; ++t) {
     f3_phi<R><<<strip_blocks(D), kStripBlock, 0, st>>>(cur, phi, prof, D, tp);
-    f3_cells<R><<<cell_grid(D), kCellBlock, 0, st>>>(cur, prev, c2, phi, psi, prof, illum, D,
-                                                      fs, tp);
+    if (variant == 0)
+      f3_tiled<R>(cur, prev, c2, phi, psi, prof, illum, D, fs, tp, plan.cy, side, st);
+    else
+      f3_cells<R><<<cell_grid(D), kCellBlock, 0, st>>>(cur, prev, c2, phi, psi, prof, illum, D,
+                                                        fs, tp);
     f3_src_rcv<R><<<1, kSmallBlock, 0, st>>>(prev, c2, w, t, src, rcv, seis, nsrc, nrec, D, fs);
     if (tape != nullptr)
       f3_ring_get<R, T><<<blocks_for(n_ring), kSmallBlock, 0, st>>>(
@@ -78,7 +204,13 @@ int reverse_loop(const float* c2, const float* prof, const float* w, const float
                  const T* tape, const int* ring, const long long* src, const long long* rcv,
                  float* gacc, float* lam_src, float* p_tp1, float* p_t, float* qc, float* qo,
                  float* strips, int* chain, const Dims& D, int nt, int nsrc, int nrec, int fs,
-                 int n_ring, const RingFrame3& frame, const Taps3& tp, cudaStream_t st) {
+                 int n_ring, const RingFrame3& frame, const Taps3& tp, int variant,
+                 const TilePlan& plan, cudaStream_t st) {
+  if (const int err = check_variant<R>(variant, plan, D)) return err;
+  if (const int err = allow_reverse_smem<R>(variant)) return err;
+  Side side;
+  if (variant == 0)
+    if (const int err = side.open()) return err;
   const size_t ns = strip_total(D.n[0], D.n[1], D.n[2], D.S);
   const Strips psb = strips_at(strips, D.n[0], D.n[1], D.n[2], D.S);
   const Strips wv = strips_at(strips + ns, D.n[0], D.n[1], D.n[2], D.S);
@@ -88,13 +220,19 @@ int reverse_loop(const float* c2, const float* prof, const float* w, const float
   for (int t = nt - 1; t >= 0; --t) {
     r3_inject<R><<<1, kSmallBlock, 0, st>>>(qc, ybar, t, rcv, chain, src, lam_src, nsrc, nrec,
                                             D, fs);
-    r3_cells1<R><<<cell_grid(D), kCellBlock, 0, st>>>(qc, c2, p_t, p_tp1, gacc, psb, wv, prof,
-                                                       D, fs, tp);
+    if (variant == 0)
+      r3_tiled1<R>(qc, c2, p_t, p_tp1, gacc, psb, wv, prof, D, fs, tp, plan.cy, side, st);
+    else
+      r3_cells1<R><<<cell_grid(D), kCellBlock, 0, st>>>(qc, c2, p_t, p_tp1, gacc, psb, wv,
+                                                         prof, D, fs, tp);
     r3_src_ring<R, T><<<blocks_for(n_ring), kSmallBlock, 0, st>>>(
         p_tp1, c2, w, t, src, nsrc, ring, t >= 2 ? tape + (size_t)(t - 2) * n_ring : nullptr,
         n_ring, D, fs, frame);
     r3_strips<R><<<strip_blocks(D), kStripBlock, 0, st>>>(qc, c2, wv, pbar, yv, prof, D, tp);
-    r3_cells2<R><<<cell_grid(D), kCellBlock, 0, st>>>(qc, qo, c2, wv, yv, D, tp);
+    if (variant == 0)
+      r3_tiled2<R>(qc, qo, c2, wv, yv, D, tp, plan.cy, side, st);
+    else
+      r3_cells2<R><<<cell_grid(D), kCellBlock, 0, st>>>(qc, qo, c2, wv, yv, D, tp);
     if (t == nt - 1) {
       const cudaError_t err = cudaGetLastError();
       if (err != cudaSuccess) return (int)err;
@@ -115,53 +253,63 @@ extern "C" {
 
 // c2: the halo-padded C; prof: (3 axes x (a, b) x 2S); pa, pb: zeroed halo
 // fields; strips: 2 x strip_total zeroed floats (phi, then psi); tape (with
-// ring) and illum may be null; tape_bf16 selects the tape's type.
+// ring) and illum may be null; tape_bf16 selects the tape's type. variant
+// 0 runs the tiled cell passes on the plan (tz, tx, cy, smem: the largest
+// pass's shared bytes), which must be one this library was built for; 1
+// the gather passes (plan unread).
 int tpufwi_a3d_forward(const float* c2, const float* prof, const float* w,
                        const long long* src, const long long* rcv, float* seis, const int* ring,
                        void* tape, float* illum, float* pa, float* pb, float* strips, int NY,
                        int NZ, int NX, int S, int R, int nt, int nsrc, int nrec, int fs,
-                       int n_ring, int tape_bf16, const float* taps, void* stream) {
+                       int n_ring, int tape_bf16, int variant, int tz, int tx, int cy, int smem,
+                       const float* taps, void* stream) {
   const Taps3 tp = load_taps3(taps);
   const Dims D = make_dims(NY, NZ, NX, S, R);
+  const TilePlan plan{tz, tx, cy, smem};
   auto st = static_cast<cudaStream_t>(stream);
   if (tape_bf16) {
     auto* tb = static_cast<__nv_bfloat16*>(tape);
     TPUFWI_DISPATCH_R3(R, (forward_loop<kR, __nv_bfloat16>(c2, prof, w, src, rcv, seis, ring, tb,
                                                           illum, pa, pb, strips, D, nt, nsrc,
-                                                          nrec, fs, n_ring, tp, st)))
+                                                          nrec, fs, n_ring, tp, variant, plan,
+                                                          st)))
   }
   auto* tf = static_cast<float*>(tape);
   TPUFWI_DISPATCH_R3(R, (forward_loop<kR, float>(c2, prof, w, src, rcv, seis, ring, tf, illum,
                                                  pa, pb, strips, D, nt, nsrc, nrec, fs, n_ring,
-                                                 tp, st)))
+                                                 tp, variant, plan, st)))
 }
 
 // p_tp1 = P_{nt-1}, p_t = P_{nt-2} (halo fields set by the caller); qa, qb:
 // zeroed halo fields; strips: 4 x strip_total zeroed floats; gacc (NY, NZ,
 // NX) zeroed; chain: 2 * nrec ints; tape (nt, n_ring) with row t = rings(P_t).
 // After the loop P_{-1} is in p_tp1 for even nt, in p_t for odd nt.
+// variant and plan as tpufwi_a3d_forward's.
 int tpufwi_a3d_reverse(const float* c2, const float* prof, const float* w, const float* ybar,
                        const void* tape, const int* ring, const long long* src,
                        const long long* rcv, float* gacc, float* lam_src, float* p_tp1,
                        float* p_t, float* qa, float* qb, float* strips, int* chain, int NY,
                        int NZ, int NX, int S, int R, int nt, int nsrc, int nrec, int fs,
                        int n_ring, int tape_bf16, int y0, int y1, int z0, int z1, int x0, int x1,
-                       int rw, const float* taps, void* stream) {
+                       int rw, int variant, int tz, int tx, int cy, int smem, const float* taps,
+                       void* stream) {
   const Taps3 tp = load_taps3(taps);
   const Dims D = make_dims(NY, NZ, NX, S, R);
   const RingFrame3 frame{{y0, z0, x0}, {y1, z1, x1}, rw};
+  const TilePlan plan{tz, tx, cy, smem};
   auto st = static_cast<cudaStream_t>(stream);
   if (tape_bf16) {
     auto* tb = static_cast<const __nv_bfloat16*>(tape);
     TPUFWI_DISPATCH_R3(R, (reverse_loop<kR, __nv_bfloat16>(
                               c2, prof, w, ybar, tb, ring, src, rcv, gacc, lam_src, p_tp1, p_t,
                               qa, qb, strips, chain, D, nt, nsrc, nrec, fs, n_ring, frame, tp,
-                              st)))
+                              variant, plan, st)))
   }
   auto* tf = static_cast<const float*>(tape);
   TPUFWI_DISPATCH_R3(R, (reverse_loop<kR, float>(c2, prof, w, ybar, tf, ring, src, rcv, gacc,
                                                  lam_src, p_tp1, p_t, qa, qb, strips, chain, D,
-                                                 nt, nsrc, nrec, fs, n_ring, frame, tp, st)))
+                                                 nt, nsrc, nrec, fs, n_ring, frame, tp, variant,
+                                                 plan, st)))
 }
 
 const char* tpufwi_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }

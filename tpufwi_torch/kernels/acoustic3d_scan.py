@@ -12,8 +12,18 @@ the exact transposed step; it returns the imaged gradient and the adjoint
 field at the sources. The CUDA sources are ``csrc/acoustic3d_scan.cu`` and
 ``csrc/acoustic3d_kernels.cuh``.
 
+The cell passes of both kernels march 2.5D shared-memory tiles along y
+over the interior box (``interior_box``) and run the CPML shell around it
+one thread a cell (``variant="tiled"``, the default, on the launch plan
+``a3d_tile_plan``). ``variant="gather"`` launches the earlier passes, one
+thread a cell of the whole grid, every tap gathered from device memory:
+they compute the same values bitwise and exist for the checks that hold
+the tiled passes to them (``chip_smoke.py``, ``tests/test_torch_cuda.py``);
+no engine passes it.
+
 Each wrapper takes its plain version for tensors on the CPU, and only then;
-on a CUDA tensor it launches the kernel or raises. ``launches`` on each
+on a CUDA tensor it launches the kernel or raises (a tiled launch is never
+retried as a gather one). ``launches`` on each
 wrapper counts the time steps its kernel ran (the C loop launches each
 step's kernels once), and stays 0 on the CPU path. ``LIBRARY`` is built by
 one nvcc call at first use (``kernels/build.py``), together with the
@@ -25,6 +35,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -44,6 +55,81 @@ from .build import CSRC, Library, declare_all, raise_on
 from .stencils import scaled_taps
 
 TAPE_DTYPES = (None, torch.float32, torch.bfloat16)
+VARIANTS = ("tiled", "gather")  # the C entry points' variant 0 and 1
+
+# the tile the library is built for (csrc/acoustic3d_kernels.cuh: kTZ x kTX
+# threads, x contiguous, one warp a z row), how many planes ahead its loads
+# run (kAhead) and its rings' slots (kFieldSlots, kOpSlots)
+TILE_Z, TILE_X, AHEAD = 16, 32, 3
+FIELD_SLOTS, OP_SLOTS = 8, 4
+# the passes' shared-memory rings (the header's RingF3, RingR1, RingR2):
+# (field tiles, operands a cell)
+RINGS = {"f3_cells_tiled": (1, 3), "r3_cells1_tiled": (1, 4), "r3_cells2_tiled": (2, 1)}
+SMS = 132  # the H100 SXM's streaming multiprocessors
+L2_BYTES = 50 * 2**20  # its L2 cache
+RESIDENT = 2  # tiled blocks an SM holds: 512 threads, __launch_bounds__(kTileThreads, 2)
+MIN_BLOCKS = 4 * SMS
+MIN_CY_PER_R = 20  # a chunk of cy planes re-reads 2R of them: at most 10%
+
+
+class TilePlan(NamedTuple):
+    """Launch plan of the tiled cell passes: a block of ``tz`` x ``tx``
+    threads owns a (z, x) tile and marches ``cy`` planes along y; ``smem``
+    is the largest pass's shared bytes (``ring_bytes``)."""
+    tz: int
+    tx: int
+    cy: int
+    smem: int
+
+
+def ring_bytes(R: int, kernel: str) -> int:
+    """Shared bytes of a tiled pass at radius R: its field tiles' ring
+    (FIELD_SLOTS plane tiles of (TILE_Z + 2R) x (TILE_X + 2R) each) and its
+    operands' ring (OP_SLOTS planes of TILE_Z x TILE_X each), fp32."""
+    fields, ops = RINGS[kernel]
+    plane = (TILE_Z + 2 * R) * (TILE_X + 2 * R)
+    return 4 * (fields * FIELD_SLOTS * plane + ops * OP_SLOTS * TILE_Z * TILE_X)
+
+
+def interior_box(grid: Grid):
+    """(lo, (ny, nz, nx)): the box of cells at least S + R from every face
+    of the padded grid, where the CPML adds nothing (its extents all 0 when
+    it is empty). The tiled passes march it; the rest, the shell, runs the
+    gather variant's cell code (csrc/acoustic3d_kernels.cuh interior_box)."""
+    lo = strip_depth(grid) + grid.radius
+    n = tuple(N - 2 * lo for N in grid.padded_shape)
+    return lo, (n if min(n) > 0 else (0, 0, 0))
+
+
+def a3d_tile_plan(grid: Grid) -> TilePlan:
+    """The tiled passes' plan for ``grid``: the box's y extent is cut into
+    c even chunks. Rules: the tiles make at least ``MIN_BLOCKS`` blocks (4
+    a streaming multiprocessor); where a field outgrows the L2, a chunk's
+    2R re-read halo planes come from device memory and a chunk keeps at
+    least 20R planes (at most 10% re-read), which wins over the block
+    count. Within them, c minimises waves x planes a chunk (the blocks run
+    ``RESIDENT`` an SM at a time, each marching its chunk), the fewest
+    chunks on a tie."""
+    NY, NZ, NX = grid.padded_shape
+    R = grid.radius
+    _, (ny, nz, nx) = interior_box(grid)
+    tiles = -(-nz // TILE_Z) * -(-nx // TILE_X)
+    smem = max(ring_bytes(R, k) for k in RINGS)
+    if not tiles:
+        return TilePlan(TILE_Z, TILE_X, 1, smem)
+    hi = ny
+    if 4 * NY * NZ * NX > L2_BYTES:
+        hi = max(1, ny // (MIN_CY_PER_R * R))
+    lo = min(-(-MIN_BLOCKS // tiles), hi)
+    c = min(range(lo, hi + 1),
+            key=lambda c: (-(-tiles * c // (RESIDENT * SMS)) * -(-ny // c), c))
+    return TilePlan(TILE_Z, TILE_X, -(-ny // c), smem)
+
+
+def _variant_code(name, variant):
+    if variant not in VARIANTS:
+        raise ValueError(f"{name}: variant must be one of {VARIANTS}, not {variant!r}")
+    return VARIANTS.index(variant)
 
 
 # ------------------------------------------------------------ plain versions
@@ -92,8 +178,8 @@ LIBRARY = Library(
     (CSRC / "acoustic3d_kernels.cuh",),
     lambda lib: declare_all(lib, {
         # pointers..., ints..., taps, stream
-        "tpufwi_a3d_forward": (12, 11),
-        "tpufwi_a3d_reverse": (16, 18),
+        "tpufwi_a3d_forward": (12, 16),
+        "tpufwi_a3d_reverse": (16, 23),
         # the per-step kernels (kernels/acoustic3d_step.py, acoustic3d_strips.py)
         "tpufwi_leap3d": (3, 4),
         "tpufwi_strip3d": (5, 5),
@@ -143,11 +229,13 @@ def _inner(grid, f):
     return f[R:-R, R:-R, R:-R]
 
 
-def a3d_forward(grid, c2, profiles, wavelet, src_idx, rcv_idx, tape_dtype=None, illum=False):
+def a3d_forward(grid, c2, profiles, wavelet, src_idx, rcv_idx, tape_dtype=None, illum=False,
+                variant="tiled"):
     """Whole 3D forward propagation (see ``a3d_forward_plain`` for the
     contract; the last two fields are views into halo buffers).
     ``profiles`` are the six strip profiles as tensors; ``rcv_idx`` may
-    hold no receiver."""
+    hold no receiver. ``variant``: one of ``VARIANTS`` (module note)."""
+    code = _variant_code("a3d_forward", variant)
     if c2.device.type == "cpu":
         return a3d_forward_plain(grid, c2, profiles, wavelet, src_idx, rcv_idx, tape_dtype,
                                  illum)
@@ -180,8 +268,8 @@ def a3d_forward(grid, c2, profiles, wavelet, src_idx, rcv_idx, tape_dtype=None, 
             None if acc is None else acc.data_ptr(), pa.data_ptr(), pb.data_ptr(),
             strips.data_ptr(),
             NY, NZ, NX, strip_depth(grid), grid.radius, nt, src_idx.shape[0], nrec,
-            surface_row(grid), n_ring, int(tape_dtype == torch.bfloat16), taps_arg(grid),
-            torch.cuda.current_stream().cuda_stream,
+            surface_row(grid), n_ring, int(tape_dtype == torch.bfloat16), code,
+            *a3d_tile_plan(grid), taps_arg(grid), torch.cuda.current_stream().cuda_stream,
         )
     raise_on(lib, "a3d_forward", err)
     a3d_forward.launches += nt
@@ -193,10 +281,12 @@ a3d_forward.launches = 0
 
 
 def a3d_reverse(grid, c2, profiles, wavelet, ybar, tape, p_penult, p_last, src_idx, rcv_idx,
-                return_field=False):
+                return_field=False, variant="tiled"):
     """Reverse with reconstruction (see ``a3d_reverse_plain`` for the
     contract): ``tape`` is the (nt, n_ring) fp32 or bf16 ring tape and
-    ``p_penult``, ``p_last`` the last two fields of ``a3d_forward``."""
+    ``p_penult``, ``p_last`` the last two fields of ``a3d_forward``.
+    ``variant``: one of ``VARIANTS`` (module note)."""
+    code = _variant_code("a3d_reverse", variant)
     if c2.device.type == "cpu":
         return a3d_reverse_plain(grid, c2, profiles, wavelet, ybar, tape, p_penult, p_last,
                                  src_idx, rcv_idx, return_field)
@@ -234,8 +324,8 @@ def a3d_reverse(grid, c2, profiles, wavelet, ybar, tape, p_penult, p_last, src_i
             rcv_idx.data_ptr(), gbar.data_ptr(), lam_src.data_ptr(), p_tp1.data_ptr(),
             p_t.data_ptr(), qa.data_ptr(), qb.data_ptr(), strips.data_ptr(), chain.data_ptr(),
             NY, NZ, NX, strip_depth(grid), grid.radius, nt, nsrc, nrec, surface_row(grid),
-            n_ring, int(tape.dtype == torch.bfloat16), *frame, taps_arg(grid),
-            torch.cuda.current_stream().cuda_stream,
+            n_ring, int(tape.dtype == torch.bfloat16), *frame, code, *a3d_tile_plan(grid),
+            taps_arg(grid), torch.cuda.current_stream().cuda_stream,
         )
     raise_on(lib, "a3d_reverse", err)
     a3d_reverse.launches += nt
