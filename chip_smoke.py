@@ -44,7 +44,12 @@ Phases, each printing its own lines; any failure exits non-zero.
   8. elastic kernels vs plain: escan_forward (with and without the ring
      tape) and escan_reverse against their plain versions at the elastic
      main path's grid (399 x 1749 padded), order 8, force_z source, v
-     record, nt = 512; and a pressure / p-record free-surface case, nt = 128
+     record, nt = 512; and a pressure / p-record free-surface case, nt = 128;
+     at both, escan_reverse's fused passes (the default; also launched in
+     plain stream order) and its split ones (variant="split") in the same
+     calls, bitwise against each other, with each one's ms per step (CUDA
+     events) and host ms per call, and torch.profiler's device us and
+     launches per step of each pass
   9. elastic shot: one shot's forward and value-and-grad on cuda_escan at
      nt = 4885, its ring-tape bytes and peak memory
  10. elastic per-step kernels vs plain: estep_v, estep_s, estep_rs and
@@ -101,7 +106,9 @@ Phases, each printing its own lines; any failure exits non-zero.
      probe at K = 5 and 25, every copy variant, step5 staged and not,
      step5x), and their times: ms per call (CUDA events), host ms per call,
      plain ms, bound, GB/s, ms per tap, the 2D strip cost, and the copy's
-     library call (torch.add)
+     library call (torch.add); every copy variant (the grid-stride, one-shot
+     and TMA bulk walks among them) and torch.add write into one
+     preallocated output, each copy held bitwise against p + 1
 The second-to-last line is the kernels' JSON record, the last one
 {"ok": true, "device": {...}}.
 """
@@ -1391,14 +1398,28 @@ def elastic_kernels_vs_plain(dev, nt, source_type, record, free_surface):
     plain_rev_ms, (g_p, sr_p) = timed_ms(
         lambda: ke.escan_reverse_plain(*args, w, ybar, tape_p, fin_p, si, ri, *kind),
         warmup=False)
-    rev_ms, (g, sr) = timed_ms(
-        lambda: ke.escan_reverse(*args, w, ybar, tape_p, fin_p, si, ri, *kind), reps=3)
+    # the reverse's variants in the same calls, the fused passes also in
+    # plain stream order: outputs, ms a step by CUDA events, host ms a call
+    # (to the call's return, no sync)
+    rev = {}
+    for label, v, dep in (("fused", "fused", True), ("fused in stream order", "fused", False),
+                          ("split", "split", True)):
+        run = functools.partial(ke.escan_reverse, *args, w, ybar, tape_p, fin_p, si, ri, *kind,
+                                variant=v, dependent_launch=dep)
+        ev_ms, host_ms = events_ms(run, 3)
+        rev[label] = (run(), ev_ms / nt, host_ms)
+    default = ke.REVERSE_DEFAULT
+    g, sr = rev[default][0]
     errs.update(grads=_max_rel(g, g_p), srcrow=rel_err(sr, sr_p))
+    g_s, sr_s = rev["split"][0]
     nums = dict(
         fwd=(float((seis.double() - seis_p.double()).abs().max()), ms / nt, plain_ms / nt),
         free_ms=free_ms / nt,
         rev=(max(float((a.double() - b.double()).abs().max()) for a, b in zip(g, g_p)),
-             rev_ms / nt, plain_rev_ms / nt),
+             rev[default][1], plain_rev_ms / nt),
+        variants={v: r[1:] for v, r in rev.items()},
+        bitwise=all(torch.equal(a, b) for r in rev.values()
+                    for a, b in zip((*r[0][0], r[0][1]), (*g_s, sr_s))),
         counts=elastic_step_counts(args[0], seis.shape[1] * (2 if record == "v" else 1),
                                    si.shape[0], tape.shape[1] // 5),
         grid="x".join(map(str, args[0].padded_shape)),
@@ -1406,11 +1427,12 @@ def elastic_kernels_vs_plain(dev, nt, source_type, record, free_surface):
     return errs, nums
 
 
-def device_us_per_step(run, nt, pattern):
+def device_us_per_step(run, nt, pattern, calls=False):
     """Device time per step of each CUDA kernel whose name ``pattern``
     captures, over one ``run()`` after a warm-up one, from torch.profiler,
-    sorted by time: [(kernel, us per step)], empty when the profiler sees no
-    device time."""
+    sorted by time: [(kernel, us per step)] ([(kernel, us per step, launches
+    per step)] with ``calls``), empty when the profiler sees no device
+    time."""
     from torch.profiler import ProfilerActivity, profile
 
     run()
@@ -1423,28 +1445,49 @@ def device_us_per_step(run, nt, pattern):
         us = getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
         m = re.search(pattern, e.key)
         if us > 0 and m:
-            rows.append((m.group(1), us / nt))
+            rows.append((m.group(1), us / nt) + ((e.count / nt,) if calls else ()))
     return sorted(rows, key=lambda r: -r[1])
 
 
+def host_enqueue_ms(run):
+    """Host ms of one ``run()`` from its call to its return (the launches
+    enqueued, not waited for), after a warm-up run."""
+    run()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run()
+    ms = 1e3 * (time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    return ms
+
+
 def elastic_profile(dev, nt=64):
-    """Device us per step of each CUDA kernel that one escan_forward (with
-    tape) and one escan_reverse launch."""
+    """Device us per step (and launches per step) of each CUDA kernel of
+    one escan_forward with tape, and of one escan_reverse in each variant,
+    and the reverse calls' host enqueue ms: {"forward": rows, variant:
+    (rows, host ms a call)}. The fused variant is profiled in plain stream
+    order (with dependent launches a kernel's span includes its wait for
+    the one before it, so the spans overlap); its host ms is the default's."""
     ke = elastic_module()
     args, w, si, ri, _ = elastic_shot(dev, nt)
     kind = ("force_z", "v")
-
-    def run():
-        seis, tape, fin = ke.escan_forward(*args, w, si, ri, *kind, tape=True)
-        ke.escan_reverse(*args, w, seis.contiguous(), tape, fin, si, ri, *kind)
-
-    return device_us_per_step(run, nt, r"::(e[fr]?_\w+?)[<(]")
+    pattern = r"::(e[fr]?_\w+?)[<(]"
+    seis, tape, fin = ke.escan_forward(*args, w, si, ri, *kind, tape=True)
+    out = {"forward": device_us_per_step(
+        lambda: ke.escan_forward(*args, w, si, ri, *kind, tape=True), nt, pattern, calls=True)}
+    for v in ke.VARIANTS:
+        run = functools.partial(ke.escan_reverse, *args, w, seis.contiguous(), tape, fin, si, ri,
+                                *kind, variant=v)
+        serial = functools.partial(run, dependent_launch=False)
+        out[v] = (device_us_per_step(serial, nt, pattern, calls=True), host_enqueue_ms(run))
+    return out
 
 
 def phase_elastic_kernels(dev, smi, nt=NT_CHECK, nt_fs=128):
     """escan_forward (with and without tape) and escan_reverse against
     their plain versions: the main path's force / v case at nt, and a
-    pressure / p free-surface case at nt_fs."""
+    pressure / p free-surface case at nt_fs; escan_reverse's fused and split
+    passes in the same calls, held bitwise against each other."""
     elastic_kernels_vs_plain(dev, 8, "force_z", "v", False)  # first-use costs
     ke = elastic_module()
     before = (ke.escan_forward.launches, ke.escan_reverse.launches)
@@ -1465,18 +1508,39 @@ def phase_elastic_kernels(dev, smi, nt=NT_CHECK, nt_fs=128):
     print(f"[elastic kernels]   free surface, pressure / p, nt {nt_fs}: forward "
           f"{nums_fs['fwd'][1]:.5f} ({nums_fs['fwd'][2]:.4f}), reverse {nums_fs['rev'][1]:.5f} "
           f"({nums_fs['rev'][2]:.4f})", flush=True)
+    for tag, n, ns in (("force_z / v", nt, nums), ("free surface, pressure / p", nt_fs, nums_fs)):
+        print(f"[elastic kernels] escan_reverse variants, {tag}, nt {n} (default "
+              f"{ke.REVERSE_DEFAULT}, tile {ke.TILE_Z} x {ke.TILE_X}): " + "; ".join(
+                  f"{v} {ms:.5f} ms a step by CUDA events, host {host:.3f} ms a call"
+                  for v, (ms, host) in ns["variants"].items())
+              + f"; every fused run == split bitwise (five gradients, srcrow): "
+              f"{ns['bitwise']}",
+              flush=True)
     print(f"[elastic kernels] rel err force/v {json.dumps(errs)}; pressure/p free surface "
           f"{json.dumps(errs_fs)}; tolerances {json.dumps(ETOL)}; launches in these checks: "
           f"escan_forward {launched[0]}, escan_reverse {launched[1]}", flush=True)
-    prof = elastic_profile(dev)
-    print("[elastic kernels] torch.profiler device us per step (forward with tape + reverse, "
-          "nt 64): " + (", ".join(f"{k} {us:.2f}" for k, us in prof) or "not measured"),
-          flush=True)
+    nt_prof = 64
+    prof = elastic_profile(dev, nt_prof)
+
+    def show(rows):
+        return ", ".join(f"{k} {us:.2f} (x{n:g})" for k, us, n in rows) or "not measured"
+
+    print("[elastic kernels] torch.profiler device us per step (launches per step), nt "
+          f"{nt_prof}: forward with tape: {show(prof['forward'])}", flush=True)
+    for v in ke.VARIANTS:
+        rows, host = prof[v]
+        order = " in stream order" if v == "fused" else ""
+        print(f"[elastic kernels]   reverse {v}{order}: {show(rows)}; device us a step "
+              f"{sum(r[1] for r in rows):.2f}, launches a step {sum(r[2] for r in rows):g} "
+              f"(planned {ke.reverse_launches(v, False)}); host enqueue {host:.3f} ms a call, "
+              f"{1e3 * host / nt_prof:.2f} us a step", flush=True)
     for group in (errs, errs_fs):
         for name, err in group.items():
             if not err <= ETOL[name]:
                 fail(f"elastic {name} disagrees with the plain version: {err:.3e} > "
                      f"{ETOL[name]:.0e}")
+    if not (nums["bitwise"] and nums_fs["bitwise"]):
+        fail("escan_reverse's fused passes are not bitwise equal to its split ones")
     return entries
 
 
@@ -2605,13 +2669,19 @@ def phase_probes(dev, smi, nt_2d=PROBE_NT, calls=20):
     for K in kp.TAP_KS:
         hold("tap_probe", f"tap_probe K={K}", kp.tap_probe(x, K), kp.tap_probe_plain(x, K))
         time_pair(f"tap_probe K={K}", lambda: kp.tap_probe(x, K), lambda: kp.tap_probe_plain(x, K))
+    # the copies and their library call on the same terms: into one
+    # preallocated output, each held bitwise against p + 1
+    copy_out = torch.empty_like(x)
     for v in kp.COPY_VARIANTS:
-        hold("stream_copy", f"stream_copy {v}", kp.stream_copy(x, v), kp.stream_copy_plain(x))
-        time_pair(f"stream_copy {v}", lambda: kp.stream_copy(x, v),
+        ref = kp.stream_copy_plain(x)
+        hold("stream_copy", f"stream_copy {v}", kp.stream_copy(x, v, out=copy_out), ref)
+        if not torch.equal(copy_out, ref):
+            fail(f"stream_copy {v} is not bitwise p + 1")
+        del ref
+        time_pair(f"stream_copy {v}", lambda: kp.stream_copy(x, v, out=copy_out),
                   lambda: kp.stream_copy_plain(x))
-    lib_out = torch.empty_like(x)
-    library_ms = events_ms(lambda: torch.add(x, 1.0, out=lib_out), calls)[0]
-    del lib_out
+    library_ms = events_ms(lambda: torch.add(x, 1.0, out=copy_out), calls)[0]
+    del copy_out
     pp, c2 = 0.5 * x, exp_3d_lap.randn(shape, 1, dev)
     small = [exp_3d_lap.randn(shape[:2] + (kp.SS,), 2 + i, dev) for i in range(8)]
     for staged in (False, True):
@@ -2656,6 +2726,11 @@ def phase_probes(dev, smi, nt_2d=PROBE_NT, calls=20):
     print(f"[probes] 2D strip cost (P1 - P0) {ms['scan_probe P1'][0] - ms['scan_probe P0'][0]:.5f}"
           " ms per step by CUDA events; stream_copy's library call torch.add(x, 1, out=o) "
           f"{library_ms:.5f} ms", flush=True)
+    flat = [v for v in kp.COPY_VARIANTS if kp.COPY_TILES[v] == (1, 1)]
+    print("[probes] copy into a preallocated output, ms a call by CUDA events (x torch.add): "
+          + ", ".join(f"{v} {ms[f'stream_copy {v}'][0]:.5f} "
+                      f"({ms[f'stream_copy {v}'][0] / library_ms:.3f})" for v in flat)
+          + f"; torch.add {library_ms:.5f}; default {kp.COPY_DEFAULT}", flush=True)
     print(f"[probes] scripts: 2D {json.dumps(res2)}; 3D {json.dumps(res3)}", flush=True)
     merged = res3.get("merged", {})
     if 8 in merged and 2 in merged:
@@ -2670,10 +2745,11 @@ def phase_probes(dev, smi, nt_2d=PROBE_NT, calls=20):
             fail(f"{key} disagrees with its plain version: {err:.3e} > {tol:.0e}")
     # each entry's configuration: the 2D probe with its strips (the
     # production forward's step), the taps at K = 25 (an order-8 3D
-    # stencil's), the flat float4 copy (the stream's ceiling), step5
+    # stencil's), the default copy (the stream's ceiling), step5
     # unstaged; max_abs_err over every configuration held
     shown = {"scan_probe": "scan_probe P1", "tap_probe": "tap_probe K=25",
-             "stream_copy": "stream_copy vec4", "stream_step5": "stream_step5 staged=False",
+             "stream_copy": f"stream_copy {kp.COPY_DEFAULT}",
+             "stream_step5": "stream_step5 staged=False",
              "stream_step5x": "stream_step5x"}
     entries = []
     for name, key in shown.items():

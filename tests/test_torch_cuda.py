@@ -221,10 +221,10 @@ def test_kstep_wrappers_raise_instead_of_falling_back(device):
 # ------------------------------------------------------------ elastic (8-9)
 
 
-def _elastic_case(device, source_type, record, free_surface, order, nt):
+def _elastic_case(device, source_type, record, free_surface, order, nt, shape=(40, 56)):
     from tpufwi_torch.propagators.elastic2d import ElasticPropagator, elastic_cfl_dt
 
-    grid = Grid(shape=(40, 56), h=(10.0, 12.0), pml=8, order=order, free_surface=free_surface)
+    grid = Grid(shape=shape, h=(10.0, 12.0), pml=8, order=order, free_surface=free_surface)
     rng = np.random.default_rng(order + nt)
     vp = np.clip(2300 + 150 * rng.standard_normal(grid.shape), 2000, 2600)
     dt = elastic_cfl_dt(grid.h, 2600.0, order, safety=0.7)
@@ -278,6 +278,41 @@ def test_elastic_kernels_match_plain(device, source_type, record, order, free_su
     assert _rel(srcrow, srcrow_p) <= 1e-4
 
 
+# physical shapes: padded 56 x 72 (neither axis a multiple of the fused
+# passes' 16 x 32 tile, several tiles each way) and 64 x 128 (whole tiles)
+@pytest.mark.parametrize("shape", [(40, 56), (48, 112)])
+@pytest.mark.parametrize("free_surface", [False, True])
+@pytest.mark.parametrize("source_type,record", [("force_z", "v"), ("pressure", "p")])
+@pytest.mark.parametrize("order", [2, 4, 8])
+def test_escan_fused_matches_split_bitwise(device, order, source_type, record, free_surface,
+                                            shape):
+    """escan_reverse's fused passes, with dependent launches and in plain
+    stream order, against its split ones (the per-step engine's), bitwise
+    on the
+    five gradient planes and srcrow, fed the kernel forward's tape and
+    final fields and a random receiver cotangent; each call counts nt
+    launches."""
+    from tpufwi_torch.kernels import elastic2d_scan as ke
+
+    args, w, idx = _elastic_case(device, source_type, record, free_surface, order, nt=120,
+                                 shape=shape)
+    kind = (source_type, record)
+    seis, tape, finals = ke.escan_forward(*args, w, *idx, *kind, tape=True)
+    gen = torch.Generator(device=device).manual_seed(order)
+    ybar = torch.randn(seis.shape, generator=gen, device=device)
+    r0 = ke.escan_reverse.launches
+    g_s, sr_s = ke.escan_reverse(*args, w, ybar, tape, finals, *idx, *kind, variant="split")
+    assert float(g_s[0].abs().max()) > 0.0
+    for dep in (True, False):
+        g_f, sr_f = ke.escan_reverse(*args, w, ybar, tape, finals, *idx, *kind, variant="fused",
+                                     dependent_launch=dep)
+        for name, a, b in zip(("lam", "lam2mu", "mu_xz", "buoy_x", "buoy_z"), g_f, g_s):
+            assert torch.equal(a, b), (dep, name, float((a - b).abs().max()))
+        assert torch.equal(sr_f, sr_s), dep
+    torch.cuda.synchronize()
+    assert ke.escan_reverse.launches - r0 == 3 * w.shape[0]
+
+
 def test_elastic_wrapper_raises_instead_of_falling_back(device):
     from tpufwi_torch.kernels import elastic2d_scan as ke
 
@@ -287,6 +322,8 @@ def test_elastic_wrapper_raises_instead_of_falling_back(device):
     seis, tape, finals = ke.escan_forward(grid, dt, mats, prof, w, *idx, tape=True)
     with pytest.raises(ValueError, match="tape"):
         ke.escan_reverse(grid, dt, mats, prof, w, seis, tape[:-1].contiguous(), finals, *idx)
+    with pytest.raises(ValueError, match="variant"):
+        ke.escan_reverse(grid, dt, mats, prof, w, seis, tape, finals, *idx, variant="tiled")
 
 
 # ------------------------------------------------------- elastic (10-11)
@@ -585,6 +622,30 @@ def test_3d_probes_match_plain(device):
         pp, p, c2, small)
     assert (kp.tap_probe.launches, kp.stream_copy.launches, kp.stream_step5.launches,
             kp.stream_step5x.launches) == tuple(v + 1 for v in n)
+
+
+def test_stream_copy_variants_bitwise(device):
+    """Every copy variant is bitwise p + 1, into a new array and into out=:
+    at the probe arrays' shape, at an array whose bytes end inside the bulk
+    variant's 16 KB chunk, and (the flat walks) on 105 values, a float4
+    walk and a tail of one."""
+    from tpufwi_torch.kernels import probes as kp
+
+    _, p, _, _ = _probe_arrays(device)
+    ragged = torch.randn((16, 64, 849), device=device)  # 212.25 chunks of 16 KB
+    odd = p[:3, :5, :7].contiguous()
+    for variant in kp.COPY_VARIANTS:
+        by, bz = kp.COPY_TILES[variant]
+        for x in (p, ragged) + ((odd,) if (by, bz) == (1, 1) else ()):
+            if x.shape[0] % by or x.shape[1] % bz:  # rows of (8, 128), (4, 256)
+                continue
+            ref = x + 1.0
+            assert torch.equal(kp.stream_copy(x, variant), ref), (variant, tuple(x.shape))
+            out = torch.full_like(x, float("nan"))
+            assert kp.stream_copy(x, variant, out=out) is out
+            assert torch.equal(out, ref), (variant, tuple(x.shape))
+    with pytest.raises(ValueError, match="out"):
+        kp.stream_copy(p, out=p[:, :, :-1])
 
 
 def test_probe_wrappers_raise_instead_of_falling_back(device):

@@ -1,0 +1,301 @@
+"""The fused elastic reverse's walk (``escan_reverse(..., variant="fused")``,
+TPU kernel 9) transcribed in plain torch, on the CPU, fp32.
+
+The CUDA passes ``er_s`` and ``er_v`` (csrc/elastic2d_kernels.cuh) run each
+stage as tiles of ``escan_tile_plan``: a tile computes the dbar values over
+its cells and their R reach, writes only its own cells, reads the dual
+memories from one set and writes them to the other (ping-pong), and the
+passes run ahead of the ring impose and the images. ``fused_walk`` runs
+that walk with the plain version's own functions (the step twin's
+``update_s`` / ``update_v`` through ``torch.func.vjp``, the
+reconstruction, the sources, the images, the ring impose) on each tile's
+window, the tiles in turn and in place, so a tile that read what an earlier
+one wrote would show. Per-cell torch arithmetic does not depend on the
+window, so the walk must equal ``escan_reverse_plain`` bitwise; and through
+the port's engine it must agree with the reference (the jnp engine, and the
+whole-scan engine in interpret mode) within test_torch_elastic_scan.py's
+tolerances. The plan's tile walk and reach numbering are checked as the C
+side computes them.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from test_torch_elastic_scan import NAMES, _jax_grads, _port_grads, _rel, _setup
+
+from tpufwi.adjoint_elastic_scan import make_elastic_simulator_scan as j_make_scan
+from tpufwi.grid import Grid as JGrid
+from tpufwi.propagators.elastic2d import make_elastic_simulator as j_make_simulator
+from tpufwi.wavelets import ricker_np
+
+from tpufwi_torch.adjoint_scanres import profile_source
+from tpufwi_torch.grid import Grid
+from tpufwi_torch.kernels import elastic2d_scan as ke
+from tpufwi_torch.kernels.acoustic2d_scanres import ring_plan
+from tpufwi_torch.kernels.elastic2d_eager import (
+    inject_sources,
+    make_elastic_reverse_reconstruct,
+    make_elastic_step,
+)
+from tpufwi_torch.propagators.elastic2d import elastic_cfl_dt, make_elastic_function
+
+
+@pytest.fixture(autouse=True)
+def _one_thread():
+    torch.set_num_threads(1)
+
+
+def fused_walk(grid, dt, mats, profiles, wavelet, ybar, tape, finals, src_idx, rcv_idx,
+               source_type="pressure", record="v", plan=None, ping_pong=True):
+    """The fused reverse's walk (``escan_reverse_plain``'s contract): per
+    step the prologue (receiver injection, stress-image transpose,
+    source-point cotangent, source undone), er_s tile by tile, the stress
+    rings imposed, the stress image and the velocity-image transpose, er_v
+    tile by tile, the velocity rings imposed and the velocity image. Each
+    tile reads its window (its cells and their R reach, clipped to the
+    grid) of the current fields and writes its own cells in place; the
+    duals are read from one set and written to the other, swapped each step
+    (``ping_pong=False``: one set, updated in place)."""
+    params = ke._params(grid, mats, profiles, src_idx, rcv_idx)
+    no_src = params._replace(src_idx=src_idx[:0])
+    step = make_elastic_step(grid, dt, source_type, record)
+    recon_stress, recon_velocity = make_elastic_reverse_reconstruct(grid, dt, source_type)
+    image = step.image
+    NZ, NX = grid.padded_shape
+    R = grid.radius
+    tiles = list(ke.fused_tiles(plan or ke.escan_tile_plan(grid), NZ, NX))
+    dtype, dev = mats[0].dtype, mats[0].device
+    ring_idx = ring_plan(grid, dev)[0]
+    n = ring_idx.shape[0]
+
+    def zeros():
+        return torch.zeros((NZ, NX), dtype=dtype, device=dev)
+
+    f = [x.clone() for x in finals]  # vx, vz, sxx, szz, sxz
+    cb = [zeros() for _ in range(5)]
+    duals = [[zeros() for _ in range(8)], [zeros() for _ in range(8)]]
+    g = [zeros() for _ in range(5)]
+    nt = wavelet.shape[0]
+    srcrow = torch.empty((nt, src_idx.shape[0]), dtype=dtype, device=dev)
+    rz, rx = rcv_idx[:, 0], rcv_idx[:, 1]
+    sz, sx = src_idx[:, 0], src_idx[:, 1]
+
+    def window(z0, z1, x0, x1):
+        wz, wx = slice(max(0, z0 - R), min(NZ, z1 + R)), slice(max(0, x0 - R), min(NX, x1 + R))
+        own = (slice(z0 - wz.start, z1 - wz.start), slice(x0 - wx.start, x1 - wx.start))
+        p = no_src._replace(**{k: getattr(no_src, k)[wz, wx] for k in
+                               ("lam", "lam2mu", "mu_xz", "buoy_x", "buoy_z")},
+                            az=no_src.az[wz], bz=no_src.bz[wz], ax=no_src.ax[:, wx],
+                            bx=no_src.bx[:, wx])
+        return (lambda a: a[wz, wx]), own, (slice(z0, z1), slice(x0, x1)), p
+
+    for t in reversed(range(nt)):
+        k = (nt - 1 - t) % 2 if ping_pong else 0
+        din, dout = duals[k], duals[1 - k] if ping_pong else duals[k]
+        row = tape[t - 1] if t >= 1 else None
+        w_t = wavelet[t]
+        # prologue
+        vxb, vzb, sxxb, szzb, sxzb = cb
+        if record == "v":
+            vzb = vzb.index_put((rz, rx), ybar[t][:, 0], accumulate=True)
+            vxb = vxb.index_put((rz, rx), ybar[t][:, 1], accumulate=True)
+        else:
+            sxxb = sxxb.index_put((rz, rx), -0.5 * ybar[t], accumulate=True)
+            szzb = szzb.index_put((rz, rx), -0.5 * ybar[t], accumulate=True)
+        if image is not None:
+            szzb, sxzb = image.s_t(szzb, sxzb)
+        cb = [vxb, vzb, sxxb, szzb, sxzb]
+        srcrow[t] = vzb[sz, sx] if source_type == "force_z" else (sxxb + szzb)[sz, sx]
+        f[1], f[2], f[3] = inject_sources(f[1], f[2], f[3], params, w_t, dt, source_type,
+                                          sign=-1.0)
+        # er_s
+        for tile in tiles:
+            W, own, cells, p = window(*tile)
+            vx, vz, sxx, szz, sxz = (W(a) for a in f)
+            _, _, *sig = recon_stress(vx, vz, sxx, szz, sxz, p, w_t)
+            z = torch.zeros_like(vx)
+
+            def upd_s(vx_, vz_, m_, lam, l2m, mu, p=p, sxx=sxx, szz=szz, sxz=sxz):
+                return step.update_s(vx_, vz_, sxx, szz, sxz, m_,
+                                     p._replace(lam=lam, lam2mu=l2m, mu_xz=mu))
+
+            _, pull = torch.func.vjp(upd_s, vx, vz, (z,) * 4, p.lam, p.lam2mu, p.mu_xz)
+            vxb_s, vzb_s, dual_s, *gm = pull((W(cb[2]), W(cb[3]), W(cb[4]),
+                                              tuple(W(d) for d in din[:4])))
+            for j in range(3):
+                f[2 + j][cells] = sig[j][own]
+                g[j][cells] = g[j][cells] + gm[j][own]
+            cb[0][cells] = cb[0][cells] + vxb_s[own]
+            cb[1][cells] = cb[1][cells] + vzb_s[own]
+            for j in range(4):
+                dout[j][cells] = dual_s[j][own]
+        f[2:5] = ke.impose_rings(f[2:5], ring_idx, None if row is None else row[2 * n:])
+        if image is not None:
+            f[3], f[4] = image.s(f[3], f[4])
+            cb[0], cb[1] = image.v_t(cb[0], cb[1])
+        # er_v
+        for tile in tiles:
+            W, own, cells, p = window(*tile)
+            vx, vz, sxx, szz, sxz = (W(a) for a in f)
+            vel = recon_velocity(vx, vz, sxx, szz, sxz, p)
+            z = torch.zeros_like(vx)
+
+            def upd_v(sxx_, szz_, sxz_, m_, bxm, bzm, p=p, z=z):
+                return step.update_v(z, z, sxx_, szz_, sxz_, m_,
+                                     p._replace(buoy_x=bxm, buoy_z=bzm))
+
+            _, pull = torch.func.vjp(upd_v, sxx, szz, sxz, (z,) * 4, p.buoy_x, p.buoy_z)
+            *sb_v, dual_v, gbx, gbz = pull((W(cb[0]), W(cb[1]), tuple(W(d) for d in din[4:])))
+            for j in range(2):
+                f[j][cells] = vel[j][own]
+            for j in range(3):
+                cb[2 + j][cells] = cb[2 + j][cells] + sb_v[j][own]
+            g[3][cells] = g[3][cells] + gbx[own]
+            g[4][cells] = g[4][cells] + gbz[own]
+            for j in range(4):
+                dout[4 + j][cells] = dual_v[j][own]
+        f[0:2] = ke.impose_rings(f[0:2], ring_idx, None if row is None else row[: 2 * n])
+        if image is not None:
+            f[0], f[1] = image.v(f[0], f[1])
+    return tuple(g), srcrow
+
+
+def _case(order, source_type, record, free_surface, nt, shape=(40, 50), pml=8, seed=0):
+    """A random model on a ragged padded grid (neither axis a multiple of
+    the 16 x 64 tile), a surface source and a deeper one, a receiver line
+    at depth 2 with a coinciding pair; the plain forward's tape and final
+    fields and a random receiver cotangent, all made from ``seed``."""
+    grid = Grid(shape=shape, h=(10.0, 12.0), pml=pml, order=order, free_surface=free_surface)
+    rng = np.random.default_rng(seed + order)
+    vp = np.clip(2300 + 150 * rng.standard_normal(shape), 2000, 2600)
+    dt = elastic_cfl_dt(grid.h, 2600.0, order, safety=0.7)
+    from tpufwi_torch.propagators.elastic2d import ElasticPropagator
+
+    prop = ElasticPropagator(grid, dt, 14.0, 2600.0, source_type=source_type, record=record,
+                             device="cpu")
+    mats = tuple(m.contiguous() for m in prop.material_fields(
+        *(torch.as_tensor(x, dtype=torch.float32) for x in (vp, vp / 1.8, 1000.0 + 0.3 * vp))))
+    prof = profile_source(grid, dt, 14.0, 2600.0)(mats[0])
+    src = torch.as_tensor(np.array([[2, 20], [shape[0] // 2, shape[1] // 3]]) + grid.pad)
+    rx = np.arange(3, shape[1] - 3, 3)
+    rcv = np.concatenate([np.stack([np.full(rx.size, 2), rx], 1), [[2, 3], [shape[0] - 5, 7]]])
+    rcv = torch.as_tensor(rcv + grid.pad)
+    w = torch.as_tensor(ricker_np(14.0, dt, nt, t0=0.02), dtype=torch.float32)
+    args = (grid, dt, mats, prof)
+    seis, tape, finals = ke.escan_forward_plain(*args, w, src, rcv, source_type, record,
+                                                tape=True)
+    ybar = torch.as_tensor(rng.standard_normal(tuple(seis.shape)), dtype=torch.float32)
+    return args, w, ybar, tape, finals, (src, rcv)
+
+
+KINDS = [("force_z", "v"), ("pressure", "p")]
+
+
+@pytest.mark.parametrize("free_surface", [False, True])
+@pytest.mark.parametrize("source_type,record", KINDS)
+@pytest.mark.parametrize("order", [2, 4, 8])
+def test_fused_walk_equals_plain_bitwise(order, source_type, record, free_surface):
+    args, w, ybar, tape, finals, idx = _case(order, source_type, record, free_surface, nt=14)
+    kind = (source_type, record)
+    g_p, sr_p = ke.escan_reverse_plain(*args, w, ybar, tape, finals, *idx, *kind)
+    g_f, sr_f = fused_walk(*args, w, ybar, tape, finals, *idx, *kind)
+    assert float(g_p[0].abs().max()) > 0.0
+    for name, a, b in zip(NAMES, g_f, g_p):
+        assert torch.equal(a, b), (name, float((a - b).abs().max()))
+    assert torch.equal(sr_f, sr_p)
+
+
+@pytest.mark.parametrize("free_surface", [False, True])
+def test_fused_walk_small_tiles_and_ping_pong(free_surface):
+    """On 8 x 12 tiles (many tile edges inside the CPML strips) the walk
+    still equals the plain reverse bitwise, and without the dual ping-pong
+    it does not: a tile's reach then reads duals an earlier tile already
+    updated."""
+    args, w, ybar, tape, finals, idx = _case(4, "force_z", "v", free_surface, nt=10)
+    small = ke.EscanPlan(8, 12, 0)
+    g_p, sr_p = ke.escan_reverse_plain(*args, w, ybar, tape, finals, *idx, "force_z", "v")
+    g_f, sr_f = fused_walk(*args, w, ybar, tape, finals, *idx, "force_z", "v", plan=small)
+    assert all(torch.equal(a, b) for a, b in zip(g_f, g_p)) and torch.equal(sr_f, sr_p)
+    g_x, _ = fused_walk(*args, w, ybar, tape, finals, *idx, "force_z", "v", plan=small,
+                        ping_pong=False)
+    assert not all(torch.equal(a, b) for a, b in zip(g_x, g_p))
+
+
+@pytest.mark.parametrize("source_type,record,free_surface", [
+    ("force_z", "v", False), ("pressure", "p", True),
+])
+def test_fused_walk_matches_jnp_engine(source_type, record, free_surface):
+    """The walk as the port engine's reverse against the reference's jnp
+    engine, test_torch_elastic_scan.py's problem and tolerance (2e-4 of
+    each gradient's max)."""
+    kw, dt, f0, c_max, mats, w, geom = _setup(free_surface=free_surface)
+    sim_j = j_make_simulator(JGrid(**kw), dt, f0, c_max, dtype=jnp.float32, record=record,
+                             source_type=source_type)
+    d_obs = sim_j(*(jnp.asarray(m) for m in mats), jnp.asarray(w), geom.src_idx, geom.rcv_idx)
+    mats_p = tuple(m * np.float32(1.02) for m in mats)
+    sim_t = make_elastic_function(Grid(**kw), dt, f0, c_max, ke.escan_forward_plain, fused_walk,
+                                  source_type, record)
+    ga = _jax_grads(sim_j, mats_p, w, geom, d_obs)
+    gb = _port_grads(sim_t, mats_p, w, geom, d_obs)
+    for name, a, b in zip(NAMES, ga, gb):
+        assert _rel(b, a) < 2e-4, f"{source_type}/{record}: {name} gradient {_rel(b, a):.3e}"
+
+
+def test_fused_walk_matches_reference_scan_engine():
+    """Against the reference's whole-scan engine in interpret mode (its
+    Pallas kernel 9 itself), as test_torch_elastic_scan.py runs it: nt 24,
+    the Ricker peaking at 0.02 s, force source and v record."""
+    kw, dt, f0, c_max, mats, w, geom = _setup(nt=24)
+    w = ricker_np(f0, dt, 24, t0=0.02).astype(np.float32)
+    sim_j = j_make_scan(JGrid(**kw), dt, f0, c_max, source_type="force_z", record="v",
+                        interpret=True)
+    sim_t = make_elastic_function(Grid(**kw), dt, f0, c_max, ke.escan_forward_plain, fused_walk,
+                                  "force_z", "v")
+    d_obs = np.zeros((w.shape[0], geom.rcv_idx.shape[0], 2), np.float32)
+    ga = _jax_grads(sim_j, mats, w, geom, d_obs)
+    gb = _port_grads(sim_t, mats, w, geom, d_obs)
+    for name, a, b in zip(NAMES, ga, gb):
+        assert _rel(b, a) < 2e-4, f"{name} gradient {_rel(b, a):.3e}"
+
+
+@pytest.mark.parametrize("order", [2, 4, 8])
+@pytest.mark.parametrize("shape,pml", [((40, 50), 8), ((351, 1701), 20), ((17, 9), 3)])
+def test_tile_plan_covers_every_cell_once(order, shape, pml):
+    """The tiles of ``escan_tile_plan`` cover every cell of the padded grid
+    exactly once (ragged edges included), the plan is the tile the library
+    is built for with the larger pass's shared bytes, and the reach
+    numbering of ``FTile::reach`` fills exactly the tile's cross (its R
+    reach along z and along x, not the corners) once."""
+    grid = Grid(shape=shape, h=(10.0, 10.0), pml=pml, order=order)
+    NZ, NX = grid.padded_shape
+    R = grid.radius
+    plan = ke.escan_tile_plan(grid)
+    assert (plan.tz, plan.tx) == (ke.TILE_Z, ke.TILE_X) and plan.tz % ke.TILE_ROWS == 0
+    assert plan.smem == 4 * 7 * (plan.tz + 2 * R) * (plan.tx + 2 * R)
+    cover = np.zeros((NZ, NX), np.int64)
+    tiles = list(ke.fused_tiles(plan, NZ, NX))
+    assert len(tiles) == -(-NZ // plan.tz) * -(-NX // plan.tx)
+    for z0, z1, x0, x1 in tiles:
+        assert z0 % plan.tz == 0 and x0 % plan.tx == 0
+        cover[z0:z1, x0:x1] += 1
+    assert (cover == 1).all()
+    cells = ke.reach_cells(plan, R)
+    assert len(cells) == len(set(cells)) == 2 * R * (plan.tz + plan.tx)
+    cross = {(rz, rx) for rz in range(plan.tz + 2 * R) for rx in range(plan.tx + 2 * R)
+             if (R <= rz < plan.tz + R) != (R <= rx < plan.tx + R)}
+    assert set(cells) == cross
+
+
+def test_reverse_launches_and_variants():
+    """At most 6 launches a fused reverse step without the free surface and
+    9 with it; the wrapper rejects an unknown variant on any device."""
+    assert ke.reverse_launches("fused", False) <= 6 and ke.reverse_launches("fused", True) <= 9
+    assert ke.reverse_launches("split", False) == 8 and ke.reverse_launches("split", True) == 12
+    args, w, ybar, tape, finals, idx = _case(4, "force_z", "v", False, nt=4)
+    with pytest.raises(ValueError, match="variant"):
+        ke.escan_reverse(*args, w, ybar, tape, finals, *idx, "force_z", "v", variant="tiled")
+    g, sr = ke.escan_reverse(*args, w, ybar, tape, finals, *idx, "force_z", "v",
+                             variant="split")
+    g_p, sr_p = ke.escan_reverse_plain(*args, w, ybar, tape, finals, *idx, "force_z", "v")
+    assert all(torch.equal(a, b) for a, b in zip(g, g_p)) and torch.equal(sr, sr_p)

@@ -228,6 +228,16 @@ def test_stream_copy_plain():
         assert np.array_equal(kp.stream_copy(torch.as_tensor(x), variant).numpy(), x + 1.0)
 
 
+def test_stream_copy_into_out():
+    """``out=`` takes the result (the smoke times the copy and torch.add
+    into preallocated arrays alike); the default variant is a flat walk."""
+    (x,) = _arrays((16, 64, 5), 1)
+    out = torch.full(x.shape, np.nan)
+    assert kp.stream_copy(torch.as_tensor(x), out=out) is out
+    assert np.array_equal(out.numpy(), x + 1.0)
+    assert kp.COPY_TILES[kp.COPY_DEFAULT] == (1, 1)
+
+
 # ---------------------------------------------------------------- scripts
 
 
@@ -250,8 +260,10 @@ def test_exp_3d_lap_main_on_cpu(capsys):
     probes = [line["probe"] for line in _json_lines(capsys.readouterr().out)]
     assert probes.count("merged") == len(exp_3d_lap.ORDERS)
     assert {"tap_K5", "tap_K25", "tap", "step5", "step5s", "step5x"} <= set(probes)
-    # the row tiles that do not divide the (64, 64, 53) array are skipped
-    assert {p for p in probes if p.startswith("copy_")} == {"copy_vec4", "copy_rows16x64"}
+    # the row tiles that do not divide the (64, 64, 53) array are skipped;
+    # the flat walks (vec4, oneshot, bulk) run on any array
+    assert {p for p in probes if p.startswith("copy_")} == {"copy_vec4", "copy_rows16x64",
+                                                            "copy_oneshot", "copy_bulk"}
     assert exp_3d_lap.probe_shape() == (864, 256, 849)  # the reference's arrays
     assert [v["taps"] for v in out["merged"].values()] == [25, 13, 7]
 

@@ -11,8 +11,8 @@ z rounded up to the reference's blocks (16, 64): (864, 256, 849) fp32.
 - ``taps``: ``kernels/probes.py::tap_probe`` at K = 5 and 25 taps; ms per
   call, and from the K-slope the ms per tap and the effective shared-memory
   read rate (one array's bytes per tap).
-- ``stream``: ``stream_copy`` in each of its variants (a flat float4 loop;
-  scalar rows over the (16, 64), (8, 128) and (4, 256) (y, z) tiles, each
+- ``stream``: ``stream_copy`` in each of its variants (flat float4 walks:
+  a grid-stride loop, a one-shot grid, a TMA bulk pipeline; scalar rows over the (16, 64), (8, 128) and (4, 256) (y, z) tiles, each
   where it divides the array, as the reference skips the others),
   ``stream_step5`` unstaged and staged, and ``stream_step5x``; ms per call
   and GB/s, counting each input read once and each output written once (8
@@ -117,13 +117,16 @@ def run_stream(shape, device, name, nts=NTS, reps=REPS):
         out[probe] = _emit({"probe": probe, "ms_per_call": 1e3 * per,
                             "GBps": nbytes[kind] / per / 1e9}, name)
 
+    # the copies write into two preallocated outputs in turn, as the
+    # library call they are held against does (no allocation a step)
+    outs = (torch.empty_like(x), torch.empty_like(x))
     for variant, (by, bz) in COPY_TILES.items():
         if shape[0] % by or shape[1] % bz:  # as the reference skips them (:374-375)
             continue
 
         def copy(v, nt, variant=variant):
-            for _ in range(nt):
-                v = stream_copy(v, variant)
+            for i in range(nt):
+                v = stream_copy(v, variant, out=outs[i % 2])
             return v
 
         measure(f"copy_{variant}", copy, "copy")

@@ -40,7 +40,13 @@
 //     stores, the grid sized from the SM count (NX = 849 is odd, so only
 //     the flat view takes float4); variants 1-3 walk the (16, 64),
 //     (8, 128) and (4, 256) (y, z) tiles in the TPU grid's order, one CTA a
-//     run of BZ contiguous x rows at one y, scalar loads.
+//     run of BZ contiguous x rows at one y, scalar loads. Variant 4
+//     (oneshot, the default) is a one-shot grid: one float4 a thread, no
+//     loop, as many CTAs as the array needs. Variant 5 (bulk) is a TMA pipeline: each
+//     CTA walks 16 KB chunks through a ring of kBulkStages shared buffers,
+//     thread 0 issuing cp.async.bulk loads on an mbarrier kBulkStages - 1
+//     chunks ahead, all threads adding 1 in shared memory, thread 0 storing
+//     the chunk back with a bulk store.
 //   step5 / step5x: one thread a cell, blocks of 32 x by 8 z rows at one y;
 //     the halo rows are re-reads of p, from L2 when its neighbouring planes
 //     were swept recently. staged routes each CTA's p tile through shared
@@ -55,6 +61,8 @@
 // (tpufwi_torch/kernels/probes.py). Element offsets are 64-bit.
 
 #include <cuda_runtime.h>
+
+#include <cstdint>
 
 namespace {
 
@@ -181,6 +189,129 @@ __global__ void __launch_bounds__(kCopyThreads) copy_rows(const float* __restric
   for (int i = threadIdx.x; i < n; i += kCopyThreads) o[base + i] = p[base + i] + 1.f;
 }
 
+// o = p + 1, one-shot: thread g of the grid takes float4 g, one load
+// before one store, no loop (kOneThreads a CTA, each CTA a contiguous
+// 2 KB); the n % 4 tail by the first threads of block 0. Plain loads and
+// stores: the evict-first hints (__ldcs, __stcs) cost ~1% here.
+constexpr int kOneThreads = 128;
+
+__global__ void __launch_bounds__(kOneThreads) copy_oneshot(const float* __restrict__ p,
+                                                            float* __restrict__ o,
+                                                            long long n) {
+  const long long n4 = n / 4;
+  const long long g = (long long)blockIdx.x * kOneThreads + threadIdx.x;
+  if (g < n4) reinterpret_cast<float4*>(o)[g] = plus_one(reinterpret_cast<const float4*>(p)[g]);
+  const long long t = 4 * n4 + threadIdx.x;
+  if (blockIdx.x == 0 && t < n) o[t] = p[t] + 1.f;
+}
+
+int launch_oneshot(const float* p, float* o, long long n, cudaStream_t st) {
+  const long long blocks = (n / 4 + kOneThreads - 1) / kOneThreads;
+  copy_oneshot<<<(unsigned)(blocks > 0 ? blocks : 1), kOneThreads, 0, st>>>(p, o, n);
+  return (int)cudaGetLastError();
+}
+
+// o = p + 1 through the TMA: 16 KB chunks of the 16 B-aligned part, chunk
+// c by CTA c % gridDim.x, in a ring of kBulkStages shared buffers, each
+// filled by one cp.async.bulk load that completes on its mbarrier and
+// drained by one bulk store; the n % 4 tail as the one-shot copy's
+constexpr int kBulkStages = 4;
+constexpr int kBulkBytes = 16384;
+constexpr int kBulkSmem = kBulkStages * kBulkBytes;  // 64 KB: 3 CTAs an SM
+
+__device__ __forceinline__ uint32_t smem_u32(const void* ptr) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(ptr));
+}
+
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+               :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];"
+      :: "r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar)) : "memory");
+}
+
+__device__ __forceinline__ void bulk_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}"
+        : "=r"(done) : "r"(smem_u32(bar)), "r"(parity) : "memory");
+  }
+}
+
+__global__ void __launch_bounds__(kCopyThreads) copy_bulk(const float* __restrict__ p,
+                                                          float* __restrict__ o, long long n) {
+  extern __shared__ __align__(128) float4 buf[];
+  __shared__ __align__(8) uint64_t full[kBulkStages];
+  constexpr int per = kBulkBytes / 16;  // float4 a chunk
+  const long long nb = n / 4 * 16;      // bytes of the aligned part
+  const long long chunks = (nb + kBulkBytes - 1) / kBulkBytes;
+  const char* src = reinterpret_cast<const char*>(p);
+  char* dst = reinterpret_cast<char*>(o);
+  auto bytes_of = [&](long long c) {
+    return (uint32_t)(nb - c * kBulkBytes < kBulkBytes ? nb - c * kBulkBytes : kBulkBytes);
+  };
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kBulkStages; ++s)
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" :: "r"(smem_u32(&full[s])));
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+    for (int s = 0; s < kBulkStages - 1; ++s) {
+      const long long c = blockIdx.x + (long long)s * gridDim.x;
+      if (c < chunks) bulk_load(buf + s * per, src + c * kBulkBytes, bytes_of(c), &full[s]);
+    }
+  }
+  __syncthreads();
+  for (long long i = 0;; ++i) {
+    const long long c = blockIdx.x + i * gridDim.x;
+    if (c >= chunks) break;
+    const int s = (int)(i % kBulkStages);
+    if (threadIdx.x == 0) {  // refill the stage the previous chunk's store has read
+      const long long cn = c + (long long)(kBulkStages - 1) * gridDim.x;
+      if (cn < chunks) {
+        asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
+        const int sn = (int)((i + kBulkStages - 1) % kBulkStages);
+        bulk_load(buf + sn * per, src + cn * kBulkBytes, bytes_of(cn), &full[sn]);
+      }
+    }
+    bulk_wait(&full[s], (uint32_t)((i / kBulkStages) & 1));
+    const int m = (int)(bytes_of(c) / 16);
+    float4* b = buf + s * per;
+    for (int k = threadIdx.x; k < m; k += kCopyThreads) b[k] = plus_one(b[k]);
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;"
+                   :: "l"(dst + c * kBulkBytes), "r"(smem_u32(b)), "r"(bytes_of(c))
+                   : "memory");
+      asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+    }
+  }
+  if (threadIdx.x == 0) asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
+  const long long t = n / 4 * 4 + threadIdx.x;
+  if (blockIdx.x == 0 && t < n) o[t] = p[t] + 1.f;
+}
+
+int launch_bulk(const float* p, float* o, long long n, cudaStream_t st) {
+  const cudaError_t attr = cudaFuncSetAttribute(
+      copy_bulk, cudaFuncAttributeMaxDynamicSharedMemorySize, kBulkSmem);
+  if (attr != cudaSuccess) return (int)attr;
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const cudaError_t occ = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, copy_bulk, kCopyThreads, kBulkSmem);
+  if (occ != cudaSuccess) return (int)occ;
+  const long long chunks = (n / 4 * 16 + kBulkBytes - 1) / kBulkBytes;
+  const long long want = (long long)sms * (per_sm > 0 ? per_sm : 1);
+  const int blocks = (int)(chunks < want ? (chunks > 0 ? chunks : 1) : want);
+  copy_bulk<<<blocks, kCopyThreads, kBulkSmem, st>>>(p, o, n);
+  return (int)cudaGetLastError();
+}
+
 template <int BY, int BZ>
 int launch_rows(const float* p, float* o, int NY, int NZ, int NX, cudaStream_t st) {
   if (NY % BY || NZ % BZ) return (int)cudaErrorInvalidValue;
@@ -266,8 +397,9 @@ int tpufwi_tap_probe(const float* p, float* out, int NY, int NZ, int NX, int K, 
   return (int)cudaErrorInvalidValue;
 }
 
-// o <- p + 1. variant 0: flat float4 (p and o 16 B aligned); 1, 2, 3: the
-// (16, 64), (8, 128), (4, 256) row tiles
+// o <- p + 1. variant 0: flat float4 grid-stride loop (p and o 16 B
+// aligned); 1, 2, 3: the (16, 64), (8, 128), (4, 256) row tiles; 4: the
+// one-shot float4 grid, 5: the TMA bulk pipeline (both 16 B aligned)
 int tpufwi_stream_copy(const float* p, float* o, int NY, int NZ, int NX, int variant,
                        void* stream) {
   auto st = static_cast<cudaStream_t>(stream);
@@ -286,6 +418,8 @@ int tpufwi_stream_copy(const float* p, float* o, int NY, int NZ, int NX, int var
     case 1: return launch_rows<16, 64>(p, o, NY, NZ, NX, st);
     case 2: return launch_rows<8, 128>(p, o, NY, NZ, NX, st);
     case 3: return launch_rows<4, 256>(p, o, NY, NZ, NX, st);
+    case 4: return launch_oneshot(p, o, (long long)NY * NZ * NX, st);
+    case 5: return launch_bulk(p, o, (long long)NY * NZ * NX, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

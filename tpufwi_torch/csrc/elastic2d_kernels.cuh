@@ -1,7 +1,8 @@
 // Device code of the 2D elastic P-SV engines for Hopper (sm_90a): the
 // per-step kernels and the host functions that launch one stage of a
 // forward or reverse time step on a stream (estage_v, estage_s, estage_rs,
-// estage_rv). The whole-scan loops (elastic2d_scan.cu) and the per-step
+// estage_rv; estage_rfused, a whole reverse step on the fused passes). The
+// whole-scan loops (elastic2d_scan.cu) and the per-step
 // entry points (elastic2d_step.cu) include it and launch the same
 // functions. Every kernel has internal linkage.
 //
@@ -32,12 +33,15 @@
 // its memory part carried by the dual memories): with q the cotangent of a
 // total derivative d + m', tot = q + dual, dual' = b tot, dbar = q + a tot.
 // The transposes of the stencils are gathers ((D+)^T = -D-, (D-)^T = -D+)
-// over zero-halo dbar planes, never atomics, so the result is deterministic.
+// over dbar values that are zero outside the grid, never atomics, so the
+// result is deterministic. The split passes (both engines) keep the dbar
+// values in four zero-halo planes in device memory; the fused passes
+// (escan_reverse's default) keep them in a shared-memory tile.
 // All arithmetic is fp32 (FMA); no tensor cores.
 //
-// Layout: the five primal fields and the four dbar planes are stored with a
-// zero halo of R cells on each side ((NZ+2R) x (NX+2R), row stride NX+2R);
-// kernels write only the interior. Materials, CPML memories, their duals,
+// Layout: the five primal fields and the split passes' four dbar planes are
+// stored with a zero halo of R cells on each side ((NZ+2R) x (NX+2R), row
+// stride NX+2R); kernels write only the interior. Materials, CPML memories, their duals,
 // cotangents and gradients are compact (NZ, NX); the memories stay zero
 // outside the strips. Ring cells are int32 indices into the flattened
 // padded grid, and a tape row holds the five fields' rings in the order
@@ -107,11 +111,24 @@ __device__ __forceinline__ float e_mem(float* __restrict__ m, int c, float a, fl
   return d + mn;
 }
 
-// the dual of one memory: tot = q + dual, dual' = b tot; returns q + a tot
-__device__ __forceinline__ float e_dual(float* __restrict__ m, int c, float a, float b, float q) {
-  const float tot = q + m[c];
-  m[c] = b * tot;
+// the dual of one memory: tot = q + din, dual' = b tot into dout (kWrite;
+// dout may be din); returns q + a tot
+template <bool kWrite>
+__device__ __forceinline__ float e_dual(const float* din, float* dout, int c, float a, float b,
+                                        float q) {
+  const float tot = q + din[c];
+  if (kWrite) dout[c] = b * tot;
   return fmaf(a, tot, q);
+}
+
+// Programmatic dependent launch (Hopper): a kernel launched with
+// launch_dep (below) may start while the kernel before it on the stream
+// drains; it waits for that kernel's completion and memory in dep_wait
+// before it touches memory, and lets the next kernel launch in
+// dep_trigger. Launched the ordinary way, both are no-ops.
+__device__ __forceinline__ void dep_wait() { asm volatile("griddepcontrol.wait;" ::: "memory"); }
+__device__ __forceinline__ void dep_trigger() {
+  asm volatile("griddepcontrol.launch_dependents;" ::: "memory");
 }
 
 // --------------------------------------------------------------- forward
@@ -203,9 +220,7 @@ __global__ void e_src(EFields f, const float* __restrict__ bzm, const float* __r
 // free-surface images on the halo primals (row fs = grid.pad); the rows
 // read and the rows written are disjoint
 template <int R>
-__global__ void e_image_s(EFields f, int NX, int fs) {
-  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= (R + 1) * NX) return;
+__device__ __forceinline__ void e_image_s_cell(EFields f, int NX, int fs, int idx) {
   const int k = idx / NX, x = idx - k * NX;
   const int ld = NX + 2 * R;
   const int col = x + R;
@@ -218,7 +233,15 @@ __global__ void e_image_s(EFields f, int NX, int fs) {
 }
 
 template <int R>
+__global__ void e_image_s(EFields f, int NX, int fs) {
+  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx < (R + 1) * NX) e_image_s_cell<R>(f, NX, fs, idx);
+}
+
+template <int R>
 __global__ void e_image_v(EFields f, int NX, int fs) {
+  dep_wait();
+  dep_trigger();
   const int idx = blockIdx.x * blockDim.x + threadIdx.x;
   if (idx >= R * NX) return;
   const int k = idx / NX, x = idx - k * NX;
@@ -272,12 +295,14 @@ __global__ void er_chain(const long long* __restrict__ rcv, int nrec, int* __res
   chain[nrec + r] = head;
 }
 
-// receiver-cotangent injection: each cell owned by its first receiver,
-// which sums the others in index order; cb = compact vxb, vzb, sxxb, szzb
-__global__ void er_inject(EFields cb, const float* __restrict__ ybar, int t,
-                          const long long* __restrict__ rcv, const int* __restrict__ chain,
-                          int nrec, int NX, int rec_v) {
-  for (int r = threadIdx.x; r < nrec; r += blockDim.x) {
+// receiver-cotangent injection by the threads [tid, nthreads) of one block:
+// each cell owned by its first receiver, which sums the others in index
+// order; cb = compact vxb, vzb, sxxb, szzb
+__device__ __forceinline__ void er_inject_rows(EFields cb, const float* __restrict__ ybar, int t,
+                                               const long long* __restrict__ rcv,
+                                               const int* __restrict__ chain, int nrec, int NX,
+                                               int rec_v, int tid, int nthreads) {
+  for (int r = tid; r < nrec; r += nthreads) {
     if (!chain[nrec + r]) continue;
     const int c = (int)rcv[2 * r] * NX + (int)rcv[2 * r + 1];
     if (rec_v) {
@@ -299,12 +324,16 @@ __global__ void er_inject(EFields cb, const float* __restrict__ ybar, int t,
   }
 }
 
-// transposes of the images on the compact cotangents; each thread owns a
-// ghost row cell and its mirror
+__global__ void er_inject(EFields cb, const float* __restrict__ ybar, int t,
+                          const long long* __restrict__ rcv, const int* __restrict__ chain,
+                          int nrec, int NX, int rec_v) {
+  er_inject_rows(cb, ybar, t, rcv, chain, nrec, NX, rec_v, threadIdx.x, blockDim.x);
+}
+
+// transposes of the images on the compact cotangents; each cell idx < R NX
+// owns a ghost row cell and its mirror
 template <int R>
-__global__ void er_image_s_t(EFields cb, int NX, int fs) {
-  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= R * NX) return;
+__device__ __forceinline__ void er_image_s_t_cell(EFields cb, int NX, int fs, int idx) {
   const int k = idx / NX, x = idx - k * NX;
   const int g = (fs - 1 - k) * NX + x;
   cb.szz[(fs + 1 + k) * NX + x] -= cb.szz[g];
@@ -315,9 +344,13 @@ __global__ void er_image_s_t(EFields cb, int NX, int fs) {
 }
 
 template <int R>
-__global__ void er_image_v_t(EFields cb, int NX, int fs) {
+__global__ void er_image_s_t(EFields cb, int NX, int fs) {
   const int idx = blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= R * NX) return;
+  if (idx < R * NX) er_image_s_t_cell<R>(cb, NX, fs, idx);
+}
+
+template <int R>
+__device__ __forceinline__ void er_image_v_t_cell(EFields cb, int NX, int fs, int idx) {
   const int k = idx / NX, x = idx - k * NX;
   const int g = (fs - 1 - k) * NX + x;
   cb.vx[(fs + 1 + k) * NX + x] += cb.vx[g];
@@ -326,14 +359,20 @@ __global__ void er_image_v_t(EFields cb, int NX, int fs) {
   cb.vz[g] = 0.f;
 }
 
+template <int R>
+__global__ void er_image_v_t(EFields cb, int NX, int fs) {
+  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx < R * NX) er_image_v_t_cell<R>(cb, NX, fs, idx);
+}
+
 // the source-point cotangent into srcrow row t ((sxxb + szzb)[src] for a
 // pressure source, vzb[src] for a force), then the step's source undone on
-// the primal
-__global__ void er_src(EFields f, EFields cb, const float* __restrict__ bzm,
-                       const float* __restrict__ w, int t, const long long* __restrict__ src,
-                       int nsrc, float* __restrict__ srcrow, int NX, int R, float dt,
-                       int force) {
-  if (threadIdx.x != 0 || blockIdx.x != 0) return;
+// the primal; one thread
+__device__ __forceinline__ void er_src_cells(EFields f, EFields cb, const float* __restrict__ bzm,
+                                             const float* __restrict__ w, int t,
+                                             const long long* __restrict__ src, int nsrc,
+                                             float* __restrict__ srcrow, int NX, int R, float dt,
+                                             int force) {
   for (int k = 0; k < nsrc; ++k) {
     const int c = (int)src[2 * k] * NX + (int)src[2 * k + 1];
     srcrow[(size_t)t * nsrc + k] = force ? cb.vz[c] : cb.sxx[c] + cb.szz[c];
@@ -341,10 +380,138 @@ __global__ void er_src(EFields f, EFields cb, const float* __restrict__ bzm,
   e_src_apply(f, bzm, w, t, src, nsrc, NX, R, dt, force, -1.f);
 }
 
-// R-S, one thread per cell: strains of the carried v, sigma_t
-// reconstructed in place, imaging, and the dbar planes of the transposed
-// stress update (q: exx, ezz, D+z vx, D+x vz); dual: the duals of
-// m_vx_x, m_vz_z, m_vx_z, m_vz_x; g: glam, gl2m, gmuxz planes
+__global__ void er_src(EFields f, EFields cb, const float* __restrict__ bzm,
+                       const float* __restrict__ w, int t, const long long* __restrict__ src,
+                       int nsrc, float* __restrict__ srcrow, int NX, int R, float dt,
+                       int force) {
+  if (threadIdx.x == 0 && blockIdx.x == 0)
+    er_src_cells(f, cb, bzm, w, t, src, nsrc, srcrow, NX, R, dt, force);
+}
+
+// The reverse cell bodies, one arithmetic for the split passes (er_s1 +
+// er_s2, er_v1 + er_v2) and the fused ones (er_s, er_v): products that
+// could contract into an FMA are fused or rounded explicitly (fmaf,
+// __fmul_rn), so the two agree bitwise however each is compiled.
+
+// R-S at one cell: the dbar values of the transposed stress update, q =
+// (exx, ezz, D+z vx, D+x vz), from the stress cotangents sb, zb, xb
+// through the duals of m_vx_x, m_vz_z, m_vx_z, m_vz_x (read from din,
+// written to dout when kWrite)
+template <bool kWrite>
+__device__ __forceinline__ void rs_dbar(float sb, float zb, float xb, float lam, float l2m,
+                                        float mu, const float* din, float* dout, int c,
+                                        size_t pl, int sx, int sz, const EProf& pr, float dt,
+                                        float q[4]) {
+  q[0] = dt * fmaf(l2m, sb, lam * zb);
+  q[1] = dt * fmaf(l2m, zb, lam * sb);
+  q[2] = __fmul_rn(dt, mu) * xb;
+  q[3] = q[2];
+  if (sx >= 0) {
+    q[0] = e_dual<kWrite>(din, dout, c, pr.ax[sx], pr.bx[sx], q[0]);
+    q[3] = e_dual<kWrite>(din + 3 * pl, dout + 3 * pl, c, pr.ax[sx], pr.bx[sx], q[3]);
+  }
+  if (sz >= 0) {
+    q[1] = e_dual<kWrite>(din + pl, dout + pl, c, pr.az[sz], pr.bz[sz], q[1]);
+    q[2] = e_dual<kWrite>(din + 2 * pl, dout + 2 * pl, c, pr.az[sz], pr.bz[sz], q[2]);
+  }
+}
+
+// R-S at one cell from the strains of the carried v: sigma_t
+// reconstructed (sxx, szz, sxz in place) and the imaging of lam, l2m, muxz
+// (g0, g1, g2 in place)
+__device__ __forceinline__ void rs_cell(float exx, float ezz, float hz, float hx, float sb,
+                                        float zb, float xb, float lam, float l2m, float mu,
+                                        int sx, int sz, const EProf& pr, float dt, float& sxx,
+                                        float& szz, float& sxz, float& g0, float& g1,
+                                        float& g2) {
+  sxx = fmaf(-dt, fmaf(l2m, exx, lam * ezz), sxx);
+  szz = fmaf(-dt, fmaf(l2m, ezz, lam * exx), szz);
+  sxz = fmaf(-__fmul_rn(dt, mu), hz + hx, sxz);
+  // the strains at zero memory: (1 + a) d on the strips
+  float exe = exx, eze = ezz, hze = hz, hxe = hx;
+  if (sx >= 0) {
+    exe = fmaf(pr.ax[sx], exx, exx);
+    hxe = fmaf(pr.ax[sx], hx, hx);
+  }
+  if (sz >= 0) {
+    eze = fmaf(pr.az[sz], ezz, ezz);
+    hze = fmaf(pr.az[sz], hz, hz);
+  }
+  g0 = fmaf(dt, fmaf(eze, sb, exe * zb), g0);      // lam
+  g1 = fmaf(dt, fmaf(exe, sb, eze * zb), g1);      // l2m
+  g2 = fmaf(__fmul_rn(dt, hze + hxe), xb, g2);     // muxz
+}
+
+// the transposed stress update's stencils over dbar planes q (row stride
+// ld, index s): vxb += -D+x q_exx - D-z q_hz, vzb += -D+z q_ezz - D-x q_hx
+template <int R>
+__device__ __forceinline__ void rs_trans(const float* qexx, const float* qezz, const float* qhz,
+                                         const float* qhx, int s, int ld, const ETaps& tp,
+                                         float& vxb, float& vzb) {
+  vxb -= dplus<R>(qexx, s, 1, tp.x) + dminus<R>(qhz, s, ld, tp.z);
+  vzb -= dplus<R>(qezz, s, ld, tp.z) + dminus<R>(qhx, s, 1, tp.x);
+}
+
+// R-V at one cell: the dbar values of the transposed velocity update, q =
+// (D+x sxx, D-z sxz, D-x sxz, D+z szz), from vb, wb through the duals of
+// m_sxx_x, m_sxz_z, m_sxz_x, m_szz_z
+template <bool kWrite>
+__device__ __forceinline__ void rv_dbar(float vb, float wb, float bxm, float bzm, const float* din,
+                                        float* dout, int c, size_t pl, int sx, int sz,
+                                        const EProf& pr, float dt, float q[4]) {
+  const float ux = __fmul_rn(dt, bxm) * vb, uz = __fmul_rn(dt, bzm) * wb;
+  q[0] = q[1] = ux;
+  q[2] = q[3] = uz;
+  if (sx >= 0) {
+    q[0] = e_dual<kWrite>(din, dout, c, pr.ax[sx], pr.bx[sx], q[0]);
+    q[2] = e_dual<kWrite>(din + 2 * pl, dout + 2 * pl, c, pr.ax[sx], pr.bx[sx], q[2]);
+  }
+  if (sz >= 0) {
+    q[1] = e_dual<kWrite>(din + pl, dout + pl, c, pr.az[sz], pr.bz[sz], q[1]);
+    q[3] = e_dual<kWrite>(din + 3 * pl, dout + 3 * pl, c, pr.az[sz], pr.bz[sz], q[3]);
+  }
+}
+
+// R-V at one cell from the stress derivatives of sigma_t (a1 = D+x sxx,
+// a2 = D-z sxz -> vx; b1 = D-x sxz, b2 = D+z szz -> vz): v_{t-1/2}
+// reconstructed (vx, vz in place) and the imaging of bx, bz (g3, g4)
+__device__ __forceinline__ void rv_cell(float a1, float a2, float b1, float b2, float vb,
+                                        float wb, float bxm, float bzm, int sx, int sz,
+                                        const EProf& pr, float dt, float& vx, float& vz,
+                                        float& g3, float& g4) {
+  vx = fmaf(-__fmul_rn(dt, bxm), a1 + a2, vx);
+  vz = fmaf(-__fmul_rn(dt, bzm), b1 + b2, vz);
+  float a1e = a1, a2e = a2, b1e = b1, b2e = b2;
+  if (sx >= 0) {
+    a1e = fmaf(pr.ax[sx], a1, a1);
+    b1e = fmaf(pr.ax[sx], b1, b1);
+  }
+  if (sz >= 0) {
+    a2e = fmaf(pr.az[sz], a2, a2);
+    b2e = fmaf(pr.az[sz], b2, b2);
+  }
+  g3 = fmaf(__fmul_rn(dt, a1e + a2e), vb, g3);
+  g4 = fmaf(__fmul_rn(dt, b1e + b2e), wb, g4);
+}
+
+// sxxb += -D-x q1; szzb += -D-z q4; sxzb += -D+z q2 - D+x q3
+template <int R>
+__device__ __forceinline__ void rv_trans(const float* q1, const float* q2, const float* q3,
+                                         const float* q4, int s, int ld, const ETaps& tp,
+                                         float& sxxb, float& szzb, float& sxzb) {
+  sxxb -= dminus<R>(q1, s, 1, tp.x);
+  szzb -= dminus<R>(q4, s, ld, tp.z);
+  sxzb -= dplus<R>(q2, s, ld, tp.z) + dplus<R>(q3, s, 1, tp.x);
+}
+
+// ---- the split passes (the per-step engine's, and escan_reverse's
+// variant "split"): one thread a cell, the dbar planes through device
+// memory
+
+// R-S, first pass: strains of the carried v, sigma_t reconstructed in
+// place, imaging, and the four zero-halo dbar planes q (exx, ezz, D+z vx,
+// D+x vz in the vx..szz slots); dual: the 4 duals, updated in place; g:
+// glam, gl2m, gmuxz planes
 template <int R>
 __global__ void er_s1(EFields f, EFields cb, float* __restrict__ dual, EFields q,
                       float* __restrict__ g, EMats mt, EProf pr, int NZ, int NX, int S,
@@ -356,67 +523,36 @@ __global__ void er_s1(EFields f, EFields cb, float* __restrict__ dual, EFields q
   const int i = (z + R) * ld + x + R;
   const int c = z * NX + x;
   const size_t pl = (size_t)NZ * NX;
-  const float dt = tp.dt;
   const float exx = dminus<R>(f.vx, i, 1, tp.x);
   const float ezz = dminus<R>(f.vz, i, ld, tp.z);
   const float hz = dplus<R>(f.vx, i, ld, tp.z);
   const float hx = dplus<R>(f.vz, i, 1, tp.x);
-  const float l2m = mt.l2m[c], lam = mt.lam[c], mu = mt.muxz[c];
-  f.sxx[i] -= dt * fmaf(l2m, exx, lam * ezz);
-  f.szz[i] -= dt * fmaf(l2m, ezz, lam * exx);
-  f.sxz[i] -= dt * mu * (hz + hx);
-
   const float sb = cb.sxx[c], zb = cb.szz[c], xb = cb.sxz[c];
+  const float lam = mt.lam[c], l2m = mt.l2m[c], mu = mt.muxz[c];
   const int sx = e_strip(x, NX, S), sz = e_strip(z, NZ, S);
-  // the strains at zero memory: (1 + a) d on the strips
-  float exe = exx, eze = ezz, hze = hz, hxe = hx;
-  if (sx >= 0) {
-    exe = fmaf(pr.ax[sx], exx, exx);
-    hxe = fmaf(pr.ax[sx], hx, hx);
-  }
-  if (sz >= 0) {
-    eze = fmaf(pr.az[sz], ezz, ezz);
-    hze = fmaf(pr.az[sz], hz, hz);
-  }
-  g[c] = fmaf(dt, fmaf(eze, sb, exe * zb), g[c]);            // lam
-  g[pl + c] = fmaf(dt, fmaf(exe, sb, eze * zb), g[pl + c]);  // l2m
-  g[2 * pl + c] = fmaf(dt * (hze + hxe), xb, g[2 * pl + c]); // muxz
-
-  float qexx = dt * fmaf(l2m, sb, lam * zb);
-  float qezz = dt * fmaf(l2m, zb, lam * sb);
-  float qhz = dt * mu * xb, qhx = qhz;
-  if (sx >= 0) {
-    qexx = e_dual(dual, c, pr.ax[sx], pr.bx[sx], qexx);
-    qhx = e_dual(dual + 3 * pl, c, pr.ax[sx], pr.bx[sx], qhx);
-  }
-  if (sz >= 0) {
-    qezz = e_dual(dual + pl, c, pr.az[sz], pr.bz[sz], qezz);
-    qhz = e_dual(dual + 2 * pl, c, pr.az[sz], pr.bz[sz], qhz);
-  }
-  q.vx[i] = qexx;
-  q.vz[i] = qezz;
-  q.sxx[i] = qhz;
-  q.szz[i] = qhx;
+  rs_cell(exx, ezz, hz, hx, sb, zb, xb, lam, l2m, mu, sx, sz, pr, tp.dt, f.sxx[i], f.szz[i],
+          f.sxz[i], g[c], g[pl + c], g[2 * pl + c]);
+  float qv[4];
+  rs_dbar<true>(sb, zb, xb, lam, l2m, mu, dual, dual, c, pl, sx, sz, pr, tp.dt, qv);
+  q.vx[i] = qv[0];
+  q.vz[i] = qv[1];
+  q.sxx[i] = qv[2];
+  q.szz[i] = qv[3];
 }
 
-// the transposed stress update's stencils: vxb += -D+x q_exx - D-z q_hz,
-// vzb += -D+z q_ezz - D-x q_hx
 template <int R>
 __global__ void er_s2(EFields cb, EFields q, int NZ, int NX, ETaps tp) {
   const int x = blockIdx.x * blockDim.x + threadIdx.x;
   const int z = blockIdx.y * blockDim.y + threadIdx.y;
   if (x >= NX || z >= NZ) return;
   const int ld = NX + 2 * R;
-  const int i = (z + R) * ld + x + R;
   const int c = z * NX + x;
-  cb.vx[c] -= dplus<R>(q.vx, i, 1, tp.x) + dminus<R>(q.sxx, i, ld, tp.z);
-  cb.vz[c] -= dplus<R>(q.vz, i, ld, tp.z) + dminus<R>(q.szz, i, 1, tp.x);
+  rs_trans<R>(q.vx, q.vz, q.sxx, q.szz, (z + R) * ld + x + R, ld, tp, cb.vx[c], cb.vz[c]);
 }
 
-// R-V, one thread per cell: stress derivatives of sigma_t, v_{t-1/2}
-// reconstructed in place, imaging of bx, bz (g planes 3 and 4), and the
-// dbar planes of the transposed velocity update (q: D+x sxx, D-z sxz,
-// D-x sxz, D+z szz); dual: the duals of m_sxx_x, m_sxz_z, m_sxz_x, m_szz_z
+// R-V, first pass: stress derivatives of sigma_t, v_{t-1/2} reconstructed
+// in place, imaging of bx, bz, and the dbar planes (q1..q4 in the vx..szz
+// slots); dual: the 4 duals of stage V's memories
 template <int R>
 __global__ void er_v1(EFields f, EFields cb, float* __restrict__ dual, EFields q,
                       float* __restrict__ g, EMats mt, EProf pr, int NZ, int NX, int S,
@@ -428,63 +564,280 @@ __global__ void er_v1(EFields f, EFields cb, float* __restrict__ dual, EFields q
   const int i = (z + R) * ld + x + R;
   const int c = z * NX + x;
   const size_t pl = (size_t)NZ * NX;
-  const float dt = tp.dt;
-  const float a1 = dplus<R>(f.sxx, i, 1, tp.x);    // -> vx
-  const float a2 = dminus<R>(f.sxz, i, ld, tp.z);  // -> vx
-  const float b1 = dminus<R>(f.sxz, i, 1, tp.x);   // -> vz
-  const float b2 = dplus<R>(f.szz, i, ld, tp.z);   // -> vz
-  const float bxm = mt.bx[c], bzm = mt.bz[c];
-  f.vx[i] -= dt * bxm * (a1 + a2);
-  f.vz[i] -= dt * bzm * (b1 + b2);
-
+  const float a1 = dplus<R>(f.sxx, i, 1, tp.x);
+  const float a2 = dminus<R>(f.sxz, i, ld, tp.z);
+  const float b1 = dminus<R>(f.sxz, i, 1, tp.x);
+  const float b2 = dplus<R>(f.szz, i, ld, tp.z);
   const float vb = cb.vx[c], wb = cb.vz[c];
+  const float bxm = mt.bx[c], bzm = mt.bz[c];
   const int sx = e_strip(x, NX, S), sz = e_strip(z, NZ, S);
-  float a1e = a1, a2e = a2, b1e = b1, b2e = b2;
-  if (sx >= 0) {
-    a1e = fmaf(pr.ax[sx], a1, a1);
-    b1e = fmaf(pr.ax[sx], b1, b1);
-  }
-  if (sz >= 0) {
-    a2e = fmaf(pr.az[sz], a2, a2);
-    b2e = fmaf(pr.az[sz], b2, b2);
-  }
-  g[3 * pl + c] = fmaf(dt * (a1e + a2e), vb, g[3 * pl + c]);
-  g[4 * pl + c] = fmaf(dt * (b1e + b2e), wb, g[4 * pl + c]);
-
-  const float ux = dt * bxm * vb, uz = dt * bzm * wb;
-  float q1 = ux, q2 = ux, q3 = uz, q4 = uz;
-  if (sx >= 0) {
-    q1 = e_dual(dual, c, pr.ax[sx], pr.bx[sx], q1);
-    q3 = e_dual(dual + 2 * pl, c, pr.ax[sx], pr.bx[sx], q3);
-  }
-  if (sz >= 0) {
-    q2 = e_dual(dual + pl, c, pr.az[sz], pr.bz[sz], q2);
-    q4 = e_dual(dual + 3 * pl, c, pr.az[sz], pr.bz[sz], q4);
-  }
-  q.vx[i] = q1;
-  q.vz[i] = q2;
-  q.sxx[i] = q3;
-  q.szz[i] = q4;
+  rv_cell(a1, a2, b1, b2, vb, wb, bxm, bzm, sx, sz, pr, tp.dt, f.vx[i], f.vz[i], g[3 * pl + c],
+          g[4 * pl + c]);
+  float qv[4];
+  rv_dbar<true>(vb, wb, bxm, bzm, dual, dual, c, pl, sx, sz, pr, tp.dt, qv);
+  q.vx[i] = qv[0];
+  q.vz[i] = qv[1];
+  q.sxx[i] = qv[2];
+  q.szz[i] = qv[3];
 }
 
-// sxxb += -D-x q1; szzb += -D-z q4; sxzb += -D+z q2 - D+x q3
 template <int R>
 __global__ void er_v2(EFields cb, EFields q, int NZ, int NX, ETaps tp) {
   const int x = blockIdx.x * blockDim.x + threadIdx.x;
   const int z = blockIdx.y * blockDim.y + threadIdx.y;
   if (x >= NX || z >= NZ) return;
   const int ld = NX + 2 * R;
-  const int i = (z + R) * ld + x + R;
   const int c = z * NX + x;
-  cb.sxx[c] -= dminus<R>(q.vx, i, 1, tp.x);
-  cb.szz[c] -= dminus<R>(q.szz, i, ld, tp.z);
-  cb.sxz[c] -= dplus<R>(q.vz, i, ld, tp.z) + dplus<R>(q.sxx, i, 1, tp.x);
+  rv_trans<R>(q.vx, q.vz, q.sxx, q.szz, (z + R) * ld + x + R, ld, tp, cb.sxx[c], cb.szz[c],
+              cb.sxz[c]);
+}
+
+// ---- the fused passes (escan_reverse's variant "fused"): a block of
+// TX x kFRows threads owns a TZ x TX tile of cells, TZ / kFRows rows a
+// thread. Shared memory holds planes of (TZ + 2R) x (TX + 2R) cells, the
+// tile and its R reach: the stencil inputs (v for er_s, the stresses for
+// er_v) and the four dbar planes, which the block computes over the reach
+// too (the neighbouring tile computes the same values there, with the same
+// arithmetic) and reads back through the transposed stencils. Only the
+// cross of the tile and its reach along z and along x is filled: no
+// stencil reads the corners. q outside the grid is 0, as the split passes'
+// zero halo; the duals are read from din and written to dout (ping-pong),
+// since a tile's reach reads the old duals of cells that their own tile
+// updates in the same launch. Every global load of a thread, its own
+// cells' read-modify-write operands included, is issued before the block's
+// one barrier; after it the pass reads only shared memory and registers.
+
+constexpr int kFRows = 8;          // threads along z
+constexpr int kFTZ = 16, kFTX = 32;  // the tile escan_reverse runs
+
+template <int R, int TZ, int TX>
+struct FTile {
+  static constexpr int kPer = TZ / kFRows;  // own rows a thread
+  static constexpr int kThreads = TX * kFRows;
+  static constexpr int W = TX + 2 * R;  // shared row stride
+  static constexpr int N = (TZ + 2 * R) * W;
+  static constexpr int kReachZ = 2 * R * TX;           // reach rows above and below
+  static constexpr int kReach = kReachZ + TZ * 2 * R;  // and columns left and right
+  static_assert(TZ % kFRows == 0 && kThreads <= 1024, "tile");
+  // reach cell k -> its (row, column) in the shared plane
+  __device__ static void reach(int k, int& rz, int& rx) {
+    if (k < kReachZ) {
+      const int r = k / TX;
+      rz = r < R ? r : TZ + r;
+      rx = R + k - r * TX;
+    } else {
+      k -= kReachZ;
+      const int r = k / (2 * R), e = k - r * (2 * R);
+      rz = R + r;
+      rx = e < R ? e : TX + e;
+    }
+  }
+};
+
+// shared bytes of a fused pass: er_s 2 + 4 planes, er_v 3 + 4
+template <int R, int TZ, int TX>
+constexpr int fused_smem(int planes) {
+  return planes * FTile<R, TZ, TX>::N * (int)sizeof(float);
+}
+
+template <int R, int TZ, int TX>
+__global__ void __launch_bounds__(TX * kFRows, 1024 / (TX * kFRows))
+    er_s(EFields f, EFields cb, const float* din, float* dout, float* __restrict__ g, EMats mt,
+         EProf pr, int NZ, int NX, int S, ETaps tp) {
+  dep_wait();
+  dep_trigger();
+  using T = FTile<R, TZ, TX>;
+  constexpr int P = T::kPer;
+  extern __shared__ float sm[];
+  float* svx = sm;
+  float* svz = sm + T::N;
+  float* qexx = sm + 2 * T::N;
+  float* qezz = sm + 3 * T::N;
+  float* qhz = sm + 4 * T::N;
+  float* qhx = sm + 5 * T::N;
+  const int z0 = blockIdx.y * TZ, x0 = blockIdx.x * TX;
+  const int ld = NX + 2 * R;
+  const size_t pl = (size_t)NZ * NX;
+  const float dt = tp.dt;
+  const int x = x0 + threadIdx.x;
+  // own cells: the dbar inputs and the read-modify-write operands
+  float sb[P], zb[P], xb[P], lam[P], l2m[P], mu[P];
+  float sxx[P], szz[P], sxz[P], g0[P], g1[P], g2[P], vxb[P], vzb[P];
+#pragma unroll
+  for (int j = 0; j < P; ++j) {
+    const int rz = R + threadIdx.y + j * kFRows, z = z0 + rz - R;
+    const int s = rz * T::W + threadIdx.x + R, i = (z + R) * ld + x + R;
+    const bool halo = z < NZ + R && x < NX + R;
+    svx[s] = halo ? f.vx[i] : 0.f;
+    svz[s] = halo ? f.vz[i] : 0.f;
+    float qv[4] = {0.f, 0.f, 0.f, 0.f};
+    if (z < NZ && x < NX) {
+      const int c = z * NX + x;
+      sb[j] = cb.sxx[c], zb[j] = cb.szz[c], xb[j] = cb.sxz[c];
+      lam[j] = mt.lam[c], l2m[j] = mt.l2m[c], mu[j] = mt.muxz[c];
+      sxx[j] = f.sxx[i], szz[j] = f.szz[i], sxz[j] = f.sxz[i];
+      g0[j] = g[c], g1[j] = g[pl + c], g2[j] = g[2 * pl + c];
+      vxb[j] = cb.vx[c], vzb[j] = cb.vz[c];
+      rs_dbar<true>(sb[j], zb[j], xb[j], lam[j], l2m[j], mu[j], din, dout, c, pl,
+                    e_strip(x, NX, S), e_strip(z, NZ, S), pr, dt, qv);
+    }
+    qexx[s] = qv[0], qezz[s] = qv[1], qhz[s] = qv[2], qhx[s] = qv[3];
+  }
+  for (int k = threadIdx.y * TX + threadIdx.x; k < T::kReach; k += T::kThreads) {
+    int rz, rx;
+    T::reach(k, rz, rx);
+    const int z = z0 + rz - R, xr = x0 + rx - R, s = rz * T::W + rx;
+    const bool halo = z >= -R && z < NZ + R && xr >= -R && xr < NX + R;
+    svx[s] = halo ? f.vx[(z + R) * ld + xr + R] : 0.f;
+    svz[s] = halo ? f.vz[(z + R) * ld + xr + R] : 0.f;
+    float qv[4] = {0.f, 0.f, 0.f, 0.f};
+    if (z >= 0 && z < NZ && xr >= 0 && xr < NX) {
+      const int c = z * NX + xr;
+      rs_dbar<false>(cb.sxx[c], cb.szz[c], cb.sxz[c], mt.lam[c], mt.l2m[c], mt.muxz[c], din,
+                     dout, c, pl, e_strip(xr, NX, S), e_strip(z, NZ, S), pr, dt, qv);
+    }
+    qexx[s] = qv[0], qezz[s] = qv[1], qhz[s] = qv[2], qhx[s] = qv[3];
+  }
+  __syncthreads();
+#pragma unroll
+  for (int j = 0; j < P; ++j) {
+    const int rz = R + threadIdx.y + j * kFRows, z = z0 + rz - R;
+    if (z >= NZ || x >= NX) continue;
+    const int s = rz * T::W + threadIdx.x + R, c = z * NX + x, i = (z + R) * ld + x + R;
+    const float exx = dminus<R>(svx, s, 1, tp.x);
+    const float ezz = dminus<R>(svz, s, T::W, tp.z);
+    const float hz = dplus<R>(svx, s, T::W, tp.z);
+    const float hx = dplus<R>(svz, s, 1, tp.x);
+    rs_cell(exx, ezz, hz, hx, sb[j], zb[j], xb[j], lam[j], l2m[j], mu[j], e_strip(x, NX, S),
+            e_strip(z, NZ, S), pr, dt, sxx[j], szz[j], sxz[j], g0[j], g1[j], g2[j]);
+    rs_trans<R>(qexx, qezz, qhz, qhx, s, T::W, tp, vxb[j], vzb[j]);
+    f.sxx[i] = sxx[j], f.szz[i] = szz[j], f.sxz[i] = sxz[j];
+    g[c] = g0[j], g[pl + c] = g1[j], g[2 * pl + c] = g2[j];
+    cb.vx[c] = vxb[j], cb.vz[c] = vzb[j];
+  }
+}
+
+template <int R, int TZ, int TX>
+__global__ void __launch_bounds__(TX * kFRows, 1024 / (TX * kFRows))
+    er_v(EFields f, EFields cb, const float* din, float* dout, float* __restrict__ g, EMats mt,
+         EProf pr, int NZ, int NX, int S, ETaps tp) {
+  dep_wait();
+  dep_trigger();
+  using T = FTile<R, TZ, TX>;
+  constexpr int P = T::kPer;
+  extern __shared__ float sm[];
+  float* ssxx = sm;
+  float* sszz = sm + T::N;
+  float* ssxz = sm + 2 * T::N;
+  float* q1 = sm + 3 * T::N;
+  float* q2 = sm + 4 * T::N;
+  float* q3 = sm + 5 * T::N;
+  float* q4 = sm + 6 * T::N;
+  const int z0 = blockIdx.y * TZ, x0 = blockIdx.x * TX;
+  const int ld = NX + 2 * R;
+  const size_t pl = (size_t)NZ * NX;
+  const float dt = tp.dt;
+  const int x = x0 + threadIdx.x;
+  float vb[P], wb[P], bxm[P], bzm[P];
+  float vx[P], vz[P], g3[P], g4[P], sxxb[P], szzb[P], sxzb[P];
+#pragma unroll
+  for (int j = 0; j < P; ++j) {
+    const int rz = R + threadIdx.y + j * kFRows, z = z0 + rz - R;
+    const int s = rz * T::W + threadIdx.x + R, i = (z + R) * ld + x + R;
+    const bool halo = z < NZ + R && x < NX + R;
+    ssxx[s] = halo ? f.sxx[i] : 0.f;
+    sszz[s] = halo ? f.szz[i] : 0.f;
+    ssxz[s] = halo ? f.sxz[i] : 0.f;
+    float qv[4] = {0.f, 0.f, 0.f, 0.f};
+    if (z < NZ && x < NX) {
+      const int c = z * NX + x;
+      vb[j] = cb.vx[c], wb[j] = cb.vz[c], bxm[j] = mt.bx[c], bzm[j] = mt.bz[c];
+      vx[j] = f.vx[i], vz[j] = f.vz[i], g3[j] = g[3 * pl + c], g4[j] = g[4 * pl + c];
+      sxxb[j] = cb.sxx[c], szzb[j] = cb.szz[c], sxzb[j] = cb.sxz[c];
+      rv_dbar<true>(vb[j], wb[j], bxm[j], bzm[j], din, dout, c, pl, e_strip(x, NX, S),
+                    e_strip(z, NZ, S), pr, dt, qv);
+    }
+    q1[s] = qv[0], q2[s] = qv[1], q3[s] = qv[2], q4[s] = qv[3];
+  }
+  for (int k = threadIdx.y * TX + threadIdx.x; k < T::kReach; k += T::kThreads) {
+    int rz, rx;
+    T::reach(k, rz, rx);
+    const int z = z0 + rz - R, xr = x0 + rx - R, s = rz * T::W + rx;
+    const bool halo = z >= -R && z < NZ + R && xr >= -R && xr < NX + R;
+    const int i = (z + R) * ld + xr + R;
+    ssxx[s] = halo ? f.sxx[i] : 0.f;
+    sszz[s] = halo ? f.szz[i] : 0.f;
+    ssxz[s] = halo ? f.sxz[i] : 0.f;
+    float qv[4] = {0.f, 0.f, 0.f, 0.f};
+    if (z >= 0 && z < NZ && xr >= 0 && xr < NX) {
+      const int c = z * NX + xr;
+      rv_dbar<false>(cb.vx[c], cb.vz[c], mt.bx[c], mt.bz[c], din, dout, c, pl,
+                     e_strip(xr, NX, S), e_strip(z, NZ, S), pr, dt, qv);
+    }
+    q1[s] = qv[0], q2[s] = qv[1], q3[s] = qv[2], q4[s] = qv[3];
+  }
+  __syncthreads();
+#pragma unroll
+  for (int j = 0; j < P; ++j) {
+    const int rz = R + threadIdx.y + j * kFRows, z = z0 + rz - R;
+    if (z >= NZ || x >= NX) continue;
+    const int s = rz * T::W + threadIdx.x + R, c = z * NX + x, i = (z + R) * ld + x + R;
+    const float a1 = dplus<R>(ssxx, s, 1, tp.x);
+    const float a2 = dminus<R>(ssxz, s, T::W, tp.z);
+    const float b1 = dminus<R>(ssxz, s, 1, tp.x);
+    const float b2 = dplus<R>(sszz, s, T::W, tp.z);
+    rv_cell(a1, a2, b1, b2, vb[j], wb[j], bxm[j], bzm[j], e_strip(x, NX, S), e_strip(z, NZ, S),
+            pr, dt, vx[j], vz[j], g3[j], g4[j]);
+    rv_trans<R>(q1, q2, q3, q4, s, T::W, tp, sxxb[j], szzb[j], sxzb[j]);
+    f.vx[i] = vx[j], f.vz[i] = vz[j];
+    g[3 * pl + c] = g3[j], g[4 * pl + c] = g4[j];
+    cb.sxx[c] = sxxb[j], cb.szz[c] = szzb[j], cb.sxz[c] = sxzb[j];
+  }
+}
+
+// The fused step's glue. The prologue, one block: the receiver-cotangent
+// injection, the stress-image transpose, then the source-point cotangent
+// and the source undone (thread 0), each phase after a barrier.
+constexpr int kProThreads = 1024;
+
+template <int R>
+__global__ void __launch_bounds__(kProThreads) er_prologue(
+    EFields f, EFields cb, const float* __restrict__ ybar, int t,
+    const long long* __restrict__ rcv, const int* __restrict__ chain, int nrec, int rec_v,
+    const float* __restrict__ bzm, const float* __restrict__ w,
+    const long long* __restrict__ src, int nsrc, float* __restrict__ srcrow, int NX, float dt,
+    int force, int fs) {
+  dep_wait();
+  dep_trigger();
+  er_inject_rows(cb, ybar, t, rcv, chain, nrec, NX, rec_v, threadIdx.x, kProThreads);
+  if (fs >= 0) {
+    __syncthreads();
+#pragma unroll 4
+    for (int idx = threadIdx.x; idx < R * NX; idx += kProThreads)
+      er_image_s_t_cell<R>(cb, NX, fs, idx);
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) er_src_cells(f, cb, bzm, w, t, src, nsrc, srcrow, NX, R, dt, force);
+}
+
+// between the fused passes, with the free surface: the stress image of
+// the primal and the velocity-image transpose of the cotangents (disjoint
+// arrays, so one launch)
+template <int R>
+__global__ void er_image_mid(EFields f, EFields cb, int NX, int fs) {
+  dep_wait();
+  dep_trigger();
+  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx < (R + 1) * NX) e_image_s_cell<R>(f, NX, fs, idx);
+  if (idx < R * NX) er_image_v_t_cell<R>(cb, NX, fs, idx);
 }
 
 // nf consecutive ring rows (n_ring cells each) imposed on fields a, b, c
 // (the first nf of them), from row or zeros when row is null
 __global__ void e_impose(float* a, float* b, float* c, int nf, const int* __restrict__ ring,
                          const float* __restrict__ row, int n_ring, int NX, int R) {
+  dep_wait();
+  dep_trigger();
   const int k = blockIdx.x * blockDim.x + threadIdx.x;
   if (k >= nf * n_ring) return;
   const int fi = k / n_ring;
@@ -585,6 +938,80 @@ void estage_rv(EFields f, EFields cb, float* dual, EFields q, float* g, EMats mt
                                                           ring_row, n_ring, NX, R);
   if (fs >= 0) e_image_v<R><<<e_blocks(R * NX), kESmallBlock, 0, st>>>(f, NX, fs);
   er_v2<R><<<e_cell_grid(NZ, NX), kECellBlock, 0, st>>>(cb, q, NZ, NX, tp);
+}
+
+// the fused passes' launch plan, as the caller states it (the wrapper's
+// escan_tile_plan): the tile and the larger pass's shared bytes
+struct EPlan {
+  int tz, tx, smem;
+};
+
+// let the fused passes take their shared bytes (above the default 48 KB
+// only by this attribute); a refusal is an error
+template <int R, int TZ, int TX>
+inline int fused_allow_smem() {
+  cudaError_t e = cudaFuncSetAttribute(reinterpret_cast<const void*>(er_s<R, TZ, TX>),
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       fused_smem<R, TZ, TX>(6));
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(reinterpret_cast<const void*>(er_v<R, TZ, TX>),
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             fused_smem<R, TZ, TX>(7));
+  return (int)e;
+}
+
+// launch kernel on st, with dep as a programmatic dependent of the kernel
+// before it (its launch overlaps that kernel's drain; dep_wait orders the
+// memory), else in plain stream order
+template <typename... P, typename... A>
+inline void launch_dep(int dep, void (*kernel)(P...), dim3 grid, dim3 block, size_t smem,
+                       cudaStream_t st, A... args) {
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = dep;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = block;
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  cudaLaunchKernelEx(&cfg, kernel, args...);
+}
+
+// Reverse step t on the fused passes: the prologue (injection, stress-image
+// transpose, source-point cotangent and source undone), er_s, the stress
+// rings imposed, with the free surface the stress image and the
+// velocity-image transpose, er_v, the velocity rings imposed and re-imaged:
+// 5 launches, 7 with the free surface. er_s and er_v run ahead of the
+// impose and image launches that the split step runs between its passes:
+// those write only the primal fields (the mid image also the velocity
+// cotangents, which er_s writes before it and er_v reads after it), and
+// the second passes read only dbar planes. din / dout: the 8 dual planes
+// read and written, swapped by the caller each step. dep: each launch a
+// programmatic dependent of the one before it (launch_dep).
+template <int R, int TZ, int TX>
+void estage_rfused(EFields f, EFields cb, const float* din, float* dout, float* g, EMats mt,
+                   EProf pr, const float* w, const float* ybar, int t, const long long* src,
+                   int nsrc, const long long* rcv, int nrec, const int* chain, float* srcrow,
+                   const int* ring, const float* ring_row, int n_ring, int NZ, int NX, int S,
+                   int fs, int force, int rec_v, const ETaps& tp, int dep, cudaStream_t st) {
+  const size_t pl = (size_t)NZ * NX;
+  const dim3 grid((NX + TX - 1) / TX, (NZ + TZ - 1) / TZ), block(TX, kFRows);
+  const dim3 small(kESmallBlock);
+  launch_dep(dep, er_prologue<R>, dim3(1), dim3(kProThreads), 0, st, f, cb, ybar, t, rcv,
+             chain, nrec, rec_v, mt.bz, w, src, nsrc, srcrow, NX, tp.dt, force, fs);
+  launch_dep(dep, er_s<R, TZ, TX>, grid, block, fused_smem<R, TZ, TX>(6), st, f, cb, din,
+             dout, g, mt, pr, NZ, NX, S, tp);
+  launch_dep(dep, e_impose, dim3(e_blocks(3 * n_ring)), small, 0, st, f.sxx, f.szz, f.sxz, 3,
+             ring, ring_row ? ring_row + 2 * n_ring : nullptr, n_ring, NX, R);
+  if (fs >= 0)
+    launch_dep(dep, er_image_mid<R>, dim3(e_blocks((R + 1) * NX)), small, 0, st, f, cb, NX, fs);
+  launch_dep(dep, er_v<R, TZ, TX>, grid, block, fused_smem<R, TZ, TX>(7), st, f, cb,
+             din + 4 * pl, dout + 4 * pl, g, mt, pr, NZ, NX, S, tp);
+  launch_dep(dep, e_impose, dim3(e_blocks(2 * n_ring)), small, 0, st, f.vx, f.vz,
+             (float*)nullptr, 2, ring, ring_row, n_ring, NX, R);
+  if (fs >= 0) launch_dep(dep, e_image_v<R>, dim3(e_blocks(R * NX)), small, 0, st, f, NX, fs);
 }
 
 }  // namespace

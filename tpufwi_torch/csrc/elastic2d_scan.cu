@@ -12,12 +12,27 @@
 // Design. On the TPU each sweep is one pallas_call with the five fields,
 // the cotangents, the gradient accumulators and the CPML strips in VMEM.
 // Here they live in device memory (one 399x1749 fp32 plane is 2.8 MB; a
-// forward step touches ~13 planes, a reverse step ~27, within reach of the
-// 50 MB L2) and a host loop in this file launches each time step as a few
-// ordered kernels on the caller's stream: 4-6 per forward step, 9-12 per
-// reverse step (free surface off / on). The receivers are gathered and
-// injected by index, not by the TPU kernel's one-hot matmul, so there is
-// no receiver-slab contract.
+// forward step touches ~13 planes, a reverse step ~27, more than the 50 MB
+// L2) and a host loop in this file launches each time step as a few
+// ordered kernels on the caller's stream: 4-6 per forward step (free
+// surface off / on). The receivers are gathered and injected by index, not
+// by the TPU kernel's one-hot matmul, so there is no receiver-slab contract.
+//
+// The reverse has two variants of its cell passes, equal bitwise (the
+// header's per-cell bodies are shared):
+//   variant 0, fused (the default): er_s and er_v, a shared-memory tile
+//     each, compute the dbar values over their tile and its R reach and
+//     apply the transposed stencils from shared memory, as the TPU kernel
+//     keeps them in VMEM scratch; no dbar plane in device memory, the dual
+//     planes ping-ponged between two sets. 5 launches per reverse step, 7
+//     with the free surface (estage_rfused), each a programmatic dependent
+//     of the one before it: its launch and block scheduling overlap that
+//     kernel's drain, and it waits for that kernel's memory before it
+//     touches any (dependent launch off: plain stream order).
+//   variant 1, split: the per-step engine's passes (er_s1 + er_s2, er_v1 +
+//     er_v2, one thread a cell) with four zero-halo dbar planes in device
+//     memory. 8 launches per reverse step, 12 with the free surface
+//     (estage_rs + estage_rv).
 //
 // Tape. Row t holds rings(state after step t) of vx, vz, sxx, szz, sxz,
 // fp32, taken after the sources and the stress image (a surface source sits
@@ -26,9 +41,10 @@
 // VMEM. 5 x 16,352 cells = 327 KB per step at 399x1749, order 8.
 //
 // What bounds it: the stencils' operations in principle (~4 D+/D- of 2R
-// taps per stage and cell), but at this size the launches and the one-block
-// source and receiver-injection kernels. Left for later: fusing the small
-// kernels, shared-memory tiling, strip-only CPML storage, a persistent
+// taps per stage and cell), but at this size the device memory traffic of
+// the cell passes (the reverse step streams ~45 planes), the launches and
+// the one-block source and receiver-injection kernels. Left for later:
+// tiling the forward's passes, strip-only CPML storage, a persistent
 // kernel or a CUDA graph per step.
 
 #include "elastic2d_kernels.cuh"
@@ -56,26 +72,44 @@ int forward_loop(EMats mt, EProf pr, const float* w, const long long* src,
   return (int)cudaGetLastError();
 }
 
-template <int R>
-int reverse_loop(EMats mt, EProf pr, const float* w, const float* ybar, const float* ring_tape,
-                 const int* ring, const long long* src, const long long* rcv, float* g,
-                 float* srcrow, float* ws, int* chain, int NZ, int NX, int S, int nt, int nsrc,
-                 int nrec, int fs, int n_ring, int force, int rec_v, const ETaps& tp,
-                 cudaStream_t st) {
+// variant 0: the fused passes on TZ x TX tiles (the plan must say so); 1:
+// the split passes
+template <int R, int TZ, int TX>
+int reverse_loop(int variant, const EPlan& plan, int dep, EMats mt, EProf pr, const float* w,
+                 const float* ybar, const float* ring_tape, const int* ring,
+                 const long long* src, const long long* rcv, float* g, float* srcrow, float* ws,
+                 int* chain, int NZ, int NX, int S, int nt, int nsrc, int nrec, int fs,
+                 int n_ring, int force, int rec_v, const ETaps& tp, cudaStream_t st) {
   const size_t hp = (size_t)(NZ + 2 * R) * (NX + 2 * R);
   const size_t pl = (size_t)NZ * NX;
   EFields f{ws, ws + hp, ws + 2 * hp, ws + 3 * hp, ws + 4 * hp};
-  float* qb = ws + 5 * hp;
-  EFields q{qb, qb + hp, qb + 2 * hp, qb + 3 * hp, nullptr};
-  float* cbb = ws + 9 * hp;
+  if (variant == 0) {
+    if (plan.tz != TZ || plan.tx != TX || plan.smem != fused_smem<R, TZ, TX>(7))
+      return (int)cudaErrorInvalidValue;
+    if (const int err = fused_allow_smem<R, TZ, TX>()) return err;
+  } else if (variant != 1) {
+    return (int)cudaErrorInvalidValue;
+  }
+  // split: 4 halo dbar planes after the fields; fused: none
+  float* cbb = ws + (variant == 0 ? 5 : 9) * hp;
   EFields cb{cbb, cbb + pl, cbb + 2 * pl, cbb + 3 * pl, cbb + 4 * pl};
   float* dual = cbb + 5 * pl;
+  float* qb = ws + 5 * hp;
+  EFields q{qb, qb + hp, qb + 2 * hp, qb + 3 * hp, nullptr};
   er_chain<<<e_blocks(nrec), kESmallBlock, 0, st>>>(rcv, nrec, chain);
   for (int t = nt - 1; t >= 0; --t) {
     const float* row = t >= 1 ? ring_tape + (size_t)(t - 1) * 5 * n_ring : nullptr;
-    estage_rs<R>(f, cb, dual, q, g, mt, pr, w, ybar, t, src, nsrc, rcv, nrec, chain, srcrow,
-                 ring, row, n_ring, NZ, NX, S, fs, force, rec_v, tp, st);
-    estage_rv<R>(f, cb, dual, q, g, mt, pr, ring, row, n_ring, NZ, NX, S, fs, tp, st);
+    if (variant == 0) {
+      // two sets of 8 dual planes, swapped each step
+      const int k = (nt - 1 - t) & 1;
+      estage_rfused<R, TZ, TX>(f, cb, dual + k * 8 * pl, dual + (1 - k) * 8 * pl, g, mt, pr, w,
+                               ybar, t, src, nsrc, rcv, nrec, chain, srcrow, ring, row, n_ring,
+                               NZ, NX, S, fs, force, rec_v, tp, dep, st);
+    } else {
+      estage_rs<R>(f, cb, dual, q, g, mt, pr, w, ybar, t, src, nsrc, rcv, nrec, chain, srcrow,
+                   ring, row, n_ring, NZ, NX, S, fs, force, rec_v, tp, st);
+      estage_rv<R>(f, cb, dual, q, g, mt, pr, ring, row, n_ring, NZ, NX, S, fs, tp, st);
+    }
     if (t == nt - 1) {
       const cudaError_t err = cudaGetLastError();
       if (err != cudaSuccess) return (int)err;
@@ -106,24 +140,33 @@ int tpufwi_escan_forward(const float* lam, const float* l2m, const float* muxz,
                                          S, nt, nsrc, nrec, fs, n_ring, force, rec_v, tp, st))
 }
 
-// ws: 5 halo planes holding the final fields (set by the caller), 4 zeroed
-// halo dbar planes, 5 zeroed compact cotangent planes, 8 zeroed compact
-// dual planes; g: 5 zeroed compact gradient planes (lam, l2m, muxz, bx,
-// bz); srcrow (nt, nsrc); chain: 2 * nrec ints; ring_tape (nt, 5 n_ring).
+// ws: 5 halo planes holding the final fields (set by the caller), then for
+// variant 1 (split) 4 zeroed halo dbar planes, then 5 zeroed compact
+// cotangent planes and zeroed compact dual planes, 8 (split) or 16 (fused:
+// two sets); g: 5 zeroed compact gradient planes (lam, l2m, muxz, bx, bz);
+// srcrow (nt, nsrc); chain: 2 * nrec ints; ring_tape (nt, 5 n_ring).
+// variant 0 (fused) runs on the plan (tz, tx, smem: the tile and the
+// larger pass's shared bytes), which must be the one the library was
+// built for, each launch a programmatic dependent of the one before it
+// when dep is 1; variant 1 (split) reads neither.
 int tpufwi_escan_reverse(const float* lam, const float* l2m, const float* muxz,
                          const float* bxm, const float* bzm, const float* az, const float* bz,
                          const float* ax, const float* bx, const float* w, const float* ybar,
                          const float* ring_tape, const int* ring, const long long* src,
                          const long long* rcv, float* g, float* srcrow, float* ws, int* chain,
                          int NZ, int NX, int S, int R, int nt, int nsrc, int nrec, int fs,
-                         int n_ring, int force, int rec_v, const float* taps, void* stream) {
+                         int n_ring, int force, int rec_v, int variant, int tz, int tx, int smem,
+                         int dep, const float* taps, void* stream) {
   const ETaps tp = load_etaps(taps);
   const EMats mt{lam, l2m, muxz, bxm, bzm};
   const EProf pr{az, bz, ax, bx};
+  const EPlan plan{tz, tx, smem};
   auto st = static_cast<cudaStream_t>(stream);
-  TPUFWI_EDISPATCH_R(R, reverse_loop<kR>(mt, pr, w, ybar, ring_tape, ring, src, rcv, g, srcrow,
-                                         ws, chain, NZ, NX, S, nt, nsrc, nrec, fs, n_ring, force,
-                                         rec_v, tp, st))
+  // (parenthesised: the template's commas are not the macro's)
+  TPUFWI_EDISPATCH_R(R, (reverse_loop<kR, kFTZ, kFTX>(variant, plan, dep, mt, pr, w, ybar,
+                                                        ring_tape, ring, src, rcv, g, srcrow, ws,
+                                                        chain, NZ, NX, S, nt, nsrc, nrec, fs,
+                                                        n_ring, force, rec_v, tp, st)))
 }
 
 const char* tpufwi_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }

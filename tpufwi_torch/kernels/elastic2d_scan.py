@@ -11,7 +11,14 @@ reconstructs the fields backwards from the final ones and the tape while it
 runs the exact transposed stages, and returns the five material-field
 cotangents (lam, lam2mu, mu_xz, buoy_x, buoy_z, before the source-point
 chain and the valid-region mask) and the per-step source-point cotangent
-``srcrow``. The CUDA sources are ``csrc/elastic2d_scan.cu`` and
+``srcrow``. The reverse's cell passes come in two variants
+(``escan_reverse(..., variant=)``), equal bitwise: ``"fused"`` (the
+default) runs one shared-memory tiled kernel per stage, which computes the
+dbar values over its tile and their R reach and applies the transposed
+stencils from shared memory (launch plan ``escan_tile_plan``, tile walk
+``fused_tiles``); ``"split"`` runs the per-step engine's two passes per
+stage with the dbar planes in device memory. The CUDA sources are
+``csrc/elastic2d_scan.cu`` and
 ``csrc/elastic2d_kernels.cuh``, built at first use by one nvcc call into
 the elastic library (``kernels/build.py``), with the per-step kernels of
 ``csrc/elastic2d_step.cu`` (``kernels/elastic2d_step.py``).
@@ -29,6 +36,7 @@ wrapper counts the time steps its kernel ran, and stays 0 on the CPU path.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -52,7 +60,7 @@ LIBRARY = Library(
     lambda lib: declare_all(lib, {
         # pointers..., ints..., taps and dt, stream
         "tpufwi_escan_forward": (16, 11),
-        "tpufwi_escan_reverse": (19, 11),
+        "tpufwi_escan_reverse": (19, 16),
         # the per-step kernels (kernels/elastic2d_step.py)
         "tpufwi_estep_v": (11, 5),
         "tpufwi_estep_s": (17, 11),
@@ -62,7 +70,69 @@ LIBRARY = Library(
 )
 
 _FWD_HALO, _FWD_COMPACT = 5, 8  # fields; CPML memories
-_REV_HALO, _REV_COMPACT = 9, 13  # fields + dbar planes; cotangents + duals
+# the reverse's workspace per variant: halo planes (fields, then the split
+# passes' dbar planes) and compact ones (cotangents, then the duals: the
+# fused passes ping-pong two sets of 8)
+_REV_PLANES = {"fused": (5, 5 + 16), "split": (9, 5 + 8)}
+VARIANTS = ("fused", "split")  # the C entry point's variant 0 and 1
+REVERSE_DEFAULT = "fused"
+
+# the fused passes' tile (csrc/elastic2d_kernels.cuh kFTZ x kFTX cells, a
+# block of TILE_X x TILE_ROWS threads, TILE_Z / TILE_ROWS rows a thread)
+# and their shared planes of (TILE_Z + 2R) x (TILE_X + 2R) fp32: er_s v
+# and the four dbar planes, er_v the three stresses and the four dbar
+# planes
+TILE_Z, TILE_X, TILE_ROWS = 16, 32, 8
+FUSED_PLANES = {"er_s": 6, "er_v": 7}
+
+
+class EscanPlan(NamedTuple):
+    """Launch plan of the fused passes: a block owns a ``tz`` x ``tx`` tile
+    of cells; ``smem`` is the larger pass's shared bytes."""
+    tz: int
+    tx: int
+    smem: int
+
+
+def fused_smem(R: int, kernel: str) -> int:
+    """Shared bytes of a fused pass at radius R."""
+    return 4 * FUSED_PLANES[kernel] * (TILE_Z + 2 * R) * (TILE_X + 2 * R)
+
+
+def escan_tile_plan(grid: Grid) -> EscanPlan:
+    """The fused passes' plan for ``grid`` (the C side rejects any other)."""
+    return EscanPlan(TILE_Z, TILE_X, max(fused_smem(grid.radius, k) for k in FUSED_PLANES))
+
+
+def fused_tiles(plan: EscanPlan, NZ: int, NX: int):
+    """The fused passes' tile walk over an (NZ, NX) grid: for each block
+    (blockIdx.y, blockIdx.x), its own cells ``(z0, z1, x0, x1)``, clipped
+    to the grid (a ragged last tile holds fewer)."""
+    for z0 in range(0, NZ, plan.tz):
+        for x0 in range(0, NX, plan.tx):
+            yield z0, min(z0 + plan.tz, NZ), x0, min(x0 + plan.tx, NX)
+
+
+def reach_cells(plan: EscanPlan, R: int):
+    """The shared-plane (row, column) that each reach index k of a fused
+    pass fills (``FTile::reach``): 2R rows of ``tx`` above and below the
+    tile, then ``tz`` rows of 2R columns left and right of it. Their union
+    with the tile is the cross that the passes' stencils read."""
+    out = []
+    for k in range(2 * R * plan.tx + plan.tz * 2 * R):
+        if k < 2 * R * plan.tx:
+            r = k // plan.tx
+            out.append((r if r < R else plan.tz + r, R + k - r * plan.tx))
+        else:
+            k -= 2 * R * plan.tx
+            r, e = divmod(k, 2 * R)
+            out.append((R + r, e if e < R else plan.tx + e))
+    return out
+
+
+def reverse_launches(variant: str, free_surface: bool) -> int:
+    """Kernel launches of one reverse step (csrc/elastic2d_scan.cu)."""
+    return {"fused": (5, 7), "split": (8, 12)}[variant][int(free_surface)]
 
 
 def load_library():
@@ -301,10 +371,18 @@ escan_forward.launches = 0
 
 
 def escan_reverse(grid, dt, mats, profiles, wavelet, ybar, tape, finals, src_idx, rcv_idx,
-                  source_type="pressure", record="v"):
+                  source_type="pressure", record="v", variant=REVERSE_DEFAULT,
+                  dependent_launch=True):
     """Whole elastic reverse (see ``escan_reverse_plain`` for the
     contract): ``tape`` (nt, 5 n_ring) and ``finals`` as
-    ``escan_forward(..., tape=True)`` returns them."""
+    ``escan_forward(..., tape=True)`` returns them. ``variant``: one of
+    ``VARIANTS`` (module note); the fused passes' launches are each a
+    programmatic dependent of the one before it (its launch overlapping
+    that kernel's drain) unless ``dependent_launch`` is False (plain stream
+    order, in which a profiler's kernel spans do not overlap). The plain
+    version has neither."""
+    if variant not in VARIANTS:
+        raise ValueError(f"escan_reverse: variant must be one of {VARIANTS}, not {variant!r}")
     if mats[0].device.type == "cpu":
         return escan_reverse_plain(grid, dt, mats, profiles, wavelet, ybar, tape, finals,
                                    src_idx, rcv_idx, source_type, record)
@@ -325,7 +403,8 @@ def escan_reverse(grid, dt, mats, profiles, wavelet, ybar, tape, finals, src_idx
         raise ValueError(f"escan_reverse: five fp32 final fields {(NZ, NX)} expected")
     lib = load_library()
     halo = (NZ + 2 * R) * (NX + 2 * R)
-    ws = torch.zeros(_REV_HALO * halo + _REV_COMPACT * NZ * NX, dtype=torch.float32, device=dev)
+    n_halo, n_compact = _REV_PLANES[variant]
+    ws = torch.zeros(n_halo * halo + n_compact * NZ * NX, dtype=torch.float32, device=dev)
     fields = ws[: 5 * halo].view(5, NZ + 2 * R, NX + 2 * R)
     for k, f in enumerate(finals):
         fields[k, R:-R, R:-R] = f
@@ -340,6 +419,7 @@ def escan_reverse(grid, dt, mats, profiles, wavelet, ybar, tape, finals, src_idx
             src_idx.data_ptr(), rcv_idx.data_ptr(), g.data_ptr(), srcrow.data_ptr(),
             ws.data_ptr(), chain.data_ptr(),
             NZ, NX, S, R, nt, nsrc, nrec, fs, n_ring, force, rec_v,
+            VARIANTS.index(variant), *escan_tile_plan(grid), int(dependent_launch),
             taps_arg(grid, dt), torch.cuda.current_stream().cuda_stream,
         )
     raise_on(lib, "escan_reverse", err)

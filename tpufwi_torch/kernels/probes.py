@@ -16,8 +16,11 @@ runs them; the scripts that run them are ``bench/exp_2d_scanres.py`` and
   K (5 or 25), tap k at k % 9 - 4 along axis k % 3 (y, z, x) and at -4
   along the other two, as the reference's scratch slices read; a read
   outside the block reads 0 (``run_vmem_tap_bw``).
-- ``stream_copy(p, variant)``: ``p + 1`` (``copy1`` and its block sweep);
-  the variants differ only in how the card walks the array.
+- ``stream_copy(p, variant, out)``: ``p + 1`` (``copy1`` and its block
+  sweep); the variants differ only in how the card walks the array. The
+  default ``"oneshot"`` is a one-shot grid, one float4 a thread;
+  ``"bulk"`` a TMA pipeline (bulk loads on an mbarrier into a
+  shared ring, bulk stores); ``"vec4"`` the flat grid-stride loop.
 - ``stream_step5(pp, p, c2, staged)``: ``(pp + p) + c2`` (``staged``:
   ``(pp + c2) + p``, the order of ``step5s``), then per (16, 64) block the
   8-row halo slabs of ``p`` along y, then along z (``step5``, ``step5s``).
@@ -54,11 +57,13 @@ TAP_KS = (5, 25)
 R_TAP = 4
 TAP_LO = (4, 4, 4)  # y, z, x margins below the block
 TAP_HI = (2, 3, 4)  # and above it
-# stream_copy's variants and the (y, z) tile each walks: (NY, NZ) must be
-# multiples of it
+# stream_copy's variants (the C entry point's codes 0-5) and the (y, z)
+# tile each walks: (NY, NZ) must be multiples of it; the flat ones (1, 1)
+# need 16-byte aligned arrays
 COPY_TILES = {"vec4": (1, 1), "rows16x64": (16, 64), "rows8x128": (8, 128),
-              "rows4x256": (4, 256)}
+              "rows4x256": (4, 256), "oneshot": (1, 1), "bulk": (1, 1)}
 COPY_VARIANTS = tuple(COPY_TILES)
+COPY_DEFAULT = "oneshot"
 
 
 def _declare(lib):
@@ -216,12 +221,13 @@ def stream_copy_plain(p):
     return p + 1.0
 
 
-def stream_copy(p, variant: str = "vec4"):
-    """``p + 1``, a new array, the card walking it as ``variant`` (one of
-    ``COPY_VARIANTS``: a flat float4 loop, or scalar rows over the
-    reference's (16, 64), (8, 128) or (4, 256) (y, z) tiles)."""
+def stream_copy(p, variant: str = COPY_DEFAULT, out=None):
+    """``p + 1``, into ``out`` (a new array when None), the card walking it
+    as ``variant`` (one of ``COPY_VARIANTS``: flat float4 walks, or scalar
+    rows over the reference's (16, 64), (8, 128) or (4, 256) (y, z)
+    tiles)."""
     if p.device.type == "cpu":
-        return stream_copy_plain(p)
+        return stream_copy_plain(p) if out is None else torch.add(p, 1.0, out=out)
     require_cuda("stream_copy", p)
     if variant not in COPY_VARIANTS:
         raise ValueError(f"stream_copy: variant must be one of {COPY_VARIANTS}")
@@ -230,9 +236,13 @@ def stream_copy(p, variant: str = "vec4"):
     by, bz = COPY_TILES[variant]
     if NY % by or NZ % bz:
         raise ValueError(f"stream_copy: {variant} needs (NY, NZ) multiples of ({by}, {bz})")
-    out = torch.empty_like(p)
-    if code == 0 and p.data_ptr() % 16:
-        raise ValueError("stream_copy: vec4 needs a 16-byte aligned array")
+    if out is None:
+        out = torch.empty_like(p)
+    elif (out.shape != p.shape or out.dtype != p.dtype or out.device != p.device
+          or not out.is_contiguous()):
+        raise ValueError("stream_copy: out must be a contiguous array like p")
+    if (by, bz) == (1, 1) and (p.data_ptr() % 16 or out.data_ptr() % 16):
+        raise ValueError(f"stream_copy: {variant} needs 16-byte aligned arrays")
     lib = LIBRARY.load()
     err = lib.tpufwi_stream_copy(p.data_ptr(), out.data_ptr(), NY, NZ, NX, code, _stream(p))
     raise_on(lib, "stream_copy", err)
