@@ -13,13 +13,20 @@ Phases, each printing its own lines; any failure exits non-zero.
      the card, at the main path's padded grid (399 x 1749), nt = 512, one
      shot: the whole-scan forward (snapshot and ring tapes, illumination),
      the snapshot and rings reverses, and the three single-step kernels
-     step by step;
+     step by step; the forward's and the snapshot reverse's fused steps
+     (their default: one shared-memory tiled kernel a step) against their
+     split ones (variant="split") in the same calls, in every forward mode,
+     with dependent launches and in plain stream order, bitwise on every
+     output, with ms a step (CUDA events), host us a step (nt-slope) and
+     torch.profiler's device us and launches a step;
      then (phase_kstep_kernels) the K-step forward and reverse (K = 4), the
      merged reverse step and the bare leapfrog, each fed its plain
      version's state, with a free-surface case at nt = 128; ms per call and
      per step (CUDA events), host ms per call, device ms (torch.profiler)
   4. shot: one shot's forward + adjoint and illumination at nt = 4842 (the
-     illumination on the forward kernel, beside its plain version)
+     illumination on the forward kernel, beside its plain version); the
+     snapshot forward + adjoint and the illumination also on the split
+     steps, the gradient bitwise against the fused steps' one
   5. gradients: one shot at nt = 4842 through the CUDA engines:
      cuda_scanres against cuda_scansnap, cuda_step against cuda_scanres,
      cuda_kstep against cuda_step and the merged cuda_step against the
@@ -726,6 +733,81 @@ def time_step_kernels(args, w, si, ri, nt, final):
                          ("fused_adjoint_step", adjoint))}, nt)
 
 
+SCANRES_MODES = {  # scanres_forward's modes: keyword arguments, and no receivers
+    "snap": (dict(tape="snap"), False), "rings": (dict(tape="rings"), False),
+    "no tape": (dict(tape=None), False), "illumination": (dict(illum=True), True)}
+SCANRES_RUNS = (("fused", "fused", True), ("fused in stream order", "fused", False),
+                ("split", "split", True))
+SCANRES_PATTERN = r"::((?:fwd|rev|ring|illum|scan)_\w+?)[<(]"
+
+
+def scanres_variants(args, w, si, ri, ybar, snap_p, nt):
+    """Rows 1 and 2's fused steps (with dependent launches and in plain
+    stream order) and split ones in the same calls: {kernel: {mode: {run:
+    (ms a step by CUDA events, host ms a call)}}}, and whether every fused
+    run equals the split one bitwise on every output (forward: seis, tape,
+    final fields, illumination; reverse: gbar, lam_src)."""
+    ks, _ = kernel_modules()
+    calls = {"scanres_forward": {
+        mode: functools.partial(ks.scanres_forward, *args, w, si, ri[:0] if bare else ri, **kw)
+        for mode, (kw, bare) in SCANRES_MODES.items()},
+        "scanres_reverse_snap": {"snap": functools.partial(ks.scanres_reverse_snap, *args, ybar,
+                                                           snap_p, si, ri)}}
+    times, bitwise = {}, True
+    for kernel, modes in calls.items():
+        times[kernel] = {}
+        for mode, fn in modes.items():
+            times[kernel][mode], outs = {}, {}
+            for label, v, dep in SCANRES_RUNS:
+                run = functools.partial(fn, variant=v, dependent_launch=dep)
+                ev_ms, host_ms = events_ms(run, 3)
+                times[kernel][mode][label] = (ev_ms / nt, host_ms)
+                outs[label] = run()
+            for label in outs:
+                bitwise &= all((a is None and b is None) or torch.equal(a, b)
+                               for a, b in zip(outs[label], outs["split"]))
+    return times, bitwise
+
+
+def host_us_per_step(run, nts=(32, 288)):
+    """Host us a step of ``run(nt)`` (its launches enqueued, not waited
+    for): the slope between two nt of the least of three calls each, every
+    call right after a synchronize (so the launch queue is empty and the
+    per-call constant cancels)."""
+    best = {}
+    for n in nts:
+        run(n)
+        torch.cuda.synchronize()
+        for _ in range(3):
+            t0 = time.perf_counter()
+            run(n)
+            dt = time.perf_counter() - t0
+            torch.cuda.synchronize()
+            best[n] = min(best.get(n, dt), dt)
+    return 1e6 * (best[nts[1]] - best[nts[0]]) / (nts[1] - nts[0])
+
+
+def scanres_profile(args, w, si, ri, ybar, snap_p, nt):
+    """Per variant, of one scanres_forward with the snapshot tape and one
+    scanres_reverse_snap over the first nt steps, in plain stream order
+    (with dependent launches a kernel's profiler span includes its wait):
+    torch.profiler's rows [(kernel, device us a step, launches a step)], and
+    the host enqueue us a step (host_us_per_step, the default run's: with
+    dependent launches)."""
+    ks, _ = kernel_modules()
+    calls = {"scanres_forward": lambda n, **kw: ks.scanres_forward(
+                 *args, w[:n], si, ri, tape="snap", **kw),
+             "scanres_reverse_snap": lambda n, **kw: ks.scanres_reverse_snap(
+                 *args, ybar[:n], snap_p[:n], si, ri, **kw)}
+    out = {}
+    for kernel, fn in calls.items():
+        for v in ks.VARIANTS:
+            rows = device_us_per_step(lambda: fn(nt, variant=v, dependent_launch=False), nt,
+                                      SCANRES_PATTERN, calls=True)
+            out[(kernel, v)] = (rows, host_us_per_step(lambda n: fn(n, variant=v)))
+    return out
+
+
 def phase_kernels(dev, smi, nz=351, nx=1701, nt=NT_CHECK, quiet=False):
     if not quiet:  # torch's and the kernels' first-use costs out of the timings
         phase_kernels(dev, smi, nz, nx, nt=8, quiet=True)
@@ -792,6 +874,9 @@ def phase_kernels(dev, smi, nz=351, nx=1701, nt=NT_CHECK, quiet=False):
 
     if quiet:
         return entries
+    var_times, var_bitwise = scanres_variants(args, w, si, ri, ybar, snap_p, nt)
+    nt_prof = 64
+    prof = scanres_profile(args, w, si, ri, ybar, snap_p, nt_prof)
     print(f"[kernels] {smi}: grid {NZ}x{NX} nt {nt}, ms per step, kernel (plain; bound):",
           flush=True)
     for e in entries:
@@ -806,6 +891,21 @@ def phase_kernels(dev, smi, nz=351, nx=1701, nt=NT_CHECK, quiet=False):
         dev_ms = "not measured" if dev_us is None else f"{dev_us / 1e3:.5f} ms"
         print(f"[kernels]   {name}: host time per call {host_ms:.5f} ms, device time per call "
               f"(torch.profiler) {dev_ms}", flush=True)
+    plan = ks.scanres_tile_plan(grid)
+    for kernel, modes in var_times.items():
+        for mode, runs in modes.items():
+            print(f"[kernels] {kernel} variants, {mode}, nt {nt} (tile {plan.tz} x {plan.tx}): "
+                  + "; ".join(f"{label} {ms:.5f} ms a step by CUDA events, host {host:.3f} ms a "
+                              "call" for label, (ms, host) in runs.items()), flush=True)
+    print("[kernels] every fused run == split bitwise (forward: seis, tape, final fields, "
+          f"illumination; reverse: gbar, lam_src): {var_bitwise}", flush=True)
+    for (kernel, v), (rows, host) in prof.items():
+        shown = ", ".join(f"{k} {us:.2f} (x{n:.4g})" for k, us, n in rows) or "not measured"
+        print(f"[kernels] torch.profiler device us per step (launches per step), nt {nt_prof}, "
+              f"{kernel} {v} in stream order: {shown}; device us a step "
+              f"{sum(r[1] for r in rows):.2f}, launches a step {sum(r[2] for r in rows):.4g} "
+              f"(planned {ks.step_launches(kernel, v, 'snap')} a step); host enqueue "
+              f"{host:.2f} us a step (nt-slope 32 to 288)", flush=True)
     print(f"[kernels] rel err {json.dumps(errs)}; snapshot max err {snap_err:.3e} vs 1 bf16 "
           f"ulp {snap_ulp:.3e}", flush=True)
     for group in errs.values():
@@ -814,6 +914,8 @@ def phase_kernels(dev, smi, nz=351, nx=1701, nt=NT_CHECK, quiet=False):
                 fail(f"{name} disagrees with the plain version: {err:.3e} > {TOL[name]:.0e}")
     if not snap_err <= snap_ulp:
         fail(f"snapshot tape disagrees with the plain version: {snap_err:.3e} > {snap_ulp:.3e}")
+    if not var_bitwise:
+        fail("the fused scanres steps are not bitwise equal to the split ones")
     return entries
 
 
@@ -1022,14 +1124,16 @@ def phase_kstep_kernels(dev, smi, nt=NT_CHECK, nt_fs=128, quiet=False):
     rel_fs, _, _, _ = kstep_kernels_vs_plain(fs_args, fs_w, fs_si, fs_ri, nt_fs)
     times = time_kstep_kernels(args, w, si, ri, nt, final)
     grid = args[0]
-    # the same steps as ordinary launches: the whole-scan kernels' device
-    # time per step (no launch gaps) against the K-step kernels'
+    # the same steps as ordinary launches: the whole-scan kernels' split
+    # passes' device time per step (no launch gaps) against the K-step
+    # kernels', which run the same phases
     m = min(64, nt)
     wp = w[:m].contiguous()
-    seis_m, tape_m, pen_m, last_m, _ = ks.scanres_forward(*args, wp, si, ri, tape="rings")
+    seis_m, tape_m, pen_m, last_m, _ = ks.scanres_forward(*args, wp, si, ri, tape="rings",
+                                                          variant="split")
     scan_us = {
         "forward": device_us_per_step(
-            lambda: ks.scanres_forward(*args, wp, si, ri, tape="rings"), m,
+            lambda: ks.scanres_forward(*args, wp, si, ri, tape="rings", variant="split"), m,
             r"::((?:fwd|ring)_\w+?)[<(]"),
         "reverse": device_us_per_step(
             lambda: ks.scanres_reverse(*args, wp, seis_m.contiguous(), tape_m, pen_m, last_m,
@@ -1092,31 +1196,41 @@ def phase_shot(dev, smi):
     args, w, si, ri, (vp, dt, f0, c_max) = one_shot(dev, t_max=4.0)
     nt = w.shape[0]
 
-    def fwd_adj():
-        seis, tape, _, _, _ = ks.scanres_forward(*args, w, si, ri, tape="snap")
-        return ks.scanres_reverse_snap(*args, seis, tape, si, ri)
+    def fwd_adj(variant="fused"):
+        seis, tape, _, _, _ = ks.scanres_forward(*args, w, si, ri, tape="snap", variant=variant)
+        return ks.scanres_reverse_snap(*args, seis, tape, si, ri, variant=variant)
 
     def fwd_adj_rings():
         seis, tape, ppen, plast, _ = ks.scanres_forward(*args, w, si, ri, tape="rings")
         return ks.scanres_reverse(*args, w, seis, tape, ppen, plast, si, ri)
 
     ms, (g, _) = timed_ms(fwd_adj, reps=2)
+    split_ms, (g_s, _) = timed_ms(functools.partial(fwd_adj, "split"), reps=2)
+    ms2, _ = timed_ms(fwd_adj, reps=2)  # fused, split, fused: the drift shows
     rings_ms, (gr, _) = timed_ms(fwd_adj_rings, reps=2)
     fwd_ms, _ = timed_ms(lambda: ks.scanres_forward(*args, w, si, ri, tape=None))
     prop = AcousticPropagator(args[0], dt, f0, c_max, device=dev)
     launched = ks.scanres_forward.launches
     illum_ms, illum = timed_ms(lambda: prop.illumination(vp, Geometry(si, ri), w), reps=2)
     launched = ks.scanres_forward.launches - launched
+    il_split_ms, _ = timed_ms(lambda: ks.scanres_forward(*args, w, si, ri[:0], illum=True,
+                                                         variant="split"), reps=2)
     plain_ms, out_p = timed_ms(
         lambda: ks.scanres_forward_plain(*args, w, si, ri[:0], illum=True), warmup=False)
     err = rel_err(illum, out_p[4][args[0].interior])
     if not all(bool(torch.isfinite(x).all()) for x in (g, gr, illum)):
         fail("one-shot gradient or illumination is not finite")
+    print(f"[shot] {smi}: nt {nt}: snapshot forward+adjoint, fused steps {ms / 1e3:.4f} / "
+          f"{ms2 / 1e3:.4f} s/shot, split steps {split_ms / 1e3:.4f} (same gradient bitwise: "
+          f"{bool(torch.equal(g, g_s))}); illumination split steps {il_split_ms / 1e3:.4f} "
+          "s/shot", flush=True)
     print(f"[shot] {smi}: nt {nt}: forward+adjoint {ms / 1e3:.3f} s/shot (snapshot), "
           f"{rings_ms / 1e3:.3f} s/shot (rings), tape-free forward {fwd_ms / 1e3:.3f} s/shot, "
           f"illumination (kernel) {illum_ms / 1e3:.4f} s/shot ({prop.resolve_impl(nt)}, "
           f"{launched} forward-kernel steps in 3 calls), its plain version {plain_ms / 1e3:.3f} "
           f"s/shot, error {err:.3e} of max (tolerance {TOL['illum']:.0e})", flush=True)
+    if not torch.equal(g, g_s):
+        fail("the one-shot gradient differs between the fused and split scanres steps")
     if launched != 3 * nt:
         fail(f"the illumination launched the forward kernel for {launched} steps, not 3 x {nt}")
     if not err <= TOL["illum"]:

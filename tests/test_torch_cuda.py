@@ -35,8 +35,8 @@ def device():
     return torch.device("cuda")
 
 
-def _case(device, order, nsrc, free_surface, dup, nt=64, in_ring=False):
-    grid = Grid(shape=(48, 72), h=(10.0, 12.0), pml=10, order=order,
+def _case(device, order, nsrc, free_surface, dup, nt=64, in_ring=False, shape=(48, 72)):
+    grid = Grid(shape=shape, h=(10.0, 12.0), pml=10, order=order,
                 free_surface=free_surface)
     c_max, f0 = 2500.0, 14.0
     dt = grid.cfl_dt(c_max, safety=0.7)
@@ -91,6 +91,67 @@ def test_kernels_match_plain(device, order, nsrc, free_surface, dup):
     assert _rel(g, g_p) <= 1e-4 and _rel(ls, ls_p) <= 1e-4
 
 
+# physical shapes: padded 76 x 100 at order 8 (no axis a multiple of the
+# fused passes' 16 x 32 tile) and 64 x 128 (whole tiles)
+@pytest.mark.parametrize("shape", [(48, 72), (36, 100)])
+@pytest.mark.parametrize("free_surface", [False, True])
+@pytest.mark.parametrize("order", [2, 4, 8])
+def test_scanres_fused_matches_split_bitwise(device, order, free_surface, shape):
+    """scanres_forward's and scanres_reverse_snap's fused steps, with
+    dependent launches and in plain stream order, against their split ones,
+    bitwise: the forward in each mode (no tape, snapshot tape, ring tape,
+    illumination without receivers) on every output, with three sources
+    (one in the ring, one on the surface row with the free surface) and
+    coinciding receivers; the reverse on gbar and lam_src, fed the fused
+    forward's snapshot tape and a random receiver cotangent."""
+    args, w, (si, ri) = _case(device, order, 3, free_surface, True, nt=96, in_ring=True,
+                              shape=shape)
+    nt = w.shape[0]
+    modes = [dict(tape=None), dict(tape="snap"), dict(tape="rings"),
+             dict(rcv=ri[:0], illum=True)]
+    f0 = ks.scanres_forward.launches
+    for mode in modes:
+        kw = dict(mode)
+        rcv = kw.pop("rcv", ri)
+        split = ks.scanres_forward(*args, w, si, rcv, variant="split", **kw)
+        assert float(split[3].abs().max()) > 0.0
+        for dep in (True, False):
+            fused = ks.scanres_forward(*args, w, si, rcv, variant="fused", dependent_launch=dep,
+                                       **kw)
+            for name, a, b in zip(("seis", "tape", "penult", "last", "illum"), fused, split):
+                assert (a is None) == (b is None), (mode, name)
+                assert a is None or torch.equal(a, b), (mode, dep, name)
+    torch.cuda.synchronize()
+    assert ks.scanres_forward.launches - f0 == 3 * len(modes) * nt
+    seis, snap, _, _, _ = ks.scanres_forward(*args, w, si, ri, tape="snap")
+    gen = torch.Generator(device=device).manual_seed(order)
+    ybar = torch.randn(seis.shape, generator=gen, device=device)
+    r0 = ks.scanres_reverse_snap.launches
+    g_s, ls_s = ks.scanres_reverse_snap(*args, ybar, snap, si, ri, variant="split")
+    assert float(g_s.abs().max()) > 0.0
+    for dep in (True, False):
+        g_f, ls_f = ks.scanres_reverse_snap(*args, ybar, snap, si, ri, variant="fused",
+                                            dependent_launch=dep)
+        assert torch.equal(g_f, g_s), (dep, float((g_f - g_s).abs().max()))
+        assert torch.equal(ls_f, ls_s), dep
+    torch.cuda.synchronize()
+    assert ks.scanres_reverse_snap.launches - r0 == 3 * nt
+
+
+def test_scanres_tiles_script_on_the_card(device):
+    """The tile sweep at two tiles and a short nt: every tile's fused steps
+    bitwise equal to the split ones, positive times, and the engine's own
+    library and tile restored after it."""
+    from tpufwi_torch.bench import scanres_tiles
+
+    before = (ks.LIBRARY, ks.TILE_Z, ks.TILE_X, ks.TILE_ROWS)
+    out = scanres_tiles.main(["16,32,8,6", "32,32,8,4", "--nt", "64"])
+    assert len(out) == 4 and all(line["bitwise"] for line in out)
+    assert all(ms > 0 for line in out for kernel in ("forward", "reverse", "illumination")
+               for ms in line[kernel].values())
+    assert (ks.LIBRARY, ks.TILE_Z, ks.TILE_X, ks.TILE_ROWS) == before
+
+
 def test_cuda_wrapper_raises_instead_of_falling_back(device):
     args, w, idx = _case(device, 8, 1, False, False, nt=8)
     grid, c2, prof = args
@@ -101,6 +162,8 @@ def test_cuda_wrapper_raises_instead_of_falling_back(device):
     seis, tape, ppen, plast, _ = ks.scanres_forward(grid, c2, prof, w, *idx, tape="rings")
     with pytest.raises(ValueError, match="tape"):
         ks.scanres_reverse(grid, c2, prof, w, seis, tape[:-1], ppen, plast, *idx)
+    with pytest.raises(ValueError, match="variant"):
+        ks.scanres_forward(grid, c2, prof, w, *idx, variant="tiled")
 
 
 CASES = [(8, 1, False, False, False), (8, 3, True, True, True), (4, 2, False, True, True)]
@@ -679,7 +742,11 @@ def test_probe_scripts_on_the_card(device):
 
     out2 = exp_2d_scanres.main(["40", "200", "--nts", "64", "512"])
     assert all(v["us_per_step"] > 0 for v in out2.values())
-    out3 = exp_3d_lap.main(["--dims", "40", "30", "48"])
-    assert out3["taps"]["per_tap_ms"] > 0
+    out3 = exp_3d_lap.main(["merged", "stream", "--dims", "40", "30", "48"])
+    # the tap probe's K-slope where the card paces it: on the (96, 128, 96)
+    # array a call is host-bound (~20 us) and the slope between K = 5 and 25
+    # is noise; on (448, 256, 448) a call moves 0.2 GB, ~0.4 ms
+    taps = exp_3d_lap.main(["taps", "--dims", "400", "150", "400"])
+    assert taps["taps"]["per_tap_ms"] > 0
     assert all(v["ms_per_call"] > 0 for v in out3["stream"].values())
     assert all(v["leapfrog"] > 0 for v in out3["merged"].values())

@@ -188,7 +188,7 @@ def test_elastic_stage_objectives_weights_and_raises():
     with pytest.raises(NotImplementedError, match="source estimation"):
         tinv.invert_elastic(problem, m0, [StageCfg(None, 1, source_est=True)],
                             bounds=[(0, 1e9)] * 3)
-    with pytest.raises(NotImplementedError, match="Queue A item 8"):
+    with pytest.raises(NotImplementedError, match="sharding.py"):
         dataclasses.replace(problem, mesh=object())
     with pytest.raises(NotImplementedError, match="pad_nt"):
         tinv.build_synthetic_elastic_problem(cfg.with_overrides(["pad_nt=128"]), device="cpu")

@@ -24,6 +24,7 @@
 
 import functools
 import importlib.util
+import itertools
 import json
 from pathlib import Path
 
@@ -245,7 +246,23 @@ def _json_lines(text):
     return [json.loads(line) for line in text.splitlines() if line.startswith("{")]
 
 
-def test_exp_2d_scanres_main_on_cpu(capsys):
+@pytest.fixture
+def positive_slope(monkeypatch):
+    """Time the scripts' runs by a count, not by the CPU's clock: each run
+    still runs, and takes nt times the number of runs so far "seconds", so
+    every nt-slope (and the tap probe's K-slope) is positive whatever the
+    load. These tests check the scripts' output lines, not their times; the
+    scripts' raise on a slope that is not positive is tested below."""
+    calls = itertools.count(1)
+
+    def run_seconds(run, arg, nt):
+        run(arg, nt)
+        return 1e-3 * nt * next(calls)
+
+    monkeypatch.setattr(bench_3d, "run_seconds", run_seconds)
+
+
+def test_exp_2d_scanres_main_on_cpu(capsys, positive_slope):
     out = exp_2d_scanres.main(["20", "110", "--nts", "2", "6", "--reps", "1", "--device", "cpu"])
     lines = _json_lines(capsys.readouterr().out)
     assert [line["probe"] for line in lines] == ["P0_leapfrog_only", "P1_strips_fp32"]
@@ -254,7 +271,7 @@ def test_exp_2d_scanres_main_on_cpu(capsys):
     assert p1["strip_cost_us"] == p1["us_per_step"] - out["P0_leapfrog_only"]["us_per_step"]
 
 
-def test_exp_3d_lap_main_on_cpu(capsys):
+def test_exp_3d_lap_main_on_cpu(capsys, positive_slope):
     out = exp_3d_lap.main(["--dims", "4", "6", "5", "--nts", "1", "3", "--reps", "1",
                            "--device", "cpu"])
     probes = [line["probe"] for line in _json_lines(capsys.readouterr().out)]

@@ -48,7 +48,7 @@ def make_simulator(grid: Grid, dt: float, f0: float, c_max: float,
     if gradient == "remat":
         raise NotImplementedError(
             'gradient="remat" (checkpointed scan, propagators/remat.py) is not '
-            "ported yet (ROADMAP Queue A item 10)")
+            "ported yet (reference: tpufwi/propagators/remat.py)")
     if gradient not in ("rings", "full"):
         raise ValueError(f"unknown gradient mode {gradient!r}")
     profs = build_profiles(grid, dt, c_max, f0, dtype=np.float64)

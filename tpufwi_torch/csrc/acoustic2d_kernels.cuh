@@ -41,6 +41,15 @@
 //                      with the pin off, the bare leapfrog)
 //                   C2 rec_src_ring (sources outside the ring, then the
 //                      ring imposed from the tape row, or zeros)
+// The whole-scan forward and snapshot reverse also have fused passes
+// (acoustic2d_scanres.cu, variant "fused", their default): one
+// shared-memory tiled kernel a time step, F1-F5 in fwd_fused and R0-R3 in
+// rev_fused. Every engine runs the per-cell tails below (tap_sum,
+// phi_update, psi_update, leapfrog_update, add_source, adj_w, adj_y,
+// rev_lap, rev_leapfrog): a
+// product that could contract into an FMA is fused explicitly (fmaf), so a
+// value recomputed in a fused pass's reach has the owner's bits, and the
+// engines agree bitwise.
 // Every transposed stencil is a gather with flipped taps (D1^T = -D1,
 // D2^T = D2), never an atomic scatter, so the gradient is deterministic.
 // All arithmetic is fp32 (FMA); no tensor cores.
@@ -57,6 +66,8 @@
 #include <cuda_runtime.h>
 
 #include <cstring>
+
+#include "pdl.cuh"  // dep_wait, dep_trigger, launch_dep
 
 namespace {
 
@@ -107,8 +118,105 @@ __device__ __forceinline__ float d2_lap(const float* __restrict__ p, int i, int 
 }
 
 // The per-cell bodies are __device__ functions, so the ordinary kernels
-// below and the cooperative K-step kernels (acoustic2d_kstep.cu) run one
-// arithmetic per cell: the engines agree bitwise.
+// below, the fused passes (acoustic2d_scanres.cu) and the cooperative
+// K-step kernels (acoustic2d_kstep.cu) run one arithmetic per cell: the
+// engines agree bitwise.
+
+// sum_k taps[k] f[i + (k - R) s], one FMA a tap in tap order
+template <int R>
+__device__ __forceinline__ float tap_sum(const float* __restrict__ f, int i, int s,
+                                         const float* taps) {
+  float acc = 0.f;
+#pragma unroll
+  for (int k = 0; k <= 2 * R; ++k) acc = fmaf(taps[k], f[i + (k - R) * s], acc);
+  return acc;
+}
+
+// phi' = b phi + a D1 p
+__device__ __forceinline__ float phi_update(float b, float phi, float a, float d1) {
+  return fmaf(b, phi, a * d1);
+}
+
+// psi' = b psi + a (D2 p + D1 phi')
+__device__ __forceinline__ float psi_update(float b, float psi, float a, float d2, float corr) {
+  return fmaf(b, psi, a * (d2 + corr));
+}
+
+// P_t = 2 P_{t-1} - P_{t-2} + C acc
+__device__ __forceinline__ float leapfrog_update(float p, float p_prev, float c2, float acc) {
+  return fmaf(c2, acc, 2.f * p - p_prev);
+}
+
+// lambda_{t-1} (before its receiver injection) = 2 lambda_t - lambda_{t+1} + lap
+__device__ __forceinline__ float rev_leapfrog(float q, float q_next, float lap) {
+  return 2.f * q - q_next + lap;
+}
+
+// one source: p += C w
+__device__ __forceinline__ float add_source(float p, float c2, float w) { return fmaf(c2, w, p); }
+
+// the transposed psi update at a strip cell: pt = psibar + u, psibar' = b
+// pt, w = a pt
+__device__ __forceinline__ void adj_w(float psb, float uu, float a, float b, float& psb_new,
+                                      float& w) {
+  const float pt = psb + uu;
+  psb_new = b * pt;
+  w = a * pt;
+}
+
+// the transposed phi update at a strip cell, d1 = D1 (u + w): pt = phibar -
+// d1, phibar' = b pt, y = a pt
+__device__ __forceinline__ void adj_y(float pb, float d1, float a, float b, float& pb_new,
+                                      float& y) {
+  const float pt = pb - d1;
+  pb_new = b * pt;
+  y = a * pt;
+}
+
+// D1 (u + w) along one axis: u at iu, w at iw, strides su, sw
+template <int R>
+__device__ __forceinline__ float tap_sum_uw(const float* __restrict__ u, int iu, int su,
+                                            const float* __restrict__ w, int iw, int sw,
+                                            const float* taps) {
+  float d1 = 0.f;
+#pragma unroll
+  for (int k = 0; k <= 2 * R; ++k) d1 = fmaf(taps[k], u[iu + (k - R) * su] + w[iw + (k - R) * sw], d1);
+  return d1;
+}
+
+// R3's sum for lambda_{t-1}: D2 u, then in the z band D2z wz - D1z yz, then
+// in the x band D2x wx - D1x yx, one accumulator in that order. Each array
+// at its own index and z stride (x stride 1): the split pass reads halo
+// planes, the fused one shared-memory planes.
+template <int R>
+__device__ __forceinline__ float rev_lap(const float* __restrict__ u, int iu, int su,
+                                         const float* __restrict__ wz, int iwz, int swz,
+                                         const float* __restrict__ yz, int iyz, int syz,
+                                         const float* __restrict__ wx, int iwx,
+                                         const float* __restrict__ yx, int iyx, bool zband,
+                                         bool xband, const Taps& tp) {
+  float lap = 0.f;
+#pragma unroll
+  for (int k = 0; k <= 2 * R; ++k) {
+    lap = fmaf(tp.d2z[k], u[iu + (k - R) * su], lap);
+    lap = fmaf(tp.d2x[k], u[iu + k - R], lap);
+  }
+  if (zband) {
+#pragma unroll
+    for (int k = 0; k <= 2 * R; ++k) {
+      lap = fmaf(tp.d2z[k], wz[iwz + (k - R) * swz], lap);
+      lap = fmaf(-tp.d1z[k], yz[iyz + (k - R) * syz], lap);
+    }
+  }
+  if (xband) {
+#pragma unroll
+    for (int k = 0; k <= 2 * R; ++k) {
+      lap = fmaf(tp.d2x[k], wx[iwx + k - R], lap);
+      lap = fmaf(-tp.d1x[k], yx[iyx + k - R], lap);
+    }
+  }
+  return lap;
+}
 
 // --------------------------------------------------------------- forward
 
@@ -131,11 +239,8 @@ __device__ __forceinline__ void fwd_strip_cell(const float* __restrict__ p,
     const int x = rem - j * NX;
     const int z = side ? NZ - S + j : j;
     const int i = (z + R) * ld + x + R;
-    float d1 = 0.f;
-#pragma unroll
-    for (int k = 0; k <= 2 * R; ++k) d1 = fmaf(tp.d1z[k], p[i + (k - R) * ld], d1);
     const int s = side * S + j;
-    phiz[i] = bz[s] * phiz[i] + az[s] * d1;
+    phiz[i] = phi_update(bz[s], phiz[i], az[s], tap_sum<R>(p, i, ld, tp.d1z));
     return;
   }
   idx -= nz_cells;
@@ -145,11 +250,8 @@ __device__ __forceinline__ void fwd_strip_cell(const float* __restrict__ p,
   const int j = rem - z * S;
   const int x = side ? NX - S + j : j;
   const int i = (z + R) * ld + x + R;
-  float d1 = 0.f;
-#pragma unroll
-  for (int k = 0; k <= 2 * R; ++k) d1 = fmaf(tp.d1x[k], p[i + k - R], d1);
   const int s = side * S + j;
-  phix[i] = bx[s] * phix[i] + ax[s] * d1;
+  phix[i] = phi_update(bx[s], phix[i], ax[s], tap_sum<R>(p, i, 1, tp.d1x));
 }
 
 // F2 for cell (z, x)
@@ -164,42 +266,33 @@ __device__ __forceinline__ void fwd_cell(const float* __restrict__ p, float* __r
                                          int NZ, int NX, int S, int fs, const Taps& tp) {
   const int ld = NX + 2 * R;
   const int i = (z + R) * ld + x + R;
-  float d2z = 0.f, d2x = 0.f;
-#pragma unroll
-  for (int k = 0; k <= 2 * R; ++k) {
-    d2z = fmaf(tp.d2z[k], p[i + (k - R) * ld], d2z);
-    d2x = fmaf(tp.d2x[k], p[i + k - R], d2x);
-  }
+  const float d2z = tap_sum<R>(p, i, ld, tp.d2z), d2x = tap_sum<R>(p, i, 1, tp.d2x);
   const float lap = d2z + d2x;
   if (tape_row != nullptr) tape_row[z * NX + x] = __float2bfloat16(lap);
   float acc = lap;
   const int SE = S + R;  // D1 phi' reaches R cells past the strip
   if (z < SE || z >= NZ - SE) {
-    float corr = 0.f;
-#pragma unroll
-    for (int k = 0; k <= 2 * R; ++k) corr = fmaf(tp.d1z[k], phiz[i + (k - R) * ld], corr);
+    const float corr = tap_sum<R>(phiz, i, ld, tp.d1z);
     acc += corr;
     const int s = strip_index(z, NZ, S);
     if (s >= 0) {
-      const float ps = bz[s] * psiz[i] + az[s] * (d2z + corr);
+      const float ps = psi_update(bz[s], psiz[i], az[s], d2z, corr);
       psiz[i] = ps;
       acc += ps;
     }
   }
   if (x < SE || x >= NX - SE) {
-    float corr = 0.f;
-#pragma unroll
-    for (int k = 0; k <= 2 * R; ++k) corr = fmaf(tp.d1x[k], phix[i + k - R], corr);
+    const float corr = tap_sum<R>(phix, i, 1, tp.d1x);
     acc += corr;
     const int s = strip_index(x, NX, S);
     if (s >= 0) {
-      const float ps = bx[s] * psix[i] + ax[s] * (d2x + corr);
+      const float ps = psi_update(bx[s], psix[i], ax[s], d2x, corr);
       psix[i] = ps;
       acc += ps;
     }
   }
   // pnext holds P_{t-2} on entry; each cell reads it only here
-  float pn = 2.f * p[i] - pnext[i] + c2[z * NX + x] * acc;
+  float pn = leapfrog_update(p[i], pnext[i], c2[z * NX + x], acc);
   if (z == fs) pn = 0.f;
   pnext[i] = pn;
 }
@@ -213,7 +306,10 @@ __device__ __forceinline__ void fwd_sources(float* __restrict__ p, const float* 
   for (int k = 0; k < nsrc; ++k) {
     const int z = (int)src[2 * k], x = (int)src[2 * k + 1];
     // a source on the pinned surface row is overwritten by the pin
-    if (z != fs) p[(z + R) * ld + x + R] += c2[z * NX + x] * w[t];
+    if (z != fs) {
+      float* q = p + (z + R) * ld + x + R;
+      *q = add_source(*q, c2[z * NX + x], w[t]);
+    }
   }
 }
 
@@ -406,17 +502,9 @@ __device__ __forceinline__ void transposed_cell(
   u[i] = uu;
   gacc[c] = fmaf(lam, img, gacc[c]);
   const int sz = strip_index(z, NZ, S);
-  if (sz >= 0) {
-    const float pt = psbz[i] + uu;
-    psbz[i] = bz[sz] * pt;
-    wz[i] = az[sz] * pt;
-  }
+  if (sz >= 0) adj_w(psbz[i], uu, az[sz], bz[sz], psbz[i], wz[i]);
   const int sx = strip_index(x, NX, S);
-  if (sx >= 0) {
-    const float pt = psbx[i] + uu;
-    psbx[i] = bx[sx] * pt;
-    wx[i] = ax[sx] * pt;
-  }
+  if (sx >= 0) adj_w(psbx[i], uu, ax[sx], bx[sx], psbx[i], wx[i]);
 }
 
 // img_row: the bf16 snapshot tape row (snapshot reverse) or the fp32 lapw of
@@ -490,16 +578,9 @@ __device__ __forceinline__ void rev_strip_cell(
     const int x = rem - j * NX;
     const int z = side ? NZ - S + j : j;
     const int i = (z + R) * ld + x + R;
-    float d1 = 0.f;  // D1 (u + w); its transpose enters with a minus sign
-#pragma unroll
-    for (int k = 0; k <= 2 * R; ++k) {
-      const int o = i + (k - R) * ld;
-      d1 = fmaf(tp.d1z[k], u[o] + wz[o], d1);
-    }
     const int s = side * S + j;
-    const float pt = pbz[i] - d1;
-    pbz[i] = bz[s] * pt;
-    yz[i] = az[s] * pt;
+    // D1 (u + w); its transpose enters with a minus sign
+    adj_y(pbz[i], tap_sum_uw<R>(u, i, ld, wz, i, ld, tp.d1z), az[s], bz[s], pbz[i], yz[i]);
     return;
   }
   idx -= nz_cells;
@@ -509,13 +590,8 @@ __device__ __forceinline__ void rev_strip_cell(
   const int j = rem - z * S;
   const int x = side ? NX - S + j : j;
   const int i = (z + R) * ld + x + R;
-  float d1 = 0.f;
-#pragma unroll
-  for (int k = 0; k <= 2 * R; ++k) d1 = fmaf(tp.d1x[k], u[i + k - R] + wx[i + k - R], d1);
   const int s = side * S + j;
-  const float pt = pbx[i] - d1;
-  pbx[i] = bx[s] * pt;
-  yx[i] = ax[s] * pt;
+  adj_y(pbx[i], tap_sum_uw<R>(u, i, 1, wx, i, 1, tp.d1x), ax[s], bx[s], pbx[i], yx[i]);
 }
 
 template <int R>
@@ -541,31 +617,12 @@ __device__ __forceinline__ void rev_cell2(const float* __restrict__ qcur,
                                           int NX, int S, const Taps& tp) {
   const int ld = NX + 2 * R;
   const int i = (z + R) * ld + x + R;
-  float lap = 0.f;
-#pragma unroll
-  for (int k = 0; k <= 2 * R; ++k) {
-    lap = fmaf(tp.d2z[k], u[i + (k - R) * ld], lap);
-    lap = fmaf(tp.d2x[k], u[i + k - R], lap);
-  }
   const int SE = S + R;
-  if (z < SE || z >= NZ - SE) {
-#pragma unroll
-    for (int k = 0; k <= 2 * R; ++k) {
-      const int o = i + (k - R) * ld;
-      lap = fmaf(tp.d2z[k], wz[o], lap);
-      lap = fmaf(-tp.d1z[k], yz[o], lap);
-    }
-  }
-  if (x < SE || x >= NX - SE) {
-#pragma unroll
-    for (int k = 0; k <= 2 * R; ++k) {
-      lap = fmaf(tp.d2x[k], wx[i + k - R], lap);
-      lap = fmaf(-tp.d1x[k], yx[i + k - R], lap);
-    }
-  }
+  const float lap = rev_lap<R>(u, i, ld, wz, i, ld, yz, i, ld, wx, i, yx, i,
+                               z < SE || z >= NZ - SE, x < SE || x >= NX - SE, tp);
   // qoth holds lambda_{t+1} on entry and lambda_{t-1} (before its
   // receiver injection) on exit; each cell reads it only here
-  qoth[i] = 2.f * qcur[i] - qoth[i] + lap;
+  qoth[i] = rev_leapfrog(qcur[i], qoth[i], lap);
 }
 
 template <int R>

@@ -53,6 +53,8 @@
 
 #include <cstring>
 
+#include "pdl.cuh"  // dep_wait, dep_trigger, launch_dep
+
 namespace {
 
 // staggered taps over h per axis (zero past R) and dt
@@ -119,16 +121,6 @@ __device__ __forceinline__ float e_dual(const float* din, float* dout, int c, fl
   const float tot = q + din[c];
   if (kWrite) dout[c] = b * tot;
   return fmaf(a, tot, q);
-}
-
-// Programmatic dependent launch (Hopper): a kernel launched with
-// launch_dep (below) may start while the kernel before it on the stream
-// drains; it waits for that kernel's completion and memory in dep_wait
-// before it touches memory, and lets the next kernel launch in
-// dep_trigger. Launched the ordinary way, both are no-ops.
-__device__ __forceinline__ void dep_wait() { asm volatile("griddepcontrol.wait;" ::: "memory"); }
-__device__ __forceinline__ void dep_trigger() {
-  asm volatile("griddepcontrol.launch_dependents;" ::: "memory");
 }
 
 // --------------------------------------------------------------- forward
@@ -958,25 +950,6 @@ inline int fused_allow_smem() {
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              fused_smem<R, TZ, TX>(7));
   return (int)e;
-}
-
-// launch kernel on st, with dep as a programmatic dependent of the kernel
-// before it (its launch overlaps that kernel's drain; dep_wait orders the
-// memory), else in plain stream order
-template <typename... P, typename... A>
-inline void launch_dep(int dep, void (*kernel)(P...), dim3 grid, dim3 block, size_t smem,
-                       cudaStream_t st, A... args) {
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
-  attr[0].val.programmaticStreamSerializationAllowed = dep;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = grid;
-  cfg.blockDim = block;
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = st;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  cudaLaunchKernelEx(&cfg, kernel, args...);
 }
 
 // Reverse step t on the fused passes: the prologue (injection, stress-image

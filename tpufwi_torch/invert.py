@@ -73,7 +73,7 @@ class FwiProblem:
     def __post_init__(self):
         if self.mesh is not None:
             raise NotImplementedError(
-                "shot sharding over a device mesh is not ported yet (ROADMAP Queue A item 8)")
+                "shot sharding over a device mesh is not ported yet (reference: tpufwi/sharding.py)")
         self.shot_loop = resolve_shot_loop(self.shot_loop)
 
     @property
@@ -202,7 +202,8 @@ def _invert_loop(problem, vp, cfg, hist, init_alpha, start_stage, start_iter, ck
     wall = dict(any_iter=False, stopped=False)
     rc = cfg.reg
     if rc.type and rc.weight != 0.0:
-        raise NotImplementedError("regularization is not ported yet (ROADMAP Queue A item 12)")
+        raise NotImplementedError(
+            "regularization is not ported yet (reference: tpufwi/regularize.py)")
 
     for si, stage in enumerate(cfg.stages):
         if si < start_stage:
@@ -215,7 +216,7 @@ def _invert_loop(problem, vp, cfg, hist, init_alpha, start_stage, start_iter, ck
             continue
         if stage.source_est:
             raise NotImplementedError(
-                "source estimation is not ported yet (ROADMAP Queue A item 6)")
+                "source estimation is not ported yet (reference: tpufwi/source_estimation.py)")
         vg, loss_only = problem.stage_objectives(stage.fmax)
         log(dict(event="engine", stage=si, engine=problem.prop.impl,
                  note=problem.prop.resolve_note))
@@ -297,7 +298,7 @@ class _MpStagesMixin:
     def __post_init__(self):
         if self.mesh is not None:
             raise NotImplementedError(
-                "shot sharding over a device mesh is not ported yet (ROADMAP Queue A item 8)")
+                "shot sharding over a device mesh is not ported yet (reference: tpufwi/sharding.py)")
         self.shot_loop = resolve_shot_loop(self.shot_loop)
 
     @property
@@ -362,7 +363,7 @@ class _MpStagesMixin:
 
     def stage_wavelet(self, m, fmax: Optional[float], eps_rel: float = 1e-4):
         raise NotImplementedError(
-            "source estimation is not ported yet (ROADMAP Queue A item 6)")
+            "source estimation is not ported yet (reference: tpufwi/source_estimation.py)")
 
 
 @dataclasses.dataclass
@@ -435,7 +436,7 @@ def invert_elastic(problem, m0, stages, bounds, lbfgs_m: int = 10,
             init_alpha = None
         if stage.source_est:
             raise NotImplementedError(
-                "source estimation is not ported yet (ROADMAP Queue A item 6)")
+                "source estimation is not ported yet (reference: tpufwi/source_estimation.py)")
         vg, loss = problem.stage_objectives(stage.fmax)
         prop = getattr(problem, "prop", None)
         if log_fn and prop is not None:
@@ -477,7 +478,9 @@ def build_synthetic_problem(cfg: FwiConfig, vp_true: np.ndarray, dx: float,
     from scipy.ndimage import gaussian_filter
 
     if cfg.pad_nt:
-        raise NotImplementedError("pad_nt is not ported yet (ROADMAP Queue A item 6)")
+        raise NotImplementedError(
+            "pad_nt is not ported yet (reference: tpufwi/window.py and "
+            "FwiProblem.with_canonical_nt in tpufwi/invert.py)")
     dtype = torch.float32 if cfg.prop.dtype == "float32" else torch.float64
     grid = Grid(shape=vp_true.shape, h=(dx,) * vp_true.ndim, pml=cfg.prop.pml,
                 order=cfg.prop.order)
@@ -520,7 +523,9 @@ def build_synthetic_elastic_problem(cfg: FwiConfig, mesh=None, device="cuda", im
     from .io import marmousi_like
 
     if cfg.pad_nt:
-        raise NotImplementedError("pad_nt is not ported yet (ROADMAP Queue A item 6)")
+        raise NotImplementedError(
+            "pad_nt is not ported yet (reference: tpufwi/window.py and "
+            "FwiProblem.with_canonical_nt in tpufwi/invert.py)")
     dtype = torch.float32 if cfg.prop.dtype == "float32" else torch.float64
     vp_t, dx = marmousi_like(nz=cfg.model.nz, nx=cfg.model.nx, dx=cfg.model.dx,
                              water_depth_m=0.0)
@@ -596,10 +601,11 @@ def main(argv=None):
         cfg = cfg.with_overrides(args.overrides)
     if args.mesh:
         raise NotImplementedError(
-            "--mesh: shot sharding is not ported yet (ROADMAP Queue A item 8)")
+            "--mesh: shot sharding is not ported yet (reference: tpufwi/sharding.py)")
     if cfg.physics not in ("acoustic", "elastic"):
         raise NotImplementedError(
-            f"physics={cfg.physics!r} is not ported yet (ROADMAP Queue A items 10-12)")
+            f"physics={cfg.physics!r} is not ported yet (reference: its problem class in "
+            "tpufwi/invert.py and its propagator under tpufwi/propagators/)")
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: the inversion runs on the card; "

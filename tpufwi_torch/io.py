@@ -1,8 +1,8 @@
 """Synthetic model generators (counterpart of ``tpufwi/io.py::marmousi_like``
 and ``overthrust_like``).
 
-The binary loaders of the reference are not ported yet (ROADMAP Queue A
-item 2).
+The binary loaders of the reference are not ported yet (reference:
+``tpufwi/io.py``).
 """
 
 from __future__ import annotations

@@ -15,6 +15,16 @@ the laplacian of the reconstruction. Both return the imaged gradient and
 the adjoint field at the sources. The CUDA sources are
 ``csrc/acoustic2d_scanres.cu`` and ``csrc/acoustic2d_kernels.cuh``.
 
+``scanres_forward`` and ``scanres_reverse_snap`` come in two variants
+(``variant=``), equal bitwise: ``"fused"`` (the default) runs one
+shared-memory tiled kernel a time step (launch plan ``scanres_tile_plan``,
+tile walk ``fused_tiles``) after one small launch a call, each step a
+programmatic dependent of the one before unless ``dependent_launch`` is
+False (plain stream order, for profiling: a dependent kernel's profiler
+span includes its wait); ``"split"`` runs the ordered per-step launches
+that the single-step and K-step engines share (``step_launches``).
+``scanres_reverse`` runs the split passes.
+
 Each wrapper takes its plain version for tensors on the CPU, and only
 then; on a CUDA tensor it launches the kernel or raises. ``launches`` on
 each wrapper counts the time steps its kernel ran (the C loop launches
@@ -30,6 +40,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -46,11 +57,89 @@ from .acoustic2d_eager import (
 from .build import CSRC, Library, declare_all, raise_on  # noqa: F401 (raise_on: re-export)
 from .stencils import apply_stencil, scaled_taps
 
-_FWD_PLANES = 6  # pa, pb, phi_z, psi_z, phi_x, psi_x
-_ADJ_PLANES = 9  # u, then psibar/w/phibar/y for z and for x
-_REV_SNAP_PLANES = 2 + _ADJ_PLANES  # q0, q1, adjoint planes
+VARIANTS = ("fused", "split")  # the C entry points' variant 0 and 1
+# halo planes of the workspace per variant: forward pa, pb, phi_z, psi_z,
+# phi_x, psi_x (fused: and a second phi_z, phi_x); snapshot reverse q0, q1,
+# then fused psibar/phibar for z and x in two sets, split the 9 adjoint
+# planes (u, then psibar/w/phibar/y for z and for x)
+_FWD_PLANES = {"fused": 8, "split": 6}
+_ADJ_PLANES = 9
+_REV_SNAP_PLANES = {"fused": 2 + 8, "split": 2 + _ADJ_PLANES}
 _REV_RINGS_PLANES = 4 + _ADJ_PLANES  # P_t, P_{t-1}, q0, q1, adjoint planes
 TAPE_MODES = (None, "snap", "rings")
+
+# the fused passes' tile (csrc/acoustic2d_scanres.cu TPUFWI_SCAN_TILE:
+# TILE_Z x TILE_X cells, a block of TILE_X x TILE_ROWS threads)
+TILE_Z, TILE_X, TILE_ROWS = 16, 32, 8
+
+
+class ScanresPlan(NamedTuple):
+    """Launch plan of the fused passes: a block owns a ``tz`` x ``tx`` tile
+    of cells; ``smem`` is the larger pass's shared bytes."""
+    tz: int
+    tx: int
+    smem: int
+
+
+def fused_smem(R: int, kernel: str) -> int:
+    """Shared bytes of a fused pass at radius R (``STile``): the field or
+    lambda over the tile and its 2R cross; the forward's phi over the
+    tile's columns and rows and their R reach and five planes of the own
+    cells' operands; the reverse's w over 2R, y over R and two planes of
+    operands."""
+    tz, tx = TILE_Z, TILE_X
+    H = 2 * R
+    rect = (tz + 2 * H) * (tx + 2 * H)
+    zcol1, xrow1, own = (tz + 2 * R) * tx, tz * (tx + 2 * R), tz * tx
+    if kernel == "fwd_fused":
+        return 4 * (rect + zcol1 + xrow1 + 5 * own)
+    return 4 * (rect + (tz + 2 * H) * tx + tz * (tx + 2 * H) + zcol1 + xrow1 + 2 * own)
+
+
+def scanres_tile_plan(grid: Grid) -> ScanresPlan:
+    """The fused passes' plan for ``grid`` (the C side rejects any other)."""
+    return ScanresPlan(TILE_Z, TILE_X, max(fused_smem(grid.radius, k)
+                                           for k in ("fwd_fused", "rev_fused")))
+
+
+def tile_row(by: int, n: int) -> int:
+    """The tile row of block row ``by`` of ``n`` (``tile_row`` in
+    csrc/acoustic2d_scanres.cu): the top two and bottom two rows first (0,
+    n-1, 1, n-2), whose CPML-band tiles are the heavier ones, then the rest
+    in order."""
+    if n < 4:
+        return by
+    if by < 4:
+        return n - 1 - (by >> 1) if by & 1 else by >> 1
+    return by - 2
+
+
+def fused_tiles(plan: ScanresPlan, NZ: int, NX: int):
+    """The fused passes' tile walk over an (NZ, NX) grid, in block order
+    (blockIdx.y, blockIdx.x): each tile's own cells ``(z0, z1, x0, x1)``,
+    clipped to the grid (a ragged last tile holds fewer)."""
+    n = -(-NZ // plan.tz)
+    for by in range(n):
+        z0 = tile_row(by, n) * plan.tz
+        for x0 in range(0, NX, plan.tx):
+            yield z0, min(z0 + plan.tz, NZ), x0, min(x0 + plan.tx, NX)
+
+
+def step_launches(kernel: str, variant: str, tape=None, illum=False) -> int:
+    """Kernel launches of one time step of ``scanres_forward`` (with its
+    tape mode and illumination) or ``scanres_reverse_snap``; the fused
+    variant adds one launch a call (``scan_setup``), the split reverse one
+    (``rev_chain``)."""
+    if variant == "fused":
+        return 1
+    if kernel == "scanres_forward":
+        return 3 + (tape == "rings") + bool(illum)
+    return 4
+
+
+def _check_variant(name, variant):
+    if variant not in VARIANTS:
+        raise ValueError(f"{name}: variant must be one of {VARIANTS}, not {variant!r}")
 
 
 def strip_depth(grid: Grid) -> int:
@@ -227,11 +316,11 @@ LIBRARY = Library(
     "acoustic2d",
     (CSRC / "acoustic2d_scanres.cu", CSRC / "acoustic2d_step.cu",
      CSRC / "acoustic2d_kstep.cu"),
-    (CSRC / "acoustic2d_kernels.cuh",),
+    (CSRC / "acoustic2d_kernels.cuh", CSRC / "pdl.cuh"),
     lambda lib: declare_all(lib, {
         # pointers..., ints..., taps, stream
-        "tpufwi_scanres_forward": (14, 9),
-        "tpufwi_scanres_reverse_snap": (13, 8),
+        "tpufwi_scanres_forward": (15, 14),
+        "tpufwi_scanres_reverse_snap": (13, 13),
         "tpufwi_scanres_reverse_rings": (15, 14),
         "tpufwi_step_forward": (14, 9),
         "tpufwi_step_recon": (8, 12),
@@ -314,10 +403,23 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
-def scanres_forward(grid, c2, profiles, wavelet, src_idx, rcv_idx, tape=None, illum=False):
+def _maps(grid, nsrc, nrec, dev):
+    """The fused passes' zeroed int maps (``SMaps``): three (NZ, NX) cell
+    maps, a flag word per tile, the source and receiver chains."""
+    NZ, NX = grid.padded_shape
+    plan = scanres_tile_plan(grid)
+    tiles = -(-NZ // plan.tz) * -(-NX // plan.tx)
+    return torch.zeros(3 * NZ * NX + tiles + nsrc + nrec, dtype=torch.int32, device=dev)
+
+
+def scanres_forward(grid, c2, profiles, wavelet, src_idx, rcv_idx, tape=None, illum=False,
+                    variant="fused", dependent_launch=True):
     """Whole forward propagation (see ``scanres_forward_plain`` for the
     contract). ``profiles`` are the strip profiles as tensors; ``rcv_idx``
-    may hold no receiver."""
+    may hold no receiver. ``variant``: one of ``VARIANTS`` (on the CPU both
+    are the plain version); ``dependent_launch``: the fused steps as
+    programmatic dependents (False: plain stream order)."""
+    _check_variant("scanres_forward", variant)
     if c2.device.type == "cpu":
         return scanres_forward_plain(grid, c2, profiles, wavelet, src_idx, rcv_idx, tape,
                                      illum)
@@ -342,14 +444,18 @@ def scanres_forward(grid, c2, profiles, wavelet, src_idx, rcv_idx, tape=None, il
         n_ring = ring.shape[0]
         rows = torch.empty((nt, n_ring), dtype=torch.float32, device=dev)
     acc = torch.zeros((NZ, NX), dtype=torch.float32, device=dev) if illum else None
-    ws = torch.zeros((_FWD_PLANES, NZ + 2 * R, NX + 2 * R), dtype=torch.float32, device=dev)
+    ws = torch.zeros((_FWD_PLANES[variant], NZ + 2 * R, NX + 2 * R), dtype=torch.float32,
+                     device=dev)
+    nsrc = src_idx.shape[0]
+    iws = _maps(grid, nsrc, nrec, dev) if variant == "fused" else None
     fs = surface_row(grid)
     with torch.cuda.device(dev):
         err = lib.tpufwi_scanres_forward(
             c2.data_ptr(), *(p.data_ptr() for p in profiles), wavelet.data_ptr(),
             src_idx.data_ptr(), rcv_idx.data_ptr(), seis.data_ptr(), _ptr(snap), _ptr(ring),
-            _ptr(rows), _ptr(acc), ws.data_ptr(),
-            NZ, NX, S, R, nt, src_idx.shape[0], nrec, fs, n_ring, taps_arg(grid),
+            _ptr(rows), _ptr(acc), ws.data_ptr(), _ptr(iws),
+            NZ, NX, S, R, nt, nsrc, nrec, fs, n_ring, VARIANTS.index(variant),
+            *scanres_tile_plan(grid), int(dependent_launch), taps_arg(grid),
             torch.cuda.current_stream().cuda_stream,
         )
     raise_on(lib, "scanres_forward", err)
@@ -367,9 +473,11 @@ def _check_ybar(name, ybar, rcv_idx):
         raise ValueError(f"{name}: ybar must be (nt > 0, nrec)")
 
 
-def scanres_reverse_snap(grid, c2, profiles, ybar, tape, src_idx, rcv_idx):
+def scanres_reverse_snap(grid, c2, profiles, ybar, tape, src_idx, rcv_idx, variant="fused",
+                         dependent_launch=True):
     """Snapshot reverse (see ``scanres_reverse_snap_plain`` for the
-    contract)."""
+    contract); ``variant`` and ``dependent_launch`` as ``scanres_forward``'s."""
+    _check_variant("scanres_reverse_snap", variant)
     if c2.device.type == "cpu":
         return scanres_reverse_snap_plain(grid, c2, profiles, ybar, tape, src_idx, rcv_idx)
     require_cuda("scanres_reverse_snap", c2)
@@ -385,16 +493,18 @@ def scanres_reverse_snap(grid, c2, profiles, ybar, tape, src_idx, rcv_idx):
     nsrc = src_idx.shape[0]
     gbar = torch.zeros((NZ, NX), dtype=torch.float32, device=c2.device)
     lam_src = torch.empty((nt, nsrc), dtype=torch.float32, device=c2.device)
-    ws = torch.zeros((_REV_SNAP_PLANES, NZ + 2 * R, NX + 2 * R), dtype=torch.float32,
+    ws = torch.zeros((_REV_SNAP_PLANES[variant], NZ + 2 * R, NX + 2 * R), dtype=torch.float32,
                      device=c2.device)
-    chain = torch.empty(2 * nrec, dtype=torch.int32, device=c2.device)
+    iws = (_maps(grid, nsrc, nrec, c2.device) if variant == "fused"
+           else torch.empty(2 * nrec, dtype=torch.int32, device=c2.device))
     fs = surface_row(grid)
     with torch.cuda.device(c2.device):
         err = lib.tpufwi_scanres_reverse_snap(
             c2.data_ptr(), *(p.data_ptr() for p in profiles), ybar.data_ptr(),
             tape.data_ptr(), src_idx.data_ptr(), rcv_idx.data_ptr(), gbar.data_ptr(),
-            lam_src.data_ptr(), ws.data_ptr(), chain.data_ptr(),
-            NZ, NX, S, R, nt, nsrc, nrec, fs, taps_arg(grid),
+            lam_src.data_ptr(), ws.data_ptr(), iws.data_ptr(),
+            NZ, NX, S, R, nt, nsrc, nrec, fs, VARIANTS.index(variant),
+            *scanres_tile_plan(grid), int(dependent_launch), taps_arg(grid),
             torch.cuda.current_stream().cuda_stream,
         )
     raise_on(lib, "scanres_reverse_snap", err)

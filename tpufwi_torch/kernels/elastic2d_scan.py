@@ -56,7 +56,7 @@ from .elastic2d_eager import (
 LIBRARY = Library(
     "elastic2d",
     (CSRC / "elastic2d_scan.cu", CSRC / "elastic2d_step.cu"),
-    (CSRC / "elastic2d_kernels.cuh",),
+    (CSRC / "elastic2d_kernels.cuh", CSRC / "pdl.cuh"),
     lambda lib: declare_all(lib, {
         # pointers..., ints..., taps and dt, stream
         "tpufwi_escan_forward": (16, 11),

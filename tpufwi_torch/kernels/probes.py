@@ -87,7 +87,7 @@ def _declare(lib):
 LIBRARY = Library(
     "probes",
     (CSRC / "acoustic2d_probe.cu", CSRC / "acoustic3d_probes.cu"),
-    (CSRC / "acoustic2d_kernels.cuh",),
+    (CSRC / "acoustic2d_kernels.cuh", CSRC / "pdl.cuh"),
     _declare,
 )
 

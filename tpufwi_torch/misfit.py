@@ -17,7 +17,7 @@ def l2_misfit(seis: torch.Tensor, d_obs: torch.Tensor, weights=None) -> torch.Te
 def _not_ported(name):
     def f(*args, **kwargs):
         raise NotImplementedError(
-            f"misfit {name!r} is not ported yet (ROADMAP Queue A item 6)")
+            f"misfit {name!r} is not ported yet (reference: tpufwi/misfit.py)")
     return f
 
 

@@ -2,7 +2,8 @@
 search, and ``minimize_pytree`` over a tuple of model fields (counterpart
 of ``tpufwi/optimize/driver.py``). Bounds are scalars or tensors of the
 model's shape (per-element). NLCG and strong Wolfe are not ported yet
-(ROADMAP Queue A item 6) and raise."""
+(reference: ``tpufwi/optimize/nlcg.py``, ``tpufwi/optimize/linesearch.py``)
+and raise."""
 
 from __future__ import annotations
 
@@ -52,11 +53,13 @@ def minimize(
     """
     if method not in ("lbfgs", "gd"):
         if method == "nlcg":
-            raise NotImplementedError("NLCG is not ported yet (ROADMAP Queue A item 6)")
+            raise NotImplementedError(
+                "NLCG is not ported yet (reference: tpufwi/optimize/nlcg.py)")
         raise ValueError(f"unknown method {method!r}")
     if linesearch != "armijo":
         raise NotImplementedError(
-            f"line search {linesearch!r} is not ported yet (ROADMAP Queue A item 6)")
+            f"line search {linesearch!r} is not ported yet "
+            "(reference: tpufwi/optimize/linesearch.py)")
     f_only = loss_only if loss_only is not None else (lambda x: value_and_grad(x)[0])
 
     def project(z):

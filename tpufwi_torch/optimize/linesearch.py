@@ -1,6 +1,6 @@
 """Backtracking-Armijo line search (counterpart of
 ``tpufwi/optimize/linesearch.py::backtracking_line_search``). The strong
-Wolfe search is not ported yet (ROADMAP Queue A item 6)."""
+Wolfe search is not ported yet (reference: ``tpufwi/optimize/linesearch.py``)."""
 
 from __future__ import annotations
 

@@ -179,7 +179,8 @@ class AcousticPropagator:
                       f"the {budget / 2**30:.1f} GiB budget of this card")
         raise NotImplementedError(
             f"3D grid: no ported engine fits: {reason} (the checkpointed gradient and the "
-            "domain-sharded engine are not ported, ROADMAP Queue A item 10)")
+            "domain-sharded engine are not ported; reference: tpufwi/propagators/remat.py, "
+            "tpufwi/propagators/acoustic3d.py)")
 
     def resolve_impl(self, nt: int | None = None) -> str:
         """The engine a call with a length-``nt`` wavelet will use. For

@@ -210,7 +210,7 @@ class ElasticPropagator:
         if self.grid.ndim != 2:
             raise NotImplementedError(
                 f"{self.grid.ndim}D grid: the elastic engines are 2D (elastic 3D: "
-                "ROADMAP Queue A item 11)")
+                "not ported, reference: tpufwi/propagators/elastic3d.py)")
         if impl == "eager":
             if self.device.type != "cpu":
                 raise ValueError("the eager engine runs in plain torch on the CPU")
