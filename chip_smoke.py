@@ -429,6 +429,11 @@ def elastic_step_counts(grid, nrec_cols, nsrc, n_ring):
     return {
         "escan_forward_rings": (fwd, (1 + nrec_cols + 5 * n_ring) * f, 10 * cells * f),
         "escan_forward": (fwd, (1 + nrec_cols) * f, 10 * cells * f),
+        # the same function with its state streamed from device memory once
+        # a step: the five fields in and out, the five materials, the eight
+        # strip memories in and out
+        "escan_forward_streamed": (fwd, 15 * cells * f + 2 * mem
+                                   + (1 + nrec_cols + 5 * n_ring) * f, 0),
         "escan_reverse": (rev, (1 + nrec_cols + nsrc + 5 * n_ring) * f, 15 * cells * f),
         "estep_v": (fwd // 2 - nsrc, 9 * cells * f + mem, 0),
         "estep_s": (fwd // 2 + nsrc, 11 * cells * f + mem + (1 + nrec_cols + 5 * n_ring) * f, 0),
@@ -738,21 +743,25 @@ SCANRES_MODES = {  # scanres_forward's modes: keyword arguments, and no receiver
     "no tape": (dict(tape=None), False), "illumination": (dict(illum=True), True)}
 SCANRES_RUNS = (("fused", "fused", True), ("fused in stream order", "fused", False),
                 ("split", "split", True))
-SCANRES_PATTERN = r"::((?:fwd|rev|ring|illum|scan)_\w+?)[<(]"
+SCANRES_PATTERN = r"::((?:fwd|rev|rec|ring|illum|scan)_\w+?)[<(]"
 
 
-def scanres_variants(args, w, si, ri, ybar, snap_p, nt):
-    """Rows 1 and 2's fused steps (with dependent launches and in plain
-    stream order) and split ones in the same calls: {kernel: {mode: {run:
-    (ms a step by CUDA events, host ms a call)}}}, and whether every fused
-    run equals the split one bitwise on every output (forward: seis, tape,
-    final fields, illumination; reverse: gbar, lam_src)."""
+def scanres_variants(args, w, si, ri, ybar, snap_p, rings_p, nt):
+    """Rows 1-3's fused steps (with dependent launches and in plain stream
+    order) and split ones in the same calls: {kernel: {mode: {run: (ms a
+    step by CUDA events, host ms a call)}}}, and whether every fused run
+    equals the split one bitwise on every output (forward: seis, tape,
+    final fields, illumination; snapshot reverse: gbar, lam_src; rings
+    reverse, fed ``rings_p`` = (ring tape, P_{nt-2}, P_{nt-1}): gbar,
+    lam_src, P_{-1})."""
     ks, _ = kernel_modules()
     calls = {"scanres_forward": {
         mode: functools.partial(ks.scanres_forward, *args, w, si, ri[:0] if bare else ri, **kw)
         for mode, (kw, bare) in SCANRES_MODES.items()},
         "scanres_reverse_snap": {"snap": functools.partial(ks.scanres_reverse_snap, *args, ybar,
-                                                           snap_p, si, ri)}}
+                                                           snap_p, si, ri)},
+        "scanres_reverse": {"rings": functools.partial(ks.scanres_reverse, *args, w, ybar,
+                                                       *rings_p, si, ri, return_field=True)}}
     times, bitwise = {}, True
     for kernel, modes in calls.items():
         times[kernel] = {}
@@ -787,18 +796,22 @@ def host_us_per_step(run, nts=(32, 288)):
     return 1e6 * (best[nts[1]] - best[nts[0]]) / (nts[1] - nts[0])
 
 
-def scanres_profile(args, w, si, ri, ybar, snap_p, nt):
-    """Per variant, of one scanres_forward with the snapshot tape and one
-    scanres_reverse_snap over the first nt steps, in plain stream order
-    (with dependent launches a kernel's profiler span includes its wait):
-    torch.profiler's rows [(kernel, device us a step, launches a step)], and
-    the host enqueue us a step (host_us_per_step, the default run's: with
-    dependent launches)."""
+def scanres_profile(args, w, si, ri, ybar, snap_p, rings_p, nt):
+    """Per variant, of one scanres_forward with the snapshot tape, one
+    scanres_reverse_snap and one scanres_reverse (the rings, from the last
+    two fields, a timing input) over the first nt steps, in plain stream
+    order (with dependent launches a kernel's profiler span includes its
+    wait): torch.profiler's rows [(kernel, device us a step, launches a
+    step)], and the host enqueue us a step (host_us_per_step, the default
+    run's: with dependent launches)."""
     ks, _ = kernel_modules()
+    tape, ppen, plast = rings_p
     calls = {"scanres_forward": lambda n, **kw: ks.scanres_forward(
                  *args, w[:n], si, ri, tape="snap", **kw),
              "scanres_reverse_snap": lambda n, **kw: ks.scanres_reverse_snap(
-                 *args, ybar[:n], snap_p[:n], si, ri, **kw)}
+                 *args, ybar[:n], snap_p[:n], si, ri, **kw),
+             "scanres_reverse": lambda n, **kw: ks.scanres_reverse(
+                 *args, w[:n], ybar[:n], tape[:n], ppen, plast, si, ri, **kw)}
     out = {}
     for kernel, fn in calls.items():
         for v in ks.VARIANTS:
@@ -874,9 +887,10 @@ def phase_kernels(dev, smi, nz=351, nx=1701, nt=NT_CHECK, quiet=False):
 
     if quiet:
         return entries
-    var_times, var_bitwise = scanres_variants(args, w, si, ri, ybar, snap_p, nt)
+    rings_in = (rings_p, rpen_p, rlast_p)
+    var_times, var_bitwise = scanres_variants(args, w, si, ri, ybar, snap_p, rings_in, nt)
     nt_prof = 64
-    prof = scanres_profile(args, w, si, ri, ybar, snap_p, nt_prof)
+    prof = scanres_profile(args, w, si, ri, ybar, snap_p, rings_in, nt_prof)
     print(f"[kernels] {smi}: grid {NZ}x{NX} nt {nt}, ms per step, kernel (plain; bound):",
           flush=True)
     for e in entries:
@@ -898,13 +912,14 @@ def phase_kernels(dev, smi, nz=351, nx=1701, nt=NT_CHECK, quiet=False):
                   + "; ".join(f"{label} {ms:.5f} ms a step by CUDA events, host {host:.3f} ms a "
                               "call" for label, (ms, host) in runs.items()), flush=True)
     print("[kernels] every fused run == split bitwise (forward: seis, tape, final fields, "
-          f"illumination; reverse: gbar, lam_src): {var_bitwise}", flush=True)
+          "illumination; snapshot reverse: gbar, lam_src; rings reverse: gbar, lam_src, "
+          f"P_-1): {var_bitwise}", flush=True)
     for (kernel, v), (rows, host) in prof.items():
         shown = ", ".join(f"{k} {us:.2f} (x{n:.4g})" for k, us, n in rows) or "not measured"
         print(f"[kernels] torch.profiler device us per step (launches per step), nt {nt_prof}, "
               f"{kernel} {v} in stream order: {shown}; device us a step "
               f"{sum(r[1] for r in rows):.2f}, launches a step {sum(r[2] for r in rows):.4g} "
-              f"(planned {ks.step_launches(kernel, v, 'snap')} a step); host enqueue "
+              f"(planned {ks.step_launches(kernel, v, 'snap')} a step, +1 a call); host enqueue "
               f"{host:.2f} us a step (nt-slope 32 to 288)", flush=True)
     print(f"[kernels] rel err {json.dumps(errs)}; snapshot max err {snap_err:.3e} vs 1 bf16 "
           f"ulp {snap_ulp:.3e}", flush=True)
@@ -1200,14 +1215,16 @@ def phase_shot(dev, smi):
         seis, tape, _, _, _ = ks.scanres_forward(*args, w, si, ri, tape="snap", variant=variant)
         return ks.scanres_reverse_snap(*args, seis, tape, si, ri, variant=variant)
 
-    def fwd_adj_rings():
+    def fwd_adj_rings(variant="fused"):
         seis, tape, ppen, plast, _ = ks.scanres_forward(*args, w, si, ri, tape="rings")
-        return ks.scanres_reverse(*args, w, seis, tape, ppen, plast, si, ri)
+        return ks.scanres_reverse(*args, w, seis, tape, ppen, plast, si, ri, variant=variant)
 
     ms, (g, _) = timed_ms(fwd_adj, reps=2)
     split_ms, (g_s, _) = timed_ms(functools.partial(fwd_adj, "split"), reps=2)
     ms2, _ = timed_ms(fwd_adj, reps=2)  # fused, split, fused: the drift shows
     rings_ms, (gr, _) = timed_ms(fwd_adj_rings, reps=2)
+    rings_split_ms, (gr_s, _) = timed_ms(functools.partial(fwd_adj_rings, "split"), reps=2)
+    rings_ms2, _ = timed_ms(fwd_adj_rings, reps=2)
     fwd_ms, _ = timed_ms(lambda: ks.scanres_forward(*args, w, si, ri, tape=None))
     prop = AcousticPropagator(args[0], dt, f0, c_max, device=dev)
     launched = ks.scanres_forward.launches
@@ -1222,14 +1239,16 @@ def phase_shot(dev, smi):
         fail("one-shot gradient or illumination is not finite")
     print(f"[shot] {smi}: nt {nt}: snapshot forward+adjoint, fused steps {ms / 1e3:.4f} / "
           f"{ms2 / 1e3:.4f} s/shot, split steps {split_ms / 1e3:.4f} (same gradient bitwise: "
-          f"{bool(torch.equal(g, g_s))}); illumination split steps {il_split_ms / 1e3:.4f} "
-          "s/shot", flush=True)
+          f"{bool(torch.equal(g, g_s))}); rings forward+adjoint, fused reverse "
+          f"{rings_ms / 1e3:.4f} / {rings_ms2 / 1e3:.4f} s/shot, split reverse "
+          f"{rings_split_ms / 1e3:.4f} (same gradient bitwise: {bool(torch.equal(gr, gr_s))}); "
+          f"illumination split steps {il_split_ms / 1e3:.4f} s/shot", flush=True)
     print(f"[shot] {smi}: nt {nt}: forward+adjoint {ms / 1e3:.3f} s/shot (snapshot), "
           f"{rings_ms / 1e3:.3f} s/shot (rings), tape-free forward {fwd_ms / 1e3:.3f} s/shot, "
           f"illumination (kernel) {illum_ms / 1e3:.4f} s/shot ({prop.resolve_impl(nt)}, "
           f"{launched} forward-kernel steps in 3 calls), its plain version {plain_ms / 1e3:.3f} "
           f"s/shot, error {err:.3e} of max (tolerance {TOL['illum']:.0e})", flush=True)
-    if not torch.equal(g, g_s):
+    if not (torch.equal(g, g_s) and torch.equal(gr, gr_s)):
         fail("the one-shot gradient differs between the fused and split scanres steps")
     if launched != 3 * nt:
         fail(f"the illumination launched the forward kernel for {launched} steps, not 3 x {nt}")
@@ -1492,16 +1511,42 @@ def _max_rel(got, ref):
     return max(rel_err(a, b) for a, b in zip(got, ref))
 
 
+ELASTIC_RUNS = (("fused", "fused", True), ("fused in stream order", "fused", False),
+                ("split", "split", True))
+
+
+def elastic_variants(fn, nt):
+    """``fn(variant=, dependent_launch=)`` in each of ELASTIC_RUNS, in the
+    same calls: {run: (outputs, ms a step by CUDA events, host ms a call
+    (to the call's return, no sync))}, and whether every run's outputs
+    equal the split run's bitwise."""
+    out = {}
+    for label, v, dep in ELASTIC_RUNS:
+        run = functools.partial(fn, variant=v, dependent_launch=dep)
+        ev_ms, host_ms = events_ms(run, 3)
+        out[label] = (run(), ev_ms / nt, host_ms)
+
+    def flat(o):
+        return [x for part in o for x in (part if isinstance(part, tuple) else (part,))]
+
+    ref = flat(out["split"][0])
+    return out, all((a is None and b is None) or torch.equal(a, b)
+                    for r in out.values() for a, b in zip(flat(r[0]), ref))
+
+
 def elastic_kernels_vs_plain(dev, nt, source_type, record, free_surface):
-    """Both elastic kernels against their plain versions on one shot:
-    ({output: rel err}, entries' numbers)."""
+    """Both elastic kernels against their plain versions on one shot, and
+    each kernel's variants in the same calls (the fused passes also in
+    plain stream order), held bitwise against the split ones: ({output: rel
+    err}, entries' numbers)."""
     ke = elastic_module()
     args, w, si, ri, _ = elastic_shot(dev, nt, source_type, record, free_surface)
     kind = (source_type, record)
     plain_ms, (seis_p, tape_p, fin_p) = timed_ms(
         lambda: ke.escan_forward_plain(*args, w, si, ri, *kind, tape=True), warmup=False)
-    ms, (seis, tape, fin) = timed_ms(
-        lambda: ke.escan_forward(*args, w, si, ri, *kind, tape=True), reps=3)
+    fwd, fwd_bitwise = elastic_variants(
+        functools.partial(ke.escan_forward, *args, w, si, ri, *kind, tape=True), nt)
+    (seis, tape, fin), ms = fwd[ke.FORWARD_DEFAULT][0], fwd[ke.FORWARD_DEFAULT][1] * nt
     free_ms, (seis_n, _, _) = timed_ms(
         lambda: ke.escan_forward(*args, w, si, ri, *kind, tape=False), reps=3)
     scale = max(float(f.abs().max()) for f in fin_p)
@@ -1512,28 +1557,19 @@ def elastic_kernels_vs_plain(dev, nt, source_type, record, free_surface):
     plain_rev_ms, (g_p, sr_p) = timed_ms(
         lambda: ke.escan_reverse_plain(*args, w, ybar, tape_p, fin_p, si, ri, *kind),
         warmup=False)
-    # the reverse's variants in the same calls, the fused passes also in
-    # plain stream order: outputs, ms a step by CUDA events, host ms a call
-    # (to the call's return, no sync)
-    rev = {}
-    for label, v, dep in (("fused", "fused", True), ("fused in stream order", "fused", False),
-                          ("split", "split", True)):
-        run = functools.partial(ke.escan_reverse, *args, w, ybar, tape_p, fin_p, si, ri, *kind,
-                                variant=v, dependent_launch=dep)
-        ev_ms, host_ms = events_ms(run, 3)
-        rev[label] = (run(), ev_ms / nt, host_ms)
+    rev, rev_bitwise = elastic_variants(
+        functools.partial(ke.escan_reverse, *args, w, ybar, tape_p, fin_p, si, ri, *kind), nt)
     default = ke.REVERSE_DEFAULT
     g, sr = rev[default][0]
     errs.update(grads=_max_rel(g, g_p), srcrow=rel_err(sr, sr_p))
-    g_s, sr_s = rev["split"][0]
     nums = dict(
         fwd=(float((seis.double() - seis_p.double()).abs().max()), ms / nt, plain_ms / nt),
         free_ms=free_ms / nt,
         rev=(max(float((a.double() - b.double()).abs().max()) for a, b in zip(g, g_p)),
              rev[default][1], plain_rev_ms / nt),
         variants={v: r[1:] for v, r in rev.items()},
-        bitwise=all(torch.equal(a, b) for r in rev.values()
-                    for a, b in zip((*r[0][0], r[0][1]), (*g_s, sr_s))),
+        fwd_variants={v: r[1:] for v, r in fwd.items()},
+        bitwise=rev_bitwise, fwd_bitwise=fwd_bitwise,
         counts=elastic_step_counts(args[0], seis.shape[1] * (2 if record == "v" else 1),
                                    si.shape[0], tape.shape[1] // 5),
         grid="x".join(map(str, args[0].padded_shape)),
@@ -1577,31 +1613,34 @@ def host_enqueue_ms(run):
 
 def elastic_profile(dev, nt=64):
     """Device us per step (and launches per step) of each CUDA kernel of
-    one escan_forward with tape, and of one escan_reverse in each variant,
-    and the reverse calls' host enqueue ms: {"forward": rows, variant:
-    (rows, host ms a call)}. The fused variant is profiled in plain stream
-    order (with dependent launches a kernel's span includes its wait for
-    the one before it, so the spans overlap); its host ms is the default's."""
+    one escan_forward with tape and one escan_reverse, each in each
+    variant, and the calls' host enqueue ms: {(kernel, variant): (rows,
+    host ms a call)}. The fused variant is profiled in plain stream order
+    (with dependent launches a kernel's span includes its wait for the one
+    before it, so the spans overlap); its host ms is the default's."""
     ke = elastic_module()
     args, w, si, ri, _ = elastic_shot(dev, nt)
     kind = ("force_z", "v")
     pattern = r"::(e[fr]?_\w+?)[<(]"
     seis, tape, fin = ke.escan_forward(*args, w, si, ri, *kind, tape=True)
-    out = {"forward": device_us_per_step(
-        lambda: ke.escan_forward(*args, w, si, ri, *kind, tape=True), nt, pattern, calls=True)}
-    for v in ke.VARIANTS:
-        run = functools.partial(ke.escan_reverse, *args, w, seis.contiguous(), tape, fin, si, ri,
-                                *kind, variant=v)
-        serial = functools.partial(run, dependent_launch=False)
-        out[v] = (device_us_per_step(serial, nt, pattern, calls=True), host_enqueue_ms(run))
+    calls = {"forward": functools.partial(ke.escan_forward, *args, w, si, ri, *kind, tape=True),
+             "reverse": functools.partial(ke.escan_reverse, *args, w, seis.contiguous(), tape,
+                                          fin, si, ri, *kind)}
+    out = {}
+    for kernel, fn in calls.items():
+        for v in ke.VARIANTS:
+            run = functools.partial(fn, variant=v)
+            serial = functools.partial(run, dependent_launch=False)
+            out[(kernel, v)] = (device_us_per_step(serial, nt, pattern, calls=True),
+                                host_enqueue_ms(run))
     return out
 
 
 def phase_elastic_kernels(dev, smi, nt=NT_CHECK, nt_fs=128):
     """escan_forward (with and without tape) and escan_reverse against
     their plain versions: the main path's force / v case at nt, and a
-    pressure / p free-surface case at nt_fs; escan_reverse's fused and split
-    passes in the same calls, held bitwise against each other."""
+    pressure / p free-surface case at nt_fs; each kernel's fused and split
+    variants in the same calls, held bitwise against each other."""
     elastic_kernels_vs_plain(dev, 8, "force_z", "v", False)  # first-use costs
     ke = elastic_module()
     before = (ke.escan_forward.launches, ke.escan_reverse.launches)
@@ -1619,17 +1658,22 @@ def phase_elastic_kernels(dev, smi, nt=NT_CHECK, nt_fs=128):
               f"{e['bound_ms']:.5f} by {e['bound_by']})", flush=True)
     print(f"[elastic kernels]   escan_forward without tape: {nums['free_ms']:.5f} "
           f"({free_bound[0]:.5f} by {free_bound[1]})", flush=True)
+    streamed = bound(c["escan_forward_streamed"], nt)
+    print(f"[elastic kernels]   escan_forward streamed floor (the five fields in and out, the "
+          f"five materials, the strip memories, tape and seis from and to device memory once a "
+          f"step): {streamed[0]:.5f} ms a step by {streamed[1]}", flush=True)
     print(f"[elastic kernels]   free surface, pressure / p, nt {nt_fs}: forward "
           f"{nums_fs['fwd'][1]:.5f} ({nums_fs['fwd'][2]:.4f}), reverse {nums_fs['rev'][1]:.5f} "
           f"({nums_fs['rev'][2]:.4f})", flush=True)
     for tag, n, ns in (("force_z / v", nt, nums), ("free surface, pressure / p", nt_fs, nums_fs)):
-        print(f"[elastic kernels] escan_reverse variants, {tag}, nt {n} (default "
-              f"{ke.REVERSE_DEFAULT}, tile {ke.TILE_Z} x {ke.TILE_X}): " + "; ".join(
-                  f"{v} {ms:.5f} ms a step by CUDA events, host {host:.3f} ms a call"
-                  for v, (ms, host) in ns["variants"].items())
-              + f"; every fused run == split bitwise (five gradients, srcrow): "
-              f"{ns['bitwise']}",
-              flush=True)
+        for kernel, key, outs, ok in (
+                ("escan_forward", "fwd_variants", "seis, tape, five finals", "fwd_bitwise"),
+                ("escan_reverse", "variants", "five gradients, srcrow", "bitwise")):
+            print(f"[elastic kernels] {kernel} variants, {tag}, nt {n} (default fused, tile "
+                  f"{ke.TILE_Z} x {ke.TILE_X}): " + "; ".join(
+                      f"{v} {ms:.5f} ms a step by CUDA events, host {host:.3f} ms a call"
+                      for v, (ms, host) in ns[key].items())
+                  + f"; every fused run == split bitwise ({outs}): {ns[ok]}", flush=True)
     print(f"[elastic kernels] rel err force/v {json.dumps(errs)}; pressure/p free surface "
           f"{json.dumps(errs_fs)}; tolerances {json.dumps(ETOL)}; launches in these checks: "
           f"escan_forward {launched[0]}, escan_reverse {launched[1]}", flush=True)
@@ -1640,13 +1684,13 @@ def phase_elastic_kernels(dev, smi, nt=NT_CHECK, nt_fs=128):
         return ", ".join(f"{k} {us:.2f} (x{n:g})" for k, us, n in rows) or "not measured"
 
     print("[elastic kernels] torch.profiler device us per step (launches per step), nt "
-          f"{nt_prof}: forward with tape: {show(prof['forward'])}", flush=True)
-    for v in ke.VARIANTS:
-        rows, host = prof[v]
+          f"{nt_prof}:", flush=True)
+    for (kernel, v), (rows, host) in prof.items():
         order = " in stream order" if v == "fused" else ""
-        print(f"[elastic kernels]   reverse {v}{order}: {show(rows)}; device us a step "
+        planned = (ke.forward_launches if kernel == "forward" else ke.reverse_launches)(v, False)
+        print(f"[elastic kernels]   {kernel} {v}{order}: {show(rows)}; device us a step "
               f"{sum(r[1] for r in rows):.2f}, launches a step {sum(r[2] for r in rows):g} "
-              f"(planned {ke.reverse_launches(v, False)}); host enqueue {host:.3f} ms a call, "
+              f"(planned {planned}); host enqueue {host:.3f} ms a call, "
               f"{1e3 * host / nt_prof:.2f} us a step", flush=True)
     for group in (errs, errs_fs):
         for name, err in group.items():
@@ -1655,6 +1699,8 @@ def phase_elastic_kernels(dev, smi, nt=NT_CHECK, nt_fs=128):
                      f"{ETOL[name]:.0e}")
     if not (nums["bitwise"] and nums_fs["bitwise"]):
         fail("escan_reverse's fused passes are not bitwise equal to its split ones")
+    if not (nums["fwd_bitwise"] and nums_fs["fwd_bitwise"]):
+        fail("escan_forward's fused step is not bitwise equal to its split passes")
     return entries
 
 

@@ -164,6 +164,8 @@ def test_cuda_wrapper_raises_instead_of_falling_back(device):
         ks.scanres_reverse(grid, c2, prof, w, seis, tape[:-1], ppen, plast, *idx)
     with pytest.raises(ValueError, match="variant"):
         ks.scanres_forward(grid, c2, prof, w, *idx, variant="tiled")
+    with pytest.raises(ValueError, match="variant"):
+        ks.scanres_reverse(grid, c2, prof, w, seis, tape, ppen, plast, *idx, variant="split2")
 
 
 CASES = [(8, 1, False, False, False), (8, 3, True, True, True), (4, 2, False, True, True)]
@@ -199,6 +201,37 @@ def test_rings_kernels_match_plain(device, order, nsrc, free_surface, dup, in_ri
     assert _rel(g, g_p) <= 1e-4 and _rel(ls, ls_p) <= 1e-4
     # the reconstruction ends on P_{-1}, zero in exact arithmetic
     assert float((p0 - p0_p).abs().max()) <= 1e-5 * float(plast_p.abs().max())
+
+
+# physical shapes: padded 76 x 100 at order 8 (no axis a multiple of the
+# fused step's 16 x 32 tile) and 64 x 128 (whole tiles)
+@pytest.mark.parametrize("shape", [(48, 72), (36, 100)])
+@pytest.mark.parametrize("free_surface", [False, True])
+@pytest.mark.parametrize("order", [2, 4, 8])
+def test_scanres_rings_fused_matches_split_bitwise(device, order, free_surface, shape):
+    """scanres_reverse's fused step, with dependent launches and in plain
+    stream order, against its split passes, bitwise on gbar, lam_src and
+    the reconstructed P_{-1}: three sources (one in the boundary ring, one
+    on the surface row with the free surface, one on a receiver cell),
+    coinciding receivers, fed the kernel forward's ring tape and last
+    fields and a random receiver cotangent; each call counts nt launches."""
+    args, w, (si, ri) = _case(device, order, 3, free_surface, True, nt=96, in_ring=True,
+                              shape=shape)
+    ri = torch.cat([ri, si[1:2]])
+    seis, rings, ppen, plast, _ = ks.scanres_forward(*args, w, si, ri, tape="rings")
+    gen = torch.Generator(device=device).manual_seed(order)
+    ybar = torch.randn(seis.shape, generator=gen, device=device)
+    r0 = ks.scanres_reverse.launches
+    ref = ks.scanres_reverse(*args, w, ybar, rings, ppen, plast, si, ri, return_field=True,
+                             variant="split")
+    assert float(ref[0].abs().max()) > 0.0
+    for dep in (True, False):
+        got = ks.scanres_reverse(*args, w, ybar, rings, ppen, plast, si, ri, return_field=True,
+                                 variant="fused", dependent_launch=dep)
+        for name, a, b in zip(("gbar", "lam_src", "field"), got, ref):
+            assert torch.equal(a, b), (dep, name, float((a - b).abs().max()))
+    torch.cuda.synchronize()
+    assert ks.scanres_reverse.launches - r0 == 3 * w.shape[0]
 
 
 @pytest.mark.parametrize("order,nsrc,free_surface,dup,in_ring", CASES)
@@ -376,6 +409,40 @@ def test_escan_fused_matches_split_bitwise(device, order, source_type, record, f
     assert ke.escan_reverse.launches - r0 == 3 * w.shape[0]
 
 
+@pytest.mark.parametrize("shape", [(40, 56), (48, 112)])
+@pytest.mark.parametrize("free_surface", [False, True])
+@pytest.mark.parametrize("source_type,record", [("force_z", "v"), ("pressure", "p")])
+@pytest.mark.parametrize("order", [2, 4, 8])
+def test_escan_forward_fused_matches_split_bitwise(device, order, source_type, record,
+                                                   free_surface, shape):
+    """escan_forward's fused step, with dependent launches and in plain
+    stream order, against its split passes (the per-step engine's), bitwise
+    on the seismogram, the ring tape and the five final fields, and without
+    the tape on the seismogram; coinciding sources, coinciding receivers
+    and a receiver on a source cell; each call counts nt launches."""
+    from tpufwi_torch.kernels import elastic2d_scan as ke
+
+    args, w, (si, ri) = _elastic_case(device, source_type, record, free_surface, order,
+                                      nt=120, shape=shape)
+    si = torch.cat([si, si[:1]])
+    ri = torch.cat([ri, si[1:2]])
+    kind = (source_type, record)
+    f0 = ke.escan_forward.launches
+    ref = ke.escan_forward(*args, w, si, ri, *kind, tape=True, variant="split")
+    assert float(ref[0].abs().max()) > 0.0
+    for dep in (True, False):
+        seis, tape, finals = ke.escan_forward(*args, w, si, ri, *kind, tape=True,
+                                              variant="fused", dependent_launch=dep)
+        assert torch.equal(seis, ref[0]), (dep, "seis", float((seis - ref[0]).abs().max()))
+        assert torch.equal(tape, ref[1]), (dep, "tape", float((tape - ref[1]).abs().max()))
+        for name, a, b in zip(("vx", "vz", "sxx", "szz", "sxz"), finals, ref[2]):
+            assert torch.equal(a, b), (dep, name, float((a - b).abs().max()))
+    seis_n, tape_n, _ = ke.escan_forward(*args, w, si, ri, *kind, variant="fused")
+    assert tape_n is None and torch.equal(seis_n, ref[0])
+    torch.cuda.synchronize()
+    assert ke.escan_forward.launches - f0 == 4 * w.shape[0]
+
+
 def test_elastic_wrapper_raises_instead_of_falling_back(device):
     from tpufwi_torch.kernels import elastic2d_scan as ke
 
@@ -387,6 +454,8 @@ def test_elastic_wrapper_raises_instead_of_falling_back(device):
         ke.escan_reverse(grid, dt, mats, prof, w, seis, tape[:-1].contiguous(), finals, *idx)
     with pytest.raises(ValueError, match="variant"):
         ke.escan_reverse(grid, dt, mats, prof, w, seis, tape, finals, *idx, variant="tiled")
+    with pytest.raises(ValueError, match="variant"):
+        ke.escan_forward(grid, dt, mats, prof, w, *idx, variant="tiled")
 
 
 # ------------------------------------------------------- elastic (10-11)

@@ -264,15 +264,19 @@ def test_fused_walk_matches_reference_scan_engine():
 def test_tile_plan_covers_every_cell_once(order, shape, pml):
     """The tiles of ``escan_tile_plan`` cover every cell of the padded grid
     exactly once (ragged edges included), the plan is the tile the library
-    is built for with the larger pass's shared bytes, and the reach
-    numbering of ``FTile::reach`` fills exactly the tile's cross (its R
-    reach along z and along x, not the corners) once."""
+    is built for with the largest fused pass's shared bytes (the forward's
+    ``ef_s_fused``, above the reverse's er_v), and the reach numbering of
+    ``FTile::reach`` fills exactly the tile's cross (its R reach along z
+    and along x, not the corners) once."""
     grid = Grid(shape=shape, h=(10.0, 10.0), pml=pml, order=order)
     NZ, NX = grid.padded_shape
     R = grid.radius
     plan = ke.escan_tile_plan(grid)
     assert (plan.tz, plan.tx) == (ke.TILE_Z, ke.TILE_X) and plan.tz % ke.TILE_ROWS == 0
-    assert plan.smem == 4 * 7 * (plan.tz + 2 * R) * (plan.tx + 2 * R)
+    cross = (plan.tz + 2 * R) * (plan.tx + 2 * R)
+    assert ke.fused_smem(R, "er_v") == 4 * 7 * cross
+    assert plan.smem == ke.fused_smem(R, "ef_s_fused") == 4 * (2 * cross
+                                                                + 10 * plan.tz * plan.tx)
     cover = np.zeros((NZ, NX), np.int64)
     tiles = list(ke.fused_tiles(plan, NZ, NX))
     assert len(tiles) == -(-NZ // plan.tz) * -(-NX // plan.tx)

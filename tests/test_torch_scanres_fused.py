@@ -47,6 +47,7 @@ from tpufwi_torch.kernels.acoustic2d_eager import (
     AcousticParams,
     AcousticState,
     make_acoustic_step,
+    make_reverse_reconstruct_step,
     zero_state,
 )
 from tpufwi_torch.wavelets import ricker_np
@@ -61,9 +62,10 @@ def _one_thread():
 
 class _Tile:
     """One tile of the walk: its own cells and its window (the cells and
-    their 2R reach, clipped to the grid), the step twin on the window (the
-    surface row in window coordinates), and the sources and receivers whose
-    cells it owns (window-relative, in index order)."""
+    their 2R reach, clipped to the grid), the step twin and its
+    reconstruction on the window (the surface row in window coordinates),
+    and the sources and receivers whose cells it owns (window-relative, in
+    index order)."""
 
     def __init__(self, grid, tile, params, src_idx, rcv_idx):
         NZ, NX = grid.padded_shape
@@ -80,6 +82,7 @@ class _Tile:
             free_surface=fs is not None and wz.start <= fs < wz.stop,
             pad=None if fs is None else fs - wz.start)
         self.step = make_acoustic_step(local)
+        self.recon = make_reverse_reconstruct_step(local)
         self.fs = local.pad if local.free_surface else None
         off = torch.tensor([wz.start, wx.start])
 
@@ -157,7 +160,8 @@ def fused_forward(grid, c2, profiles, wavelet, src_idx, rcv_idx, tape=None, illu
     return seis, (torch.stack(rows) if tape else None), prev, cur, acc
 
 
-def fused_reverse(grid, c2, profiles, ybar, tape, src_idx, rcv_idx, plan=None, ping_pong=True):
+def fused_reverse(grid, c2, profiles, ybar, tape, src_idx, rcv_idx, plan=None, ping_pong=True,
+                  rings=None):
     """The fused snapshot reverse's walk (``scanres_reverse_snap_plain``'s
     contract). Per step t each tile transposes the step twin on its window
     (``torch.func.vjp``) at lambda_t (injected and pinned), the carried
@@ -166,6 +170,14 @@ def fused_reverse(grid, c2, profiles, ybar, tape, src_idx, rcv_idx, plan=None, p
     with ybar row t-1 injected and the surface pinned, lambda at its
     sources, and psibar', phibar' (to the other set; ``ping_pong=False``:
     in place). lambda_{nt-1} is injected before the first step.
+
+    ``rings=(wavelet, p_penult, p_last)``: the fused rings reverse's walk
+    (``scanres_reverse_plain``'s contract with ``return_field``), ``tape``
+    the ring tape. Each tile images its own cells with the D2 laplacian of
+    its window of P_{t-1} and rewrites its own cells of P_t, in place, with
+    P_{t-2}: the reconstruction on its window with its own sources, then
+    its ring cells from tape row t-2 (zeros for t < 2). Returns (gbar,
+    lam_src, P_{-1}).
 
     The plain version images with lambda injected receiver by receiver
     (``index_put``) and transposes the step with each cell's receivers
@@ -197,11 +209,16 @@ def fused_reverse(grid, c2, profiles, ybar, tape, src_idx, rcv_idx, plan=None, p
     duals = [[zeros() for _ in range(4)] for _ in range(2)]  # phibar z, x; psibar z, x
     gbar = zeros()
     no_rcv = torch.zeros(0, dtype=c2.dtype)
+    if rings is not None:
+        wavelet = rings[0]
+        fields = [rings[1].clone(), rings[2].clone()]  # P_{t-1}, P_t
+        ring_idx = ks.ring_plan(grid, c2.device)[0]
+        ring_zx = torch.stack([ring_idx // NX, ring_idx % NX], 1)
     for t in reversed(range(nt)):
         k = (nt - 1 - t) % 2 if ping_pong else 0
         din, dout = duals[k], (duals[1 - k] if ping_pong else duals[k])
         (ls, li), nxt = lam
-        img = tape[t].to(c2.dtype)
+        img = tape[t].to(c2.dtype) if rings is None else None
         for tl in tiles:
             zero = zero_state(tl.W(c2).shape, 2, c2.dtype)
             _, step_t = torch.func.vjp(
@@ -209,7 +226,18 @@ def fused_reverse(grid, c2, profiles, ybar, tape, src_idx, rcv_idx, plan=None, p
             cot = AcousticState(tl.W(pbar), tl.W(ls), (tl.W(din[0]), tl.W(din[1])),
                                 (tl.W(din[2]), tl.W(din[3])))
             (out,) = step_t((cot, no_rcv))
-            gbar[tl.cells] += li[tl.cells] * img[tl.cells]
+            if rings is None:
+                gbar[tl.cells] += li[tl.cells] * img[tl.cells]
+            else:
+                p_t, p_tp1 = fields
+                gbar[tl.cells] += li[tl.cells] * ks.interior_lap(grid, tl.W(p_t))[tl.own]
+                new = tl.recon(tl.W(p_t), tl.W(p_tp1), tl.W(c2), tl.src, wavelet[t])[tl.own]
+                (z0, z1), (x0, x1) = ((c.start, c.stop) for c in tl.cells)
+                g = torch.nonzero((ring_zx[:, 0] >= z0) & (ring_zx[:, 0] < z1)
+                                  & (ring_zx[:, 1] >= x0) & (ring_zx[:, 1] < x1))[:, 0]
+                new[ring_zx[g, 0] - z0, ring_zx[g, 1] - x0] = (
+                    tape[t - 2][g].to(c2.dtype) if t >= 2 else 0.0)
+                p_tp1[tl.cells] = new
             pre = out.p[tl.own]
             if t >= 1:
                 own_rcv = tl.rcv - torch.tensor([tl.own[0].start, tl.own[1].start])
@@ -224,8 +252,10 @@ def fused_reverse(grid, c2, profiles, ybar, tape, src_idx, rcv_idx, plan=None, p
                 dout[j][tl.cells] = out.phi[j][tl.own]
                 dout[2 + j][tl.cells] = out.psi[j][tl.own]
         lam = [nxt, [ls, li]]
+        if rings is not None:
+            fields = [fields[1], fields[0]]  # P_{t-2} where P_t was, P_{t-1}
     del rcv_all
-    return gbar, lam_src
+    return (gbar, lam_src) if rings is None else (gbar, lam_src, fields[1])
 
 
 def _case(order, free_surface, nt, shape=(30, 44), pml=6, seed=0):
@@ -361,7 +391,7 @@ def test_tile_plan_covers_every_cell_once(order, shape, pml):
     """The tiles of ``scanres_tile_plan`` cover every cell of the padded
     grid exactly once (ragged edges included), the rows in the kernels'
     block order (the CPML band's rows first); the plan is the tile the
-    library is built for with the larger pass's shared bytes."""
+    library is built for with the largest pass's shared bytes."""
     grid = Grid(shape=shape, h=(10.0, 10.0), pml=pml, order=order)
     NZ, NX = grid.padded_shape
     R = grid.radius
@@ -373,8 +403,9 @@ def test_tile_plan_covers_every_cell_once(order, shape, pml):
     fwd = 4 * (rect + reach + 5 * own)
     rev = 4 * (rect + (plan.tz + 2 * H) * plan.tx + plan.tz * (plan.tx + 2 * H) + reach
                + 2 * own)
-    assert (ks.fused_smem(R, "fwd_fused"), ks.fused_smem(R, "rev_fused")) == (fwd, rev)
-    assert plan.smem == max(fwd, rev) <= 48 * 1024
+    rings = rev + 4 * (rect + own)  # the rings form: P_{t-1} over the cross, P_t
+    assert [ks.fused_smem(R, k) for k in ks.FUSED_KERNELS] == [fwd, rev, rings]
+    assert plan.smem == max(fwd, rev, rings) <= 48 * 1024
     cover = np.zeros((NZ, NX), np.int64)
     tiles = list(ks.fused_tiles(plan, NZ, NX))
     assert len(tiles) == -(-NZ // plan.tz) * -(-NX // plan.tx)

@@ -46,10 +46,10 @@ def tile_library(tile) -> Library:
     src = BUILD_DIR / f"{stem}.cu"
     src.write_text(f"#define TPUFWI_SCAN_TILE {', '.join(map(str, tile))}\n"
                    f'#include "{CSRC / "acoustic2d_scanres.cu"}"\n')
-    headers = (CSRC / "acoustic2d_scanres.cu", CSRC / "acoustic2d_kernels.cuh", CSRC / "pdl.cuh")
-    return Library(stem, (src,), headers, lambda lib: declare_all(lib, {
-        "tpufwi_scanres_forward": (15, 14), "tpufwi_scanres_reverse_snap": (13, 13),
-        "tpufwi_scanres_reverse_rings": (15, 14)}))
+    return Library(stem, (src,), (CSRC / "acoustic2d_scanres.cu", *ks.LIBRARY.headers),
+                   lambda lib: declare_all(lib, {
+                       "tpufwi_scanres_forward": (15, 14), "tpufwi_scanres_reverse_snap": (13, 13),
+                       "tpufwi_scanres_reverse_rings": (15, 19)}))
 
 
 def main_path_shot(dev, nt):

@@ -156,7 +156,9 @@ __device__ __forceinline__ float rev_leapfrog(float q, float q_next, float lap) 
 __device__ __forceinline__ float add_source(float p, float c2, float w) { return fmaf(c2, w, p); }
 
 // the transposed psi update at a strip cell: pt = psibar + u, psibar' = b
-// pt, w = a pt
+// pt, w = a pt (u = C lambda must come rounded, __fmul_rn: a product
+// contracted into this sum in one kernel and not in another would break
+// the engines' bitwise agreement)
 __device__ __forceinline__ void adj_w(float psb, float uu, float a, float b, float& psb_new,
                                       float& w) {
   const float pt = psb + uu;
@@ -398,7 +400,7 @@ __global__ void rec_cells(const float* __restrict__ p_t, float* __restrict__ p_t
   const int c = z * NX + x;
   const float lap = d2_lap<R>(p_t, i, ld, tp);
   if (lapw != nullptr) lapw[c] = lap;
-  p_tp1[i] = (z == fs) ? 0.f : 2.f * p_t[i] - p_tp1[i] + c2[c] * lap;
+  p_tp1[i] = (z == fs) ? 0.f : leapfrog_update(p_t[i], p_tp1[i], c2[c], lap);
 }
 
 // The reconstruction's sources, by one thread (skipped on the surface row
@@ -410,7 +412,10 @@ __device__ __forceinline__ void rec_sources(float* __restrict__ p, const float* 
   const int ld = NX + 2 * R;
   for (int s = 0; s < nsrc; ++s) {
     const int z = (int)src[2 * s], x = (int)src[2 * s + 1];
-    if (z != fs && !in_ring(z, x, frame)) p[(z + R) * ld + x + R] += c2[z * NX + x] * w[t];
+    if (z != fs && !in_ring(z, x, frame)) {
+      float* q = p + (z + R) * ld + x + R;
+      *q = add_source(*q, c2[z * NX + x], w[t]);
+    }
   }
 }
 
@@ -498,7 +503,7 @@ __device__ __forceinline__ void transposed_cell(
     lam = 0.f;
     q[i] = 0.f;
   }
-  const float uu = c2[c] * lam;
+  const float uu = __fmul_rn(c2[c], lam);  // rounded: never contracted into adj_w's sum
   u[i] = uu;
   gacc[c] = fmaf(lam, img, gacc[c]);
   const int sz = strip_index(z, NZ, S);
@@ -540,7 +545,7 @@ __device__ __forceinline__ void rev_cell1_rings(
   const int i = (z + R) * ld + x + R;
   const int c = z * NX + x;
   const float lap = d2_lap<R>(p_t, i, ld, tp);
-  p_tp1[i] = (z == fs) ? 0.f : 2.f * p_t[i] - p_tp1[i] + c2[c] * lap;
+  p_tp1[i] = (z == fs) ? 0.f : leapfrog_update(p_t[i], p_tp1[i], c2[c], lap);
   transposed_cell(q, u, c2, gacc, psbz, wz, psbx, wx, az, bz, ax, bx, z, x, i, c, NZ, NX, S,
                   fs, lap);
 }

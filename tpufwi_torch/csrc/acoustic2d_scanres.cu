@@ -20,8 +20,8 @@
 // 2.8 MB; the working set of one step fits the 50 MB L2) and a host loop in
 // this file launches each time step on the caller's stream, so the Python
 // side makes one call per propagation. At that size a step is paced by
-// launches and latency, not by bytes, so the forward and the snapshot
-// reverse have two variants of their step, equal bitwise:
+// launches and latency, not by bytes, so the forward and both reverses have
+// two variants of their step, equal bitwise:
 //   variant 0, fused (the default): one shared-memory tiled kernel a step
 //     (fwd_fused, rev_fused below), each a programmatic dependent of the
 //     one before it (dependent launch off: plain stream order), after one
@@ -29,9 +29,8 @@
 //     receivers and ring cells; in the reverse also lambda_{nt-1}).
 //   variant 1, split: the ordered launches of acoustic2d_kernels.cuh
 //     (forward_step: 3 a step, 4 with the ring tape, +1 with the
-//     illumination; reverse_step: 4 a step), which the single-step and
-//     K-step engines and the rings reverse also run.
-// The rings reverse runs the split passes only.
+//     illumination; reverse_step: 4 a step, the rings reverse's 5 with
+//     rec_src_ring), which the single-step and K-step engines also run.
 //
 // The fused forward step. A block of TX x ROWS threads owns a TZ x TX tile
 // of cells, TZ / ROWS rows a thread (TPUFWI_SCAN_TILE: 16 x 32 cells, 256
@@ -68,6 +67,13 @@
 // arithmetic is the split passes' (the header's tails, in the same tap
 // order), so fused and split are bitwise equal.
 //
+// The fused rings-reverse step is rev_fused in its rings form: the image
+// is the fp32 D2 laplacian of P_{t-1}, copied over the tile's R cross (no
+// tile writes P_{t-1} in the step), and the owner rewrites its P_t in place
+// with P_{t-2} = 2 P_{t-1} - P_t + C lap, pins the surface, undoes its
+// sources outside the ring and off the surface in index order, and imposes
+// ring row t-2 (zeros for t < 2), as rev_cells1_rings and rec_src_ring do.
+//
 // Tapes. Snapshot row t is bf16(D2 laplacian of P_{t-1}), the field step t
 // starts from (2 bytes per cell per step, 6.8 GB at 399x1749x4842). Ring
 // row t is rings(P_t) after the sources, fp32 (16,352 cells = 64 KB per
@@ -79,14 +85,16 @@
 // L2); only the tape must reach HBM (2 bytes a cell a step). On an NVIDIA
 // H100 80GB HBM3 at 700 W, 399 x 1749, order 8 (chip_smoke.py): a fused
 // forward step took 9.1 us of device time against the split passes' 11.7
-// in 3 launches, a fused reverse step 12.4 against 20.9 in 4, and the host
-// enqueues a fused step in 2-4 us, under the device time. The fused
+// in 3 launches, a fused reverse step 12.4 against 20.9 in 4 (the rings
+// form 14.7 against 23.3 in 5), and the host enqueues a fused step in 2-4
+// us, under the device time. The fused
 // passes' tile and shared bytes are the plan that
 // kernels/acoustic2d_scanres.py::scanres_tile_plan states.
 
 #include <cuda_bf16.h>
 
 #include "acoustic2d_kernels.cuh"
+#include "cell_maps.cuh"  // SMaps, carve_maps, cell_map_entry
 
 namespace {
 
@@ -117,23 +125,14 @@ struct STile {
   static constexpr int M1 = (XROW1 + NT - 1) / NT;            // XROW1 cells a thread
   // shared bytes: fwd_fused P_{t-1}, phi_z', phi_x' and the own cells'
   // P_{t-2}, C, psi_z, psi_x, illum; rev_fused u, w_z, w_x, y_z, y_x and
-  // the own cells' lambda_{t+1}, gacc
+  // the own cells' lambda_{t+1}, gacc; its rings form also P_{t-1} over the
+  // tile and its R cross (in a RECT plane) and the own cells' P_t
   static constexpr int FWD = 4 * (RECT + ZCOL1 + XROW1 + 5 * OWN);
   static constexpr int REV = 4 * (RECT + ZCOL + XROW + ZCOL1 + XROW1 + 2 * OWN);
+  static constexpr int REV_RINGS = REV + 4 * (RECT + OWN);
+  static constexpr int MAX = FWD > REV_RINGS ? FWD : REV_RINGS;
   static_assert(TZ % ROWS == 0 && NT <= 1024 && TX >= 2 * R, "tile");
 };
-
-// 4-byte global -> shared copy, zero-filled (nothing read) unless ok
-__device__ __forceinline__ void cp_async4(float* dst, const float* src, bool ok) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d), "l"(src),
-               "r"(ok ? 4 : 0)
-               : "memory");
-}
-// this thread's copies complete and visible to it
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::: "memory");
-}
 
 // the fused passes' launch plan, as the caller states it (the wrapper's
 // scanres_tile_plan): the tile and the larger pass's shared bytes
@@ -141,95 +140,47 @@ struct SPlan {
   int tz, tx, smem;
 };
 
-// the maps scan_setup builds, in one zeroed int buffer: per cell of the
-// (NZ, NX) grid the first source, receiver and ring entry there + 1 (0:
-// none), a flag word per tile (1 a source, 2 a receiver, 4 a ring cell),
-// and per source and receiver the next one at its cell (-1: none)
-struct SMaps {
-  int *smap, *rmap, *gmap, *flags, *snext, *rnext;
-};
-
-inline SMaps carve_maps(int* iws, int NZ, int NX, int ntiles, int nsrc) {
-  const size_t cells = (size_t)NZ * NX;
-  SMaps m;
-  m.smap = iws;
-  m.rmap = iws + cells;
-  m.gmap = iws + 2 * cells;
-  m.flags = iws + 3 * cells;
-  m.snext = m.flags + ntiles;
-  m.rnext = m.snext + nsrc;
-  return m;
-}
-
-__device__ __forceinline__ bool same_cell(const long long* __restrict__ a, int i, int j) {
-  return a[2 * i] == a[2 * j] && a[2 * i + 1] == a[2 * j + 1];
-}
-
-// The maps, one thread per source, receiver and ring cell (in that order).
-// With yb (ybar row nt-1, the snapshot reverse) it also writes lambda_{nt-1}
-// into q: each cell's receiver cotangents summed in index order and added
-// to zero, 0 on the pinned surface row; and lambda at the sources into
-// lam_row, as rev_inject does.
+// The maps (cell_maps.cuh), one thread per source, receiver and ring cell
+// (in that order). With yb (ybar row nt-1, the reverses) it also writes
+// lambda_{nt-1} into q: each cell's receiver cotangents summed in index
+// order and added to zero, 0 on the pinned surface row; and lambda at the
+// sources into lam_row, as rev_inject does.
 __global__ void scan_setup(const long long* __restrict__ src, int nsrc,
                            const long long* __restrict__ rcv, int nrec,
                            const int* __restrict__ ring, int n_ring, int NX, int R, int tz, int tx,
                            int ntx, SMaps m, const float* __restrict__ yb, float* __restrict__ q,
                            float* __restrict__ lam_row, int fs) {
   const int k = blockIdx.x * blockDim.x + threadIdx.x;
+  cell_map_entry(k, src, nsrc, rcv, nrec, ring, n_ring, NX, tz, tx, ntx, 0, m);
+  if (yb == nullptr) return;
   if (k < nsrc) {
     const int z = (int)src[2 * k], x = (int)src[2 * k + 1];
-    int head = 1, next = -1;
-    for (int j = 0; j < k && head; ++j) head = !same_cell(src, j, k);
-    for (int j = k + 1; j < nsrc && next < 0; ++j)
-      if (same_cell(src, j, k)) next = j;
-    m.snext[k] = next;
-    if (head) {
-      m.smap[z * NX + x] = k + 1;
-      atomicOr(&m.flags[(z / tz) * ntx + x / tx], 1);
+    float v = 0.f;
+    if (z != fs) {
+      int first = -1;
+      float s = 0.f;
+      for (int r = 0; r < nrec; ++r)
+        if (rcv[2 * r] == z && rcv[2 * r + 1] == x) {
+          s = first < 0 ? yb[r] : s + yb[r];
+          if (first < 0) first = r;
+        }
+      if (first >= 0) v = 0.f + s;
     }
-    if (yb != nullptr) {
-      float v = 0.f;
-      if (z != fs) {
-        int first = -1;
-        float s = 0.f;
-        for (int r = 0; r < nrec; ++r)
-          if (rcv[2 * r] == z && rcv[2 * r + 1] == x) {
-            s = first < 0 ? yb[r] : s + yb[r];
-            if (first < 0) first = r;
-          }
-        if (first >= 0) v = 0.f + s;
-      }
-      lam_row[k] = v;
-    }
+    lam_row[k] = v;
   } else if (k < nsrc + nrec) {
     const int r = k - nsrc;
+    int next;
+    if (!chain_at(rcv, nrec, r, next)) return;
     const int z = (int)rcv[2 * r], x = (int)rcv[2 * r + 1];
-    int head = 1, next = -1;
-    for (int j = 0; j < r && head; ++j) head = !same_cell(rcv, j, r);
-    for (int j = r + 1; j < nrec && next < 0; ++j)
-      if (same_cell(rcv, j, r)) next = j;
-    m.rnext[r] = next;
-    if (head) {
-      m.rmap[z * NX + x] = r + 1;
-      atomicOr(&m.flags[(z / tz) * ntx + x / tx], 2);
-      if (yb != nullptr) {
-        float s = yb[r];
-        for (int j = next; j >= 0;) {
-          s += yb[j];
-          int n2 = -1;
-          for (int l = j + 1; l < nrec && n2 < 0; ++l)
-            if (same_cell(rcv, l, r)) n2 = l;
-          j = n2;
-        }
-        q[(z + R) * (NX + 2 * R) + x + R] = (z == fs) ? 0.f : 0.f + s;
-      }
+    float s = yb[r];
+    for (int j = next; j >= 0;) {
+      s += yb[j];
+      int n2 = -1;
+      for (int l = j + 1; l < nrec && n2 < 0; ++l)
+        if (same_cell(rcv, l, r)) n2 = l;
+      j = n2;
     }
-  } else if (k < nsrc + nrec + n_ring) {
-    const int g = k - nsrc - nrec;
-    const int cell = ring[g];
-    m.gmap[cell] = g + 1;
-    const int z = cell / NX;
-    atomicOr(&m.flags[(z / tz) * ntx + (cell - z * NX) / tx], 4);
+    q[(z + R) * (NX + 2 * R) + x + R] = (z == fs) ? 0.f : 0.f + s;
   }
 }
 
@@ -456,6 +407,8 @@ struct RevArgs {
   SMaps m;
   int NZ, NX, S, fs, nsrc, nrec;
   Taps tp;
+  const float* w;  // the rings form: the wavelet and the frame its ring tiles
+  RingFrame frame;
 };
 
 // one cell of rev_fused's cross, by the thread that copied it: u = C
@@ -466,7 +419,7 @@ __device__ __forceinline__ void rev_cross_cell(float* su, float c2v, float* wz, 
                                                float* wx, int sx, const float* az,
                                                const float* bz, const float* ax,
                                                const float* bx, float* pz_out, float* px_out) {
-  const float uu = c2v * *su;
+  const float uu = __fmul_rn(c2v, *su);
   *su = uu;
   if (sz >= 0) {
     float nb, w;
@@ -482,18 +435,24 @@ __device__ __forceinline__ void rev_cross_cell(float* su, float c2v, float* wz, 
   }
 }
 
-// One snapshot-reverse step t: qc = lambda_t (injected and pinned); qo =
+// One reverse step t: qc = lambda_t (injected and pinned); qo =
 // lambda_{t+1}, overwritten by lambda_{t-1} (injected with ybar row t-1 and
 // pinned, for t >= 1); psibar and phibar read from the in set and the
-// owner's written to the out set; img_row the snapshot row t.
-template <int R, int TZ, int TX, int ROWS, int MINB>
+// owner's written to the out set. The snapshot form (kRings false) images
+// with img_row, the snapshot row t. The rings form images with the fp32 D2
+// laplacian of pc = P_{t-1} (read over the tile's R cross) and rewrites pn
+// = P_t in place with P_{t-2} = 2 P_{t-1} - P_t + C lap, the surface
+// pinned, its sources undone outside the ring and off the surface, then
+// ring_row (tape row t-2; zeros when null) imposed.
+template <int R, int TZ, int TX, int ROWS, int MINB, bool kRings>
 __global__ void __launch_bounds__(TX * ROWS, MINB)
     rev_fused(RevArgs a, int t, const float* __restrict__ qc, float* __restrict__ qo,
               const float* __restrict__ psbz_in, const float* __restrict__ pbz_in,
               const float* __restrict__ psbx_in, const float* __restrict__ pbx_in,
               float* __restrict__ psbz_out, float* __restrict__ pbz_out,
               float* __restrict__ psbx_out, float* __restrict__ pbx_out,
-              const __nv_bfloat16* __restrict__ img_row) {
+              const __nv_bfloat16* __restrict__ img_row, const float* __restrict__ pc,
+              float* __restrict__ pn, const float* __restrict__ ring_row) {
   dep_wait();
   dep_trigger();
   using T = STile<R, TZ, TX, ROWS, MINB>;
@@ -504,7 +463,8 @@ __global__ void __launch_bounds__(TX * ROWS, MINB)
   float* swx = swz + T::ZCOL;      // psibar_x, then w_x: XROW
   float* syz = swx + T::XROW;      // phibar_z, then y_z: ZCOL1
   float* syx = syz + T::ZCOL1;     // phibar_x, then y_x: XROW1
-  float* own = syx + T::XROW1;     // lambda_{t+1}, gacc: OWN each
+  float* own = syx + T::XROW1;     // lambda_{t+1}, gacc (and P_t): OWN each
+  float* spc = own + 3 * T::OWN;   // the rings form's P_{t-1}: RECT, R cross filled
   const int NZ = a.NZ, NX = a.NX, S = a.S, SE = S + R, ld = NX + 2 * R;
   const STileAt<R, TZ, TX> g(NZ, NX, S);
   const int tid = g.ty * TX + g.tx, x = g.x;
@@ -529,7 +489,12 @@ __global__ void __launch_bounds__(TX * ROWS, MINB)
     cp_async4(own + o, qo + i, in);
     cp_async4(own + T::OWN + o, a.gacc + c, in);
     c2o[j] = in ? a.c2[c] : 0.f;
-    im[j] = in ? __bfloat162float(img_row[c]) : 0.f;
+    if (kRings) {
+      cp_async4(spc + (oz + H) * W + g.tx + H, pc + i, in);
+      cp_async4(own + 2 * T::OWN + o, pn + i, in);
+    } else {
+      im[j] = in ? __bfloat162float(img_row[c]) : 0.f;
+    }
   }
 #pragma unroll
   for (int m = 0; m < T::MA; ++m) {
@@ -541,6 +506,8 @@ __global__ void __launch_bounds__(TX * ROWS, MINB)
       cp_async4(su + rz * W + g.tx + H, qc + (z + R) * ld + x + R, in);
       cp_async4(swz + rz * TX + g.tx, psbz_in + (z + R) * ld + x + R,
                 in && g.bandz && strip_index(z, NZ, S) >= 0);
+      if (kRings && z >= g.z0 - R && z < g.z0 + TZ + R)
+        cp_async4(spc + rz * W + g.tx + H, pc + (z + R) * ld + x + R, in);
       if (in) c2z[m] = a.c2[z * NX + x];
     }
   }
@@ -556,6 +523,8 @@ __global__ void __launch_bounds__(TX * ROWS, MINB)
       cp_async4(su + (oz + H) * W + rx, qc + (z + R) * ld + xr + R, in);
       cp_async4(swx + oz * W + rx, psbx_in + (z + R) * ld + xr + R,
                 in && g.bandx && strip_index(xr, NX, S) >= 0);
+      if (kRings && xr >= g.x0 - R && xr < g.x0 + TX + R)
+        cp_async4(spc + (oz + H) * W + rx, pc + (z + R) * ld + xr + R, in);
       if (in) c2x[m] = a.c2[z * NX + xr];
     }
   }
@@ -579,6 +548,7 @@ __global__ void __launch_bounds__(TX * ROWS, MINB)
       }
     }
   }
+  const float wt = kRings ? a.w[t] : 0.f;
   cp_async_wait_all();
 
   // u and the w planes (R1) over this thread's own copies, no barrier
@@ -656,15 +626,28 @@ __global__ void __launch_bounds__(TX * ROWS, MINB)
   }
   if (g.bandz || g.bandx) __syncthreads();
 
-  // the own cells (R3, imaging, then R0 of step t-1 and its pin); the maps
-  // only in a tile that holds a source or receiver
-  const int fl = (t >= 1) ? a.m.flags[g.tile] : 0;
+  // the own cells (the rings form's reconstruction, then R3, imaging, then
+  // R0 of step t-1 and its pin); the maps only in a tile that holds a
+  // source, receiver or ring cell
+  const int fl = (kRings || t >= 1) ? a.m.flags[g.tile] : 0;
   const float* yb = a.ybar + (size_t)(t >= 1 ? t - 1 : 0) * a.nrec;
 #pragma unroll
   for (int j = 0; j < P; ++j) {
     const int oz = g.ty + j * ROWS, z = g.z0 + oz;
     if (z >= NZ || !xin) continue;
     const int i = (z + R) * ld + x + R, c = z * NX + x, o = oz * TX + g.tx;
+    if (kRings) {
+      const int rs = (oz + H) * W + g.tx + H;
+      im[j] = tap_sum<R>(spc, rs, W, a.tp.d2z) + tap_sum<R>(spc, rs, 1, a.tp.d2x);
+      float p = (z == a.fs) ? 0.f : leapfrog_update(spc[rs], own[2 * T::OWN + o], c2o[j], im[j]);
+      if ((fl & 1) && z != a.fs && !in_ring(z, x, a.frame))
+        for (int k = a.m.smap[c] - 1; k >= 0; k = a.m.snext[k]) p = add_source(p, c2o[j], wt);
+      if (fl & 4) {
+        const int k = a.m.gmap[c];
+        if (k > 0) p = ring_row != nullptr ? ring_row[k - 1] : 0.f;
+      }
+      pn[i] = p;
+    }
     const float lap = rev_lap<R>(su, (oz + H) * W + g.tx + H, W, swz, (oz + H) * TX + g.tx, TX,
                                  syz, (oz + R) * TX + g.tx, TX, swx, oz * W + g.tx + H, syx,
                                  oz * W1 + g.tx + R, z < SE || z >= NZ - SE,
@@ -698,8 +681,13 @@ inline int scan_allow_smem() {
       reinterpret_cast<const void*>(fwd_fused<R, TZ, TX, ROWS, MINB>),
       cudaFuncAttributeMaxDynamicSharedMemorySize, T::FWD);
   if (e == cudaSuccess)
-    e = cudaFuncSetAttribute(reinterpret_cast<const void*>(rev_fused<R, TZ, TX, ROWS, MINB>),
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, T::REV);
+    e = cudaFuncSetAttribute(
+        reinterpret_cast<const void*>(rev_fused<R, TZ, TX, ROWS, MINB, false>),
+        cudaFuncAttributeMaxDynamicSharedMemorySize, T::REV);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(
+        reinterpret_cast<const void*>(rev_fused<R, TZ, TX, ROWS, MINB, true>),
+        cudaFuncAttributeMaxDynamicSharedMemorySize, T::REV_RINGS);
   return (int)e;
 }
 
@@ -707,7 +695,7 @@ inline int scan_allow_smem() {
 template <int R, int TZ, int TX, int ROWS, int MINB>
 inline int scan_check_plan(const SPlan& plan) {
   using T = STile<R, TZ, TX, ROWS, MINB>;
-  if (plan.tz != TZ || plan.tx != TX || plan.smem != (T::FWD > T::REV ? T::FWD : T::REV))
+  if (plan.tz != TZ || plan.tx != TX || plan.smem != T::MAX)
     return (int)cudaErrorInvalidValue;
   return scan_allow_smem<R, TZ, TX, ROWS, MINB>();
 }
@@ -797,16 +785,18 @@ int reverse_snap_loop(int variant, const SPlan& plan, int dep, const float* c2, 
     scan_setup<<<blocks_for(nsrc + nrec), kSmallBlock, 0, st>>>(
         src, nsrc, rcv, nrec, nullptr, 0, NX, R, TZ, TX, grid.x, m,
         ybar + (size_t)(nt - 1) * nrec, qc, lam_src + (size_t)(nt - 1) * nsrc, fs);
-    const RevArgs a{c2, az, bz, ax, bx, ybar, gacc, lam_src, m, NZ, NX, S, fs, nsrc, nrec, tp};
+    const RevArgs a{c2, az, bz, ax, bx, ybar, gacc, lam_src, m, NZ, NX, S, fs, nsrc, nrec, tp,
+                    nullptr, RingFrame{}};
     float* set[2] = {ws + 2 * plane, ws + 6 * plane};  // psibar_z, phibar_z, psibar_x, phibar_x
     for (int t = nt - 1; t >= 0; --t) {
       const int k = (nt - 1 - t) & 1;
       const float* in = set[k];
       float* out = set[1 - k];
-      launch_dep(dep, rev_fused<R, TZ, TX, ROWS, MINB>, grid, block,
+      launch_dep(dep, rev_fused<R, TZ, TX, ROWS, MINB, false>, grid, block,
                  (size_t)STile<R, TZ, TX, ROWS, MINB>::REV, st, a, t, (const float*)qc, qo, in,
                  in + plane, in + 2 * plane, in + 3 * plane, out, out + plane, out + 2 * plane,
-                 out + 3 * plane, snap + (size_t)t * NZ * NX);
+                 out + 3 * plane, snap + (size_t)t * NZ * NX, (const float*)nullptr,
+                 (float*)nullptr, (const float*)nullptr);
       if (t == nt - 1) {
         const cudaError_t err = cudaGetLastError();
         if (err != cudaSuccess) return (int)err;
@@ -834,21 +824,61 @@ int reverse_snap_loop(int variant, const SPlan& plan, int dep, const float* c2, 
   return (int)cudaGetLastError();
 }
 
-template <int R>
-int reverse_rings_loop(const float* c2, const float* az, const float* bz, const float* ax,
-                       const float* bx, const float* w, const float* ybar,
-                       const float* ring_tape, const int* ring, int n_ring,
-                       const long long* src, const long long* rcv, float* gacc, float* lam_src,
-                       float* ws, int* chain, int NZ, int NX, int S, int nt, int nsrc, int nrec,
-                       int fs, RingFrame frame, const Taps& tp, cudaStream_t st) {
+// ws: P_t, P_{t-1} (set by the caller), the lambda ping-pong q0, q1, then
+// fused: psibar_z, phibar_z, psibar_x, phibar_x in two sets; split: the 9
+// adjoint planes. iws: fused the maps (SMaps, zeroed), split the receiver
+// chain (2 nrec ints). The two field planes swap every step, so P_{-1} ends
+// in plane nt % 2 in both variants.
+template <int R, int TZ, int TX, int ROWS, int MINB>
+int reverse_rings_loop(int variant, const SPlan& plan, int dep, const float* c2,
+                       const float* az, const float* bz, const float* ax, const float* bx,
+                       const float* w, const float* ybar, const float* ring_tape,
+                       const int* ring, int n_ring, const long long* src, const long long* rcv,
+                       float* gacc, float* lam_src, float* ws, int* iws, int NZ, int NX, int S,
+                       int nt, int nsrc, int nrec, int fs, RingFrame frame, const Taps& tp,
+                       cudaStream_t st) {
   const size_t plane = (size_t)(NZ + 2 * R) * (NX + 2 * R);
-  rev_chain<<<blocks_for(nrec), kSmallBlock, 0, st>>>(rcv, nrec, chain);
   float* p_tp1 = ws;          // P_t, overwritten by P_{t-2}
   float* p_t = ws + plane;    // P_{t-1}
   float* qc = ws + 2 * plane;
   float* qo = ws + 3 * plane;
+  if (variant == 0) {
+    if (const int err = scan_check_plan<R, TZ, TX, ROWS, MINB>(plan)) return err;
+    const dim3 grid(tiles_x(NX, TX), (NZ + TZ - 1) / TZ), block(TX, ROWS);
+    const SMaps m = carve_maps(iws, NZ, NX, grid.x * grid.y, nsrc);
+    scan_setup<<<blocks_for(nsrc + nrec + n_ring), kSmallBlock, 0, st>>>(
+        src, nsrc, rcv, nrec, ring, n_ring, NX, R, TZ, TX, grid.x, m,
+        ybar + (size_t)(nt - 1) * nrec, qc, lam_src + (size_t)(nt - 1) * nsrc, fs);
+    const RevArgs a{c2, az, bz, ax, bx, ybar, gacc, lam_src, m, NZ, NX, S, fs, nsrc, nrec, tp,
+                    w, frame};
+    float* set[2] = {ws + 4 * plane, ws + 8 * plane};
+    for (int t = nt - 1; t >= 0; --t) {
+      const int k = (nt - 1 - t) & 1;
+      const float* in = set[k];
+      float* out = set[1 - k];
+      launch_dep(dep, rev_fused<R, TZ, TX, ROWS, MINB, true>, grid, block,
+                 (size_t)STile<R, TZ, TX, ROWS, MINB>::REV_RINGS, st, a, t, (const float*)qc, qo,
+                 in, in + plane, in + 2 * plane, in + 3 * plane, out, out + plane,
+                 out + 2 * plane, out + 3 * plane, (const __nv_bfloat16*)nullptr,
+                 (const float*)p_t, p_tp1,
+                 t >= 2 ? ring_tape + (size_t)(t - 2) * n_ring : (const float*)nullptr);
+      if (t == nt - 1) {
+        const cudaError_t err = cudaGetLastError();
+        if (err != cudaSuccess) return (int)err;
+      }
+      float* tmp = p_t;
+      p_t = p_tp1;
+      p_tp1 = tmp;
+      tmp = qc;
+      qc = qo;
+      qo = tmp;
+    }
+    return (int)cudaGetLastError();
+  }
+  if (variant != 1) return (int)cudaErrorInvalidValue;
+  rev_chain<<<blocks_for(nrec), kSmallBlock, 0, st>>>(rcv, nrec, iws);
   for (int t = nt - 1; t >= 0; --t) {
-    reverse_step<R, float>(c2, az, bz, ax, bx, ybar, t, nullptr, p_t, p_tp1, src, rcv, chain,
+    reverse_step<R, float>(c2, az, bz, ax, bx, ybar, t, nullptr, p_t, p_tp1, src, rcv, iws,
                            gacc, lam_src, qc, qo, ws + 4 * plane, plane, NZ, NX, S, nsrc, nrec,
                            fs, tp, st);
     rec_src_ring<<<blocks_for(n_ring), kSmallBlock, 0, st>>>(
@@ -917,23 +947,27 @@ int tpufwi_scanres_reverse_snap(const float* c2, const float* az, const float* b
                            lam_src, ws, iws, NZ, NX, S, nt, nsrc, nrec, fs, tp, st)))
 }
 
-// ws: 13 halo planes: P_{nt-1}, P_{nt-2} (set by the caller), then 11
-// zeroed (lambda ping-pong and the 9 adjoint planes); gacc (NZ, NX) zeroed;
-// chain: 2 * nrec ints; ring_tape (nt, n_ring) with row t = rings(P_t).
+// ws: 13 halo planes (12 for variant 0): P_{nt-1}, P_{nt-2} (set by the
+// caller), then zeroed (the lambda ping-pong and the adjoint planes); gacc
+// (NZ, NX) zeroed; iws: split 2 nrec ints, fused the zeroed int maps (as
+// the forward's); ring_tape (nt, n_ring) with row t = rings(P_t); variant,
+// plan and dep as the forward's.
 int tpufwi_scanres_reverse_rings(const float* c2, const float* az, const float* bz,
                                  const float* ax, const float* bx, const float* w,
                                  const float* ybar, const float* ring_tape, const int* ring,
                                  const long long* src, const long long* rcv, float* gacc,
-                                 float* lam_src, float* ws, int* chain, int NZ, int NX, int S,
+                                 float* lam_src, float* ws, int* iws, int NZ, int NX, int S,
                                  int R, int nt, int nsrc, int nrec, int fs, int n_ring, int z0,
-                                 int z1, int x0, int x1, int rw, const float* taps,
-                                 void* stream) {
+                                 int z1, int x0, int x1, int rw, int variant, int tz, int tx,
+                                 int smem, int dep, const float* taps, void* stream) {
   const Taps tp = load_taps(taps);
   const RingFrame frame{z0, z1, x0, x1, rw};
+  const SPlan plan{tz, tx, smem};
   auto st = static_cast<cudaStream_t>(stream);
-  TPUFWI_DISPATCH_R(R, reverse_rings_loop<kR>(c2, az, bz, ax, bx, w, ybar, ring_tape, ring,
-                                              n_ring, src, rcv, gacc, lam_src, ws, chain, NZ,
-                                              NX, S, nt, nsrc, nrec, fs, frame, tp, st))
+  TPUFWI_DISPATCH_R(R, (reverse_rings_loop<kR, TPUFWI_SCAN_TILE>(
+                           variant, plan, dep, c2, az, bz, ax, bx, w, ybar, ring_tape, ring,
+                           n_ring, src, rcv, gacc, lam_src, ws, iws, NZ, NX, S, nt, nsrc, nrec,
+                           fs, frame, tp, st)))
 }
 
 const char* tpufwi_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }

@@ -53,7 +53,8 @@
 
 #include <cstring>
 
-#include "pdl.cuh"  // dep_wait, dep_trigger, launch_dep
+#include "cell_maps.cuh"  // SMaps, carve_maps, cell_map_entry
+#include "pdl.cuh"        // dep_wait, dep_trigger, launch_dep
 
 namespace {
 
@@ -106,11 +107,10 @@ __device__ __forceinline__ float dminus(const float* __restrict__ f, int i, int 
   return acc;
 }
 
-// one CPML memory: m' = b m + a d; returns d + m'
-__device__ __forceinline__ float e_mem(float* __restrict__ m, int c, float a, float b, float d) {
-  const float mn = fmaf(b, m[c], a * d);
-  m[c] = mn;
-  return d + mn;
+// one CPML memory: m' = b m + a d (in place); returns d + m'
+__device__ __forceinline__ float e_mem(float& m, float a, float b, float d) {
+  m = fmaf(b, m, a * d);
+  return d + m;
 }
 
 // the dual of one memory: tot = q + din, dual' = b tot into dout (kWrite;
@@ -125,10 +125,112 @@ __device__ __forceinline__ float e_dual(const float* din, float* dout, int c, fl
 
 // --------------------------------------------------------------- forward
 
-// stage V; mem holds m_sxx_x, m_sxz_z, m_sxz_x, m_szz_z (compact planes)
+// The forward cell bodies, one arithmetic for the split passes (ef_v, ef_s,
+// e_src) and the fused one (ef_s_fused): every product that could contract
+// into an FMA is fused or rounded explicitly, so the two agree bitwise.
+
+// stage V at one cell from its stress derivatives (vx_x = D+x sxx, vx_z =
+// D-z sxz, vz_x = D-x sxz, vz_z = D+z szz): on the strips the memories m
+// (m_sxx_x, m_sxz_z, m_sxz_x, m_szz_z) in place, then v in place
+__device__ __forceinline__ void ev_cell(float vx_x, float vx_z, float vz_x, float vz_z,
+                                        float m[4], int sx, int sz, const EProf& pr, float dtbx,
+                                        float dtbz, float& vx, float& vz) {
+  if (sx >= 0) {
+    vx_x = e_mem(m[0], pr.ax[sx], pr.bx[sx], vx_x);
+    vz_x = e_mem(m[2], pr.ax[sx], pr.bx[sx], vz_x);
+  }
+  if (sz >= 0) {
+    vx_z = e_mem(m[1], pr.az[sz], pr.bz[sz], vx_z);
+    vz_z = e_mem(m[3], pr.az[sz], pr.bz[sz], vz_z);
+  }
+  vx = fmaf(dtbx, vx_x + vx_z, vx);
+  vz = fmaf(dtbz, vz_x + vz_z, vz);
+}
+
+// stage S at one cell from its velocity derivatives (exx = D-x vx, ezz =
+// D-z vz, hz = D+z vx, hx = D+x vz): on the strips the memories m (m_vx_x,
+// m_vz_z, m_vx_z, m_vz_x) in place, then the stresses in place
+__device__ __forceinline__ void es_cell(float exx, float ezz, float hz, float hx, float m[4],
+                                        int sx, int sz, const EProf& pr, float dt, float lam,
+                                        float l2m, float mu, float& sxx, float& szz,
+                                        float& sxz) {
+  if (sx >= 0) {
+    exx = e_mem(m[0], pr.ax[sx], pr.bx[sx], exx);
+    hx = e_mem(m[3], pr.ax[sx], pr.bx[sx], hx);
+  }
+  if (sz >= 0) {
+    ezz = e_mem(m[1], pr.az[sz], pr.bz[sz], ezz);
+    hz = e_mem(m[2], pr.az[sz], pr.bz[sz], hz);
+  }
+  sxx = fmaf(dt, fmaf(l2m, exx, lam * ezz), sxx);
+  szz = fmaf(dt, fmaf(l2m, ezz, lam * exx), szz);
+  sxz = fmaf(dt * mu, hz + hx, sxz);
+}
+
+// one source at its cell: a pressure source dt w on sxx and szz, a force
+// dt bz w on vz; sign -1 undoes it
+__device__ __forceinline__ void e_src_cell(float& vz, float& sxx, float& szz, float bzc, float wt,
+                                           float dt, int force, float sign) {
+  if (force) {
+    vz = fmaf(sign * dt * bzc, wt, vz);
+  } else {
+    const float a = __fmul_rn(sign * dt, wt);
+    sxx += a;
+    szz += a;
+  }
+}
+
+// the four memories of a compact cell c (planes pl apart), read on the
+// strips (zero elsewhere) and written back there
+__device__ __forceinline__ void e_mem_load(const float* __restrict__ mem, int c, size_t pl,
+                                           int sx, int sz, float m[4], int x0, int x2, int z1,
+                                           int z3) {
+  // (x0, x2): the slots of the x strips' memories, (z1, z3): the z strips'
+  m[0] = m[1] = m[2] = m[3] = 0.f;
+  if (sx >= 0) {
+    m[x0] = mem[x0 * pl + c];
+    m[x2] = mem[x2 * pl + c];
+  }
+  if (sz >= 0) {
+    m[z1] = mem[z1 * pl + c];
+    m[z3] = mem[z3 * pl + c];
+  }
+}
+
+__device__ __forceinline__ void e_mem_store(float* __restrict__ mem, int c, size_t pl, int sx,
+                                            int sz, const float m[4], int x0, int x2, int z1,
+                                            int z3) {
+  if (sx >= 0) {
+    mem[x0 * pl + c] = m[x0];
+    mem[x2 * pl + c] = m[x2];
+  }
+  if (sz >= 0) {
+    mem[z1 * pl + c] = m[z1];
+    mem[z3 * pl + c] = m[z3];
+  }
+}
+
+// the force sources that the fused forward's stage V adds, at its own
+// cells, to vz before its update: those of the step before (the split step
+// adds them after its stage S, where the fused one cannot, since other
+// tiles read vz in that launch); flags (null: none) is a word per block
+// of ef_v (kEVX x kEVY cells), 1 where one of its cells holds a source;
+// w[t] the sources' wavelet value
+struct EVSrc {
+  const int *flags, *smap, *snext;
+  const float* w;
+  int t;
+};
+
+constexpr int kEVX = 32, kEVY = 8;  // ef_v's block: kECellBlock
+
+// stage V in place; mem holds m_sxx_x, m_sxz_z, m_sxz_x, m_szz_z (compact
+// planes): the x strips' in slots 0 and 2, the z strips' in 1 and 3
 template <int R>
 __global__ void ef_v(EFields f, float* __restrict__ mem, EMats mt, EProf pr, int NZ, int NX,
-                     int S, ETaps tp) {
+                     int S, ETaps tp, EVSrc src) {
+  dep_wait();
+  dep_trigger();
   const int x = blockIdx.x * blockDim.x + threadIdx.x;
   const int z = blockIdx.y * blockDim.y + threadIdx.y;
   if (x >= NX || z >= NZ) return;
@@ -136,24 +238,25 @@ __global__ void ef_v(EFields f, float* __restrict__ mem, EMats mt, EProf pr, int
   const int i = (z + R) * ld + x + R;
   const int c = z * NX + x;
   const size_t pl = (size_t)NZ * NX;
-  float vx_x = dplus<R>(f.sxx, i, 1, tp.x);
-  float vx_z = dminus<R>(f.sxz, i, ld, tp.z);
-  float vz_x = dminus<R>(f.sxz, i, 1, tp.x);
-  float vz_z = dplus<R>(f.szz, i, ld, tp.z);
   const int sx = e_strip(x, NX, S), sz = e_strip(z, NZ, S);
-  if (sx >= 0) {
-    vx_x = e_mem(mem, c, pr.ax[sx], pr.bx[sx], vx_x);
-    vz_x = e_mem(mem + 2 * pl, c, pr.ax[sx], pr.bx[sx], vz_x);
+  float m[4];
+  e_mem_load(mem, c, pl, sx, sz, m, 0, 2, 1, 3);
+  float vx = f.vx[i], vz = f.vz[i];
+  if (src.flags != nullptr && (src.flags[blockIdx.y * gridDim.x + blockIdx.x] & 1)) {
+    float unused = 0.f;
+    for (int k = src.smap[c] - 1; k >= 0; k = src.snext[k])
+      e_src_cell(vz, unused, unused, mt.bz[c], src.w[src.t], tp.dt, 1, 1.f);
   }
-  if (sz >= 0) {
-    vx_z = e_mem(mem + pl, c, pr.az[sz], pr.bz[sz], vx_z);
-    vz_z = e_mem(mem + 3 * pl, c, pr.az[sz], pr.bz[sz], vz_z);
-  }
-  f.vx[i] = fmaf(tp.dt * mt.bx[c], vx_x + vx_z, f.vx[i]);
-  f.vz[i] = fmaf(tp.dt * mt.bz[c], vz_x + vz_z, f.vz[i]);
+  ev_cell(dplus<R>(f.sxx, i, 1, tp.x), dminus<R>(f.sxz, i, ld, tp.z),
+          dminus<R>(f.sxz, i, 1, tp.x), dplus<R>(f.szz, i, ld, tp.z), m, sx, sz, pr,
+          tp.dt * mt.bx[c], tp.dt * mt.bz[c], vx, vz);
+  f.vx[i] = vx;
+  f.vz[i] = vz;
+  e_mem_store(mem, c, pl, sx, sz, m, 0, 2, 1, 3);
 }
 
-// stage S; mem holds m_vx_x, m_vz_z, m_vx_z, m_vz_x
+// stage S; mem holds m_vx_x, m_vz_z, m_vx_z, m_vz_x: the x strips' in
+// slots 0 and 3, the z strips' in 1 and 2
 template <int R>
 __global__ void ef_s(EFields f, float* __restrict__ mem, EMats mt, EProf pr, int NZ, int NX,
                      int S, ETaps tp) {
@@ -164,23 +267,25 @@ __global__ void ef_s(EFields f, float* __restrict__ mem, EMats mt, EProf pr, int
   const int i = (z + R) * ld + x + R;
   const int c = z * NX + x;
   const size_t pl = (size_t)NZ * NX;
-  float exx = dminus<R>(f.vx, i, 1, tp.x);
-  float ezz = dminus<R>(f.vz, i, ld, tp.z);
-  float hz = dplus<R>(f.vx, i, ld, tp.z);
-  float hx = dplus<R>(f.vz, i, 1, tp.x);
   const int sx = e_strip(x, NX, S), sz = e_strip(z, NZ, S);
-  if (sx >= 0) {
-    exx = e_mem(mem, c, pr.ax[sx], pr.bx[sx], exx);
-    hx = e_mem(mem + 3 * pl, c, pr.ax[sx], pr.bx[sx], hx);
+  float m[4];
+  e_mem_load(mem, c, pl, sx, sz, m, 0, 3, 1, 2);
+  es_cell(dminus<R>(f.vx, i, 1, tp.x), dminus<R>(f.vz, i, ld, tp.z), dplus<R>(f.vx, i, ld, tp.z),
+          dplus<R>(f.vz, i, 1, tp.x), m, sx, sz, pr, tp.dt, mt.lam[c], mt.l2m[c], mt.muxz[c],
+          f.sxx[i], f.szz[i], f.sxz[i]);
+  e_mem_store(mem, c, pl, sx, sz, m, 0, 3, 1, 2);
+}
+
+// receiver k of seis row t: (vz, vx) for a v record, else -(sxx + szz) / 2
+__device__ __forceinline__ void e_record(float* __restrict__ seis, int t, int nrec, int k,
+                                         int rec_v, float vx, float vz, float sxx, float szz) {
+  if (rec_v) {
+    const size_t o = 2 * ((size_t)t * nrec + k);
+    seis[o] = vz;
+    seis[o + 1] = vx;
+  } else {
+    seis[(size_t)t * nrec + k] = -(sxx + szz) / 2.f;
   }
-  if (sz >= 0) {
-    ezz = e_mem(mem + pl, c, pr.az[sz], pr.bz[sz], ezz);
-    hz = e_mem(mem + 2 * pl, c, pr.az[sz], pr.bz[sz], hz);
-  }
-  const float l2m = mt.l2m[c], lam = mt.lam[c];
-  f.sxx[i] = fmaf(tp.dt, fmaf(l2m, exx, lam * ezz), f.sxx[i]);
-  f.szz[i] = fmaf(tp.dt, fmaf(l2m, ezz, lam * exx), f.szz[i]);
-  f.sxz[i] = fmaf(tp.dt * mt.muxz[c], hz + hx, f.sxz[i]);
 }
 
 // sources, serially in index order (coinciding sources sum in a fixed
@@ -193,13 +298,7 @@ __device__ __forceinline__ void e_src_apply(EFields f, const float* __restrict__
   for (int k = 0; k < nsrc; ++k) {
     const int z = (int)src[2 * k], x = (int)src[2 * k + 1];
     const int i = (z + R) * ld + x + R;
-    if (force) {
-      f.vz[i] += (sign * dt * bzm[z * NX + x]) * w[t];
-    } else {
-      const float a = (sign * dt) * w[t];
-      f.sxx[i] += a;
-      f.szz[i] += a;
-    }
+    e_src_cell(f.vz[i], f.sxx[i], f.szz[i], bzm[z * NX + x], w[t], dt, force, sign);
   }
 }
 
@@ -253,13 +352,7 @@ __global__ void ef_rec_ring(EFields f, const long long* __restrict__ rcv,
   if (k < nrec) {
     const int z = (int)rcv[2 * k], x = (int)rcv[2 * k + 1];
     const int i = (z + R) * (NX + 2 * R) + x + R;
-    if (rec_v) {
-      const size_t o = 2 * ((size_t)t * nrec + k);
-      seis[o] = f.vz[i];
-      seis[o + 1] = f.vx[i];
-    } else {
-      seis[(size_t)t * nrec + k] = -(f.sxx[i] + f.szz[i]) / 2.f;
-    }
+    e_record(seis, t, nrec, k, rec_v, f.vx[i], f.vz[i], f.sxx[i], f.szz[i]);
     return;
   }
   k -= nrec;
@@ -787,6 +880,222 @@ __global__ void __launch_bounds__(TX * kFRows, 1024 / (TX * kFRows))
   }
 }
 
+// ---- the fused forward (escan_forward's variant "fused"): two launches a
+// step, each a programmatic dependent of the one before. Stage V is the
+// split step's ef_v, which also adds the step before's force sources;
+// ef_s_fused then runs, on TZ x TX tiles (FTile's thread layout), stage S
+// from v copied over the tile and its R cross (a ghost row of the free
+// surface copied from its mirror row: the velocity image) and folds in the
+// glue the split step launches after it: the sources (a force source's vz
+// only in registers, for the receivers and the tape: vz is read by other
+// tiles in this launch, so stage V adds it in the next step, and the call's
+// last step's in a tail launch), the stress image and the surface pin, the
+// receivers, the ring-tape entries, and the imaged v of its own ghost
+// cells. The stresses and stage S's memories are read at their own cell
+// only, and no tile reads a ghost row's v, so nothing ping-pongs. With the
+// free surface the tile rows are shifted so that one starts at fs - 2R:
+// its tiles hold the ghost rows fs-R .. fs-1 and their mirrors fs .. fs+R,
+// so the stress image runs in shared memory after a barrier (only in that
+// tile row). Every copy is a 4-byte cp.async issued before the first
+// barrier, the materials' (which no step writes) before the wait on the
+// step before; the maps (and bz at a force source) only in a tile that
+// holds a source, receiver or ring cell, after it.
+
+constexpr int kEFMinBlocks = 4;  // ef_s_fused's register cap: 4 blocks an SM
+
+// 1: ef_s_fused waits on the step before it ahead of its material copies
+// too (tpufwi_torch/bench/escan_forward_loads.py builds it so to time the
+// lever); 0, the engine's: the copies of the materials overlap the wait
+#ifndef TPUFWI_EF_WAIT_FIRST
+#define TPUFWI_EF_WAIT_FIRST 0
+#endif
+
+// ef_s_fused's shared floats: v over the tile and its R cross (N each);
+// sxx, szz, sxz, lam, l2m, mu_xz and stage S's four memories over the tile
+template <int R, int TZ, int TX>
+constexpr int ef_smem() {
+  return 4 * (2 * FTile<R, TZ, TX>::N + 10 * TZ * TX);
+}
+
+// the shift of the forward's tile rows: block row by starts at row
+// by TZ - shift, so that with the free surface one starts at fs - 2R
+template <int R, int TZ>
+__host__ __device__ inline int ef_shift(int fs) {
+  return fs >= 0 ? (TZ - ((fs - 2 * R) % TZ + TZ) % TZ) % TZ : 0;
+}
+
+struct EFwdArgs {
+  EMats mt;
+  EProf pr;
+  const float* w;
+  float *seis, *mem_s;  // stage S's memories, in place
+  SMaps m;
+  int NZ, NX, S, fs, shift, nrec, n_ring, force, rec_v;
+  ETaps tp;
+};
+
+// v of cell (z, x) into shared slot s, a ghost row's from its mirror row
+// (2 fs - z for vx, 2 fs - 1 - z for vz: the velocity image), zero off the
+// grid
+template <int R>
+__device__ __forceinline__ void ef_copy_v(float* svx, float* svz, int s,
+                                          const float* __restrict__ vxi,
+                                          const float* __restrict__ vzi, int z, int x, int NZ,
+                                          int NX, int fs) {
+  const bool on = z >= 0 && z < NZ && x >= 0 && x < NX;
+  const bool ghost = fs >= 0 && z >= fs - R && z < fs;
+  const int ld = NX + 2 * R, col = on ? x + R : 0;
+  const int zx = !on ? -R : ghost ? 2 * fs - z : z, zz = !on ? -R : ghost ? 2 * fs - 1 - z : z;
+  cp_async4(svx + s, vxi + (zx + R) * ld + col, on);
+  cp_async4(svz + s, vzi + (zz + R) * ld + col, on);
+}
+
+// Stage S and the glue of forward step t on the fields f: the stresses in
+// place, v at the own ghost cells; ring_row (tape row t) may be null.
+template <int R, int TZ, int TX>
+__global__ void __launch_bounds__(TX * kFRows, kEFMinBlocks)
+    ef_s_fused(EFwdArgs a, int t, EFields f, float* __restrict__ ring_row) {
+  using T = FTile<R, TZ, TX>;
+  constexpr int P = T::kPer, W = T::W, OWN = TZ * TX;
+  extern __shared__ float sm[];
+  float* svx = sm;         // v over the cross; then (surface row) the new szz
+  float* svz = sm + T::N;  // and sxz
+  float* own = sm + 2 * T::N;  // sxx, szz, sxz, lam, l2m, mu, stage S's memories: OWN each
+  const int NZ = a.NZ, NX = a.NX, S = a.S, fs = a.fs, ld = NX + 2 * R;
+  const size_t pl = (size_t)NZ * NX;
+  const float dt = a.tp.dt;
+  const int z0 = blockIdx.y * TZ - a.shift, x0 = blockIdx.x * TX;
+  const int tx = threadIdx.x, ty = threadIdx.y, x = x0 + tx;
+  const bool surf = fs >= 0 && z0 == fs - 2 * R;  // the tile row of the stress image
+  const bool band = x0 < S || x0 + TX > NX - S || z0 < S || z0 + TZ > NZ - S;
+
+  if (TPUFWI_EF_WAIT_FIRST) {
+    dep_wait();
+    dep_trigger();
+  }
+#pragma unroll
+  for (int j = 0; j < P; ++j) {
+    const int oz = ty + j * kFRows, z = z0 + oz, o = oz * TX + tx;
+    const bool on = z >= 0 && z < NZ && x < NX;
+    const int c = on ? z * NX + x : 0;
+    cp_async4(own + 3 * OWN + o, a.mt.lam + c, on);
+    cp_async4(own + 4 * OWN + o, a.mt.l2m + c, on);
+    cp_async4(own + 5 * OWN + o, a.mt.muxz + c, on);
+  }
+  if (!TPUFWI_EF_WAIT_FIRST) {
+    dep_wait();
+    dep_trigger();
+  }
+#pragma unroll
+  for (int j = 0; j < P; ++j) {
+    const int oz = ty + j * kFRows, z = z0 + oz, o = oz * TX + tx;
+    const bool on = z >= 0 && z < NZ && x < NX;
+    const int c = on ? z * NX + x : 0, hi = on ? (z + R) * ld + x + R : 0;
+    ef_copy_v<R>(svx, svz, (oz + R) * W + tx + R, f.vx, f.vz, z, x, NZ, NX, fs);
+    cp_async4(own + o, f.sxx + hi, on);
+    cp_async4(own + OWN + o, f.szz + hi, on);
+    cp_async4(own + 2 * OWN + o, f.sxz + hi, on);
+    if (band) {
+      const bool sx = on && e_strip(x, NX, S) >= 0, sz = on && e_strip(z, NZ, S) >= 0;
+      cp_async4(own + 6 * OWN + o, a.mem_s + c, sx);  // x strips: slots 0 and 3
+      cp_async4(own + 9 * OWN + o, a.mem_s + 3 * pl + c, sx);
+      cp_async4(own + 7 * OWN + o, a.mem_s + pl + c, sz);  // z strips: 1 and 2
+      cp_async4(own + 8 * OWN + o, a.mem_s + 2 * pl + c, sz);
+    }
+  }
+  for (int k = threadIdx.y * TX + tx; k < T::kReach; k += T::kThreads) {
+    int rz, rx;
+    T::reach(k, rz, rx);
+    ef_copy_v<R>(svx, svz, rz * W + rx, f.vx, f.vz, z0 + rz - R, x0 + rx - R, NZ, NX, fs);
+  }
+  const float wt = a.w[t];
+  const int fl = a.m.flags[blockIdx.y * gridDim.x + blockIdx.x];
+  cp_async_wait_all();
+  __syncthreads();
+
+  // stage S, the sources and the surface pin of the own cells
+  float nvx[P], nvz[P], svz_own[P], nsxx[P], nszz[P], nsxz[P];
+#pragma unroll
+  for (int j = 0; j < P; ++j) {
+    const int oz = ty + j * kFRows, z = z0 + oz, o = oz * TX + tx;
+    if (z < 0 || z >= NZ || x >= NX) continue;
+    const int c = z * NX + x, s = (oz + R) * W + tx + R;
+    const int sx = e_strip(x, NX, S), sz = e_strip(z, NZ, S);
+    float m[4] = {0.f, 0.f, 0.f, 0.f};
+    if (sx >= 0) m[0] = own[6 * OWN + o], m[3] = own[9 * OWN + o];
+    if (sz >= 0) m[1] = own[7 * OWN + o], m[2] = own[8 * OWN + o];
+    nsxx[j] = own[o], nszz[j] = own[OWN + o], nsxz[j] = own[2 * OWN + o];
+    es_cell(dminus<R>(svx, s, 1, a.tp.x), dminus<R>(svz, s, W, a.tp.z),
+            dplus<R>(svx, s, W, a.tp.z), dplus<R>(svz, s, 1, a.tp.x), m, sx, sz, a.pr, dt,
+            own[3 * OWN + o], own[4 * OWN + o], own[5 * OWN + o], nsxx[j], nszz[j], nsxz[j]);
+    e_mem_store(a.mem_s, c, pl, sx, sz, m, 0, 3, 1, 2);
+    nvx[j] = svx[s], nvz[j] = svz_own[j] = svz[s];
+    if (fl & 1)
+      for (int k = a.m.smap[c] - 1; k >= 0; k = a.m.snext[k])
+        e_src_cell(nvz[j], nsxx[j], nszz[j], a.mt.bz[c], wt, dt, a.force, 1.f);
+    if (z == fs) nszz[j] = 0.f;
+  }
+  if (surf) {  // the stress image: ghost row g from rows 2 fs - g (szz), 2 fs - 1 - g (sxz)
+    __syncthreads();
+#pragma unroll
+    for (int j = 0; j < P; ++j) {
+      const int oz = ty + j * kFRows, z = z0 + oz;
+      if (z < 0 || z >= NZ || x >= NX) continue;
+      svx[(oz + R) * W + tx + R] = nszz[j];
+      svz[(oz + R) * W + tx + R] = nsxz[j];
+    }
+    __syncthreads();
+#pragma unroll
+    for (int j = 0; j < P; ++j) {
+      const int oz = ty + j * kFRows, z = z0 + oz;
+      if (z < fs - R || z >= fs || x >= NX) continue;
+      const int s = (oz + R) * W + tx + R;
+      nszz[j] = -svx[s + 2 * (fs - z) * W];
+      nsxz[j] = -svz[s + (2 * (fs - z) - 1) * W];
+    }
+  }
+
+  // the own cells' fields, receivers and ring entries; v only at a ghost
+  // cell (its image, without the force source)
+#pragma unroll
+  for (int j = 0; j < P; ++j) {
+    const int oz = ty + j * kFRows, z = z0 + oz;
+    if (z < 0 || z >= NZ || x >= NX) continue;
+    const int c = z * NX + x, hi = (z + R) * ld + x + R;
+    if (surf && z >= fs - R && z < fs) {
+      f.vx[hi] = nvx[j];
+      f.vz[hi] = svz_own[j];
+    }
+    f.sxx[hi] = nsxx[j], f.szz[hi] = nszz[j], f.sxz[hi] = nsxz[j];
+    if (fl & 2)
+      for (int r = a.m.rmap[c] - 1; r >= 0; r = a.m.rnext[r])
+        e_record(a.seis, t, a.nrec, r, a.rec_v, nvx[j], nvz[j], nsxx[j], nszz[j]);
+    if (ring_row != nullptr && (fl & 4)) {
+      const int g = a.m.gmap[c] - 1;
+      if (g >= 0) {
+        const int n = a.n_ring;
+        ring_row[g] = nvx[j];
+        ring_row[n + g] = nvz[j];
+        ring_row[2 * n + g] = nsxx[j];
+        ring_row[3 * n + g] = nszz[j];
+        ring_row[4 * n + g] = nsxz[j];
+      }
+    }
+  }
+}
+
+// the forward's maps (cell_maps.cuh), one thread per source, receiver and
+// ring cell, and the flag words of ef_v's blocks (vnx a row) that hold a
+// source
+__global__ void ef_setup(const long long* __restrict__ src, int nsrc,
+                         const long long* __restrict__ rcv, int nrec,
+                         const int* __restrict__ ring, int n_ring, int NX, int tz, int tx,
+                         int ntx, int shift, SMaps m, int* __restrict__ vflags, int vnx) {
+  const int k = blockIdx.x * blockDim.x + threadIdx.x;
+  cell_map_entry(k, src, nsrc, rcv, nrec, ring, n_ring, NX, tz, tx, ntx, shift, m);
+  if (k < nsrc) atomicOr(&vflags[((int)src[2 * k] / kEVY) * vnx + (int)src[2 * k + 1] / kEVX], 1);
+}
+
 // The fused step's glue. The prologue, one block: the receiver-cotangent
 // injection, the stress-image transpose, then the source-point cotangent
 // and the source undone (thread 0), each phase after a barrier.
@@ -839,7 +1148,7 @@ __global__ void e_impose(float* a, float* b, float* c, int nf, const int* __rest
 
 // ------------------------------------------------------------ launch shapes
 
-const dim3 kECellBlock(32, 8);
+const dim3 kECellBlock(kEVX, kEVY);
 const int kESmallBlock = 256;
 
 inline dim3 e_cell_grid(int NZ, int NX) {
@@ -869,7 +1178,7 @@ inline ETaps load_etaps(const float* host) {
 template <int R>
 void estage_v(EFields f, float* mem, EMats mt, EProf pr, int NZ, int NX, int S, int fs,
               const ETaps& tp, cudaStream_t st) {
-  ef_v<R><<<e_cell_grid(NZ, NX), kECellBlock, 0, st>>>(f, mem, mt, pr, NZ, NX, S, tp);
+  ef_v<R><<<e_cell_grid(NZ, NX), kECellBlock, 0, st>>>(f, mem, mt, pr, NZ, NX, S, tp, EVSrc{});
   if (fs >= 0) e_image_v<R><<<e_blocks(R * NX), kESmallBlock, 0, st>>>(f, NX, fs);
 }
 
@@ -938,10 +1247,20 @@ struct EPlan {
   int tz, tx, smem;
 };
 
-// let the fused passes take their shared bytes (above the default 48 KB
-// only by this attribute); a refusal is an error
+// the largest fused pass's shared bytes, which the plan states
 template <int R, int TZ, int TX>
-inline int fused_allow_smem() {
+constexpr int fused_plan_smem() {
+  constexpr int rev = fused_smem<R, TZ, TX>(7), fwd = ef_smem<R, TZ, TX>();
+  return rev > fwd ? rev : fwd;
+}
+
+// check the caller's plan against the tile this library runs, and let the
+// fused passes take their shared bytes (above the default 48 KB only by
+// this attribute); a refusal is an error
+template <int R, int TZ, int TX>
+inline int fused_check_plan(const EPlan& plan) {
+  if (plan.tz != TZ || plan.tx != TX || plan.smem != fused_plan_smem<R, TZ, TX>())
+    return (int)cudaErrorInvalidValue;
   cudaError_t e = cudaFuncSetAttribute(reinterpret_cast<const void*>(er_s<R, TZ, TX>),
                                        cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        fused_smem<R, TZ, TX>(6));
@@ -949,6 +1268,9 @@ inline int fused_allow_smem() {
     e = cudaFuncSetAttribute(reinterpret_cast<const void*>(er_v<R, TZ, TX>),
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              fused_smem<R, TZ, TX>(7));
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(reinterpret_cast<const void*>(ef_s_fused<R, TZ, TX>),
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, ef_smem<R, TZ, TX>());
   return (int)e;
 }
 

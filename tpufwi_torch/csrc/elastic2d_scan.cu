@@ -14,12 +14,26 @@
 // Here they live in device memory (one 399x1749 fp32 plane is 2.8 MB; a
 // forward step touches ~13 planes, a reverse step ~27, more than the 50 MB
 // L2) and a host loop in this file launches each time step as a few
-// ordered kernels on the caller's stream: 4-6 per forward step (free
-// surface off / on). The receivers are gathered and injected by index, not
-// by the TPU kernel's one-hot matmul, so there is no receiver-slab contract.
+// ordered kernels on the caller's stream. The receivers are gathered and
+// injected by index, not by the TPU kernel's one-hot matmul, so there is no
+// receiver-slab contract.
 //
-// The reverse has two variants of its cell passes, equal bitwise (the
-// header's per-cell bodies are shared):
+// The forward has two variants, equal bitwise (the header's per-cell bodies
+// are shared):
+//   variant 0, fused (the default): 2 launches a step, each a programmatic
+//     dependent of the one before: stage V (ef_v, which also adds the step
+//     before's force sources), then ef_s_fused, stage S on shared-memory
+//     tiles with the glue folded into the thread that owns each cell (the
+//     sources, both free-surface images, the receivers, the ring tape), and
+//     one tail launch a call for the last step's force sources. A single
+//     pass a step (stage V over each tile's R cross, then stage S) was
+//     bitwise too and lost on the card: the cross costs 1.75x stage V's
+//     work at a 16 x 32 tile, where the two split passes already run near
+//     their streamed bytes (PERF.md).
+//   variant 1, split: the per-step engine's launches, 4 a step, 6 with the
+//     free surface (estage_v + estage_s).
+//
+// The reverse has two variants of its cell passes, equal bitwise:
 //   variant 0, fused (the default): er_s and er_v, a shared-memory tile
 //     each, compute the dbar values over their tile and its R reach and
 //     apply the transposed stencils from shared memory, as the TPU kernel
@@ -42,23 +56,55 @@
 //
 // What bounds it: the stencils' operations in principle (~4 D+/D- of 2R
 // taps per stage and cell), but at this size the device memory traffic of
-// the cell passes (the reverse step streams ~45 planes), the launches and
-// the one-block source and receiver-injection kernels. Left for later:
-// tiling the forward's passes, strip-only CPML storage, a persistent
-// kernel or a CUDA graph per step.
+// the cell passes (the reverse step streams ~45 planes, the forward's two
+// passes ~22) and the launches. Left for later: strip-only CPML storage, a
+// persistent kernel or a CUDA graph per step.
 
 #include "elastic2d_kernels.cuh"
 
 namespace {
 
-template <int R>
-int forward_loop(EMats mt, EProf pr, const float* w, const long long* src,
-                 const long long* rcv, float* seis, const int* ring, float* ring_tape,
-                 float* ws, int NZ, int NX, int S, int nt, int nsrc, int nrec, int fs,
-                 int n_ring, int force, int rec_v, const ETaps& tp, cudaStream_t st) {
+// ws: the 5 halo fields and the 8 memories; variant 0: stage V and the
+// fused stage S on TZ x TX tiles (the plan must say so), iws the zeroed
+// maps and a flag word per stage-V block; variant 1: the split passes.
+template <int R, int TZ, int TX>
+int forward_loop(int variant, const EPlan& plan, int dep, EMats mt, EProf pr, const float* w,
+                 const long long* src, const long long* rcv, float* seis, const int* ring,
+                 float* ring_tape, float* ws, int* iws, int NZ, int NX, int S, int nt, int nsrc,
+                 int nrec, int fs, int n_ring, int force, int rec_v, const ETaps& tp,
+                 cudaStream_t st) {
   const size_t hp = (size_t)(NZ + 2 * R) * (NX + 2 * R);
+  const size_t pl = (size_t)NZ * NX;
   EFields f{ws, ws + hp, ws + 2 * hp, ws + 3 * hp, ws + 4 * hp};
   float* mem = ws + 5 * hp;
+  if (variant == 0) {
+    if (const int err = fused_check_plan<R, TZ, TX>(plan)) return err;
+    const int shift = ef_shift<R, TZ>(fs);
+    const dim3 grid((NX + TX - 1) / TX, (NZ + shift + TZ - 1) / TZ), block(TX, kFRows);
+    const dim3 vgrid = e_cell_grid(NZ, NX);
+    const SMaps m = carve_maps(iws, NZ, NX, grid.x * grid.y, nsrc);
+    int* vflags = m.rnext + nrec;
+    const int nr = ring_tape ? n_ring : 0;
+    ef_setup<<<e_blocks(nsrc + nrec + nr), kESmallBlock, 0, st>>>(
+        src, nsrc, rcv, nrec, ring, nr, NX, TZ, TX, grid.x, shift, m, vflags, vgrid.x);
+    const EFwdArgs a{mt, pr, w, seis, mem + 4 * pl, m, NZ, NX, S, fs, shift, nrec, n_ring,
+                     force, rec_v, tp};
+    for (int t = 0; t < nt; ++t) {
+      // stage V adds the step before's force sources
+      const EVSrc vs{force && t >= 1 ? vflags : nullptr, m.smap, m.snext, w, t - 1};
+      launch_dep(dep, ef_v<R>, vgrid, kECellBlock, 0, st, f, mem, mt, pr, NZ, NX, S, tp, vs);
+      launch_dep(dep, ef_s_fused<R, TZ, TX>, grid, block, (size_t)ef_smem<R, TZ, TX>(), st, a,
+                 t, f, ring_tape ? ring_tape + (size_t)t * 5 * n_ring : nullptr);
+      if (t == 0) {
+        const cudaError_t err = cudaGetLastError();
+        if (err != cudaSuccess) return (int)err;
+      }
+    }
+    // the last step's force sources
+    if (force) e_src<<<1, 1, 0, st>>>(f, mt.bz, w, nt - 1, src, nsrc, NX, R, tp.dt, force);
+    return (int)cudaGetLastError();
+  }
+  if (variant != 1) return (int)cudaErrorInvalidValue;
   for (int t = 0; t < nt; ++t) {
     estage_v<R>(f, mem, mt, pr, NZ, NX, S, fs, tp, st);
     estage_s<R>(f, mem, mt, pr, w, t, src, nsrc, rcv, nrec, seis, ring,
@@ -84,9 +130,7 @@ int reverse_loop(int variant, const EPlan& plan, int dep, EMats mt, EProf pr, co
   const size_t pl = (size_t)NZ * NX;
   EFields f{ws, ws + hp, ws + 2 * hp, ws + 3 * hp, ws + 4 * hp};
   if (variant == 0) {
-    if (plan.tz != TZ || plan.tx != TX || plan.smem != fused_smem<R, TZ, TX>(7))
-      return (int)cudaErrorInvalidValue;
-    if (const int err = fused_allow_smem<R, TZ, TX>()) return err;
+    if (const int err = fused_check_plan<R, TZ, TX>(plan)) return err;
   } else if (variant != 1) {
     return (int)cudaErrorInvalidValue;
   }
@@ -122,22 +166,29 @@ int reverse_loop(int variant, const EPlan& plan, int dep, EMats mt, EProf pr, co
 
 extern "C" {
 
-// ws: 5 zeroed halo planes (vx, vz, sxx, szz, sxz; the final fields on
-// return) then 8 zeroed compact CPML memory planes; ring and ring_tape may
-// be null together (no tape). taps: z[4], x[4], dt.
+// ws: 5 zeroed halo planes (vx, vz, sxx, szz, sxz: the final fields on
+// return) then 8 zeroed compact CPML memory planes; iws (variant 0): the
+// zeroed int maps of 3 NZ NX + tiles + nsrc + nrec ints, then a word per
+// block of stage V (32 x 8 cells); ring and ring_tape
+// may be null together (no tape). variant, plan and dep as the reverse's.
+// taps: z[4], x[4], dt.
 int tpufwi_escan_forward(const float* lam, const float* l2m, const float* muxz,
                          const float* bxm, const float* bzm, const float* az, const float* bz,
                          const float* ax, const float* bx, const float* w,
                          const long long* src, const long long* rcv, float* seis,
-                         const int* ring, float* ring_tape, float* ws, int NZ, int NX, int S,
-                         int R, int nt, int nsrc, int nrec, int fs, int n_ring, int force,
-                         int rec_v, const float* taps, void* stream) {
+                         const int* ring, float* ring_tape, float* ws, int* iws, int NZ, int NX,
+                         int S, int R, int nt, int nsrc, int nrec, int fs, int n_ring, int force,
+                         int rec_v, int variant, int tz, int tx, int smem, int dep,
+                         const float* taps, void* stream) {
   const ETaps tp = load_etaps(taps);
   const EMats mt{lam, l2m, muxz, bxm, bzm};
   const EProf pr{az, bz, ax, bx};
+  const EPlan plan{tz, tx, smem};
   auto st = static_cast<cudaStream_t>(stream);
-  TPUFWI_EDISPATCH_R(R, forward_loop<kR>(mt, pr, w, src, rcv, seis, ring, ring_tape, ws, NZ, NX,
-                                         S, nt, nsrc, nrec, fs, n_ring, force, rec_v, tp, st))
+  TPUFWI_EDISPATCH_R(R, (forward_loop<kR, kFTZ, kFTX>(variant, plan, dep, mt, pr, w, src, rcv,
+                                                        seis, ring, ring_tape, ws, iws, NZ, NX, S,
+                                                        nt, nsrc, nrec, fs, n_ring, force, rec_v,
+                                                        tp, st)))
 }
 
 // ws: 5 halo planes holding the final fields (set by the caller), then for

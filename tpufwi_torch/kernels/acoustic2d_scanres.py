@@ -15,15 +15,16 @@ the laplacian of the reconstruction. Both return the imaged gradient and
 the adjoint field at the sources. The CUDA sources are
 ``csrc/acoustic2d_scanres.cu`` and ``csrc/acoustic2d_kernels.cuh``.
 
-``scanres_forward`` and ``scanres_reverse_snap`` come in two variants
-(``variant=``), equal bitwise: ``"fused"`` (the default) runs one
-shared-memory tiled kernel a time step (launch plan ``scanres_tile_plan``,
-tile walk ``fused_tiles``) after one small launch a call, each step a
-programmatic dependent of the one before unless ``dependent_launch`` is
-False (plain stream order, for profiling: a dependent kernel's profiler
-span includes its wait); ``"split"`` runs the ordered per-step launches
-that the single-step and K-step engines share (``step_launches``).
-``scanres_reverse`` runs the split passes.
+All three come in two variants (``variant=``), equal bitwise:
+``"fused"`` (the default) runs one shared-memory tiled kernel a time step
+(launch plan ``scanres_tile_plan``, tile walk ``fused_tiles``) after one
+small launch a call, each step a programmatic dependent of the one before
+unless ``dependent_launch`` is False (plain stream order, for profiling: a
+dependent kernel's profiler span includes its wait); ``"split"`` runs the
+ordered per-step launches that the single-step and K-step engines share
+(``step_launches``). The rings reverse's fused step is the snapshot
+reverse's kernel with the reconstruction folded into the thread that owns
+each cell.
 
 Each wrapper takes its plain version for tensors on the CPU, and only
 then; on a CUDA tensor it launches the kernel or raises. ``launches`` on
@@ -61,11 +62,12 @@ VARIANTS = ("fused", "split")  # the C entry points' variant 0 and 1
 # halo planes of the workspace per variant: forward pa, pb, phi_z, psi_z,
 # phi_x, psi_x (fused: and a second phi_z, phi_x); snapshot reverse q0, q1,
 # then fused psibar/phibar for z and x in two sets, split the 9 adjoint
-# planes (u, then psibar/w/phibar/y for z and for x)
+# planes (u, then psibar/w/phibar/y for z and for x); the rings reverse P_t
+# and P_{t-1} before the snapshot reverse's planes
 _FWD_PLANES = {"fused": 8, "split": 6}
 _ADJ_PLANES = 9
 _REV_SNAP_PLANES = {"fused": 2 + 8, "split": 2 + _ADJ_PLANES}
-_REV_RINGS_PLANES = 4 + _ADJ_PLANES  # P_t, P_{t-1}, q0, q1, adjoint planes
+_REV_RINGS_PLANES = {v: 2 + n for v, n in _REV_SNAP_PLANES.items()}
 TAPE_MODES = (None, "snap", "rings")
 
 # the fused passes' tile (csrc/acoustic2d_scanres.cu TPUFWI_SCAN_TILE:
@@ -81,25 +83,29 @@ class ScanresPlan(NamedTuple):
     smem: int
 
 
+FUSED_KERNELS = ("fwd_fused", "rev_fused", "rev_fused_rings")
+
+
 def fused_smem(R: int, kernel: str) -> int:
     """Shared bytes of a fused pass at radius R (``STile``): the field or
     lambda over the tile and its 2R cross; the forward's phi over the
     tile's columns and rows and their R reach and five planes of the own
     cells' operands; the reverse's w over 2R, y over R and two planes of
-    operands."""
+    operands; its rings form also P_{t-1} (a plane of the 2R cross's
+    layout) and a third plane of operands (P_t)."""
     tz, tx = TILE_Z, TILE_X
     H = 2 * R
     rect = (tz + 2 * H) * (tx + 2 * H)
     zcol1, xrow1, own = (tz + 2 * R) * tx, tz * (tx + 2 * R), tz * tx
     if kernel == "fwd_fused":
         return 4 * (rect + zcol1 + xrow1 + 5 * own)
-    return 4 * (rect + (tz + 2 * H) * tx + tz * (tx + 2 * H) + zcol1 + xrow1 + 2 * own)
+    rev = 4 * (rect + (tz + 2 * H) * tx + tz * (tx + 2 * H) + zcol1 + xrow1 + 2 * own)
+    return rev + (4 * (rect + own) if kernel == "rev_fused_rings" else 0)
 
 
 def scanres_tile_plan(grid: Grid) -> ScanresPlan:
     """The fused passes' plan for ``grid`` (the C side rejects any other)."""
-    return ScanresPlan(TILE_Z, TILE_X, max(fused_smem(grid.radius, k)
-                                           for k in ("fwd_fused", "rev_fused")))
+    return ScanresPlan(TILE_Z, TILE_X, max(fused_smem(grid.radius, k) for k in FUSED_KERNELS))
 
 
 def tile_row(by: int, n: int) -> int:
@@ -127,14 +133,14 @@ def fused_tiles(plan: ScanresPlan, NZ: int, NX: int):
 
 def step_launches(kernel: str, variant: str, tape=None, illum=False) -> int:
     """Kernel launches of one time step of ``scanres_forward`` (with its
-    tape mode and illumination) or ``scanres_reverse_snap``; the fused
-    variant adds one launch a call (``scan_setup``), the split reverse one
-    (``rev_chain``)."""
+    tape mode and illumination), ``scanres_reverse_snap`` or
+    ``scanres_reverse``; the fused variant adds one launch a call
+    (``scan_setup``), the split reverses one (``rev_chain``)."""
     if variant == "fused":
         return 1
     if kernel == "scanres_forward":
         return 3 + (tape == "rings") + bool(illum)
-    return 4
+    return 5 if kernel == "scanres_reverse" else 4
 
 
 def _check_variant(name, variant):
@@ -316,12 +322,12 @@ LIBRARY = Library(
     "acoustic2d",
     (CSRC / "acoustic2d_scanres.cu", CSRC / "acoustic2d_step.cu",
      CSRC / "acoustic2d_kstep.cu"),
-    (CSRC / "acoustic2d_kernels.cuh", CSRC / "pdl.cuh"),
+    (CSRC / "acoustic2d_kernels.cuh", CSRC / "pdl.cuh", CSRC / "cell_maps.cuh"),
     lambda lib: declare_all(lib, {
         # pointers..., ints..., taps, stream
         "tpufwi_scanres_forward": (15, 14),
         "tpufwi_scanres_reverse_snap": (13, 13),
-        "tpufwi_scanres_reverse_rings": (15, 14),
+        "tpufwi_scanres_reverse_rings": (15, 19),
         "tpufwi_step_forward": (14, 9),
         "tpufwi_step_recon": (8, 12),
         "tpufwi_step_adjoint": (15, 9),
@@ -516,10 +522,13 @@ scanres_reverse_snap.launches = 0
 
 
 def scanres_reverse(grid, c2, profiles, wavelet, ybar, tape, p_penult, p_last,
-                    src_idx, rcv_idx, return_field=False):
+                    src_idx, rcv_idx, return_field=False, variant="fused",
+                    dependent_launch=True):
     """Rings reverse (see ``scanres_reverse_plain`` for the contract):
     ``tape`` is the (nt, n_ring) fp32 ring tape and ``p_penult``, ``p_last``
-    the last two fields of ``scanres_forward(..., tape="rings")``."""
+    the last two fields of ``scanres_forward(..., tape="rings")``;
+    ``variant`` and ``dependent_launch`` as ``scanres_forward``'s."""
+    _check_variant("scanres_reverse", variant)
     if c2.device.type == "cpu":
         return scanres_reverse_plain(grid, c2, profiles, wavelet, ybar, tape, p_penult,
                                      p_last, src_idx, rcv_idx, return_field)
@@ -540,27 +549,29 @@ def scanres_reverse(grid, c2, profiles, wavelet, ybar, tape, p_penult, p_last,
     nsrc = src_idx.shape[0]
     gbar = torch.zeros((NZ, NX), dtype=torch.float32, device=c2.device)
     lam_src = torch.empty((nt, nsrc), dtype=torch.float32, device=c2.device)
-    ws = torch.zeros((_REV_RINGS_PLANES, NZ + 2 * R, NX + 2 * R), dtype=torch.float32,
+    ws = torch.zeros((_REV_RINGS_PLANES[variant], NZ + 2 * R, NX + 2 * R), dtype=torch.float32,
                      device=c2.device)
     ws[0, R:-R, R:-R] = p_last
     ws[1, R:-R, R:-R] = p_penult
-    chain = torch.empty(2 * nrec, dtype=torch.int32, device=c2.device)
+    iws = (_maps(grid, nsrc, nrec, c2.device) if variant == "fused"
+           else torch.empty(2 * nrec, dtype=torch.int32, device=c2.device))
     fs = surface_row(grid)
     with torch.cuda.device(c2.device):
         err = lib.tpufwi_scanres_reverse_rings(
             c2.data_ptr(), *(p.data_ptr() for p in profiles), wavelet.data_ptr(),
             ybar.data_ptr(), tape.data_ptr(), ring.data_ptr(), src_idx.data_ptr(),
             rcv_idx.data_ptr(), gbar.data_ptr(), lam_src.data_ptr(), ws.data_ptr(),
-            chain.data_ptr(),
-            NZ, NX, S, R, nt, nsrc, nrec, fs, n_ring, z0, z1, x0, x1, rw, taps_arg(grid),
-            torch.cuda.current_stream().cuda_stream,
+            iws.data_ptr(),
+            NZ, NX, S, R, nt, nsrc, nrec, fs, n_ring, z0, z1, x0, x1, rw,
+            VARIANTS.index(variant), *scanres_tile_plan(grid), int(dependent_launch),
+            taps_arg(grid), torch.cuda.current_stream().cuda_stream,
         )
     raise_on(lib, "scanres_reverse", err)
     scanres_reverse.launches += nt
     if not return_field:
         return gbar, lam_src
-    # the loop swaps its two field planes every step: P_{-1} ends in plane
-    # 0 after an even number of steps
+    # both loops swap their two field planes every step: P_{-1} ends in
+    # plane 0 after an even number of steps
     return gbar, lam_src, ws[nt % 2, R:-R, R:-R]
 
 

@@ -11,13 +11,25 @@ reconstructs the fields backwards from the final ones and the tape while it
 runs the exact transposed stages, and returns the five material-field
 cotangents (lam, lam2mu, mu_xz, buoy_x, buoy_z, before the source-point
 chain and the valid-region mask) and the per-step source-point cotangent
-``srcrow``. The reverse's cell passes come in two variants
-(``escan_reverse(..., variant=)``), equal bitwise: ``"fused"`` (the
-default) runs one shared-memory tiled kernel per stage, which computes the
-dbar values over its tile and their R reach and applies the transposed
-stencils from shared memory (launch plan ``escan_tile_plan``, tile walk
-``fused_tiles``); ``"split"`` runs the per-step engine's two passes per
-stage with the dbar planes in device memory. The CUDA sources are
+``srcrow``. Both come in two variants (``variant=``), equal bitwise:
+``"fused"`` (the default) and ``"split"``. The fused forward runs two
+launches a step: stage V (the split step's kernel, which also adds the
+step before's force sources), then one shared-memory tiled kernel that
+computes stage S from v over its tile and their R cross (a free-surface
+ghost row read from its mirror: the velocity image) with the glue folded
+into the thread that owns each cell: the sources (a force source's vz kept
+in registers for the receivers and the tape), the stress image and the
+surface pin, the receivers, the tape entries and the ghost rows' image
+(tile walk ``forward_tiles``: with the free surface a tile row starts at
+fs - 2R, so the stress image stays inside a tile); a tail launch adds the
+last step's force sources. Its split form runs the per-step engine's stage
+launches. The fused reverse runs one shared-memory tiled kernel per stage,
+which computes the dbar values over its tile and their R reach and applies
+the transposed stencils from shared memory (tile walk ``fused_tiles``);
+its split form runs the per-step engine's two passes per stage with the
+dbar planes in device memory. Both fused forms run on the launch plan
+``escan_tile_plan``, each launch a programmatic dependent of the one
+before unless ``dependent_launch`` is False. The CUDA sources are
 ``csrc/elastic2d_scan.cu`` and
 ``csrc/elastic2d_kernels.cuh``, built at first use by one nvcc call into
 the elastic library (``kernels/build.py``), with the per-step kernels of
@@ -56,10 +68,10 @@ from .elastic2d_eager import (
 LIBRARY = Library(
     "elastic2d",
     (CSRC / "elastic2d_scan.cu", CSRC / "elastic2d_step.cu"),
-    (CSRC / "elastic2d_kernels.cuh", CSRC / "pdl.cuh"),
+    (CSRC / "elastic2d_kernels.cuh", CSRC / "pdl.cuh", CSRC / "cell_maps.cuh"),
     lambda lib: declare_all(lib, {
         # pointers..., ints..., taps and dt, stream
-        "tpufwi_escan_forward": (16, 11),
+        "tpufwi_escan_forward": (17, 16),
         "tpufwi_escan_reverse": (19, 16),
         # the per-step kernels (kernels/elastic2d_step.py)
         "tpufwi_estep_v": (11, 5),
@@ -69,21 +81,22 @@ LIBRARY = Library(
     }),
 )
 
-_FWD_HALO, _FWD_COMPACT = 5, 8  # fields; CPML memories
-# the reverse's workspace per variant: halo planes (fields, then the split
-# passes' dbar planes) and compact ones (cotangents, then the duals: the
-# fused passes ping-pong two sets of 8)
+_FWD_HALO, _FWD_COMPACT = 5, 8  # the forward's fields; CPML memories
+# the reverse's: halo planes (fields, then the split passes' dbar planes)
+# and compact ones (cotangents, then the duals: the fused passes ping-pong
+# two sets of 8)
 _REV_PLANES = {"fused": (5, 5 + 16), "split": (9, 5 + 8)}
-VARIANTS = ("fused", "split")  # the C entry point's variant 0 and 1
-REVERSE_DEFAULT = "fused"
+VARIANTS = ("fused", "split")  # the C entry points' variant 0 and 1
+FORWARD_DEFAULT = REVERSE_DEFAULT = "fused"
 
 # the fused passes' tile (csrc/elastic2d_kernels.cuh kFTZ x kFTX cells, a
 # block of TILE_X x TILE_ROWS threads, TILE_Z / TILE_ROWS rows a thread)
-# and their shared planes of (TILE_Z + 2R) x (TILE_X + 2R) fp32: er_s v
-# and the four dbar planes, er_v the three stresses and the four dbar
-# planes
+# and the reverse's shared planes of (TILE_Z + 2R) x (TILE_X + 2R) fp32:
+# er_s v and the four dbar planes, er_v the three stresses and the four
+# dbar planes (ef_s_fused: see fused_smem)
 TILE_Z, TILE_X, TILE_ROWS = 16, 32, 8
 FUSED_PLANES = {"er_s": 6, "er_v": 7}
+FUSED_KERNELS = ("ef_s_fused", "er_s", "er_v")
 
 
 class EscanPlan(NamedTuple):
@@ -95,22 +108,43 @@ class EscanPlan(NamedTuple):
 
 
 def fused_smem(R: int, kernel: str) -> int:
-    """Shared bytes of a fused pass at radius R."""
-    return 4 * FUSED_PLANES[kernel] * (TILE_Z + 2 * R) * (TILE_X + 2 * R)
+    """Shared bytes of a fused pass at radius R: the reverse's planes
+    (``FUSED_PLANES``); the forward's (``ef_smem``) v over the tile and
+    its R reach, and ten planes over the tile (the three stresses, lam,
+    lam2mu, mu_xz and stage S's four memories)."""
+    cross = (TILE_Z + 2 * R) * (TILE_X + 2 * R)
+    if kernel == "ef_s_fused":
+        return 4 * (2 * cross + 10 * TILE_Z * TILE_X)
+    return 4 * FUSED_PLANES[kernel] * cross
 
 
 def escan_tile_plan(grid: Grid) -> EscanPlan:
     """The fused passes' plan for ``grid`` (the C side rejects any other)."""
-    return EscanPlan(TILE_Z, TILE_X, max(fused_smem(grid.radius, k) for k in FUSED_PLANES))
+    return EscanPlan(TILE_Z, TILE_X, max(fused_smem(grid.radius, k) for k in FUSED_KERNELS))
 
 
-def fused_tiles(plan: EscanPlan, NZ: int, NX: int):
+def fused_tiles(plan: EscanPlan, NZ: int, NX: int, shift: int = 0):
     """The fused passes' tile walk over an (NZ, NX) grid: for each block
     (blockIdx.y, blockIdx.x), its own cells ``(z0, z1, x0, x1)``, clipped
-    to the grid (a ragged last tile holds fewer)."""
-    for z0 in range(0, NZ, plan.tz):
+    to the grid (a ragged first or last tile holds fewer); block row by
+    starts at row ``by tz - shift``."""
+    for z0 in range(-shift, NZ, plan.tz):
         for x0 in range(0, NX, plan.tx):
-            yield z0, min(z0 + plan.tz, NZ), x0, min(x0 + plan.tx, NX)
+            yield max(z0, 0), min(z0 + plan.tz, NZ), x0, min(x0 + plan.tx, NX)
+
+
+def forward_shift(plan: EscanPlan, grid: Grid) -> int:
+    """The fused forward's tile-row shift (``ef_shift``): with the free
+    surface (row fs = grid.pad) a tile row starts at fs - 2R, so its tiles
+    hold the ghost rows fs-R .. fs-1 and their mirrors fs .. fs+R."""
+    if not grid.free_surface:
+        return 0
+    return (plan.tz - (grid.pad - 2 * grid.radius) % plan.tz) % plan.tz
+
+
+def forward_tiles(plan: EscanPlan, grid: Grid):
+    """The fused forward's tile walk over ``grid``'s padded grid."""
+    return fused_tiles(plan, *grid.padded_shape, forward_shift(plan, grid))
 
 
 def reach_cells(plan: EscanPlan, R: int):
@@ -128,6 +162,13 @@ def reach_cells(plan: EscanPlan, R: int):
             r, e = divmod(k, 2 * R)
             out.append((R + r, e if e < R else plan.tx + e))
     return out
+
+
+def forward_launches(variant: str, free_surface: bool) -> int:
+    """Kernel launches of one forward step (csrc/elastic2d_scan.cu); the
+    fused variant adds one a call (``ef_setup``), and one more with a force
+    source (the last step's)."""
+    return {"fused": (2, 2), "split": (4, 6)}[variant][int(free_surface)]
 
 
 def reverse_launches(variant: str, free_surface: bool) -> int:
@@ -324,11 +365,30 @@ def _flags(grid, source_type, record):
             int(record == "v"))
 
 
+def _check_variant(name, variant):
+    if variant not in VARIANTS:
+        raise ValueError(f"{name}: variant must be one of {VARIANTS}, not {variant!r}")
+
+
+def _maps(grid, plan, shift, nsrc, nrec, dev):
+    """The fused forward's zeroed int maps (``SMaps``: three (NZ, NX) cell
+    maps, a flag word per tile, the source and receiver chains), then a
+    flag word per 32 x 8 block of stage V."""
+    NZ, NX = grid.padded_shape
+    tiles = -(-(NZ + shift) // plan.tz) * -(-NX // plan.tx)
+    vblocks = -(-NZ // 8) * -(-NX // 32)
+    return torch.zeros(3 * NZ * NX + tiles + nsrc + nrec + vblocks, dtype=torch.int32,
+                       device=dev)
+
+
 def escan_forward(grid, dt, mats, profiles, wavelet, src_idx, rcv_idx,
-                  source_type="pressure", record="v", tape=False):
+                  source_type="pressure", record="v", tape=False, variant=FORWARD_DEFAULT,
+                  dependent_launch=True):
     """Whole elastic forward (see ``escan_forward_plain`` for the
     contract). ``mats`` are the five padded material fields, ``profiles``
-    the strip profiles as tensors, fp32 on one card."""
+    the strip profiles as tensors, fp32 on one card. ``variant`` and
+    ``dependent_launch`` as ``escan_reverse``'s."""
+    _check_variant("escan_forward", variant)
     if mats[0].device.type == "cpu":
         return escan_forward_plain(grid, dt, mats, profiles, wavelet, src_idx, rcv_idx,
                                    source_type, record, tape)
@@ -352,13 +412,18 @@ def escan_forward(grid, dt, mats, profiles, wavelet, src_idx, rcv_idx,
         rows = torch.empty((nt, 5 * n_ring), dtype=torch.float32, device=dev)
     halo = (NZ + 2 * R) * (NX + 2 * R)
     ws = torch.zeros(_FWD_HALO * halo + _FWD_COMPACT * NZ * NX, dtype=torch.float32, device=dev)
+    plan = escan_tile_plan(grid)
+    nsrc = src_idx.shape[0]
+    iws = (_maps(grid, plan, forward_shift(plan, grid), nsrc, nrec, dev)
+           if variant == "fused" else None)
     fs, force, rec_v = _flags(grid, source_type, record)
     with torch.cuda.device(dev):
         err = lib.tpufwi_escan_forward(
             *(m.data_ptr() for m in mats), *(p.data_ptr() for p in profiles),
             wavelet.data_ptr(), src_idx.data_ptr(), rcv_idx.data_ptr(), seis.data_ptr(),
-            _ptr(ring), _ptr(rows), ws.data_ptr(),
-            NZ, NX, S, R, nt, src_idx.shape[0], nrec, fs, n_ring, force, rec_v,
+            _ptr(ring), _ptr(rows), ws.data_ptr(), _ptr(iws),
+            NZ, NX, S, R, nt, nsrc, nrec, fs, n_ring, force, rec_v,
+            VARIANTS.index(variant), *plan, int(dependent_launch),
             taps_arg(grid, dt), torch.cuda.current_stream().cuda_stream,
         )
     raise_on(lib, "escan_forward", err)
@@ -381,8 +446,7 @@ def escan_reverse(grid, dt, mats, profiles, wavelet, ybar, tape, finals, src_idx
     that kernel's drain) unless ``dependent_launch`` is False (plain stream
     order, in which a profiler's kernel spans do not overlap). The plain
     version has neither."""
-    if variant not in VARIANTS:
-        raise ValueError(f"escan_reverse: variant must be one of {VARIANTS}, not {variant!r}")
+    _check_variant("escan_reverse", variant)
     if mats[0].device.type == "cpu":
         return escan_reverse_plain(grid, dt, mats, profiles, wavelet, ybar, tape, finals,
                                    src_idx, rcv_idx, source_type, record)
