@@ -1,7 +1,7 @@
 """The CUDA kernels == their plain torch versions, on the card (2D acoustic
 whole-scan, single-step and K-step, elastic whole-scan and per-step, 3D
 acoustic whole-scan and per-step, the 3D bench, and the machine-model
-probes and their scripts).
+probes and their scripts), and the port's spans on the card.
 
 Skips without a CUDA device. Imports no JAX, so it runs where only the
 port is installed: ``python -m pytest tests/test_torch_cuda.py -m cuda
@@ -819,3 +819,78 @@ def test_probe_scripts_on_the_card(device):
     assert taps["taps"]["per_tap_ms"] > 0
     assert all(v["ms_per_call"] > 0 for v in out3["stream"].values())
     assert all(v["leapfrog"] > 0 for v in out3["merged"].values())
+
+
+# ----------------------------------------------------------- the port's spans
+
+
+def test_kernel_span_agrees_with_events_around_the_wrapper(device):
+    """kernels.forward's device time, from events around the C entry point
+    alone, against events around the whole wrapper call: the two end
+    together, and the wrapper's interval is longer only by the device's
+    wait for the host's set-up outside the C call (the index checks drain
+    the stream, then the host allocates), at most that set-up's host time."""
+    import time
+
+    from tpufwi_torch import profiling
+
+    args, w, idx = _case(device, 8, 1, False, False, nt=1200, shape=(351, 1701))
+    ks.scanres_forward(*args, w, *idx, tape="snap")  # warm the library and the allocator
+    torch.cuda.synchronize()
+    profiling.clear()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    with profiling.recording():
+        t0 = time.perf_counter()
+        a.record()
+        ks.scanres_forward(*args, w, *idx, tape="snap")
+        b.record()
+        host = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    (k,) = profiling.spans()
+    outer = a.elapsed_time(b) * 1e-3
+    set_up = host - (k.t1_ns - k.t0_ns) * 1e-9
+    assert k.name == "kernels.forward" and k.attrs["nt"] == 1200
+    assert k.attrs["tape_bytes"] == 1200 * int(np.prod(args[0].padded_shape)) * 2  # bf16
+    assert 0 < k.device_s <= outer <= k.device_s + set_up + 2e-4, (k.device_s, outer, set_up)
+    profiling.clear()
+
+
+def test_no_program_span_on_the_device_timeline(device):
+    """One 2D value-and-grad shot inside torch.profiler: every span is a host
+    range, none has a twin among the device events, and the shot's device
+    time holds its kernels'."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from tpufwi_torch import profiling
+    from tpufwi_torch.acquisition import Geometry
+    from tpufwi_torch.invert import FwiProblem
+    from tpufwi_torch.propagators.acoustic2d import AcousticPropagator
+
+    grid = Grid(shape=(120, 300), h=(10.0, 10.0), pml=20, order=8)
+    dt = grid.cfl_dt(3000.0, safety=0.7)
+    prop = AcousticPropagator(grid, dt, 12.0, 3000.0, impl="cuda_scansnap", device=device)
+    geoms = Geometry.stack([Geometry.from_physical(
+        grid, [[2, 150]], [[2, x] for x in range(0, 300, 2)], device=device)])
+    w = torch.as_tensor(ricker_np(12.0, dt, 400), dtype=torch.float32, device=device)
+    vp = torch.full(grid.shape, 2500.0, device=device)
+    vp[60:] = 3000.0
+    with torch.no_grad():
+        d = prop(vp, geoms.shot(0), w)[None]
+    vg, _ = FwiProblem(prop=prop, geoms=geoms, d_obs=d, wavelet=w, dt=dt).stage_objectives(8.0)
+    vg(vp * 0.98)  # warm
+    torch.cuda.synchronize()
+    profiling.clear()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        vg(vp * 0.98)
+        torch.cuda.synchronize()
+    on_device, on_host = set(), set()
+    for ev in prof.profiler.kineto_results.events():
+        (on_device if ev.device_type() == DeviceType.CUDA else on_host).add(ev.name())
+    assert set(profiling.SPANS) <= on_host
+    assert not on_device & set(profiling.SPANS), on_device & set(profiling.SPANS)
+    spans = profiling.spans()
+    (shot,) = [s for s in spans if s.name == "objective.shot"]
+    kernels = [s for s in spans if s.name.startswith("kernels.")]
+    assert len(kernels) == 2 and sum(k.device_s for k in kernels) <= shot.device_s
+    profiling.clear()

@@ -24,6 +24,7 @@ from __future__ import annotations
 
 import torch
 
+from . import profiling
 from .adjoint_scanres import finish_gradient, profile_source
 from .grid import Grid
 from .kernels.acoustic3d_scan import a3d_forward, a3d_reverse
@@ -44,27 +45,31 @@ def make_simulator3d(grid: Grid, dt: float, f0: float, c_max: float, tape_dtype=
     class Simulate(torch.autograd.Function):
         @staticmethod
         def forward(ctx, c2dt2, wavelet, src_idx, rcv_idx):
-            seis, tape, ppen, plast, _ = a3d_forward(
-                grid, c2dt2, profiles_for(c2dt2), wavelet, src_idx, rcv_idx,
-                tape_dtype=tape_dtype or c2dt2.dtype)
-            ctx.save_for_backward(c2dt2, wavelet, src_idx, rcv_idx, tape, ppen, plast)
-            return seis
+            with profiling.span("engine.forward"):
+                seis, tape, ppen, plast, _ = a3d_forward(
+                    grid, c2dt2, profiles_for(c2dt2), wavelet, src_idx, rcv_idx,
+                    tape_dtype=tape_dtype or c2dt2.dtype)
+                ctx.save_for_backward(c2dt2, wavelet, src_idx, rcv_idx, tape, ppen, plast)
+                return seis
 
         @staticmethod
         def backward(ctx, seis_bar):
-            c2dt2, wavelet, src_idx, rcv_idx, tape, ppen, plast = ctx.saved_tensors
-            gbar, lam_src = a3d_reverse(grid, c2dt2, profiles_for(c2dt2), wavelet,
-                                        seis_bar.contiguous(), tape, ppen, plast, src_idx,
-                                        rcv_idx)
-            gbar, wbar = finish_gradient(rings, gbar, lam_src, c2dt2, wavelet, src_idx)
-            return gbar, wbar, None, None
+            with profiling.span("engine.reverse"):
+                c2dt2, wavelet, src_idx, rcv_idx, tape, ppen, plast = ctx.saved_tensors
+                gbar, lam_src = a3d_reverse(grid, c2dt2, profiles_for(c2dt2), wavelet,
+                                            seis_bar.contiguous(), tape, ppen, plast, src_idx,
+                                            rcv_idx)
+                gbar, wbar = finish_gradient(rings, gbar, lam_src, c2dt2, wavelet, src_idx)
+                return gbar, wbar, None, None
 
     def simulate(c2dt2, wavelet, src_idx, rcv_idx):
         c2dt2, wavelet = c2dt2.contiguous(), wavelet.contiguous()
         src_idx, rcv_idx = src_idx.contiguous(), rcv_idx.contiguous()
         if torch.is_grad_enabled() and (c2dt2.requires_grad or wavelet.requires_grad):
             return Simulate.apply(c2dt2, wavelet, src_idx, rcv_idx)
-        return a3d_forward(grid, c2dt2, profiles_for(c2dt2), wavelet, src_idx, rcv_idx)[0]
+        with profiling.span("engine.forward"):
+            return a3d_forward(grid, c2dt2, profiles_for(c2dt2), wavelet, src_idx,
+                               rcv_idx)[0]
 
     @torch.no_grad()
     def illumination(c2dt2, wavelet, src_idx):

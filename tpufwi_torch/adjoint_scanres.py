@@ -27,6 +27,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from . import profiling
 from .grid import Grid
 from .kernels.acoustic2d_scanres import (
     scanres_forward,
@@ -78,34 +79,38 @@ def make_simulator_scanres(grid: Grid, dt: float, f0: float, c_max: float,
     class Simulate(torch.autograd.Function):
         @staticmethod
         def forward(ctx, c2dt2, wavelet, src_idx, rcv_idx):
-            seis, tape, ppen, plast, _ = scanres_forward(
-                grid, c2dt2, profiles_for(c2dt2), wavelet, src_idx, rcv_idx, tape=tape_mode)
-            if tape_mode == "snap":  # the last fields are not needed
-                ppen = plast = None
-            ctx.save_for_backward(c2dt2, wavelet, src_idx, rcv_idx, tape, ppen, plast)
-            return seis
+            with profiling.span("engine.forward"):
+                seis, tape, ppen, plast, _ = scanres_forward(
+                    grid, c2dt2, profiles_for(c2dt2), wavelet, src_idx, rcv_idx,
+                    tape=tape_mode)
+                if tape_mode == "snap":  # the last fields are not needed
+                    ppen = plast = None
+                ctx.save_for_backward(c2dt2, wavelet, src_idx, rcv_idx, tape, ppen, plast)
+                return seis
 
         @staticmethod
         def backward(ctx, seis_bar):
-            c2dt2, wavelet, src_idx, rcv_idx, tape, ppen, plast = ctx.saved_tensors
-            prof = profiles_for(c2dt2)
-            if tape_mode == "snap":
-                gbar, lam_src = scanres_reverse_snap(
-                    grid, c2dt2, prof, seis_bar.contiguous(), tape, src_idx, rcv_idx)
-            else:
-                gbar, lam_src = scanres_reverse(
-                    grid, c2dt2, prof, wavelet, seis_bar.contiguous(), tape, ppen, plast,
-                    src_idx, rcv_idx)
-            gbar, wbar = finish_gradient(rings, gbar, lam_src, c2dt2, wavelet, src_idx)
-            return gbar, wbar, None, None
+            with profiling.span("engine.reverse"):
+                c2dt2, wavelet, src_idx, rcv_idx, tape, ppen, plast = ctx.saved_tensors
+                prof = profiles_for(c2dt2)
+                if tape_mode == "snap":
+                    gbar, lam_src = scanres_reverse_snap(
+                        grid, c2dt2, prof, seis_bar.contiguous(), tape, src_idx, rcv_idx)
+                else:
+                    gbar, lam_src = scanres_reverse(
+                        grid, c2dt2, prof, wavelet, seis_bar.contiguous(), tape, ppen, plast,
+                        src_idx, rcv_idx)
+                gbar, wbar = finish_gradient(rings, gbar, lam_src, c2dt2, wavelet, src_idx)
+                return gbar, wbar, None, None
 
     def simulate(c2dt2, wavelet, src_idx, rcv_idx):
         c2dt2, wavelet = c2dt2.contiguous(), wavelet.contiguous()
         src_idx, rcv_idx = src_idx.contiguous(), rcv_idx.contiguous()
         if torch.is_grad_enabled() and (c2dt2.requires_grad or wavelet.requires_grad):
             return Simulate.apply(c2dt2, wavelet, src_idx, rcv_idx)
-        return scanres_forward(
-            grid, c2dt2, profiles_for(c2dt2), wavelet, src_idx, rcv_idx, tape=None)[0]
+        with profiling.span("engine.forward"):
+            return scanres_forward(
+                grid, c2dt2, profiles_for(c2dt2), wavelet, src_idx, rcv_idx, tape=None)[0]
 
     simulate.rings = rings
     simulate.illumination = make_illumination(grid, profiles_for)

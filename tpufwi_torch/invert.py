@@ -12,7 +12,10 @@ Checkpoints (``<run_dir>/ckpt.npz``: vp, stage, iter, alpha, S, Y, SY;
 ``<run_dir>/ckpt_mp.npz`` for the multiparameter driver: m0, m1, ..., stage,
 iter, alpha, S, Y, SY, scale_tag) and the JSONL records
 (``<run_dir>/log.jsonl``) have the reference's format, so a run of either
-package resumes in the other.
+package resumes in the other. Each iteration's record also gives the shots
+it ran by kind, ``grad_shots`` (value-and-grad) and ``trial_shots``
+(tape-free line-search trials), from the objectives' counters
+(``profiling``); ``shots_per_sec`` counts every shot as the reference does.
 
 Run: ``python -m tpufwi_torch.invert [--device cpu] [physics=elastic]
 [key=value ...]`` (on the card unless ``--device cpu``).
@@ -30,6 +33,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from . import profiling
 from .acquisition import Geometry, split_spread_survey
 from .config import FwiConfig
 from .filters import apply_response, lowpass, lowpass_response
@@ -105,20 +109,30 @@ class FwiProblem:
             h2 = torch.ones(nt + 1, dtype=self.d_obs.dtype, device=self.d_obs.device)
         w = self.wavelet if wavelet is None else wavelet
 
+        dev = self.d_obs.device
+
         def vg(vp):
             J, g = 0.0, None
-            for i in range(self.n_shots):
-                v = vp.detach().requires_grad_(True)
-                Ji = self._one_shot_loss(v, i, d_f[i], w, h2)
-                (gi,) = torch.autograd.grad(Ji, v)
-                J = J + Ji.detach()
-                g = gi if g is None else g + gi
+            with profiling.span("objective.evaluation", kind="grad", shots=self.n_shots):
+                for i in range(self.n_shots):
+                    with profiling.span("objective.shot", device=dev, shot=i):
+                        v = vp.detach().requires_grad_(True)
+                        Ji = self._one_shot_loss(v, i, d_f[i], w, h2)
+                        (gi,) = torch.autograd.grad(Ji, v)
+                        J = J + Ji.detach()
+                        g = gi if g is None else g + gi
+                    profiling.count("grad_shots")
             return J, g
 
         @torch.no_grad()
         def loss(vp):
-            return sum(self._one_shot_loss(vp, i, d_f[i], w, h2)
-                       for i in range(self.n_shots))
+            J = 0
+            with profiling.span("objective.evaluation", kind="loss", shots=self.n_shots):
+                for i in range(self.n_shots):
+                    with profiling.span("objective.shot", device=dev, shot=i):
+                        J = J + self._one_shot_loss(vp, i, d_f[i], w, h2)
+                    profiling.count("loss_shots")
+            return J
 
         return vg, loss
 
@@ -238,16 +252,23 @@ def _invert_loop(problem, vp, cfg, hist, init_alpha, start_stage, start_iter, ck
             hist.reset()  # fresh curvature at each new frequency band
             init_alpha = None
 
+        # shots since the last record, by kind: gradients and line-search trials
+        shots_seen = profiling.counters()
+
         def cb(x, info, _si=si, _it0=it0, _stage=stage):
             it = _it0 + info.it
             wall["any_iter"] = True
             stopping = deadline is not None and time.time() > deadline
+            now = profiling.counters()
             log(dict(
                 stage=_si, fmax=_stage.fmax, iter=it, J=info.f, gnorm=info.gnorm,
                 alpha=info.alpha, evals=info.n_evals, seconds=round(info.seconds, 3),
                 shots_per_sec=round(nshots * info.n_evals / max(info.seconds, 1e-9), 2),
+                grad_shots=now["grad_shots"] - shots_seen["grad_shots"],
+                trial_shots=now["loss_shots"] - shots_seen["loss_shots"],
                 cells=n_cells,
             ))
+            shots_seen.update(now)
             every = cfg.checkpoint_every
             if (every > 0 and (it + 1) % every == 0) or it + 1 == _stage.iterations or stopping:
                 S, Y, SY = hist.to_arrays()
@@ -338,20 +359,30 @@ class _MpStagesMixin:
         def weights(i):
             return tw[i] if tw is not None and tw.ndim == 3 else tw
 
+        dev = self.d_obs.device
+
         def vg(m):
             J, g = 0.0, None
-            for i in range(self.n_shots):
-                mi = tuple(x.detach().requires_grad_(True) for x in m)
-                Ji = self._one_loss(mi, i, d_f[i], w, h2, weights(i))
-                gi = torch.autograd.grad(Ji, mi)
-                J = J + Ji.detach()
-                g = gi if g is None else tuple(a + b for a, b in zip(g, gi))
+            with profiling.span("objective.evaluation", kind="grad", shots=self.n_shots):
+                for i in range(self.n_shots):
+                    with profiling.span("objective.shot", device=dev, shot=i):
+                        mi = tuple(x.detach().requires_grad_(True) for x in m)
+                        Ji = self._one_loss(mi, i, d_f[i], w, h2, weights(i))
+                        gi = torch.autograd.grad(Ji, mi)
+                        J = J + Ji.detach()
+                        g = gi if g is None else tuple(a + b for a, b in zip(g, gi))
+                    profiling.count("grad_shots")
             return J, g
 
         @torch.no_grad()
         def loss(m):
-            return sum(self._one_loss(m, i, d_f[i], w, h2, weights(i))
-                       for i in range(self.n_shots))
+            J = 0
+            with profiling.span("objective.evaluation", kind="loss", shots=self.n_shots):
+                for i in range(self.n_shots):
+                    with profiling.span("objective.shot", device=dev, shot=i):
+                        J = J + self._one_loss(m, i, d_f[i], w, h2, weights(i))
+                    profiling.count("loss_shots")
+            return J
 
         return vg, loss
 
@@ -620,7 +651,8 @@ def main(argv=None):
         print(
             f"[stage {rec['stage']} f<{rec['fmax']}Hz it {rec['iter']:3d}] "
             f"J={rec['J']:.4e} |g|={rec['gnorm']:.3e} a={rec['alpha']:.3g} "
-            f"{rec['seconds']}s {rec['shots_per_sec']} shots/s"
+            f"{rec['seconds']}s {rec['shots_per_sec']} shots/s "
+            f"({rec['grad_shots']} gradient, {rec['trial_shots']} trial)"
         )
 
     vp = invert(problem, vp0, cfg, resume=args.resume, log_fn=echo)

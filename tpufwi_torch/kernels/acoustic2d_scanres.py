@@ -46,6 +46,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from .. import profiling
 from ..cpml import CpmlProfile
 from ..grid import D1_COEFFS, D2_COEFFS, Grid
 from ..propagators.boundary import RingSpec
@@ -365,8 +366,9 @@ def taps_arg(grid: Grid):
 def check_args(name, grid, c2, profiles, vectors, src_idx, rcv_idx, bounds=True, dims=2,
                min_rcv=1):
     """Raise on what the ``dims``-D kernels do not take. ``bounds`` checks
-    that the indices lie on the padded grid, at the cost of one host sync;
-    ``min_rcv`` is the fewest receivers the kernel takes."""
+    that the indices lie on the padded grid, at the cost of two host syncs;
+    ``min_rcv`` is the fewest receivers the kernel takes. Each wait on the
+    device counts in ``profiling``'s ``host_syncs``."""
     if grid.ndim != dims:
         raise ValueError(f"{name}: the kernel is {dims}D")
     if grid.radius not in (1, 2, 4):
@@ -390,8 +392,11 @@ def check_args(name, grid, c2, profiles, vectors, src_idx, rcv_idx, bounds=True,
             raise ValueError(f"{name}: indices must be contiguous (n>0, {dims}) int64 on {dev}")
     if bounds:
         both = torch.cat([src_idx, rcv_idx])
-        hi = torch.tensor(shape, device=dev)
-        if bool(((both < 0) | (both >= hi)).any()):  # one host sync per call
+        hi = torch.tensor(shape, device=dev)  # a copy from pageable memory: waits
+        profiling.count("host_syncs")
+        outside = bool(((both < 0) | (both >= hi)).any())  # the answer's copy back: waits
+        profiling.count("host_syncs")
+        if outside:
             raise ValueError(f"{name}: source or receiver index outside the padded grid")
 
 
@@ -455,7 +460,9 @@ def scanres_forward(grid, c2, profiles, wavelet, src_idx, rcv_idx, tape=None, il
     nsrc = src_idx.shape[0]
     iws = _maps(grid, nsrc, nrec, dev) if variant == "fused" else None
     fs = surface_row(grid)
-    with torch.cuda.device(dev):
+    with torch.cuda.device(dev), profiling.span(
+            "kernels.forward", device=dev, wrapper="scanres_forward", variant=variant, nt=nt,
+            tape_bytes=sum(t.nbytes for t in (snap, rows) if t is not None)):
         err = lib.tpufwi_scanres_forward(
             c2.data_ptr(), *(p.data_ptr() for p in profiles), wavelet.data_ptr(),
             src_idx.data_ptr(), rcv_idx.data_ptr(), seis.data_ptr(), _ptr(snap), _ptr(ring),
@@ -504,7 +511,9 @@ def scanres_reverse_snap(grid, c2, profiles, ybar, tape, src_idx, rcv_idx, varia
     iws = (_maps(grid, nsrc, nrec, c2.device) if variant == "fused"
            else torch.empty(2 * nrec, dtype=torch.int32, device=c2.device))
     fs = surface_row(grid)
-    with torch.cuda.device(c2.device):
+    with torch.cuda.device(c2.device), profiling.span(
+            "kernels.reverse", device=c2.device, wrapper="scanres_reverse_snap",
+            variant=variant, nt=nt, tape_bytes=0):
         err = lib.tpufwi_scanres_reverse_snap(
             c2.data_ptr(), *(p.data_ptr() for p in profiles), ybar.data_ptr(),
             tape.data_ptr(), src_idx.data_ptr(), rcv_idx.data_ptr(), gbar.data_ptr(),
@@ -556,7 +565,9 @@ def scanres_reverse(grid, c2, profiles, wavelet, ybar, tape, p_penult, p_last,
     iws = (_maps(grid, nsrc, nrec, c2.device) if variant == "fused"
            else torch.empty(2 * nrec, dtype=torch.int32, device=c2.device))
     fs = surface_row(grid)
-    with torch.cuda.device(c2.device):
+    with torch.cuda.device(c2.device), profiling.span(
+            "kernels.reverse", device=c2.device, wrapper="scanres_reverse", variant=variant,
+            nt=nt, tape_bytes=0):
         err = lib.tpufwi_scanres_reverse_rings(
             c2.data_ptr(), *(p.data_ptr() for p in profiles), wavelet.data_ptr(),
             ybar.data_ptr(), tape.data_ptr(), ring.data_ptr(), src_idx.data_ptr(),

@@ -40,6 +40,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from .. import profiling
 from ..grid import D1_COEFFS, D2_COEFFS, Grid
 from .acoustic2d_eager import AcousticParams, make_acoustic_step, zero_state
 from .acoustic2d_scanres import (
@@ -260,7 +261,9 @@ def a3d_forward(grid, c2, profiles, wavelet, src_idx, rcv_idx, tape_dtype=None, 
     c2h = _halo(grid, c2)
     pa, pb = _halo(grid, device=dev), _halo(grid, device=dev)
     strips = torch.zeros(2 * strip_cells(grid), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
+    with torch.cuda.device(dev), profiling.span(
+            "kernels.forward", device=dev, wrapper="a3d_forward", variant=variant, nt=nt,
+            tape_bytes=0 if tape is None else tape.nbytes):
         err = lib.tpufwi_a3d_forward(
             c2h.data_ptr(), packed_profiles(profiles).data_ptr(), wavelet.data_ptr(),
             src_idx.data_ptr(), rcv_idx.data_ptr(), seis.data_ptr(),
@@ -317,7 +320,9 @@ def a3d_reverse(grid, c2, profiles, wavelet, ybar, tape, p_penult, p_last, src_i
     qa, qb = _halo(grid, device=dev), _halo(grid, device=dev)
     strips = torch.zeros(4 * strip_cells(grid), dtype=torch.float32, device=dev)
     chain = torch.empty(2 * nrec, dtype=torch.int32, device=dev)
-    with torch.cuda.device(dev):
+    with torch.cuda.device(dev), profiling.span(
+            "kernels.reverse", device=dev, wrapper="a3d_reverse", variant=variant, nt=nt,
+            tape_bytes=0):
         err = lib.tpufwi_a3d_reverse(
             c2h.data_ptr(), packed_profiles(profiles).data_ptr(), wavelet.data_ptr(),
             ybar.data_ptr(), tape.data_ptr(), ring.data_ptr(), src_idx.data_ptr(),

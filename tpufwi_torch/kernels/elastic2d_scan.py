@@ -53,6 +53,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from .. import profiling
 from ..grid import D1_STAGGERED_COEFFS, Grid
 from .acoustic2d_scanres import check_args, full_profiles, require_cuda, ring_plan, strip_depth
 from .build import CSRC, Library, declare_all, raise_on
@@ -417,7 +418,9 @@ def escan_forward(grid, dt, mats, profiles, wavelet, src_idx, rcv_idx,
     iws = (_maps(grid, plan, forward_shift(plan, grid), nsrc, nrec, dev)
            if variant == "fused" else None)
     fs, force, rec_v = _flags(grid, source_type, record)
-    with torch.cuda.device(dev):
+    with torch.cuda.device(dev), profiling.span(
+            "kernels.forward", device=dev, wrapper="escan_forward", variant=variant, nt=nt,
+            tape_bytes=0 if rows is None else rows.nbytes):
         err = lib.tpufwi_escan_forward(
             *(m.data_ptr() for m in mats), *(p.data_ptr() for p in profiles),
             wavelet.data_ptr(), src_idx.data_ptr(), rcv_idx.data_ptr(), seis.data_ptr(),
@@ -476,7 +479,9 @@ def escan_reverse(grid, dt, mats, profiles, wavelet, ybar, tape, finals, src_idx
     srcrow = torch.empty((nt, nsrc), dtype=torch.float32, device=dev)
     chain = torch.empty(2 * nrec, dtype=torch.int32, device=dev)
     fs, force, rec_v = _flags(grid, source_type, record)
-    with torch.cuda.device(dev):
+    with torch.cuda.device(dev), profiling.span(
+            "kernels.reverse", device=dev, wrapper="escan_reverse", variant=variant, nt=nt,
+            tape_bytes=0):
         err = lib.tpufwi_escan_reverse(
             *(m.data_ptr() for m in mats), *(p.data_ptr() for p in profiles),
             wavelet.data_ptr(), ybar.data_ptr(), tape.data_ptr(), ring.data_ptr(),

@@ -45,6 +45,7 @@ import logging
 import numpy as np
 import torch
 
+from .. import profiling
 from ..cpml import build_profiles
 from ..grid import Grid, pad_model
 from ..kernels.acoustic2d_eager import AcousticParams, make_acoustic_step, zero_state
@@ -263,9 +264,10 @@ class AcousticPropagator:
     def __call__(self, vp: torch.Tensor, geom, wavelet: torch.Tensor) -> torch.Tensor:
         """Seismogram (nt, nrec), differentiable in vp and wavelet."""
         impl = self.resolve_impl(nt=int(wavelet.shape[0]))
-        return self._sim(impl)(
-            self.c2dt2(vp), wavelet.to(self.dtype), geom.src_idx, geom.rcv_idx
-        )
+        with profiling.span("propagator.call", engine=impl):
+            return self._sim(impl)(
+                self.c2dt2(vp), wavelet.to(self.dtype), geom.src_idx, geom.rcv_idx
+            )
 
     def _twin_loop(self, vp, geom, wavelet):
         """Yield the state after each step of the plain step twin on the

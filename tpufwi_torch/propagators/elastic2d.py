@@ -41,6 +41,7 @@ import logging
 import numpy as np
 import torch
 
+from .. import profiling
 from ..adjoint_scanres import profile_source
 from ..cpml import build_profiles
 from ..grid import D1_STAGGERED_COEFFS, Grid, pad_model
@@ -108,22 +109,25 @@ def make_elastic_function(grid: Grid, dt: float, f0: float, c_max: float, forwar
     class Simulate(torch.autograd.Function):
         @staticmethod
         def forward(ctx, lam, l2m, muxz, bxm, bzm, wavelet, src_idx, rcv_idx):
-            mats = (lam, l2m, muxz, bxm, bzm)
-            seis, tape, finals = forward(grid, dt, mats, profiles_for(lam), wavelet, src_idx,
-                                         rcv_idx, source_type, record, tape=True)
-            ctx.save_for_backward(*mats, wavelet, src_idx, rcv_idx, tape, *finals)
-            return seis
+            with profiling.span("engine.forward"):
+                mats = (lam, l2m, muxz, bxm, bzm)
+                seis, tape, finals = forward(grid, dt, mats, profiles_for(lam), wavelet,
+                                             src_idx, rcv_idx, source_type, record, tape=True)
+                ctx.save_for_backward(*mats, wavelet, src_idx, rcv_idx, tape, *finals)
+                return seis
 
         @staticmethod
         def backward(ctx, seis_bar):
-            saved = ctx.saved_tensors
-            mats, (wavelet, src_idx, rcv_idx, tape), finals = saved[:5], saved[5:9], saved[9:]
-            grads, srcrow = reverse(grid, dt, mats, profiles_for(mats[0]), wavelet,
-                                    seis_bar.contiguous(), tape, finals, src_idx, rcv_idx,
-                                    source_type, record)
-            grads, wbar = finish_elastic_gradient(rings, dt, grads, srcrow, mats[4], wavelet,
-                                                  src_idx, source_type)
-            return (*grads, wbar, None, None)
+            with profiling.span("engine.reverse"):
+                saved = ctx.saved_tensors
+                mats, (wavelet, src_idx, rcv_idx, tape), finals = (saved[:5], saved[5:9],
+                                                                   saved[9:])
+                grads, srcrow = reverse(grid, dt, mats, profiles_for(mats[0]), wavelet,
+                                        seis_bar.contiguous(), tape, finals, src_idx, rcv_idx,
+                                        source_type, record)
+                grads, wbar = finish_elastic_gradient(rings, dt, grads, srcrow, mats[4],
+                                                      wavelet, src_idx, source_type)
+                return (*grads, wbar, None, None)
 
     def simulate(lam, l2m, muxz, bxm, bzm, wavelet, src_idx, rcv_idx):
         args = tuple(a.contiguous() for a in (lam, l2m, muxz, bxm, bzm, wavelet, src_idx,
@@ -131,8 +135,9 @@ def make_elastic_function(grid: Grid, dt: float, f0: float, c_max: float, forwar
         if torch.is_grad_enabled() and any(a.requires_grad for a in args[:6]):
             return Simulate.apply(*args)
         mats, (wavelet, src_idx, rcv_idx) = args[:5], args[5:]
-        return forward(grid, dt, mats, profiles_for(lam), wavelet, src_idx, rcv_idx,
-                       source_type, record, tape=False)[0]
+        with profiling.span("engine.forward"):
+            return forward(grid, dt, mats, profiles_for(lam), wavelet, src_idx, rcv_idx,
+                           source_type, record, tape=False)[0]
 
     return simulate
 
@@ -305,8 +310,9 @@ class ElasticPropagator:
         """Seismogram, (nt, nrec, 2) (vz, vx) for record "v" or (nt, nrec)
         pressure, differentiable in vp, vs, rho and the wavelet."""
         impl = self.resolve_impl(geom, nt=int(wavelet.shape[0]))
-        mats = self.material_fields(vp, vs, rho)
-        return self._sim(impl)(*mats, wavelet.to(self.dtype), geom.src_idx, geom.rcv_idx)
+        with profiling.span("propagator.call", engine=impl):
+            mats = self.material_fields(vp, vs, rho)
+            return self._sim(impl)(*mats, wavelet.to(self.dtype), geom.src_idx, geom.rcv_idx)
 
     @torch.no_grad()
     def forward_snapshots(self, vp, vs, rho, geom, wavelet, stride: int = 1,
