@@ -72,8 +72,9 @@ Phases, each printing its own lines; any failure exits non-zero.
      seismogram; fp32 and bf16 tapes) against their plain versions at the 3D
      main path's padded grid (428 x 188 x 588), one surface shot, nt = 64;
      and a free-surface case on a smaller grid, nt = 128; at both, the
-     tiled cell passes (the default: 2.5D tiles over the interior box, the
-     gather cell code over the CPML shell) against the gather ones
+     tiled cell passes (the default: 2.5D tiles over the whole grid, and
+     over the interior box and the CPML shell's slabs, the shell's tiles
+     staging their strip values) against the gather ones
      (variant="gather"), bitwise on every output, with each variant's ms
      per step and torch.profiler's device us per pass
  13. full Overthrust: one shot on the SEG/EAGE Overthrust grid (801 x 187 x
@@ -2238,34 +2239,45 @@ def a3d_variants_bitwise(args, w, si, ri, reps=2):
     output: a3d_forward with the fp32 tape, without tape, with the bf16
     tape and with illumination; a3d_reverse fed the tiled forward's fp32
     tape, last fields and seismogram, with that tape and with it rounded
-    to bf16, and the reconstructed P_{-1}. Returns ({output: max abs
-    difference}, {variant: (forward ms a step with the fp32 tape, reverse
-    ms a step)}), CUDA events."""
+    to bf16, and the reconstructed P_{-1}. On a grid too small for the ring
+    tape (a physical extent of at most 4R, so the interior box is empty)
+    the forward without tape and with illumination alone. Returns ({output:
+    max abs difference}, {variant: (forward ms a step with the fp32 tape, or
+    without tape, reverse ms a step)}), CUDA events."""
+    from tpufwi_torch.propagators.boundary import RingSpec
+
     k3 = a3d_module()
     nt = w.shape[0]
+    grid = args[0]
+    taped = min(grid.shape) > 4 * grid.radius
+    if taped:
+        RingSpec.build(grid)
     outs, ms = {}, {}
     for v in k3.VARIANTS:
         o = {}
-        f_ms, (o["seis"], o["tape"], o["penult"], o["last"], _) = timed_ms(
-            lambda: k3.a3d_forward(*args, w, si, ri, torch.float32, variant=v), reps=reps)
-        o["seis_notape"], _, o["penult_notape"], o["last_notape"], _ = k3.a3d_forward(
-            *args, w, si, ri, variant=v)
-        o["seis_bf16"], o["tape_bf16"], _, _, _ = k3.a3d_forward(*args, w, si, ri,
-                                                                 torch.bfloat16, variant=v)
+        if taped:
+            f_ms, (o["seis"], o["tape"], o["penult"], o["last"], _) = timed_ms(
+                lambda: k3.a3d_forward(*args, w, si, ri, torch.float32, variant=v), reps=reps)
+            o["seis_bf16"], o["tape_bf16"], _, _, _ = k3.a3d_forward(*args, w, si, ri,
+                                                                     torch.bfloat16, variant=v)
+        f_ms, (o["seis_notape"], _, o["penult_notape"], o["last_notape"], _) = (
+            (f_ms, k3.a3d_forward(*args, w, si, ri, variant=v)) if taped else timed_ms(
+                lambda: k3.a3d_forward(*args, w, si, ri, variant=v), reps=reps))
         o["illum"] = k3.a3d_forward(*args, w, si, ri, illum=True, variant=v)[4]
         outs[v] = o
         ms[v] = [f_ms / nt]
     base = outs["tiled"]
-    ybar, tape16 = base["seis"].contiguous(), base["tape"].to(torch.bfloat16)
-    fields = (base["penult"], base["last"])
-    for v in k3.VARIANTS:
-        o = outs[v]
-        r_ms, (o["gbar"], o["lam_src"], o["recon"]) = timed_ms(
-            lambda: k3.a3d_reverse(*args, w, ybar, base["tape"], *fields, si, ri,
-                                   return_field=True, variant=v), reps=reps)
-        o["gbar_bf16"], o["lam_src_bf16"] = k3.a3d_reverse(*args, w, ybar, tape16, *fields, si,
-                                                           ri, variant=v)
-        ms[v].append(r_ms / nt)
+    if taped:
+        ybar, tape16 = base["seis"].contiguous(), base["tape"].to(torch.bfloat16)
+        fields = (base["penult"], base["last"])
+        for v in k3.VARIANTS:
+            o = outs[v]
+            r_ms, (o["gbar"], o["lam_src"], o["recon"]) = timed_ms(
+                lambda: k3.a3d_reverse(*args, w, ybar, base["tape"], *fields, si, ri,
+                                       return_field=True, variant=v), reps=reps)
+            o["gbar_bf16"], o["lam_src_bf16"] = k3.a3d_reverse(*args, w, ybar, tape16, *fields,
+                                                               si, ri, variant=v)
+            ms[v].append(r_ms / nt)
     diffs = {key: float((outs["tiled"][key].double() - outs["gather"][key].double())
                         .abs().max()) if not torch.equal(outs["tiled"][key], outs["gather"][key])
              else 0.0 for key in base}
@@ -2359,8 +2371,7 @@ def phase_a3d_kernels(dev, smi, nt=64, nt_fs=128, nt_bf16=400):
               "fp32 tape + reverse, nt 16): " + (", ".join(f"{k} {us:.2f}" for k, us in rows)
                                                  or "not measured"), flush=True)
     gather_names = {"f3_cells", "r3_cells1", "r3_cells2"}
-    tiled_names = {"f3_cells_tiled", "r3_cells1_tiled", "r3_cells2_tiled", "f3_shell",
-                   "r3_shell1", "r3_shell2"}
+    tiled_names = {"f3_cells_tiled", "r3_cells1_tiled", "r3_cells2_tiled", "r3_shell2"}
     ran = {v: {k for k, _ in rows} for v, rows in prof.items()}
     if ran["tiled"] and (ran["tiled"] & gather_names or not tiled_names <= ran["tiled"]):
         fail(f"the default 3D call's cell passes were {sorted(ran['tiled'])}, not the tiled ones")

@@ -1,29 +1,37 @@
 """The 3D whole-scan engine's tiled cell passes, on the CPU.
 
 The tiled passes (``csrc/acoustic3d_kernels.cuh``: ``march`` in
-``f3_cells_tiled``, ``r3_cells1_tiled``, ``r3_cells2_tiled`` over the
-interior box, and ``f3_shell``, ``r3_shell1``, ``r3_shell2`` over the
-CPML-reach shell) run only on the card, where ``tests/test_torch_cuda.py``
-holds them bitwise against the gather passes. Here the launch plan
-``a3d_tile_plan`` and numpy transcriptions of ``march``'s addressing (each
-thread's copies of a plane tile and their masks, the register column, the
-ring of plane tiles in shared memory) and of ``shell_cell`` are held to
-the plan's rules:
+``f3_cells_tiled`` and ``r3_cells1_tiled`` over the whole grid, in
+``r3_cells2_tiled`` over the interior box and ``r3_shell2`` over the slabs
+of the CPML shell; a tile that reaches the CPML also stages strip values)
+run only on the card, where ``tests/test_torch_cuda.py`` holds them bitwise
+against the gather passes. Here the launch plan ``a3d_tile_plan``, the
+walks' regions (``walk_regions``, ``shell_slabs``, ``slab_tiles``) and
+numpy transcriptions of ``march``'s
+addressing (each thread's copies of a plane tile and their masks, the
+register column, the ring of plane tiles in shared memory, and a shell
+tile's strip tiles, y columns and own strip values) are held to the plan's
+rules:
 
-- the box's chunks and tiles and the shell cover every cell of the padded
-  grid exactly once, at the 3D main path's, the full Overthrust and the
-  bench grids and at small ragged grids;
-- every copy that is not masked lies inside the halo layout, no cell of the
-  box reads a masked value (masked copies are poisoned with NaN), and each
-  ring slot read holds the plane expected;
-- the three D2 stencils the walk gives equal the reference's
-  ``apply_stencil`` (fp64, 1e-12 of max: the same taps summed in another
-  order);
-- at least 4 blocks a streaming multiprocessor and a y re-read of at most
-  10% at the main path's, the full Overthrust and the bench grids (fields
-  larger than the L2), the block count alone on fields that fit it, the
-  rings within a block's shared memory, and the plan's tile, look-ahead
-  and rings the ones the header compiles;
+- the whole grid's walk, and the box's tiles with the shell's, cover every
+  cell of the padded grid exactly once, at the 3D main path's, the full
+  Overthrust and the bench grids and at small grids: ragged, with an empty
+  box, a one-tile box and ragged slabs, at orders 2, 4 and 8, free surface
+  on and off;
+- every copy that is not masked lies inside the halo layout or its strip
+  array, no cell reads a masked field value (masked copies are poisoned
+  with NaN), each ring slot read holds the plane expected, and a staged
+  strip value outside the strips is the zero the tails expect;
+- the three D2 stencils the walk gives, and the D1 stencils of strip
+  arrays along each axis that a shell tile's cells read from its staged
+  values, equal the reference's ``apply_stencil`` (fp64, 1e-12 of max: the
+  same taps summed in another order);
+- at least 4 blocks a streaming multiprocessor and the fewest waves x
+  (planes + re-read halo planes) a chunk at the main path's, the full
+  Overthrust and the bench grids (fields larger than the L2), the block
+  count alone on fields that fit it, the rings within a block's shared
+  memory, and the plan's tile, look-ahead and rings the ones the header
+  compiles;
 - an unknown variant raises on the CPU too, and on the CPU both variants
   return the plain versions' outputs unchanged.
 """
@@ -61,13 +69,29 @@ LARGE = {
     "bench_order4": (801, 187, 801, 20, 4),
     "bench_order2": (801, 187, 801, 20, 2),
 }
-# padded 45 x 37 x 61 (every padded dimension odd); boxes of 17 x 33 (one
-# past the (16, 32) tile) in z and x; a box 7 planes deep cut in chunks
+# (shape, pml, order[, free surface]): padded 45 x 37 x 61 (every padded
+# dimension odd); boxes of 17 x 33 (one past the (16, 32) tile) in z and x;
+# a box 7 planes deep cut in chunks; at each order with the free surface on
+# and off; an empty box (a physical extent of 2R); a box of one full tile;
+# slabs of 13 cells and full rows of 88 (2 tiles and 24)
 SMALL = {
     "odd": (29, 21, 45, 4, 8),
     "tile_plus_one": (24, 21, 37, 2, 4),
     "ragged_chunks": (9, 30, 40, 3, 2),
+    "order8_fs": (20, 24, 28, 6, 8, True),
+    "order4_fs": (25, 17, 41, 4, 4, True),
+    "order2_fs": (27, 19, 43, 4, 2, True),
+    "empty_box": (20, 8, 28, 6, 8),
+    "empty_box_order2": (2, 11, 9, 3, 2, True),
+    "one_tile_box": (20, 20, 36, 3, 4),
+    "ragged_slabs": (22, 37, 70, 5, 8),
 }
+
+
+def _small(name):
+    shape, (pml, order, *fs) = SMALL[name][:3], SMALL[name][3:]
+    return Grid(shape=shape, h=(10.0, 11.0, 12.0), pml=pml, order=order,
+                free_surface=bool(fs and fs[0]))
 
 
 def _blocks(grid, plan):
@@ -76,152 +100,267 @@ def _blocks(grid, plan):
     return (-(-nx // plan.tx), -(-nz // plan.tz), -(-ny // plan.cy))
 
 
-def shell_cells(grid):
-    """``shell_cell`` for every shell index: (y, z, x) arrays."""
-    NY, NZ, NX = grid.padded_shape
+def _box_slab(grid):
     L, (ny, nz, nx) = k3.interior_box(grid)
-    e = np.arange(NY * NZ * NX - ny * nz * nx)
-    plane = NZ * NX
-    low = NY * plane if ny == 0 else L * plane
-    mid = plane - nz * nx
-    slab = (e < low) | (e >= low + ny * mid)
-    f = np.where(e < low, e, e - low - ny * mid)
-    yy = np.where(e < low, 0, L + ny)
-    y = np.where(slab, yy + f // plane, 0)
-    r = np.where(slab, f % plane, 0)
-    z, x = r // NX, r % NX
-    m = ~slab
-    em = e[m] - low
-    ym = L + em // mid
-    rm = em - (ym - L) * mid
-    zm, xm = rm // NX, rm % NX  # the low z slab
-    rx = rm - L * NX
-    xs = (rx >= 0) & (rx < 2 * L * nz)  # the x slabs of the middle rows
-    j = rx % (2 * L)
-    zm = np.where(xs, L + rx // (2 * L), zm)
-    xm = np.where(xs, np.where(j < L, j, NX - 2 * L + j), xm)
-    rh = rx - 2 * L * nz  # the high z slab
-    hz = rx >= 2 * L * nz
-    zm = np.where(hz, L + nz + rh // NX, zm)
-    xm = np.where(hz, rh % NX, xm)
-    y[m], z[m], x[m] = ym, zm, xm
-    return y, z, x
+    return ((L, L + ny), (L, L + nz), (L, L + nx))
 
 
-def walk(grid, plan, field, d2):
+def tiles(grid, plan):
+    """(the whole grid's walk, box tiles, shell tiles) as the kernels'
+    blocks take them: (y0, y1, z0, x0, nz, nx) each."""
+    box = k3.slab_tiles(_box_slab(grid), plan.cy) if min(k3.interior_box(grid)[1]) else []
+    return ([t for r in k3.walk_regions(grid) for t in k3.slab_tiles(r, plan.cy)], box,
+            [t for slab in k3.shell_slabs(grid) for t in k3.slab_tiles(slab, plan.cy)])
+
+
+def strip_arrays(grid, rng):
+    """Random strip arrays of the three axes in the kernels' packed layout
+    (2S along the axis) and each on the padded grid, zero outside the
+    strips (what strip_at reads)."""
+    N = grid.padded_shape
+    S = k3.strip_depth(grid)
+    packed, full = [], []
+    for ax in range(3):
+        shape = list(N)
+        shape[ax] = 2 * S
+        a = rng.standard_normal(shape)
+        f = np.zeros(N)
+        idx = [slice(None)] * 3
+        idx[ax] = slice(0, S)
+        f[tuple(idx)] = a[tuple(idx)]
+        hi = [slice(None)] * 3
+        hi[ax] = slice(N[ax] - S, N[ax])
+        idx[ax] = slice(S, 2 * S)
+        f[tuple(hi)] = a[tuple(idx)]
+        packed.append(a.ravel())
+        full.append(f)
+    return packed, full
+
+
+def _strip_coord(c, n, S):
+    """csrc strip_coord, on arrays."""
+    c = np.asarray(c)
+    return np.where((c < 0) | (c >= n), -1, np.where(c < S, c, np.where(c >= n - S, c - n + 2 * S, -1)))
+
+
+def walk(grid, plan, field, d2, spans, strips=None, d1=None):
     """Run ``march`` over ``field`` in the halo layout (a flat fp64 array)
-    with the D2 taps ``d2`` (3, 2R+1), as the kernel addresses it: the
-    box's tiles, each thread's copies of a plane tile into the field ring
-    (FIELD_SLOTS slots, a slot holding grid plane p at p mod FIELD_SLOTS), the
-    column below the chunk loaded directly, the column front and the tile
-    of plane y read from their slots. Copies land at once here; the slots
-    read are checked to hold the plane expected. Returns (d2y, d2z, d2x on
-    the padded grid, runs of each cell, the flat offsets of every copy and
-    load that is not masked). Masked copies fill NaN."""
-    NY, NZ, NX = grid.padded_shape
+    with the D2 taps ``d2`` (3, 2R+1), for the tiles ``spans``, as the
+    kernel addresses it: each thread's copies of a plane tile into the field
+    ring (FIELD_SLOTS slots, a slot holding grid plane p at p mod
+    FIELD_SLOTS), the column below the chunk loaded directly, the column
+    front and the tile of plane y read from their slots. Copies land at
+    once here; the slots read are checked to hold the plane expected. With
+    ``strips`` (the packed strip arrays of the three axes) and the D1 taps
+    ``d1`` the tiles also stage them as a shell tile does (x and z tiles in
+    their ring, y columns whose front is an operand, the cell's own
+    values), and each cell within S + R of a face takes D1 along that axis
+    from the staged values. Returns (d2y, d2z, d2x on the padded grid, the
+    D1 stencils of the strips along each axis (NaN where unread), runs of
+    each cell, the flat offsets of every field copy and load that is not
+    masked, the strip copies' offsets per axis). Masked field copies fill
+    NaN."""
+    NY, NZ, NX = N = grid.padded_shape
     R = grid.radius
-    L, (bny, bnz, bnx) = k3.interior_box(grid)
-    tz, tx, cy = plan.tz, plan.tx, plan.cy
+    S = k3.strip_depth(grid)
+    SE, S2 = S + R, 2 * S
+    tz, tx = plan.tz, plan.tx
     W, ez, ex = tx + 2 * R, NZ + 2 * R, NX + 2 * R
     ly, plane = ez * ex, (tz + 2 * R) * (tx + 2 * R)
-    ns, threads = k3.FIELD_SLOTS, tz * tx
+    ns, no, threads = k3.FIELD_SLOTS, k3.OP_SLOTS, tz * tx
     per = -(-plane // threads)
     out = np.full((3, NY, NZ, NX), np.nan)
+    d1s = np.full((3, NY, NZ, NX), np.nan)
     runs = np.zeros((NY, NZ, NX), np.int64)
     loaded = [np.zeros(0, np.int64)]
+    sloaded = [[np.zeros(0, np.int64)] for _ in range(3)]
     t = np.arange(threads)
     tzs, txs = t // tx, t % tx
     mine = (tzs + R) * W + txs + R
     e = t[:, None] + np.arange(per)[None, :] * threads
     r, c = e // W, e % W
-    gx, gz, gy = _blocks(grid, plan)
-    for by in range(gy):
-        for bz in range(gz):
-            for bx in range(gx):
-                z0, x0 = L + bz * tz, L + bx * tx
-                z, x = z0 + tzs, x0 + txs
-                on = (z < L + bnz) & (x < L + bnx)
-                zh, xh = z0 + r, x0 + c
-                goff = np.where(e >= plane, -2, np.where((zh < ez) & (xh < ex), zh * ex + xh, -1))
-                own = (z + R) * ex + x + R
-                ring = np.full((ns, plane), -np.inf)  # -inf: never written
-                held = np.full(ns, -1)
+    xt_n, zt_n = tz * W, (tz + 2 * R) * tx
+    ex_ = t[:, None] + np.arange(-(-xt_n // threads))[None, :] * threads
+    xr, xc = ex_ // W, ex_ % W
+    ez_ = t[:, None] + np.arange(-(-zt_n // threads))[None, :] * threads
+    zr, zc = ez_ // tx, ez_ % tx
+    for y0, y1, z0, x0, nz, nx in spans:
+        z, x = z0 + tzs, x0 + txs
+        on = (tzs < nz) & (txs < nx)
+        zh, xh = z0 + r, x0 + c
+        goff = np.where(e >= plane, -2, np.where(
+            (zh < ez) & (xh < ex) & (r < nz + 2 * R) & (c < nx + 2 * R), zh * ex + xh, -1))
+        own = (z + R) * ex + x + R
+        ring = np.full((ns, plane), -np.inf)  # -inf: never written
+        held = np.full(ns, -1)
+        reach = (y0 < SE or y1 > NY - SE, z0 < SE or z0 + nz > NZ - SE,
+                 x0 < SE or x0 + nx > NX - SE)
+        sring = {}  # plane: (x tile, z tile) of the strips
 
-                def copy_field(p):
-                    ok = goff >= 0
-                    loaded.append((p + R) * ly + goff[ok])
-                    ring[p % ns, e[goff != -2]] = np.where(
-                        ok, field[(p + R) * ly + np.maximum(goff, 0)], np.nan)[goff != -2]
-                    held[p % ns] = p
+        def copy_field(p):
+            ok = goff >= 0
+            loaded.append((p + R) * ly + goff[ok])
+            ring[p % ns, e[goff != -2]] = np.where(
+                ok, field[(p + R) * ly + np.maximum(goff, 0)], np.nan)[goff != -2]
+            held[p % ns] = p
 
-                def slot(p):
-                    assert held[p % ns] == p
-                    return ring[p % ns]
+        def slot(p):
+            assert held[p % ns] == p
+            return ring[p % ns]
 
-                y0, y1 = L + by * cy, min(L + by * cy + cy, L + bny)
-                q = [None] * (2 * R + 1)
-                for k in range(1, R + 1):
-                    loaded.append((y0 + k - 1) * ly + own[on])
-                    q[k] = np.where(on, field[(y0 + k - 1) * ly + np.where(on, own, 0)], 0.0)
-                for pl in range(y0, y0 + R):
-                    copy_field(pl)
-                for a in range(k3.AHEAD):
-                    if y0 + R + a < y1 + R:
-                        copy_field(y0 + R + a)
-                for k in range(R + 1, 2 * R + 1):
-                    q[k] = slot(y0 + k - R - 1)[mine]
-                for y in range(y0, y1):
-                    if y + R + k3.AHEAD < y1 + R:
-                        copy_field(y + R + k3.AHEAD)
-                    q = q[1:] + [slot(y + R)[mine]]
-                    f = slot(y)
-                    taps = [mine + (k - R) * W for k in range(2 * R + 1)]
-                    assert not np.isneginf(f[np.concatenate(taps)][np.tile(on, 2 * R + 1)]).any()
-                    d2y = sum(d2[0, k] * q[k] for k in range(2 * R + 1))
-                    d2z = sum(d2[1, k] * f[mine + (k - R) * W] for k in range(2 * R + 1))
-                    d2x = sum(d2[2, k] * f[mine + k - R] for k in range(2 * R + 1))
-                    out[:, y, z[on], x[on]] = np.stack([d2y, d2z, d2x])[:, on]
-                    runs[y, z[on], x[on]] += 1
-    return out, runs, np.concatenate(loaded)
+        def copy_strips(p):
+            """plane p's x tile (rows < nz by columns +- R) and z tile (rows
+            +- R below nz + 2R by columns < nx): the kernel's offsets, and
+            what it stages there (zero where masked)"""
+            xs, zs = np.full(xt_n, np.nan), np.full(zt_n, np.nan)
+            if reach[2]:
+                js = _strip_coord(x0 - R + xc, NX, S)
+                off = np.where(ex_ >= xt_n, -2, np.where((xr < nz) & (js >= 0), (z0 + xr) * S2 + js, -1))
+                m = off >= 0
+                sloaded[2].append(p * NZ * S2 + off[m])
+                xs[ex_[off != -2]] = np.where(m, strips[2][p * NZ * S2 + np.maximum(off, 0)], 0.0)[off != -2]
+            if reach[1]:
+                js = _strip_coord(z0 - R + zr, NZ, S)
+                off = np.where(ez_ >= zt_n, -2, np.where((zc < nx) & (zr < nz + 2 * R) & (js >= 0),
+                                                         js * NX + x0 + zc, -1))
+                m = off >= 0
+                sloaded[1].append(p * S2 * NX + off[m])
+                zs[ez_[off != -2]] = np.where(m, strips[1][p * S2 * NX + np.maximum(off, 0)], 0.0)[off != -2]
+            sring[p] = (xs, zs)
+
+        def ycol(p):
+            """the y column's value at plane p: the operand copy of the
+            cell's y-strip value (zero outside the strips)"""
+            jy = int(_strip_coord(p, NY, S))
+            if jy < 0:
+                return np.zeros(threads)
+            o = (jy * NZ + z) * NX + x
+            sloaded[0].append(o[on])
+            return np.where(on, strips[0][np.where(on, o, 0)], 0.0)
+
+        q = [None] * (2 * R + 1)
+        for k in range(1, R + 1):
+            loaded.append((y0 + k - 1) * ly + own[on])
+            q[k] = np.where(on, field[(y0 + k - 1) * ly + np.where(on, own, 0)], 0.0)
+        col = [None] + [ycol(y0 + k - 1 - R) for k in range(1, 2 * R + 1)]
+        for pl in range(y0, y0 + R):
+            copy_field(pl)
+        for a in range(k3.AHEAD):
+            if y0 + R + a < y1 + R:
+                copy_field(y0 + R + a)
+            if strips is not None and y0 + a < y1:
+                copy_strips(y0 + a)
+        for k in range(R + 1, 2 * R + 1):
+            q[k] = slot(y0 + k - R - 1)[mine]
+        for y in range(y0, y1):
+            if y + R + k3.AHEAD < y1 + R:
+                copy_field(y + R + k3.AHEAD)
+            if strips is not None and y + k3.AHEAD < y1:
+                copy_strips(y + k3.AHEAD)
+            q = q[1:] + [slot(y + R)[mine]]
+            f = slot(y)
+            taps = [mine + (k - R) * W for k in range(2 * R + 1)]
+            assert not np.isneginf(f[np.concatenate(taps)][np.tile(on, 2 * R + 1)]).any()
+            d2y = sum(d2[0, k] * q[k] for k in range(2 * R + 1))
+            d2z = sum(d2[1, k] * f[mine + (k - R) * W] for k in range(2 * R + 1))
+            d2x = sum(d2[2, k] * f[mine + k - R] for k in range(2 * R + 1))
+            out[:, y, z[on], x[on]] = np.stack([d2y, d2z, d2x])[:, on]
+            runs[y, z[on], x[on]] += 1
+            if strips is None:
+                continue
+            col = col[1:] + [ycol(y + R)]
+            xs, zs = sring.pop(y)
+            coords = (np.full(threads, y), z, x)
+            for ax in range(3):
+                cells = on & ((coords[ax] < SE) | (coords[ax] >= N[ax] - SE))
+                if not cells.any():
+                    continue
+                assert reach[ax]
+                if ax == 0:
+                    vals = [col[k] for k in range(2 * R + 1)]
+                elif ax == 1:
+                    vals = [zs[(tzs + k) * tx + txs] for k in range(2 * R + 1)]
+                else:
+                    vals = [xs[tzs * W + txs + k] for k in range(2 * R + 1)]
+                acc = sum(d1[ax, k] * vals[k] for k in range(2 * R + 1) if k != R)
+                d1s[ax, y, z[cells], x[cells]] = acc[cells]
+            # the cell's own strip values: the operand copies' offsets
+            jz, jx = _strip_coord(z, NZ, S), _strip_coord(x, NX, S)
+            jy = int(_strip_coord(y, NY, S))
+            if reach[0] and jy >= 0:
+                sloaded[0].append(((jy * NZ + z) * NX + x)[on])
+            if reach[1]:
+                sloaded[1].append(((y * S2 + jz) * NX + x)[on & (jz >= 0)])
+            if reach[2]:
+                sloaded[2].append(((y * NZ + z) * S2 + jx)[on & (jx >= 0)])
+    return (out, d1s, runs, np.concatenate(loaded),
+            [np.concatenate(v) for v in sloaded])
 
 
-def _d2_taps(grid):
+def _taps(grid, row):
     R = grid.radius
-    return np.array(k3.taps_arg(grid)[:], np.float64).reshape(6, 9)[3:, : 2 * R + 1]
+    return np.array(k3.taps_arg(grid)[:], np.float64).reshape(6, 9)[3 * row:3 * row + 3, : 2 * R + 1]
 
 
 @pytest.mark.parametrize("cy", ["plan", "one_chunk", 3])
 @pytest.mark.parametrize("name", list(SMALL))
 def test_walk_and_shell_cover_the_grid_and_match_the_reference_stencils(name, cy):
-    """The box's walk and the shell run every cell once, the walk copies
-    only inside the halo layout, reads no masked value, and its D2 stencils
-    are the reference's: on the plan's chunks (1 plane on these small
-    fields), one chunk of the whole box, and chunks of 3 with a ragged last
-    one."""
-    grid = _grid(*SMALL[name])
+    """The whole grid's walk, and the box's tiles with the shell's, run every
+    cell once, copy only inside the halo layout and the strip arrays, read
+    no masked field value, and give the reference's D2 stencils of the field
+    and, within S + R of a face, D1 stencils of the strip arrays from their
+    staged values (zero outside the strips): on the plan's chunks (1 plane
+    on these small fields), one chunk of the whole box (the whole grid when
+    the box is empty), and chunks of 3 with a ragged last one."""
+    grid = _small(name)
     plan = k3.a3d_tile_plan(grid)
-    L, (ny, nz, nx) = k3.interior_box(grid)
-    if cy != "plan":
-        plan = plan._replace(cy=ny if cy == "one_chunk" else cy)
     NY, NZ, NX = grid.padded_shape
+    if cy != "plan":
+        ny = k3.interior_box(grid)[1][0] or NY
+        plan = plan._replace(cy=ny if cy == "one_chunk" else cy)
     R = grid.radius
     rng = np.random.default_rng(NY * NZ * NX)
     f = rng.standard_normal((NY, NZ, NX))
     halo = np.pad(f, R).ravel()
-    d2 = _d2_taps(grid)
-    out, runs, loaded = walk(grid, plan, halo, d2)
+    d2, d1 = _taps(grid, 1), _taps(grid, 0)
+    packed, full = strip_arrays(grid, rng)
+    walk_tiles, box_tiles, shell_tiles = tiles(grid, plan)
+    L, (ny, nz, nx) = k3.interior_box(grid)
     box = np.zeros((NY, NZ, NX), bool)
     box[L:L + ny, L:L + nz, L:L + nx] = True
-    assert box.sum() > 0 and (runs == box).all()
-    sy, sz, sx = shell_cells(grid)
-    np.add.at(runs, (sy, sz, sx), 1)
-    assert (runs == 1).all()
-    assert loaded.min() >= 0 and loaded.max() < halo.size
-    assert np.isfinite(out[:, box]).all()  # no cell read a masked (NaN) copy
-    for ax in range(3):
-        ref = np.asarray(j_apply_stencil(jnp.asarray(f), tuple(d2[ax]), ax))[box]
-        err = np.abs(out[ax][box] - ref).max() / np.abs(ref).max()
-        assert err <= 1e-12, (name, ax, err)
+    # the box's tiles (no strips) and the shell's (staging), as r3_cells2
+    bout, _, runs, loaded, _ = walk(grid, plan, halo, d2, box_tiles)
+    sout, sd1, sruns, sloaded, sstrips = walk(grid, plan, halo, d2, shell_tiles, packed, d1)
+    assert (runs == box).all() and (sruns == ~box).all()
+    assert sruns.sum() == k3.shell_cells(grid)
+    bout[:, ~box] = sout[:, ~box]
+    # the whole grid in one walk, as f3 and r3_cells1
+    wout, wd1, wruns, wloaded, wstrips = walk(grid, plan, halo, d2, walk_tiles, packed, d1)
+    assert (wruns == 1).all()
+    S = k3.strip_depth(grid)
+    for out, d1s, lo, strip_loads in ((bout, sd1, np.concatenate([loaded, sloaded]), sstrips),
+                                      (wout, wd1, wloaded, wstrips)):
+        assert lo.min() >= 0 and lo.max() < halo.size
+        for ax in range(3):
+            if strip_loads[ax].size:
+                assert strip_loads[ax].min() >= 0 and strip_loads[ax].max() < packed[ax].size
+        assert np.isfinite(out).all()  # no cell read a masked (NaN) copy
+        for ax in range(3):
+            ref = np.asarray(j_apply_stencil(jnp.asarray(f), tuple(d2[ax]), ax))
+            err = np.abs(out[ax] - ref).max() / np.abs(ref).max()
+            assert err <= 1e-12, (name, ax, err)
+            # D1 of the strips along ax at every cell within S + R of its faces
+            c = np.arange(grid.padded_shape[ax])
+            near = (c < S + R) | (c >= grid.padded_shape[ax] - S - R)
+            shape = [1, 1, 1]
+            shape[ax] = -1
+            reach = np.broadcast_to(near.reshape(shape), (NY, NZ, NX))
+            assert np.isfinite(d1s[ax][reach]).all() and np.isnan(d1s[ax][~reach]).all()
+            taps = d1[ax].copy()
+            taps[R] = 0.0
+            ref = np.asarray(j_apply_stencil(jnp.asarray(full[ax]), tuple(taps), ax))[reach]
+            err = np.abs(d1s[ax][reach] - ref).max() / np.abs(ref).max()
+            assert err <= 1e-12, (name, "d1", ax, err)
 
 
 def _axis_cover(n, b):
@@ -232,13 +371,14 @@ def _axis_cover(n, b):
     return runs
 
 
-@pytest.mark.parametrize("name", list(LARGE) + list(SMALL))
+@pytest.mark.parametrize("name", list(LARGE) + [n for n in SMALL if "empty" not in n])
 def test_plan_tiles_cover_the_box_once_and_loads_stay_inside(name):
     """Per axis (the tiling is separable): the box's y chunks, z and x tiles
     run each of its cells once, and the shell holds the rest (its slabs
-    counted); a column's planes stay within the halo layout, and a tile's
-    z and x copies are masked exactly where they leave it."""
-    grid = _grid(*(LARGE | SMALL)[name])
+    counted, and their tiles); a column's planes stay within the halo
+    layout, and a tile's z and x copies are masked exactly where they leave
+    it."""
+    grid = _grid(*LARGE[name]) if name in LARGE else _small(name)
     plan = k3.a3d_tile_plan(grid)
     NY, NZ, NX = grid.padded_shape
     R = grid.radius
@@ -248,7 +388,12 @@ def test_plan_tiles_cover_the_box_once_and_loads_stay_inside(name):
         assert (_axis_cover(n, b) == 1).all()
     ny, nz, nx = box
     slabs = 2 * L * NZ * NX + ny * (2 * L * NX + 2 * L * nz)
-    assert slabs == NY * NZ * NX - ny * nz * nx
+    assert slabs == NY * NZ * NX - ny * nz * nx == k3.shell_cells(grid)
+    walk_tiles, _, shell_tiles = tiles(grid, plan)
+    cells = [(y1 - y0) * n_z * n_x for y0, y1, _, _, n_z, n_x in shell_tiles]
+    assert sum(cells) == slabs and min(cells) > 0
+    cells = [(y1 - y0) * n_z * n_x for y0, y1, _, _, n_z, n_x in walk_tiles]
+    assert sum(cells) == NY * NZ * NX and min(cells) > 0
     gx, gz, gy = _blocks(grid, plan)
     # y: a chunk [y0, y1) of the box copies halo planes y0 .. y1 - 1 + 2R
     assert L + ny - 1 + 2 * R < NY + 2 * R
@@ -265,59 +410,77 @@ def test_plan_tiles_cover_the_box_once_and_loads_stay_inside(name):
 @pytest.mark.parametrize("name", ["main", "overthrust", "bench", "bench_order4",
                                   "bench_order2"])
 def test_plan_follows_its_rules(name):
-    """At least 4 blocks an SM (528), a y re-read 2R / cy of at most 10%,
-    no chunk count within those rules with fewer waves x planes, the
-    largest pass's rings within a block's 227 KB of shared memory."""
+    """At least 4 blocks an SM (528) from a whole plane's tiles, no chunk
+    count within that rule with fewer waves x (planes + 2R re-read halo
+    planes) a chunk (these fields outgrow the L2), the largest pass's rings
+    within a block's 227 KB of shared memory."""
     grid = _grid(*LARGE[name])
     plan = k3.a3d_tile_plan(grid)
     R = grid.radius
-    gx, gz, gy = _blocks(grid, plan)
-    tiles = gx * gz
-    assert tiles * gy >= 4 * 132 == k3.MIN_BLOCKS
-    assert 2 * R / plan.cy <= 0.1
+    NY, NZ, NX = grid.padded_shape
+    assert 4 * NY * NZ * NX > k3.L2_BYTES
+    tiles = -(-NZ // plan.tz) * -(-NX // plan.tx)
     ny = k3.interior_box(grid)[1][0]
+    gy = -(-ny // plan.cy)
+    assert tiles * gy >= 4 * 132 == k3.MIN_BLOCKS
 
     def cost(c):
-        return -(-tiles * c // (k3.RESIDENT * k3.SMS)) * -(-ny // c)
+        return -(-tiles * c // (k3.RESIDENT * k3.SMS)) * (-(-ny // c) + 2 * R)
 
-    allowed = [c for c in range(1, ny + 1)
-               if tiles * c >= k3.MIN_BLOCKS and -(-ny // c) >= 20 * R]
+    allowed = [c for c in range(1, ny + 1) if tiles * c >= k3.MIN_BLOCKS]
     assert cost(gy) == min(cost(c) for c in allowed)
-    assert plan.smem == max(k3.ring_bytes(R, kernel) for kernel in k3.RINGS)
+    S = k3.strip_depth(grid)
+    assert plan.smem == max(k3.ring_bytes(R, kernel, S) for kernel in k3.RINGS)
     assert plan.smem <= 227 * 1024  # a block's limit, above 48 KB by attribute
     assert plan.tx % 32 == 0
 
 
 def test_plan_tile_is_the_compiled_tile():
-    """The header's kTZ, kTX, kAhead and rings are the plan's (the C side
-    rejects any other plan), the rings hold the planes the walk keeps
-    (planes y .. y + R + AHEAD of the field, y .. y + AHEAD of the
-    operands, R <= 4); the main path's box (392 x 152 x 552) makes 180
-    tiles and needs y chunks."""
+    """The header's kTZ, kTX, kAhead and rings, box and shell, are the
+    plan's (the C side rejects any other plan), the rings hold the planes
+    the walk keeps (planes y .. y + R + AHEAD of the field, y .. y + AHEAD
+    of the operands, R <= 4); the main path's box (392 x 152 x 552) makes
+    180 tiles and needs y chunks, and its shell 840 (one shell ring per
+    SM's shared memory for r3_shell2, two for the others)."""
     src = (CSRC / "acoustic3d_kernels.cuh").read_text()
     consts = {k: int(re.search(rf"constexpr int {k} = (\d+);", src).group(1))
               for k in ("kTZ", "kTX", "kAhead", "kFieldSlots", "kOpSlots")}
     assert tuple(consts.values()) == (k3.TILE_Z, k3.TILE_X, k3.AHEAD, k3.FIELD_SLOTS,
                                       k3.OP_SLOTS)
-    rings = dict(re.findall(r"using (Ring\w+) = Ring<R, (\d+, \d+, \d+)>;", src))
-    for name, kernel in (("RingF3", "f3_cells_tiled"), ("RingR1", "r3_cells1_tiled"),
-                         ("RingR2", "r3_cells2_tiled")):
-        nf, nh, ng = map(int, rings[name].split(", "))
-        assert (nf, nh + ng) == k3.RINGS[kernel]
-    plan = k3.a3d_tile_plan(_grid(*LARGE["main"]))
-    gx, gz, gy = _blocks(_grid(*LARGE["main"]), plan)
-    assert (gx * gz, gy, plan.cy) == (180, 4, 98)
+    rings = dict(re.findall(r"using (Ring\w+) = Ring<R, ([\w, ]+)>;", src))
+    for name, kernel in (("RingF3S", "f3_cells_tiled"), ("RingR1S", "r3_cells1_tiled"),
+                         ("RingR2", "r3_cells2_tiled"), ("RingR2S", "r3_shell2")):
+        nf, nh, ng, *strips = rings[name].replace("kAhead", str(k3.AHEAD)).split(", ")
+        strips = list(map(int, strips)) + [0, 0, k3.OP_SLOTS][len(strips):]
+        assert (int(nf), int(nh) + int(ng), *strips) == k3.RINGS[kernel]
+    grid = _grid(*LARGE["main"])
+    plan = k3.a3d_tile_plan(grid)
+    gx, gz, gy = _blocks(grid, plan)
+    assert (gx * gz, gy, plan.cy) == (180, 8, 49)
+    walk_tiles, _, shell_tiles = tiles(grid, plan)
+    assert (len(walk_tiles), len(shell_tiles)) == (2280, 1224)
+    # (two blocks an SM of the walks' rings under ~96 KB each: two of 108.7
+    # KB ran the box's tiles 14% slower on the H100)
+    S = k3.strip_depth(grid)
+    kb = {k: k3.ring_bytes(4, k, S) / 1024 for k in k3.RINGS}
+    assert kb["f3_cells_tiled"] < 96 and kb["r3_cells1_tiled"] < 96
+    per_sm = {k: 228 * 1024 // (k3.ring_bytes(4, k, S) + 1024) for k in k3.RINGS}
+    assert per_sm == {"f3_cells_tiled": 2, "r3_cells1_tiled": 3, "r3_cells2_tiled": 3,
+                      "r3_shell2": 1}
     assert 4 + k3.AHEAD + 1 <= k3.FIELD_SLOTS and k3.AHEAD + 1 <= k3.OP_SLOTS
 
 
 def test_plan_on_a_field_within_the_l2_takes_the_block_count():
     """The smoke's free-surface grid (92 x 76 x 108, 3 MB a field; its box
-    56 x 40 x 72): chunks of 1 plane (504 blocks), where the re-read floor
-    would leave 9."""
+    56 x 40 x 72): at least one block an SM (a whole plane makes 20 tiles),
+    then the fewest waves x (planes + 2R halo planes): chunks of 5 planes
+    (108 blocks of the box, 400 of the whole grid's walk), where 1-plane
+    chunks made 1840."""
     grid = Grid(shape=(64, 48, 80), h=(25.0,) * 3, pml=10, order=8, free_surface=True)
     plan = k3.a3d_tile_plan(grid)
     assert grid.padded_shape == (92, 76, 108)
-    assert plan.cy == 1 and np.prod(_blocks(grid, plan)) == 504
+    assert plan.cy == 5 and np.prod(_blocks(grid, plan)) == 108
+    assert len(tiles(grid, plan)[0]) == 400
 
 
 def _cpu_case(nt=12):

@@ -535,7 +535,8 @@ def test_estep_gradient_matches_escan(device, source_type, record, free_surface)
 def _a3d_case(device, order, free_surface, nt, shape=(20, 24, 28), pml=6):
     """A surface source (in the boundary ring) and a deeper one, a receiver
     carpet at depth 3 with a coinciding pair; with the free surface a source
-    and a receiver on the pinned surface row."""
+    and a receiver on the pinned surface row (positions clipped into thin
+    grids)."""
     grid = Grid(shape=shape, h=(10.0, 11.0, 12.0), pml=pml, order=order,
                 free_surface=free_surface)
     c_max, f0 = 2600.0, 18.0
@@ -547,7 +548,9 @@ def _a3d_case(device, order, free_surface, nt, shape=(20, 24, 28), pml=6):
     if free_surface:
         src[1, 1] = 0
         rcv.append([11, 0, 5])
-    return chip_smoke.a3d_inputs(device, grid, vp, dt, f0, c_max, nt, src, np.array(rcv))
+    top = np.array(shape) - 1
+    return chip_smoke.a3d_inputs(device, grid, vp, dt, f0, c_max, nt, np.minimum(src, top),
+                                 np.minimum(np.array(rcv), top))
 
 
 @pytest.mark.parametrize("order,free_surface", [(8, False), (8, True), (4, True), (2, False)])
@@ -573,10 +576,16 @@ def test_a3d_kernels_match_plain(device, order, free_surface):
 # (physical shape, pml): padded 37 x 29 x 53 at every order (every padded
 # dimension odd); padded 97 x 41 x 57 at order 8, its interior box (the
 # physical grid less R a side: 73 x 17 x 33) one past a multiple of the
-# plan's (16, 32) tile in z and x
+# plan's (16, 32) tile in z and x. Shell-heavy: an empty box (a physical
+# extent of 2R: the whole grid is shell tiles, and no ring tape fits); a
+# box of one full (16, 32) tile; slabs of 13 cells and rows of 88 (2 tiles
+# and 24), padded 40 x 55 x 88
 A3D_RAGGED = {
     "odd": {8: ((25, 17, 41), 2), 4: ((25, 17, 41), 4), 2: ((27, 19, 43), 4)},
     "tile_plus_one": {8: ((81, 25, 41), 4)},
+    "empty_box": {8: ((20, 8, 28), 6), 2: ((21, 2, 30), 3)},
+    "one_tile_box": {4: ((20, 20, 36), 3)},
+    "ragged_slabs": {8: ((22, 37, 70), 5), 2: ((22, 37, 70), 11)},
 }
 
 
@@ -584,17 +593,21 @@ A3D_RAGGED = {
 @pytest.mark.parametrize("order,free_surface,shape", [
     (8, False, None), (8, True, None), (4, True, None), (2, False, None), (2, True, None),
     (8, True, "odd"), (4, False, "odd"), (2, True, "odd"), (8, False, "tile_plus_one"),
-    (8, True, "tile_plus_one"),
+    (8, True, "tile_plus_one"), (8, False, "empty_box"), (2, True, "empty_box"),
+    (4, True, "one_tile_box"), (8, True, "ragged_slabs"), (2, False, "ragged_slabs"),
 ])
 def test_a3d_tiled_matches_gather_bitwise(device, monkeypatch, order, free_surface, shape, cy):
-    """The tiled cell passes against the gather ones (variant="gather"),
-    bitwise on every output: the seismogram and both last fields with and
-    without the tape, the fp32 and bf16 tape rows, the illumination, and
-    the reverse's gradient, lambda at the sources (fp32 and bf16 tapes) and
-    reconstructed P_{-1}; with the free surface a source and receivers on
-    the pinned row, and on ragged grids. These fields fit the L2, so the
-    plan's chunks are 1 plane deep: the walk is also run in one chunk of
-    the whole box and in chunks of 7 with a ragged last one."""
+    """The tiled cell passes, box and shell, against the gather ones
+    (variant="gather"), bitwise on every output: the seismogram and both
+    last fields with and without the tape, the fp32 and bf16 tape rows, the
+    illumination, and the reverse's gradient, lambda at the sources (fp32
+    and bf16 tapes) and reconstructed P_{-1}; with the free surface a source
+    and receivers on the pinned row, and on ragged and shell-heavy grids
+    (with an empty box, where no ring tape fits, the forward without tape
+    and with illumination). These fields fit the L2, so the plan's chunks
+    are 1 plane deep: the walk is also run in one chunk of the whole box (of
+    the grid when the box is empty) and in chunks of 7 with a ragged last
+    one."""
     from tpufwi_torch.kernels import acoustic3d_scan as k3
 
     kw = {} if shape is None else dict(zip(("shape", "pml"), A3D_RAGGED[shape][order]))
@@ -606,8 +619,36 @@ def test_a3d_tiled_matches_gather_bitwise(device, monkeypatch, order, free_surfa
             cy=NY if cy == "one_chunk" else cy))
     diffs, _ = chip_smoke.a3d_variants_bitwise(args, w, si, ri, reps=1)
     torch.cuda.synchronize()
-    assert len(diffs) == 15
+    assert len(diffs) == (4 if shape == "empty_box" else 15)
     assert all(d == 0.0 for d in diffs.values()), diffs
+
+
+def test_a3d_shell_tiled_cells_counts_the_tiled_shell(device):
+    """a3d_shell_tiled_cells rises by the shell's cells x nt at each tiled
+    a3d_forward and a3d_reverse call, and stays where it was under
+    variant="gather"."""
+    from tpufwi_torch import profiling
+    from tpufwi_torch.kernels import acoustic3d_scan as k3
+
+    args, w, si, ri = _a3d_case(device, 8, False, nt=16)
+    nt, grid = w.shape[0], args[0]
+    per_call = k3.shell_cells(grid) * nt
+    assert per_call == (40 * 44 * 48 - 12 * 16 * 20) * nt
+
+    def count():
+        return profiling.counters()["a3d_shell_tiled_cells"]
+
+    c0 = count()
+    seis, tape, ppen, plast, _ = k3.a3d_forward(*args, w, si, ri, torch.float32)
+    assert count() - c0 == per_call
+    k3.a3d_reverse(*args, w, seis.contiguous(), tape, ppen, plast, si, ri)
+    assert count() - c0 == 2 * per_call
+    c1 = count()
+    seis, tape, ppen, plast, _ = k3.a3d_forward(*args, w, si, ri, torch.float32,
+                                                variant="gather")
+    k3.a3d_reverse(*args, w, seis.contiguous(), tape, ppen, plast, si, ri, variant="gather")
+    torch.cuda.synchronize()
+    assert count() == c1
 
 
 def test_a3d_wrapper_raises_instead_of_falling_back(device):

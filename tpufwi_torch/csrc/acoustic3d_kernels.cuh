@@ -26,16 +26,14 @@
 // Kernels, in the order a step launches them:
 //   forward:  F1 f3_phi     one thread per strip cell of the three axes:
 //                           phi_d' (D1_d of p)
-//             F2 the cell pass: f3_cells_tiled over the interior box, one
-//                           thread per cell of a 2.5D tile (see "2.5D
-//                           marching tiles"): the three 9-tap D2 stencils
-//                           of P_{t-1} from a register column and a shared
-//                           plane tile; beside it, on a side stream, f3_shell
-//                           over the CPML shell, one thread per cell; both
-//                           end in f3_tail: D1_d phi_d' and psi_d' in the
-//                           CPML reach of each axis, the leapfrog in place
-//                           over P_{t-2}, the surface pin; optionally
-//                           illum += P_{t-1}^2
+//             F2 f3_cells_tiled one walk of 2.5D tiles over the grid, one
+//                           thread per cell of a tile (see "2.5D marching
+//                           tiles"): the three 9-tap D2 stencils of P_{t-1}
+//                           from a register column and a shared plane tile,
+//                           then f3_tail: D1_d phi_d' and psi_d' in the CPML
+//                           reach of each axis (staged in shared memory),
+//                           the leapfrog in place over P_{t-2}, the surface
+//                           pin; optionally illum += P_{t-1}^2
 //             F3 f3_src_rcv one block: sources (serially: coinciding sources
 //                           sum in a fixed order), then receivers
 //             F4 f3_ring_get optional: the ring of the post-source field into
@@ -43,20 +41,22 @@
 //   reverse:  R0 r3_inject  one block: receiver-cotangent injection (each
 //                           cell owned by its first receiver, which sums the
 //                           others in index order), lambda at the sources
-//             R1 r3_cells1_tiled (box, P_t tiled) + r3_shell1 (shell): lapw,
-//                           then r3_tail1: reconstruction of P_{t-2} over
-//                           P_t, imaging, surface mask, psibar -> w
+//             R1 r3_cells1_tiled one walk over the grid, P_t tiled (psibar
+//                           staged): lapw, then r3_tail1: reconstruction
+//                           of P_{t-2} over P_t, imaging, surface mask,
+//                           psibar -> w
 //             R1b r3_src_ring the reconstruction's sources, the ring imposed
 //             R2 r3_strips  one thread per strip cell: phibar -> y
-//             R3 r3_cells2_tiled (box, C and lambda_t tiled: u = C lambda
-//                           formed once a tap read) + r3_shell2 (shell):
-//                           D2 u, then r3_tail2: lambda_{t-1}
+//             R3 r3_cells2_tiled over the interior box + r3_shell2 over the
+//                           shell's slabs (w and y staged) on a side stream,
+//                           C and lambda_t tiled (u = C lambda formed once a
+//                           tap read): D2 u, then r3_tail2: lambda_{t-1}
 // The gather variants f3_cells, r3_cells1 and r3_cells2 (one thread per
-// cell of the whole grid, every tap a global load; u formed 25 times a
-// cell) compute the same values in the same order: the shell kernels run
-// their cell code, and the tiles share their tails, so the tiled variant
-// is bitwise equal to them. They run only when a check asks for them
-// (variant 1 of the entry points).
+// cell of the whole grid, every tap and strip value a global load; u formed
+// 25 times a cell) compute the same values in the same order: every variant
+// runs the same tails, reading the strips through a reader (DeviceStrips,
+// TileStrips), so the tiled variant is bitwise equal to them. They run only
+// when a check asks for them (variant 1 of the entry points).
 //
 // Layout. The wavefields (p, lambda) and C are stored with a zero halo of R
 // cells on every side ((NY+2R) x (NZ+2R) x (NX+2R), x contiguous), so the
@@ -241,7 +241,7 @@ struct GridField {
 // physical grid less R a side): there every axis's cpml_terms and
 // tcpml_terms is 0 without a load and no psibar strip exists. The shell is
 // the rest, the CPML reach (30% of the cells at the 3D main path's grid):
-// cells whose tails gather strip values.
+// cells whose tails read strip values.
 struct Box {
   int lo;    // S + R: the box's first cell on every axis
   int n[3];  // its extents, all 0 when it is empty
@@ -259,58 +259,34 @@ __host__ __device__ inline Box interior_box(const Dims& D, int R) {
   return b;
 }
 
-__host__ __device__ inline int shell_count(const Dims& D, const Box& b) {
-  return D.n[0] * D.n[1] * D.n[2] - b.n[0] * b.n[1] * b.n[2];
-}
-
-// (y, z, x) of shell cell e: the low y slab, then per middle plane its low
-// z slab, the x slabs of its middle rows and its high z slab, then the high
-// y slab (with an empty box, the whole grid in order). Consecutive cells
-// are consecutive in x wherever the shell runs along x, so the shell
-// kernels' loads coalesce.
-__device__ __forceinline__ void shell_cell(int e, const Dims& D, const Box& b, int& y, int& z,
-                                           int& x) {
-  const int NX = D.n[2], plane = D.n[1] * NX, L = b.lo;
-  const int low = b.n[0] == 0 ? D.n[0] * plane : L * plane;
-  const int mid = plane - b.n[1] * b.n[2];  // the shell cells of a middle plane
-  int r;
-  if (e < low || e >= low + b.n[0] * mid) {  // a y slab: whole planes
-    const int yy = e < low ? 0 : L + b.n[0];
-    const int f = e < low ? e : e - low - b.n[0] * mid;
-    y = yy + f / plane;
-    r = f - (y - yy) * plane;
-    z = r / NX;
-    x = r - z * NX;
-    return;
+// The shell's slabs, in launch order: over the box's planes (y in [L, L +
+// ny)) the low and high z slabs (whole rows) and the x slabs of the middle
+// rows, then the low and high y slabs (whole planes); with an empty box the
+// whole grid. Slab k as [lo, hi) per axis (y, z, x); false past the last.
+__host__ __device__ inline bool shell_slab(const Dims& D, const Box& b, int k, int* lo, int* hi) {
+  const int L = b.lo;
+  for (int d = 0; d < 3; ++d) {
+    lo[d] = 0;
+    hi[d] = D.n[d];
   }
-  e -= low;
-  y = L + e / mid;
-  r = e - (y - L) * mid;
-  if (r < L * NX) {  // the low z slab
-    z = r / NX;
-    x = r - z * NX;
-    return;
+  if (b.n[0] == 0) return k == 0;
+  if (k < 4) {
+    lo[0] = L;
+    hi[0] = L + b.n[0];
   }
-  r -= L * NX;
-  if (r < 2 * L * b.n[1]) {  // the x slabs of the middle rows
-    z = L + r / (2 * L);
-    const int j = r - (z - L) * 2 * L;
-    x = j < L ? j : NX - 2 * L + j;
-    return;
+  if (k == 2 || k == 3) {
+    lo[1] = L;
+    hi[1] = L + b.n[1];
   }
-  r -= 2 * L * b.n[1];  // the high z slab
-  z = L + b.n[1] + r / NX;
-  x = r - (z - L - b.n[1]) * NX;
-}
-
-// this thread's shell cell in a shell launch (1D, kStripBlock threads a
-// block); false past the shell
-template <int R>
-__device__ __forceinline__ bool my_shell_cell(const Dims& D, int& y, int& z, int& x) {
-  const Box b = interior_box(D, R);
-  const int e = blockIdx.x * blockDim.x + threadIdx.x;
-  if (e >= shell_count(D, b)) return false;
-  shell_cell(e, D, b, y, z, x);
+  switch (k) {
+    case 0: hi[1] = L; break;
+    case 1: lo[1] = L + b.n[1]; break;
+    case 2: hi[2] = L; break;
+    case 3: lo[2] = L + b.n[2]; break;
+    case 4: hi[0] = L; break;
+    case 5: lo[0] = L + b.n[0]; break;
+    default: return false;
+  }
   return true;
 }
 
@@ -322,70 +298,158 @@ __device__ __forceinline__ bool my_grid_cell(const Dims& D, int& y, int& z, int&
   return x < D.n[2] && z < D.n[1];
 }
 
+// ---------------------------------------------------------- strip readers
+//
+// The strip values a pass's tail reads at its cell (y, z, x), through a
+// reader: nb<AX>(a, k), the value k cells along AX of the pass's strip
+// array a (phi'; w, then y), zero outside the strips; mine<AX>(o), the
+// cell's own value of its own strip array (psi; psibar) at strip offset o;
+// profile(), the packed profiles. DeviceStrips reads them from device
+// memory (the gather passes, the box, whose cells read none, and the
+// per-step engine); TileStrips (below) from a tile's shared memory.
+// The tails' arithmetic is the same through either.
+
+// a pass's strip arrays: NA read along their axis, NP at the cell
+template <int NA, int NP>
+struct StripIn {
+  Strips nb[NA > 0 ? NA : 1];
+  Strips own[NP > 0 ? NP : 1];
+  const float* prof;
+};
+
+template <int NA, int NP>
+struct DeviceStrips {
+  const StripIn<NA, NP>& in;
+  int y, z, x;
+  const Dims& D;
+  template <int AX>
+  __device__ __forceinline__ float nb(int a, int k) const {
+    return strip_at<AX>(in.nb[a].s[AX], y, z, x, k, D);
+  }
+  template <int AX>
+  __device__ __forceinline__ float mine(int o) const {
+    return in.own[0].s[AX][o];
+  }
+  __device__ __forceinline__ const float* profile() const { return in.prof; }
+};
+
 // ---------------------------------------------------- 2.5D marching tiles
 //
-// The tiled cell passes share one walk, march(), over the interior box
-// (the shell around it runs one thread a cell). A block of kTZ x kTX
-// threads (x contiguous: a warp is the 32 x of one z row) owns a (z, x)
-// tile of the box and marches along y over a chunk of its cy planes. Each
-// thread keeps its column's 2R+1 values of the stencil field along y in
-// registers (q[k] at plane y - R + k), shifted one plane a step; each
-// value enters the column once, as plane y + R. The z and x taps come from
-// the plane tile, (kTZ + 2R) x (kTX + 2R) values in shared memory: each
-// value of the field is loaded from device memory once for its own tile
-// (its halo ring, at order 8 448 cells a 512-cell plane, are the neighbour
-// tiles' cells, mostly L2 hits).
-// A plane's loads must be in flight long before it is computed, and a
-// thread can hold only a few of them in registers. So every load goes
-// global -> shared by cp.async (4 bytes, zero-filled where masked), kAhead
-// planes ahead, into two rings: the field's plane tiles (planes y .. y +
-// R + kAhead) and the cell's own operands of the pass's tail (planes y ..
-// y + kAhead), one cp.async group a plane. One __syncthreads() a plane:
-// after it every thread has finished the previous plane, whose slots the
-// next group then refills. A warp reads 32 consecutive words of one tile
-// row at every tap, so the row stride kTX + 2R is free of bank conflicts
-// without padding.
-// Ragged edges: every thread copies its share and joins the barriers; a
-// copy from outside the halo layout ((NY+2R) x (NZ+2R) x (NX+2R)) reads
-// nothing and fills zero (never read by a cell of the box); only threads
-// on the box run the cell. The launch plan (chunk depth cy and the largest
-// pass's shared bytes, checked against these shapes) is computed in
-// Python: kernels/acoustic3d_scan.py a3d_tile_plan.
+// The tiled cell passes share one walk, march(). A block of kTZ x kTX threads
+// (x contiguous: a warp is the 32 x of one z row) owns a (z, x) tile and
+// marches along y over a chunk of planes: the tiles of the whole grid (f3,
+// r3_cells1: the box's planes in chunks of cy, then the y slabs;
+// walk_region), or of the interior box and of each of the shell's slabs
+// (r3_cells2: shell_slab), in chunks of cy; a tile at the far edge of its
+// region runs only its rows and columns inside (TileSpan). Each thread keeps
+// its column's 2R+1 values of the stencil field along y in registers (q[k] at
+// plane y - R + k), shifted one plane a step; each value enters the column
+// once, as plane y + R. The z and x taps come from the plane tile, (kTZ + 2R)
+// x (kTX + 2R) values in shared memory: each value of the field is loaded
+// from device memory once for its own tile (its halo ring, at order 8 448
+// cells a 512-cell plane, are the neighbour tiles' cells, mostly L2 hits).
+//
+// A plane's loads must be in flight long before it is computed, and a thread
+// can hold only a few of them in registers. So every load goes global ->
+// shared by cp.async (4 bytes, zero-filled where masked), kAhead planes
+// ahead, into two rings: the field's plane tiles (planes y .. y + R + kAhead)
+// and the cell's own operands of the pass's tail (planes y .. y + kAhead),
+// one cp.async group a plane. One __syncthreads() a plane: after it every
+// thread has finished the previous plane, whose slots the next group then
+// refills. Only a thread itself reads its operands, so a ring short of shared
+// memory keeps kAhead operand slots: each thread reads plane y's before it
+// issues the copies of plane y + kAhead into the same slot. A warp reads 32
+// consecutive words of one tile row at every tap, so the row stride kTX + 2R
+// is free of bank conflicts without padding.
+//
+// A tile that reaches the CPML (within S + R of a face) stages the strip
+// values its tails read the same way, in the same groups, so that nothing is
+// loaded after the barrier but the cell's own write-back: the x- and z-strip
+// values in in-plane tiles of the strip arrays (the tile's rows by its
+// columns +- R; its rows +- R by its columns), the y-strip values as a
+// register column beside q (entering as an operand of plane y, its value at y
+// + R), the cell's own strip values as operands, the profiles once a block. A
+// tile copies an axis's strip values only where it reaches that axis's CPML
+// (TileSpan reach); outside a strip a copy fills the zero the tails expect. A
+// tile that reaches none runs as a box tile.
+//
+// Ragged edges: every thread copies its share and joins the barriers; a copy
+// from outside the halo layout ((NY+2R) x (NZ+2R) x (NX+2R)) or past the rows
+// and columns the tile's cells reach is not made (no cell reads it), nor are
+// the operands of a thread off the tile's cells; only threads on the tile's
+// cells run the cell. The launch plan (chunk depth cy and the largest pass's
+// shared bytes, checked against these shapes) is computed in Python, and the
+// walks' regions mirrored there: kernels/acoustic3d_scan.py a3d_tile_plan,
+// walk_regions, shell_slabs.
 constexpr int kTZ = 16;
 constexpr int kTX = 32;
 constexpr int kAhead = 3;
 constexpr int kTileThreads = kTZ * kTX;
 // ring slots, powers of two so that a plane's slot is a mask: the field's
-// planes y .. y + R + kAhead (R <= 4), the operands' y .. y + kAhead
+// planes y .. y + R + kAhead (R <= 4), the operands' and the strip tiles' y
+// .. y + kAhead
 constexpr int kFieldSlots = 8;
 constexpr int kOpSlots = 4;
 static_assert(4 + kAhead + 1 <= kFieldSlots && kAhead + 1 <= kOpSlots, "ring slots");
 
 // NF field tiles (the stencil field is their product when NF = 2: u = C
 // lambda), NH tail operands at the cell's halo offset, NG at its (NY, NZ,
-// NX) offset
-template <int R, int NF_, int NH_, int NG_>
+// NX) offset; a staging ring's NA strip arrays read along their axis (an x
+// and a z tile each, and a y column whose front is an operand) and NP read
+// at the cell (an operand per axis); operands in that order, in NO_ slots
+// (kOpSlots, or kAhead read before their refill)
+template <int R, int NF_, int NH_, int NG_, int NA_ = 0, int NP_ = 0, int NO_ = kOpSlots>
 struct Ring {
-  static constexpr int NF = NF_, NH = NH_, NOP = NH_ + NG_;
+  static_assert(NO_ == kOpSlots || NO_ == kAhead, "operand slots");
+  static constexpr int NF = NF_, NH = NH_, NB = NH_ + NG_, NA = NA_, NP = NP_;
+  static constexpr int NOP = NB + 3 * NP_ + NA_;
   static constexpr int W = kTX + 2 * R;  // row stride, floats
   static constexpr int PLANE = (kTZ + 2 * R) * W;
+  static constexpr int XT = kTZ * W;            // an x-strip tile
+  static constexpr int ZT = (kTZ + 2 * R) * kTX;  // a z-strip tile
   static constexpr int NS = kFieldSlots;
-  static constexpr int NO = kOpSlots;
+  static constexpr int NO = NO_;
+  static constexpr bool EARLY = NO_ == kAhead;  // operands read before their refill
   static constexpr int PER = (PLANE + kTileThreads - 1) / kTileThreads;  // copies a thread
+  static constexpr int PERX = (XT + kTileThreads - 1) / kTileThreads;
+  static constexpr int PERZ = (ZT + kTileThreads - 1) / kTileThreads;
   static constexpr int FIELD = NF * NS * PLANE;  // floats
   static constexpr int OPS = NOP * NO * kTileThreads;
-  static constexpr int BYTES = (FIELD + OPS) * (int)sizeof(float);
+  static constexpr int STRIP = NA * kOpSlots * (XT + ZT);
+  static constexpr int BYTES = (FIELD + OPS + STRIP) * (int)sizeof(float);
+  // with the profiles (12 S floats) of a pass that updates a strip array
+  // at the cell (NP)
+  __host__ __device__ static constexpr int bytes(int S) {
+    return BYTES + (NP > 0 ? 12 * S * (int)sizeof(float) : 0);
+  }
 };
-// the three passes' rings: f3 (P_{t-1}; P_{t-2}, C, illum), r3_cells1 (P_{t-1};
-// C, P_t, lambda_t, gacc), r3_cells2 (C and lambda_t; lambda_{t+1})
+// the passes' rings, for tiles that reach no CPML and (S) for tiles that do:
+// f3 (P_{t-1}; P_{t-2}, C, illum; phi' along, psi at the cell) and r3_cells1
+// (P_{t-1}; C, P_t, lambda_t, gacc; psibar at the cell), whose walks tile the
+// whole grid in one launch; r3_cells2 (C and lambda_t; lambda_{t+1}; w and y
+// along) over the box and the shell's slabs. Every tiled pass is held to 2
+// blocks an SM by its 64 registers a thread: RingF3S and RingR1S leave room
+// for two, RingR2S for one, so r3_cells2's box keeps its own ring and the
+// shell its own launch. Measured on the H100, two blocks of 108.7 KB an SM
+// left too little L1 for the copies in flight and ran the box's tiles 14%
+// slower than at 96 KB: RingF3S and RingR1S keep kAhead operand slots, and
+// RingR1, which ran 3% faster so (r3_cells2's rings ran slower so).
 template <int R> using RingF3 = Ring<R, 1, 2, 1>;
-template <int R> using RingR1 = Ring<R, 1, 3, 1>;
+template <int R> using RingR1 = Ring<R, 1, 3, 1, 0, 0, kAhead>;
 template <int R> using RingR2 = Ring<R, 2, 1, 0>;
-static_assert(RingR2<4>::BYTES <= 227 * 1024, "the rings fit one block's shared memory");
+template <int R> using RingF3S = Ring<R, 1, 2, 1, 1, 1, kAhead>;
+template <int R> using RingR1S = Ring<R, 1, 3, 1, 0, 1, kAhead>;
+template <int R> using RingR2S = Ring<R, 2, 1, 0, 2, 0>;
+static_assert(RingR2S<4>::BYTES <= 227 * 1024 && RingF3S<4>::BYTES <= 227 * 1024,
+              "the rings fit one block's shared memory");
 
 template <int R>
-constexpr int ring_bytes_max() {
-  return RingR2<R>::BYTES > RingR1<R>::BYTES ? RingR2<R>::BYTES : RingR1<R>::BYTES;
+inline int ring_bytes_max(int S) {
+  const int b[4] = {RingF3S<R>::bytes(S), RingR1S<R>::bytes(S), RingR2<R>::BYTES,
+                    RingR2S<R>::bytes(S)};
+  int m = 0;
+  for (int v : b) m = v > m ? v : m;
+  return m;
 }
 
 // 4-byte global -> shared copy, zero-filled (nothing read) unless ok
@@ -411,45 +475,203 @@ __device__ __forceinline__ float field_val(const float* f, int stride, int o) {
   return __fmul_rn(f[o], f[stride + o]);
 }
 
-// Walk this block's tile over its chunk of planes. fields: the NF halo
-// fields whose value (field_val) is stenciled; ops: the tail's operand
-// arrays, the first RG::NH indexed by the cell's halo offset, the rest by
-// its (NY, NZ, NX) offset (a null pointer reads zeros); cell(y, z, x, i,
-// c, o, q, f) runs each cell of the grid: i its halo offset, c its (NY,
-// NZ, NX) offset, o its operands, q its column, f its slot in plane y's
-// first field tile (f[dz * W + dx] at (y, z + dz, x + dx); the second
-// tile RG::NS * RG::PLANE further).
-template <int R, typename RG, typename Cell>
-__device__ __forceinline__ void march(const float* const (&fields)[RG::NF],
-                                      const float* const (&ops)[RG::NOP], const Dims& D, int cy,
+// A block's tile: its chunk [y0, y1), its first row z0 and column x0, the
+// rows nz and columns nx of its cells, and whether it reaches the CPML of
+// each axis (has cells within S + R of one of its faces)
+struct TileSpan {
+  int y0, y1, z0, x0, nz, nx;
+  bool reach[3];
+};
+
+// block e of the tiles of [lo, hi) per axis: x fastest, then z, then the y
+// chunks of cy planes
+__device__ __forceinline__ TileSpan tile_span(int e, const int* lo, const int* hi, int cy,
+                                              const Dims& D, int R) {
+  const int gx = (hi[2] - lo[2] + kTX - 1) / kTX, gz = (hi[1] - lo[1] + kTZ - 1) / kTZ;
+  TileSpan s;
+  s.x0 = lo[2] + (e % gx) * kTX;
+  s.z0 = lo[1] + (e / gx) % gz * kTZ;
+  s.y0 = lo[0] + e / (gx * gz) * cy;
+  s.y1 = min(s.y0 + cy, hi[0]);
+  s.nz = min(kTZ, hi[1] - s.z0);
+  s.nx = min(kTX, hi[2] - s.x0);
+  const int SE = D.S + R;
+  s.reach[0] = s.y0 < SE || s.y1 > D.n[0] - SE;
+  s.reach[1] = s.z0 < SE || s.z0 + s.nz > D.n[1] - SE;
+  s.reach[2] = s.x0 < SE || s.x0 + s.nx > D.n[2] - SE;
+  return s;
+}
+
+__host__ __device__ inline int slab_blocks(const int* lo, const int* hi, int cy) {
+  return ((hi[2] - lo[2] + kTX - 1) / kTX) * ((hi[1] - lo[1] + kTZ - 1) / kTZ) *
+         ((hi[0] - lo[0] + cy - 1) / cy);
+}
+
+// The whole grid's walk (f3, r3_cells1) in whole planes: the box's planes
+// (y in [L, L + ny)) in chunks of cy, then the low and high y slabs, a
+// chunk each when cy allows (with an empty box, the whole grid). Region k
+// as [lo, hi) per axis; false past the last.
+__host__ __device__ inline bool walk_region(const Dims& D, const Box& b, int k, int* lo,
+                                            int* hi) {
+  if (!shell_slab(D, b, k == 0 ? 0 : k + 3, lo, hi)) return false;
+  lo[1] = 0;
+  hi[1] = D.n[1];
+  return true;
+}
+
+template <int R>
+__host__ __device__ inline int grid_blocks(const Dims& D, int cy) {
+  const Box b = interior_box(D, R);
+  int lo[3], hi[3], n = 0;
+  for (int k = 0; walk_region(D, b, k, lo, hi); ++k) n += slab_blocks(lo, hi, cy);
+  return n;
+}
+
+template <int R>
+__device__ __forceinline__ TileSpan grid_tile(const Dims& D, int cy) {
+  const Box b = interior_box(D, R);
+  int lo[3], hi[3], e = blockIdx.x;
+  for (int k = 0; walk_region(D, b, k, lo, hi); ++k) {
+    const int n = slab_blocks(lo, hi, cy);
+    if (e < n) break;
+    e -= n;
+  }
+  return tile_span(e, lo, hi, cy, D, R);
+}
+
+// the tiles of the box
+template <int R>
+__host__ __device__ inline int tile_blocks(const Dims& D, int cy) {
+  const Box b = interior_box(D, R);
+  const int lo[3] = {b.lo, b.lo, b.lo}, hi[3] = {b.lo + b.n[0], b.lo + b.n[1], b.lo + b.n[2]};
+  return b.n[0] ? slab_blocks(lo, hi, cy) : 0;
+}
+
+template <int R>
+__device__ __forceinline__ TileSpan box_tile(const Dims& D, int cy) {
+  const Box b = interior_box(D, R);
+  const int lo[3] = {b.lo, b.lo, b.lo}, hi[3] = {b.lo + b.n[0], b.lo + b.n[1], b.lo + b.n[2]};
+  return tile_span(blockIdx.x, lo, hi, cy, D, R);
+}
+
+// the tiles of the shell: its slabs' in order
+template <int R>
+__host__ __device__ inline int shell_blocks(const Dims& D, int cy) {
+  const Box b = interior_box(D, R);
+  int lo[3], hi[3], n = 0;
+  for (int k = 0; shell_slab(D, b, k, lo, hi); ++k) n += slab_blocks(lo, hi, cy);
+  return n;
+}
+
+template <int R>
+__device__ __forceinline__ TileSpan shell_tile(const Dims& D, int cy) {
+  const Box b = interior_box(D, R);
+  int lo[3], hi[3], e = blockIdx.x;
+  for (int k = 0; shell_slab(D, b, k, lo, hi); ++k) {
+    const int n = slab_blocks(lo, hi, cy);
+    if (e < n) break;
+    e -= n;
+  }
+  return tile_span(e, lo, hi, cy, D, R);
+}
+
+// A cell's strip values in its tile's shared memory (the reader
+// interface of DeviceStrips): xs and zs its x and z tiles of array 0 at the
+// cell (array a RG::XT + RG::ZT further), col the y columns (planes y - R ..
+// y + R), own its own values (y, z, x), prof the profiles
+template <int R, typename RG>
+struct TileStrips {
+  const float* xs;
+  const float* zs;
+  const float (&col)[RG::NA > 0 ? RG::NA : 1][2 * R + 1];
+  float own[3];
+  const float* prof;
+  template <int AX>
+  __device__ __forceinline__ float nb(int a, int k) const {
+    if constexpr (AX == 0) return col[a][R + k];
+    if constexpr (AX == 1) return zs[a * (RG::XT + RG::ZT) + k * kTX];
+    return xs[a * (RG::XT + RG::ZT) + k];
+  }
+  template <int AX>
+  __device__ __forceinline__ float mine(int) const {
+    return own[AX];
+  }
+  __device__ __forceinline__ const float* profile() const { return prof; }
+};
+
+// Walk tile s over its chunk of planes. fields: the NF halo fields whose
+// value (field_val) is stenciled; ops: the tail's operand arrays, the
+// first RG::NH indexed by the cell's halo offset, the rest by its (NY, NZ,
+// NX) offset (a null pointer reads zeros); sin: the pass's strip arrays
+// and profiles, staged when RG has strips; cell(y, z, x, i,
+// c, o, q, f, rd) runs each cell of the tile: i its halo offset, c its
+// (NY, NZ, NX) offset, o its operands, q its column, f its slot in plane
+// y's first field tile (f[dz * W + dx] at (y, z + dz, x + dx); the second
+// tile RG::NS * RG::PLANE further), rd its strip reader.
+template <int R, typename RG, int NA, int NP, typename Cell>
+__device__ __forceinline__ void march(const TileSpan& s, const float* const (&fields)[RG::NF],
+                                      const float* const (&ops)[RG::NB],
+                                      const StripIn<NA, NP>& sin, const Dims& D,
                                       const Cell& cell) {
-  constexpr int NF = RG::NF, NOP = RG::NOP;
+  constexpr int NF = RG::NF, NOP = RG::NOP, NB = RG::NB;
+  constexpr bool STAGED = RG::NA + RG::NP > 0;
+  static_assert(!STAGED || (RG::NA == NA && RG::NP == NP), "a ring stages the pass's strips");
   constexpr int FS = RG::NS * RG::PLANE;  // stride between the field tiles' rings
+  constexpr int ST = RG::XT + RG::ZT;     // one strip array's tiles
+  constexpr int NC = RG::NA > 0 ? RG::NA : 1;
   extern __shared__ float smem[];
-  float* const ring = smem;                // [NF][NS][PLANE]
-  float* const oring = smem + RG::FIELD;   // [NO][NOP][kTileThreads]
-  const Box B = interior_box(D, R);
-  const int gx = (B.n[2] + kTX - 1) / kTX, gz = (B.n[1] + kTZ - 1) / kTZ;
-  const int bx = blockIdx.x % gx, bz = (blockIdx.x / gx) % gz, by = blockIdx.x / (gx * gz);
+  float* const ring = smem;                 // [NF][NS][PLANE]
+  float* const oring = smem + RG::FIELD;    // [NO][NOP][kTileThreads]
+  float* const sring = oring + RG::OPS;     // [kOpSlots][NA][XT + ZT]
+  float* const prof = sring + RG::STRIP;    // 12 S
   const int tx = threadIdx.x, tz = threadIdx.y, t = tz * kTX + tx;
-  const int x0 = B.lo + bx * kTX, z0 = B.lo + bz * kTZ;  // the tile's first cell
-  const int x = x0 + tx, z = z0 + tz;
-  const int y0 = B.lo + by * cy, y1 = min(y0 + cy, B.lo + B.n[0]);
+  const int x = s.x0 + tx, z = s.z0 + tz;
+  const int y0 = s.y0, y1 = s.y1;
   const int ez = D.n[1] + 2 * R;  // the halo layout's z extent; D.lx its x extent
-  const bool on_grid = z < B.lo + B.n[1] && x < B.lo + B.n[2];  // in the box
+  const bool on_grid = tz < s.nz && tx < s.nx;  // one of the tile's cells
   // this thread's cells of a plane tile: slot t + j * kTileThreads, its
-  // in-plane halo offset (-1: masked; -2: past the tile)
+  // in-plane halo offset (-1: not copied, past the tile or the halo layout
+  // or the rows and columns the tile's cells reach, which no cell reads)
   int goff[RG::PER];
 #pragma unroll
   for (int j = 0; j < RG::PER; ++j) {
     const int e = t + j * kTileThreads;
     const int r = e / RG::W, c = e - r * RG::W;
-    const int zh = z0 + r, xh = x0 + c;  // halo coordinates of (z0 - R + r, x0 - R + c)
-    goff[j] = e >= RG::PLANE ? -2 : (zh < ez && xh < D.lx ? zh * D.lx + xh : -1);
+    const int zh = s.z0 + r, xh = s.x0 + c;  // halo coordinates of (z0 - R + r, x0 - R + c)
+    goff[j] = e < RG::PLANE && zh < ez && xh < D.lx && r < s.nz + 2 * R && c < s.nx + 2 * R
+                  ? zh * D.lx + xh
+                  : -1;
   }
   const int own = on_grid ? (z + R) * D.lx + x + R : 0;  // in-plane halo offset
   const int own_g = on_grid ? z * D.n[2] + x : 0;         // in-plane grid offset
   const int plane_g = D.n[1] * D.n[2];
+  const int S2 = 2 * D.S;
+  // the strip tiles' in-plane offsets: the x tile's rows by its columns +-
+  // R in the x-strip array, its rows +- R by its columns in the z-strip
+  // array (-1: zero-filled, outside the strips; -2: not copied, unread)
+  int xoff[RG::PERX], zoff[RG::PERZ];
+  int jz = -1, jx = -1;
+  if constexpr (STAGED) {
+#pragma unroll
+    for (int j = 0; j < RG::PERX; ++j) {
+      const int e = t + j * kTileThreads;
+      const int r = e / RG::W, c = e - r * RG::W;
+      const int js = strip_coord(s.x0 - R + c, D.n[2], D.S);
+      xoff[j] = e >= RG::XT || r >= s.nz ? -2 : (js >= 0 ? (s.z0 + r) * S2 + js : -1);
+    }
+#pragma unroll
+    for (int j = 0; j < RG::PERZ; ++j) {
+      const int e = t + j * kTileThreads;
+      const int r = e / kTX, c = e - r * kTX;
+      const int js = strip_coord(s.z0 - R + r, D.n[1], D.S);
+      const bool unread = e >= RG::ZT || c >= s.nx || r >= s.nz + 2 * R;
+      zoff[j] = unread ? -2 : (js >= 0 ? js * D.n[2] + s.x0 + c : -1);
+    }
+    if (on_grid) {
+      jz = strip_coord(z, D.n[1], D.S);
+      jx = strip_coord(x, D.n[2], D.S);
+    }
+  }
   // grid plane p's field tiles into their slot
   auto copy_field = [&](int p) {
     float* dst = ring + (p & (RG::NS - 1)) * RG::PLANE;
@@ -458,18 +680,54 @@ __device__ __forceinline__ void march(const float* const (&fields)[RG::NF],
       const float* src = fields[f] + (p + R) * D.ly;
 #pragma unroll
       for (int j = 0; j < RG::PER; ++j)
-        if (goff[j] != -2)
-          cp_async4(dst + f * FS + t + j * kTileThreads, src + max(goff[j], 0), goff[j] >= 0);
+        if (goff[j] >= 0) cp_async4(dst + f * FS + t + j * kTileThreads, src + goff[j], true);
     }
   };
-  // grid plane p's operands of this cell into their slot
+  // grid plane p's operands of this cell into their slot (none off the
+  // tile's cells, none of a null array), and its strip tiles
   auto copy_ops = [&](int p) {
-    float* dst = oring + (p & (RG::NO - 1)) * NOP * kTileThreads + t;
+    float* dst = oring + (p % RG::NO) * NOP * kTileThreads + t;
 #pragma unroll
-    for (int k = 0; k < NOP; ++k) {
+    for (int k = 0; k < NB; ++k) {
       const float* a = ops[k];
       const int o = k < RG::NH ? (p + R) * D.ly + own : p * plane_g + own_g;
-      cp_async4(dst + k * kTileThreads, a != nullptr ? a + o : fields[0], a != nullptr && on_grid);
+      if (a != nullptr && on_grid) cp_async4(dst + k * kTileThreads, a + o, true);
+    }
+    if constexpr (STAGED) {
+#pragma unroll
+      for (int b = 0; b < (on_grid ? RG::NP : 0); ++b) {
+        const Strips& a = sin.own[b];
+        float* d = dst + (NB + 3 * b) * kTileThreads;
+        // (read only by a cell inside the strip)
+        const int jy = strip_coord(p, D.n[0], D.S);
+        if (jy >= 0) cp_async4(d, a.s[0] + (jy * D.n[1] + z) * D.n[2] + x, true);
+        if (jz >= 0) cp_async4(d + kTileThreads, a.s[1] + (p * S2 + jz) * D.n[2] + x, true);
+        if (jx >= 0) cp_async4(d + 2 * kTileThreads, a.s[2] + (p * D.n[1] + z) * S2 + jx, true);
+      }
+#pragma unroll
+      for (int a = 0; a < RG::NA; ++a) {
+        const Strips& sa = sin.nb[a];
+        if (s.reach[0] && on_grid) {  // the y column's front: plane p + R
+          const int jy = strip_coord(p + R, D.n[0], D.S);
+          cp_async4(dst + (NB + 3 * RG::NP + a) * kTileThreads,
+                    sa.s[0] + (jy >= 0 ? (jy * D.n[1] + z) * D.n[2] + x : 0), jy >= 0);
+        }
+        float* d = sring + (p & (kOpSlots - 1)) * RG::NA * ST + a * ST + t;
+        if (s.reach[2]) {
+          const float* src = sa.s[2] + p * D.n[1] * S2;
+#pragma unroll
+          for (int j = 0; j < RG::PERX; ++j)
+            if (xoff[j] != -2)
+              cp_async4(d + j * kTileThreads, src + max(xoff[j], 0), xoff[j] >= 0);
+        }
+        if (s.reach[1]) {
+          const float* src = sa.s[1] + p * S2 * D.n[2];
+#pragma unroll
+          for (int j = 0; j < RG::PERZ; ++j)
+            if (zoff[j] != -2)
+              cp_async4(d + RG::XT + j * kTileThreads, src + max(zoff[j], 0), zoff[j] >= 0);
+        }
+      }
     }
   };
   // the column below the chunk (grid planes y0 - R .. y0 - 1): plain loads
@@ -479,6 +737,19 @@ __device__ __forceinline__ void march(const float* const (&fields)[RG::NF],
   for (int k = 1; k <= R; ++k) {
     const int o = (y0 + k - 1) * D.ly + own;
     q[k] = !on_grid ? 0.f : (NF == 1 ? fields[0][o] : __fmul_rn(fields[0][o], fields[NF - 1][o]));
+  }
+  // the y-strip columns: planes y0 - R .. y0 + R - 1 by plain loads (their
+  // fronts then come as operands), and the profiles
+  float col[NC][2 * R + 1] = {};
+  if constexpr (STAGED) {
+#pragma unroll
+    for (int a = 0; a < RG::NA; ++a)
+#pragma unroll
+      for (int k = 1; k <= 2 * R; ++k)
+        col[a][k] = s.reach[0] && on_grid ? strip_at<0>(sin.nb[a].s[0], y0, z, x, k - 1 - R, D)
+                                          : 0.f;
+    if constexpr (RG::NP > 0)
+      for (int i = t; i < 12 * D.S; i += kTileThreads) prof[i] = sin.prof[i];
   }
   // planes y0 .. y0 + R - 1 in one group, then kAhead groups: the field's
   // plane y0 + R + a and the operands of plane y0 + a
@@ -498,6 +769,13 @@ __device__ __forceinline__ void march(const float* const (&fields)[RG::NF],
   for (int y = y0; y < y1; ++y) {
     cp_async_wait<kAhead - 1>();  // this thread's copies of field plane y + R, operands of y
     __syncthreads();              // everyone's; and everyone is done with plane y - 1
+    float o[NOP];  // plane y's operands (before their slot is refilled: RG::EARLY)
+    auto read_ops = [&] {
+      const float* os = oring + (y % RG::NO) * NOP * kTileThreads + t;
+#pragma unroll
+      for (int k = 0; k < NOP; ++k) o[k] = os[k * kTileThreads];
+    };
+    if (RG::EARLY && on_grid) read_ops();
     if (y + R + kAhead < y1 + R) copy_field(y + R + kAhead);
     if (y + kAhead < y1) copy_ops(y + kAhead);
     cp_async_commit();
@@ -506,21 +784,29 @@ __device__ __forceinline__ void march(const float* const (&fields)[RG::NF],
     for (int k = 0; k < 2 * R; ++k) q[k] = q[k + 1];
     q[2 * R] = field_val<NF>(ring + ((y + R) & (RG::NS - 1)) * RG::PLANE, FS, mine);
     if (on_grid) {
-      float o[NOP];
-      const float* os = oring + (y & (RG::NO - 1)) * NOP * kTileThreads + t;
+      if (!RG::EARLY) read_ops();
+      const int i = halo_at<R>(y, z, x, D), c = (y * D.n[1] + z) * D.n[2] + x;
+      if constexpr (STAGED) {
+        if (s.reach[0]) {
 #pragma unroll
-      for (int k = 0; k < NOP; ++k) o[k] = os[k * kTileThreads];
-      cell(y, z, x, halo_at<R>(y, z, x, D), (y * D.n[1] + z) * D.n[2] + x, o, q, f);
+          for (int a = 0; a < RG::NA; ++a) {
+#pragma unroll
+            for (int k = 0; k < 2 * R; ++k) col[a][k] = col[a][k + 1];
+            col[a][2 * R] = o[NB + 3 * RG::NP + a];
+          }
+        }
+        const float* sp = sring + (y & (kOpSlots - 1)) * RG::NA * ST;
+        constexpr int ob = RG::NP > 0 ? NB : 0;  // the own values (unread without NP)
+        static_assert(ob + 2 < NOP, "three own values");
+        const TileStrips<R, RG> rd{sp + tz * RG::W + tx + R, sp + RG::XT + (tz + R) * kTX + tx,
+                                   col, {o[ob], o[ob + 1], o[ob + 2]}, prof};
+        cell(y, z, x, i, c, o, q, f, rd);
+      } else {
+        cell(y, z, x, i, c, o, q, f, DeviceStrips<NA, NP>{sin, y, z, x, D});
+      }
     }
   }
   cp_async_wait<0>();
-}
-
-// the tiles of the box: x fastest, then z, then the y chunks
-template <int R>
-__host__ __device__ inline int tile_blocks(const Dims& D, int cy) {
-  const Box b = interior_box(D, R);
-  return ((b.n[2] + kTX - 1) / kTX) * ((b.n[1] + kTZ - 1) / kTZ) * ((b.n[0] + cy - 1) / cy);
 }
 
 // --------------------------------------------------------------- forward
@@ -557,52 +843,68 @@ __global__ void f3_phi(const float* __restrict__ p, Strips phi, const float* __r
   phi_cells<R>(HaloField<R>{p}, phi, prof, blockIdx.x * blockDim.x + threadIdx.x, D, tp);
 }
 
-// axis AX's CPML parts at (y, z, x), given d2 = D2_AX p at the cell:
-// corr = D1 phi' within R of the strips and, inside them, psi' (updated in
-// place) as ps. Returns 0 outside that reach, 1 in it outside the strips,
-// 2 inside a strip.
-template <int R, int AX>
-__device__ __forceinline__ int cpml_parts(const float* __restrict__ phi,
-                                          float* __restrict__ psi,
-                                          const float* __restrict__ prof, int y, int z, int x,
-                                          float d2, const Dims& D, const Taps3& tp, float& corr,
-                                          float& ps) {
+// axis AX's CPML parts at (y, z, x), given d2 = D2_AX p at the cell and
+// phi' (rd's array 0) and psi (its own array) through the reader rd:
+// corr = D1 phi' within R of the strips and, inside them, psi' (written in
+// place to psi) as ps. Returns 0 outside that reach, 1 in it outside the
+// strips, 2 inside a strip. psi' = b psi + a (d2 + corr), its products
+// rounded as written (fmaf, __fmul_rn), so that every reader rounds alike.
+template <int R, int AX, typename RD>
+__device__ __forceinline__ int cpml_read(const RD& rd, float* __restrict__ psi,
+                                         const float* prof, int y, int z, int x, float d2,
+                                         const Dims& D, const Taps3& tp, float& corr,
+                                         float& ps) {
   const int c = coord<AX>(y, z, x);
   const int SE = D.S + R;
   if (c >= SE && c < D.n[AX] - SE) return 0;
   corr = 0.f;
 #pragma unroll
   for (int k = 0; k <= 2 * R; ++k)
-    if (k != R) corr = fmaf(tp.d1[AX][k], strip_at<AX>(phi, y, z, x, k - R, D), corr);
+    if (k != R) corr = fmaf(tp.d1[AX][k], rd.template nb<AX>(0, k - R), corr);
   const int j = strip_coord(c, D.n[AX], D.S);
   if (j < 0) return 1;
   const int o = strip_off<AX>(y, z, x, j, D);
-  ps = prof_b(prof, AX, D.S)[j] * psi[o] + prof_a(prof, AX, D.S)[j] * (d2 + corr);
+  ps = fmaf(prof_b(prof, AX, D.S)[j], rd.template mine<AX>(o),
+            __fmul_rn(prof_a(prof, AX, D.S)[j], d2 + corr));
   psi[o] = ps;
   return 2;
 }
 
+// the same from the axis's strip arrays in device memory (the per-step
+// engine, acoustic3d_step.cu)
+template <int R, int AX>
+__device__ __forceinline__ int cpml_parts(const float* __restrict__ phi,
+                                          float* __restrict__ psi,
+                                          const float* __restrict__ prof, int y, int z, int x,
+                                          float d2, const Dims& D, const Taps3& tp, float& corr,
+                                          float& ps) {
+  StripIn<1, 1> in{};
+  in.nb[0].s[AX] = const_cast<float*>(phi);
+  in.own[0].s[AX] = psi;
+  return cpml_read<R, AX>(DeviceStrips<1, 1>{in, y, z, x, D}, psi, prof, y, z, x, d2, D, tp,
+                          corr, ps);
+}
+
 // axis AX's CPML terms at (y, z, x): D1 phi' within R of the strips, and
 // psi' (updated in place) inside them; d2 is D2_AX p at the cell
-template <int R, int AX>
-__device__ __forceinline__ float cpml_terms(const float* __restrict__ phi,
-                                            float* __restrict__ psi,
-                                            const float* __restrict__ prof, int y, int z, int x,
-                                            float d2, const Dims& D, const Taps3& tp) {
+template <int R, int AX, typename RD>
+__device__ __forceinline__ float cpml_terms(const RD& rd, float* __restrict__ psi,
+                                            const float* prof, int y, int z, int x, float d2,
+                                            const Dims& D, const Taps3& tp) {
   float corr, ps;
-  const int where = cpml_parts<R, AX>(phi, psi, prof, y, z, x, d2, D, tp, corr, ps);
+  const int where = cpml_read<R, AX>(rd, psi, prof, y, z, x, d2, D, tp, corr, ps);
   return where == 0 ? 0.f : (where == 1 ? corr : corr + ps);
 }
 
-// The forward cell pass's tail, shared by both variants so that they round
+// The forward cell pass's tail, shared by every variant so that they round
 // alike: d2y, d2z, d2x are D2_d P_{t-1} at the cell (halo offset i,
 // (NY, NZ, NX) offset c), pc = P_{t-1} there, and the cell's operands as
 // F3Ops: pold = P_{t-2}, cc = C, il = the illumination sum (when illum is
-// given). The leapfrog's C * lap is fused explicitly (fmaf) rather than
-// left to the compiler's contraction. pnext holds P_{t-2} on entry and P_t
-// (before the sources) on exit; each cell reads and writes it only at
-// itself. illum, when given, accumulates P_{t-1}^2 on the (NY, NZ, NX)
-// grid.
+// given); rd reads phi' and psi (strip readers). The leapfrog's C * lap is
+// fused explicitly (fmaf) rather than left to the compiler's contraction.
+// pnext holds P_{t-2} on entry and P_t (before the sources) on exit; each
+// cell reads and writes it only at itself. illum, when given, accumulates
+// P_{t-1}^2 on the (NY, NZ, NX) grid.
 struct F3Ops {
   float pold, cc, il;
 };
@@ -614,31 +916,31 @@ __device__ __forceinline__ F3Ops f3_fetch(const float* pnext, const float* __res
   return F3Ops{pnext[i], c2[i], illum != nullptr ? illum[c] : 0.f};
 }
 
-template <int R>
+template <int R, typename RD>
 __device__ __forceinline__ void f3_tail(float d2y, float d2z, float d2x, float pc,
-                                        const F3Ops& o, float* __restrict__ pnext,
-                                        const Strips& phi, const Strips& psi,
-                                        const float* __restrict__ prof, float* __restrict__ illum,
-                                        int y, int z, int x, int i, int c, const Dims& D, int fs,
+                                        const F3Ops& o, float* __restrict__ pnext, const RD& rd,
+                                        const Strips& psi, float* __restrict__ illum, int y,
+                                        int z, int x, int i, int c, const Dims& D, int fs,
                                         const Taps3& tp) {
+  const float* prof = rd.profile();
   float acc = d2y + d2z + d2x;
-  acc += cpml_terms<R, 0>(phi.s[0], psi.s[0], prof, y, z, x, d2y, D, tp);
-  acc += cpml_terms<R, 1>(phi.s[1], psi.s[1], prof, y, z, x, d2z, D, tp);
-  acc += cpml_terms<R, 2>(phi.s[2], psi.s[2], prof, y, z, x, d2x, D, tp);
+  acc += cpml_terms<R, 0>(rd, psi.s[0], prof, y, z, x, d2y, D, tp);
+  acc += cpml_terms<R, 1>(rd, psi.s[1], prof, y, z, x, d2z, D, tp);
+  acc += cpml_terms<R, 2>(rd, psi.s[2], prof, y, z, x, d2x, D, tp);
   if (illum != nullptr) illum[c] = fmaf(pc, pc, o.il);
   const float pn = fmaf(o.cc, acc, 2.f * pc - o.pold);
   pnext[i] = (z == fs) ? 0.f : pn;
 }
 
-// the gather variant's cell: every tap of P_{t-1} a global load
+// the gather variant: one thread per cell of the grid, every tap of
+// P_{t-1} and every strip value a global load
 template <int R>
-__device__ __forceinline__ void f3_gather_cell(const float* __restrict__ p,
-                                               float* __restrict__ pnext,
-                                               const float* __restrict__ c2, const Strips& phi,
-                                               const Strips& psi,
-                                               const float* __restrict__ prof,
-                                               float* __restrict__ illum, const Dims& D, int fs,
-                                               const Taps3& tp, int y, int z, int x) {
+__global__ void f3_cells(const float* __restrict__ p, float* __restrict__ pnext,
+                         const float* __restrict__ c2, Strips phi, Strips psi,
+                         const float* __restrict__ prof, float* __restrict__ illum, Dims D,
+                         int fs, Taps3 tp) {
+  int y, z, x;
+  if (!my_grid_cell(D, y, z, x)) return;
   const int i = halo_at<R>(y, z, x, D), c = (y * D.n[1] + z) * D.n[2] + x;
   float d2y = 0.f, d2z = 0.f, d2x = 0.f;
 #pragma unroll
@@ -647,46 +949,26 @@ __device__ __forceinline__ void f3_gather_cell(const float* __restrict__ p,
     d2z = fmaf(tp.d2[1][k], p[i + (k - R) * D.lx], d2z);
     d2x = fmaf(tp.d2[2][k], p[i + k - R], d2x);
   }
-  f3_tail<R>(d2y, d2z, d2x, p[i], f3_fetch(pnext, c2, illum, i, c), pnext, phi, psi, prof, illum,
-             y, z, x, i, c, D, fs, tp);
+  const StripIn<1, 1> in{{phi}, {psi}, prof};
+  f3_tail<R>(d2y, d2z, d2x, p[i], f3_fetch(pnext, c2, illum, i, c), pnext,
+             DeviceStrips<1, 1>{in, y, z, x, D}, psi, illum, y, z, x, i, c, D, fs, tp);
 }
 
-// the gather variant: one thread per cell of the grid
-template <int R>
-__global__ void f3_cells(const float* __restrict__ p, float* __restrict__ pnext,
-                         const float* __restrict__ c2, Strips phi, Strips psi,
-                         const float* __restrict__ prof, float* __restrict__ illum, Dims D,
-                         int fs, Taps3 tp) {
-  int y, z, x;
-  if (my_grid_cell(D, y, z, x))
-    f3_gather_cell<R>(p, pnext, c2, phi, psi, prof, illum, D, fs, tp, y, z, x);
-}
-
-// the tiled variant's shell: the gather cell, one thread per shell cell
-// (kStripBlock threads a block, held to 32 registers so that an SM holds
-// 2048 of them: the shell's strip gathers are latency-bound)
-template <int R>
-__global__ void __launch_bounds__(256, 8)
-    f3_shell(const float* __restrict__ p, float* __restrict__ pnext, const float* __restrict__ c2,
-             Strips phi, Strips psi, const float* __restrict__ prof, float* __restrict__ illum,
-             Dims D, int fs, Taps3 tp) {
-  int y, z, x;
-  if (my_shell_cell<R>(D, y, z, x))
-    f3_gather_cell<R>(p, pnext, c2, phi, psi, prof, illum, D, fs, tp, y, z, x);
-}
-
-// the tiled variant's box: P_{t-1} marched through the 2.5D tiles
-template <int R>
-__global__ void __launch_bounds__(kTileThreads, 2)
-    f3_cells_tiled(const float* __restrict__ p, float* __restrict__ pnext,
-                   const float* __restrict__ c2, Strips phi, Strips psi,
-                   const float* __restrict__ prof, float* __restrict__ illum, Dims D, int fs,
-                   Taps3 tp, int cy) {
-  constexpr int W = RingF3<R>::W;
+// the tiled variant: P_{t-1} marched through the 2.5D tiles (RingF3S:
+// phi' and psi staged)
+template <int R, typename RG>
+__device__ __forceinline__ void f3_tiles(const TileSpan& s, const float* __restrict__ p,
+                                         float* __restrict__ pnext,
+                                         const float* __restrict__ c2, const Strips& phi,
+                                         const Strips& psi, const float* __restrict__ prof,
+                                         float* __restrict__ illum, const Dims& D, int fs,
+                                         const Taps3& tp) {
+  constexpr int W = RG::W;
   const float* const fields[1] = {p};
   const float* const ops[3] = {pnext, c2, illum};
-  auto cell = [&](int y, int z, int x, int i, int c, const float (&o)[3],
-                  const float (&q)[2 * R + 1], const float* t) {
+  const StripIn<1, 1> in{{phi}, {psi}, prof};
+  auto cell = [&](int y, int z, int x, int i, int c, const float (&o)[RG::NOP],
+                  const float (&q)[2 * R + 1], const float* t, const auto& rd) {
     float d2y = 0.f, d2z = 0.f, d2x = 0.f;
 #pragma unroll
     for (int k = 0; k <= 2 * R; ++k) {
@@ -694,10 +976,27 @@ __global__ void __launch_bounds__(kTileThreads, 2)
       d2z = fmaf(tp.d2[1][k], t[(k - R) * W], d2z);
       d2x = fmaf(tp.d2[2][k], t[k - R], d2x);
     }
-    f3_tail<R>(d2y, d2z, d2x, q[R], F3Ops{o[0], o[1], o[2]}, pnext, phi, psi, prof, illum, y,
-               z, x, i, c, D, fs, tp);
+    f3_tail<R>(d2y, d2z, d2x, q[R], F3Ops{o[0], o[1], o[2]}, pnext, rd, psi, illum, y, z, x, i,
+               c, D, fs, tp);
   };
-  march<R, RingF3<R>>(fields, ops, D, cy, cell);
+  march<R, RG>(s, fields, ops, in, D, cell);
+}
+
+// one walk over the whole grid: a tile that reaches the CPML stages its
+// strips, one that does not runs as a box tile; ILLUM: whether illum is
+// given (without it the walk compiles no illumination operand)
+template <int R, bool ILLUM>
+__global__ void __launch_bounds__(kTileThreads, 2)
+    f3_cells_tiled(const float* __restrict__ p, float* __restrict__ pnext,
+                   const float* __restrict__ c2, Strips phi, Strips psi,
+                   const float* __restrict__ prof, float* __restrict__ illum_, Dims D, int fs,
+                   Taps3 tp, int cy) {
+  float* const illum = ILLUM ? illum_ : nullptr;
+  const TileSpan s = grid_tile<R>(D, cy);
+  if (s.reach[0] || s.reach[1] || s.reach[2])
+    f3_tiles<R, RingF3S<R>>(s, p, pnext, c2, phi, psi, prof, illum, D, fs, tp);
+  else
+    f3_tiles<R, RingF3<R>>(s, p, pnext, c2, phi, psi, prof, illum, D, fs, tp);
 }
 
 template <int R>
@@ -792,25 +1091,27 @@ __global__ void r3_inject(float* __restrict__ q, const float* __restrict__ ybar,
         ((int)src[3 * k + 1] == fs) ? 0.f : q[halo_of_triple<R>(src, k, D)];
 }
 
-template <int AX>
-__device__ __forceinline__ void psibar_cell(const Strips& psb, const Strips& w, const float* __restrict__ prof,
-                                            int y, int z, int x, float u, const Dims& D) {
+// psibar at the cell on axis AX's strip, read through rd (its own array)
+template <int AX, typename RD>
+__device__ __forceinline__ void psibar_cell(const RD& rd, const Strips& psb, const Strips& w,
+                                            const float* prof, int y, int z, int x, float u,
+                                            const Dims& D) {
   const int j = strip_coord(coord<AX>(y, z, x), D.n[AX], D.S);
   if (j < 0) return;
   const int o = strip_off<AX>(y, z, x, j, D);
-  const float ps = psb.s[AX][o] + u;
+  const float ps = rd.template mine<AX>(o) + u;
   psb.s[AX][o] = prof_b(prof, AX, D.S)[j] * ps;
   w.s[AX][o] = prof_a(prof, AX, D.S)[j] * ps;
 }
 
-// The first reverse cell pass's tail, shared by both variants: lap = lapw,
+// The first reverse cell pass's tail, shared by every variant: lap = lapw,
 // the D2 laplacian of p_t = P_{t-1} at the cell, pt = P_{t-1} there, and
 // the cell's operands as R1Ops: cc = C, pnew = P_t (p_tp1 on entry), lam =
-// lambda_t (q after injection), g = the gradient sum. p_tp1 holds P_t on
-// entry and P_{t-2} (before its sources and ring) on exit; lapw images
-// lambda_t. q is masked on the surface row in place. Each cell reads and
-// writes q, p_tp1 and gacc only at itself. C * lap is fused and u = C
-// lambda rounded explicitly, as f3_tail.
+// lambda_t (q after injection), g = the gradient sum; rd reads psibar.
+// p_tp1 holds P_t on entry and P_{t-2} (before its sources and ring) on
+// exit; lapw images lambda_t. q is masked on the surface row in place. Each
+// cell reads and writes q, p_tp1 and gacc only at itself. C * lap is fused
+// and u = C lambda rounded explicitly, as f3_tail.
 struct R1Ops {
   float cc, pnew, lam, g;
 };
@@ -820,12 +1121,12 @@ __device__ __forceinline__ R1Ops r1_fetch(const float* q, const float* __restric
   return R1Ops{c2[i], p_tp1[i], q[i], gacc[c]};
 }
 
-template <int R>
+template <int R, typename RD>
 __device__ __forceinline__ void r3_tail1(float lap, float pt, const R1Ops& o,
                                          float* __restrict__ q, float* __restrict__ p_tp1,
-                                         float* __restrict__ gacc, const Strips& psb,
-                                         const Strips& w, const float* __restrict__ prof, int y,
-                                         int z, int x, int i, int c, const Dims& D, int fs) {
+                                         float* __restrict__ gacc, const RD& rd,
+                                         const Strips& psb, const Strips& w, int y, int z, int x,
+                                         int i, int c, const Dims& D, int fs) {
   p_tp1[i] = (z == fs) ? 0.f : fmaf(o.cc, lap, 2.f * pt - o.pnew);
   float lam = o.lam;
   if (z == fs) {  // transpose of the surface pin
@@ -834,30 +1135,10 @@ __device__ __forceinline__ void r3_tail1(float lap, float pt, const R1Ops& o,
   }
   gacc[c] = fmaf(lam, lap, o.g);
   const float u = __fmul_rn(o.cc, lam);
-  psibar_cell<0>(psb, w, prof, y, z, x, u, D);
-  psibar_cell<1>(psb, w, prof, y, z, x, u, D);
-  psibar_cell<2>(psb, w, prof, y, z, x, u, D);
-}
-
-template <int R>
-__device__ __forceinline__ void r3_gather_cell1(float* __restrict__ q,
-                                                const float* __restrict__ c2,
-                                                const float* __restrict__ p_t,
-                                                float* __restrict__ p_tp1,
-                                                float* __restrict__ gacc, const Strips& psb,
-                                                const Strips& w, const float* __restrict__ prof,
-                                                const Dims& D, int fs, const Taps3& tp, int y,
-                                                int z, int x) {
-  const int i = halo_at<R>(y, z, x, D), c = (y * D.n[1] + z) * D.n[2] + x;
-  float lap = 0.f;
-#pragma unroll
-  for (int k = 0; k <= 2 * R; ++k) {
-    lap = fmaf(tp.d2[0][k], p_t[i + (k - R) * D.ly], lap);
-    lap = fmaf(tp.d2[1][k], p_t[i + (k - R) * D.lx], lap);
-    lap = fmaf(tp.d2[2][k], p_t[i + k - R], lap);
-  }
-  r3_tail1<R>(lap, p_t[i], r1_fetch(q, c2, p_tp1, gacc, i, c), q, p_tp1, gacc, psb, w, prof, y,
-              z, x, i, c, D, fs);
+  const float* prof = rd.profile();
+  psibar_cell<0>(rd, psb, w, prof, y, z, x, u, D);
+  psibar_cell<1>(rd, psb, w, prof, y, z, x, u, D);
+  psibar_cell<2>(rd, psb, w, prof, y, z, x, u, D);
 }
 
 template <int R>
@@ -866,31 +1147,36 @@ __global__ void r3_cells1(float* __restrict__ q, const float* __restrict__ c2,
                           float* __restrict__ gacc, Strips psb, Strips w,
                           const float* __restrict__ prof, Dims D, int fs, Taps3 tp) {
   int y, z, x;
-  if (my_grid_cell(D, y, z, x))
-    r3_gather_cell1<R>(q, c2, p_t, p_tp1, gacc, psb, w, prof, D, fs, tp, y, z, x);
+  if (!my_grid_cell(D, y, z, x)) return;
+  const int i = halo_at<R>(y, z, x, D), c = (y * D.n[1] + z) * D.n[2] + x;
+  float lap = 0.f;
+#pragma unroll
+  for (int k = 0; k <= 2 * R; ++k) {
+    lap = fmaf(tp.d2[0][k], p_t[i + (k - R) * D.ly], lap);
+    lap = fmaf(tp.d2[1][k], p_t[i + (k - R) * D.lx], lap);
+    lap = fmaf(tp.d2[2][k], p_t[i + k - R], lap);
+  }
+  const StripIn<0, 1> in{{}, {psb}, prof};
+  r3_tail1<R>(lap, p_t[i], r1_fetch(q, c2, p_tp1, gacc, i, c), q, p_tp1, gacc,
+              DeviceStrips<0, 1>{in, y, z, x, D}, psb, w, y, z, x, i, c, D, fs);
 }
 
-template <int R>
-__global__ void r3_shell1(float* __restrict__ q, const float* __restrict__ c2,
-                          const float* __restrict__ p_t, float* __restrict__ p_tp1,
-                          float* __restrict__ gacc, Strips psb, Strips w,
-                          const float* __restrict__ prof, Dims D, int fs, Taps3 tp) {
-  int y, z, x;
-  if (my_shell_cell<R>(D, y, z, x))
-    r3_gather_cell1<R>(q, c2, p_t, p_tp1, gacc, psb, w, prof, D, fs, tp, y, z, x);
-}
-
-template <int R>
-__global__ void __launch_bounds__(kTileThreads, 2)
-    r3_cells1_tiled(float* __restrict__ q, const float* __restrict__ c2,
-                    const float* __restrict__ p_t, float* __restrict__ p_tp1,
-                    float* __restrict__ gacc, Strips psb, Strips w,
-                    const float* __restrict__ prof, Dims D, int fs, Taps3 tp, int cy) {
-  constexpr int W = RingR1<R>::W;
+// the tiled variant: P_t = P_{t-1} of the reconstruction marched through
+// the tiles (RingR1S: psibar staged)
+template <int R, typename RG>
+__device__ __forceinline__ void r3_tiles1(const TileSpan& s, float* __restrict__ q,
+                                          const float* __restrict__ c2,
+                                          const float* __restrict__ p_t,
+                                          float* __restrict__ p_tp1, float* __restrict__ gacc,
+                                          const Strips& psb, const Strips& w,
+                                          const float* __restrict__ prof, const Dims& D, int fs,
+                                          const Taps3& tp) {
+  constexpr int W = RG::W;
   const float* const fields[1] = {p_t};
   const float* const ops[4] = {c2, p_tp1, q, gacc};
-  auto cell = [&](int y, int z, int x, int i, int c, const float (&o)[4],
-                  const float (&v)[2 * R + 1], const float* t) {
+  const StripIn<0, 1> in{{}, {psb}, prof};
+  auto cell = [&](int y, int z, int x, int i, int c, const float (&o)[RG::NOP],
+                  const float (&v)[2 * R + 1], const float* t, const auto& rd) {
     float lap = 0.f;
 #pragma unroll
     for (int k = 0; k <= 2 * R; ++k) {
@@ -898,10 +1184,24 @@ __global__ void __launch_bounds__(kTileThreads, 2)
       lap = fmaf(tp.d2[1][k], t[(k - R) * W], lap);
       lap = fmaf(tp.d2[2][k], t[k - R], lap);
     }
-    r3_tail1<R>(lap, v[R], R1Ops{o[0], o[1], o[2], o[3]}, q, p_tp1, gacc, psb, w, prof, y, z,
-                x, i, c, D, fs);
+    r3_tail1<R>(lap, v[R], R1Ops{o[0], o[1], o[2], o[3]}, q, p_tp1, gacc, rd, psb, w, y, z, x, i,
+                c, D, fs);
   };
-  march<R, RingR1<R>>(fields, ops, D, cy, cell);
+  march<R, RG>(s, fields, ops, in, D, cell);
+}
+
+// one walk over the whole grid, as f3_cells_tiled
+template <int R>
+__global__ void __launch_bounds__(kTileThreads, 2)
+    r3_cells1_tiled(float* __restrict__ q, const float* __restrict__ c2,
+                    const float* __restrict__ p_t, float* __restrict__ p_tp1,
+                    float* __restrict__ gacc, Strips psb, Strips w,
+                    const float* __restrict__ prof, Dims D, int fs, Taps3 tp, int cy) {
+  const TileSpan s = grid_tile<R>(D, cy);
+  if (s.reach[0] || s.reach[1] || s.reach[2])
+    r3_tiles1<R, RingR1S<R>>(s, q, c2, p_t, p_tp1, gacc, psb, w, prof, D, fs, tp);
+  else
+    r3_tiles1<R, RingR1<R>>(s, q, c2, p_t, p_tp1, gacc, psb, w, prof, D, fs, tp);
 }
 
 __device__ __forceinline__ bool in_ring(int y, int z, int x, const RingFrame3& f) {
@@ -972,27 +1272,28 @@ __global__ void r3_strips(const float* __restrict__ q, const float* __restrict__
 }
 
 // axis AX's transposed CPML terms at (y, z, x): D2 w - D1 y within R of
-// the strips
-template <int R, int AX>
-__device__ __forceinline__ float tcpml_terms(const Strips& w, const Strips& yv, int y, int z,
-                                             int x, const Dims& D, const Taps3& tp) {
+// the strips, w and y read through rd (its arrays 0 and 1)
+template <int R, int AX, typename RD>
+__device__ __forceinline__ float tcpml_terms(const RD& rd, int y, int z, int x, const Dims& D,
+                                             const Taps3& tp) {
   const int c = coord<AX>(y, z, x);
   const int SE = D.S + R;
   if (c >= SE && c < D.n[AX] - SE) return 0.f;
   float acc = 0.f;
 #pragma unroll
   for (int k = 0; k <= 2 * R; ++k) {
-    acc = fmaf(tp.d2[AX][k], strip_at<AX>(w.s[AX], y, z, x, k - R, D), acc);
-    if (k != R) acc = fmaf(-tp.d1[AX][k], strip_at<AX>(yv.s[AX], y, z, x, k - R, D), acc);
+    acc = fmaf(tp.d2[AX][k], rd.template nb<AX>(0, k - R), acc);
+    if (k != R) acc = fmaf(-tp.d1[AX][k], rd.template nb<AX>(1, k - R), acc);
   }
   return acc;
 }
 
-// The second reverse cell pass's tail, shared by both variants: lap is the
+// The second reverse cell pass's tail, shared by every variant: lap is the
 // D2 laplacian of u = C lambda_t at the cell, and the cell's operands as
-// R2Ops: qc = lambda_t, qold = lambda_{t+1} (qoth on entry). qoth holds
-// lambda_{t+1} on entry and lambda_{t-1} (before its receiver injection)
-// on exit; each cell reads and writes it only at itself.
+// R2Ops: qc = lambda_t, qold = lambda_{t+1} (qoth on entry); rd reads w
+// and y. qoth holds lambda_{t+1} on entry and lambda_{t-1} (before its
+// receiver injection) on exit; each cell reads and writes it only at
+// itself.
 struct R2Ops {
   float qc, qold;
 };
@@ -1002,22 +1303,21 @@ __device__ __forceinline__ R2Ops r2_fetch(const float* __restrict__ qcur, const 
   return R2Ops{qcur[i], qoth[i]};
 }
 
-template <int R>
+template <int R, typename RD>
 __device__ __forceinline__ void r3_tail2(float lap, const R2Ops& o, float* __restrict__ qoth,
-                                         const Strips& w, const Strips& yv, int y, int z, int x,
-                                         int i, const Dims& D, const Taps3& tp) {
-  lap += tcpml_terms<R, 0>(w, yv, y, z, x, D, tp);
-  lap += tcpml_terms<R, 1>(w, yv, y, z, x, D, tp);
-  lap += tcpml_terms<R, 2>(w, yv, y, z, x, D, tp);
+                                         const RD& rd, int y, int z, int x, int i,
+                                         const Dims& D, const Taps3& tp) {
+  lap += tcpml_terms<R, 0>(rd, y, z, x, D, tp);
+  lap += tcpml_terms<R, 1>(rd, y, z, x, D, tp);
+  lap += tcpml_terms<R, 2>(rd, y, z, x, D, tp);
   qoth[i] = 2.f * o.qc - o.qold + lap;
 }
 
 template <int R>
-__device__ __forceinline__ void r3_gather_cell2(const float* __restrict__ qcur,
-                                                float* __restrict__ qoth,
-                                                const float* __restrict__ c2, const Strips& w,
-                                                const Strips& yv, const Dims& D, const Taps3& tp,
-                                                int y, int z, int x) {
+__global__ void r3_cells2(const float* __restrict__ qcur, float* __restrict__ qoth,
+                          const float* __restrict__ c2, Strips w, Strips yv, Dims D, Taps3 tp) {
+  int y, z, x;
+  if (!my_grid_cell(D, y, z, x)) return;
   const int i = halo_at<R>(y, z, x, D);
   float lap = 0.f;
 #pragma unroll
@@ -1027,36 +1327,25 @@ __device__ __forceinline__ void r3_gather_cell2(const float* __restrict__ qcur,
     lap = fmaf(tp.d2[1][k], __fmul_rn(c2[oz], qcur[oz]), lap);
     lap = fmaf(tp.d2[2][k], __fmul_rn(c2[ox], qcur[ox]), lap);
   }
-  r3_tail2<R>(lap, r2_fetch(qcur, qoth, i), qoth, w, yv, y, z, x, i, D, tp);
+  const StripIn<2, 0> in{{w, yv}, {}, nullptr};
+  r3_tail2<R>(lap, r2_fetch(qcur, qoth, i), qoth, DeviceStrips<2, 0>{in, y, z, x, D}, y, z, x,
+              i, D, tp);
 }
 
-template <int R>
-__global__ void r3_cells2(const float* __restrict__ qcur, float* __restrict__ qoth,
-                          const float* __restrict__ c2, Strips w, Strips yv, Dims D, Taps3 tp) {
-  int y, z, x;
-  if (my_grid_cell(D, y, z, x)) r3_gather_cell2<R>(qcur, qoth, c2, w, yv, D, tp, y, z, x);
-}
-
-template <int R>
-__global__ void r3_shell2(const float* __restrict__ qcur, float* __restrict__ qoth,
-                          const float* __restrict__ c2, Strips w, Strips yv, Dims D, Taps3 tp) {
-  int y, z, x;
-  if (my_shell_cell<R>(D, y, z, x)) r3_gather_cell2<R>(qcur, qoth, c2, w, yv, D, tp, y, z, x);
-}
-
-// C and lambda_t tiled; u = C lambda_t formed from them at each tap read
-// (the same rounded product as the gather variant's)
-template <int R>
-__global__ void __launch_bounds__(kTileThreads, 2)
-    r3_cells2_tiled(const float* __restrict__ qcur, float* __restrict__ qoth,
-                    const float* __restrict__ c2, Strips w, Strips yv, Dims D, Taps3 tp,
-                    int cy) {
-  using RG = RingR2<R>;
+// the tiled variant: C and lambda_t tiled, u = C lambda_t formed from them
+// at each tap read (the same rounded product as the gather variant's), over
+// the box (RingR2) or the shell (RingR2S, w and y staged)
+template <int R, typename RG>
+__device__ __forceinline__ void r3_tiles2(const TileSpan& s, const float* __restrict__ qcur,
+                                          float* __restrict__ qoth,
+                                          const float* __restrict__ c2, const Strips& w,
+                                          const Strips& yv, const Dims& D, const Taps3& tp) {
   constexpr int W = RG::W, FS = RG::NS * RG::PLANE;
   const float* const fields[2] = {c2, qcur};
   const float* const ops[1] = {qoth};
-  auto cell = [&](int y, int z, int x, int i, int, const float (&o)[1],
-                  const float (&u)[2 * R + 1], const float* t) {
+  const StripIn<2, 0> in{{w, yv}, {}, nullptr};
+  auto cell = [&](int y, int z, int x, int i, int, const float (&o)[RG::NOP],
+                  const float (&u)[2 * R + 1], const float* t, const auto& rd) {
     float lap = 0.f;
 #pragma unroll
     for (int k = 0; k <= 2 * R; ++k) {
@@ -1064,9 +1353,25 @@ __global__ void __launch_bounds__(kTileThreads, 2)
       lap = fmaf(tp.d2[1][k], field_val<2>(t, FS, (k - R) * W), lap);
       lap = fmaf(tp.d2[2][k], field_val<2>(t, FS, k - R), lap);
     }
-    r3_tail2<R>(lap, R2Ops{t[FS], o[0]}, qoth, w, yv, y, z, x, i, D, tp);
+    r3_tail2<R>(lap, R2Ops{t[FS], o[0]}, qoth, rd, y, z, x, i, D, tp);
   };
-  march<R, RG>(fields, ops, D, cy, cell);
+  march<R, RG>(s, fields, ops, in, D, cell);
+}
+
+template <int R>
+__global__ void __launch_bounds__(kTileThreads, 2)
+    r3_cells2_tiled(const float* __restrict__ qcur, float* __restrict__ qoth,
+                    const float* __restrict__ c2, Strips w, Strips yv, Dims D, Taps3 tp,
+                    int cy) {
+  r3_tiles2<R, RingR2<R>>(box_tile<R>(D, cy), qcur, qoth, c2, w, yv, D, tp);
+}
+
+// (its rings leave room for one block an SM: no cap on its registers)
+template <int R>
+__global__ void __launch_bounds__(kTileThreads, 1)
+    r3_shell2(const float* __restrict__ qcur, float* __restrict__ qoth,
+              const float* __restrict__ c2, Strips w, Strips yv, Dims D, Taps3 tp, int cy) {
+  r3_tiles2<R, RingR2S<R>>(shell_tile<R>(D, cy), qcur, qoth, c2, w, yv, D, tp);
 }
 
 // ------------------------------------------------------------ launch shapes
@@ -1083,12 +1388,6 @@ inline dim3 cell_grid(const Dims& D) {
 // the tiled passes: one block per (z, x) tile and y chunk of cy planes
 const dim3 kTileBlock(kTX, kTZ, 1);
 
-// the shell kernels: one thread per shell cell, kStripBlock a block
-template <int R>
-inline int shell_blocks(const Dims& D) {
-  return (shell_count(D, interior_box(D, R)) + kStripBlock - 1) / kStripBlock;
-}
-
 // the launch plan a3d_tile_plan computes (kernels/acoustic3d_scan.py)
 struct TilePlan {
   int tz, tx, cy, smem;
@@ -1099,7 +1398,7 @@ struct TilePlan {
 template <int R>
 inline bool plan_ok(const TilePlan& pl, const Dims& D) {
   return pl.tz == kTZ && pl.tx == kTX && pl.cy >= 1 && pl.cy <= D.n[0] &&
-         pl.smem == ring_bytes_max<R>();
+         pl.smem == ring_bytes_max<R>(D.S);
 }
 
 // let kernel take its rings' bytes of dynamic shared memory (above the

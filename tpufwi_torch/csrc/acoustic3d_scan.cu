@@ -24,28 +24,30 @@
 // and gacc and write P_{t-2}, lambda_{t-1} and gacc (36 B/cell, 0.51 ms);
 // the stencils' operations are ~10x below that. A field is far larger than
 // the 50 MB L2, so each cell pass is a single sweep. The tiled passes (the
-// default) split it: in the interior box (the physical grid less R a
-// side, 70% of the cells there) 2.5D tiles march along y
-// (acoustic3d_kernels.cuh, "2.5D marching tiles"), each value of the
-// stencil field loaded from device memory about once, its 25 taps from
-// registers and shared memory; in the CPML shell around it, where every
-// cell's tail gathers strip values from device memory, one thread per
-// cell runs the gather variant's cell code, on a side stream beside the
-// tiles. Measured on the card (PERF.md), the shell is not bandwidth- but
-// latency-bound: with its strip gathers inside a tile's per-plane barrier
-// the whole tile waits on them, which made fully tiled passes slower than
-// the gather ones. The CPML memories are stored on their strips only (20%
-// of the cells at this grid, touched by one extra strip launch per step),
-// u = C lambda is never written, and the reverse fuses the reconstruction
-// into the first cell pass, so the reverse reads each full field about
-// twice per step. variant 1 launches the gather passes over the whole grid
-// instead (one thread per cell, every tap a global load), which compute the
-// same values bitwise: checks hold the tiled passes against them. Left for
-// later: tiling the shell's slabs with their strip values staged through
-// shared memory, TMA tile loads and warp specialisation, fewer integer
-// operations a tiled cell (several cells a thread, vector copies), a
-// persistent kernel or CUDA graph instead of 4-7 launches per step, and the
-// one-block source and receiver kernels.
+// default) march 2.5D tiles along y (acoustic3d_kernels.cuh, "2.5D marching
+// tiles"), each value of the stencil field loaded from device memory about
+// once, its 25 taps from registers and shared memory. The cells of the CPML
+// shell (within S + R of a face, 30% of the cells at this grid) read strip
+// values in their tails: their tiles stage them through shared memory in
+// the same cp.async groups as the field, before the plane's barrier (PR 9's
+// tiles, whose strip gathers ran after the barrier, made every tile wait on
+// them and lost to the gather passes, PERF.md). The forward's and the first
+// reverse pass's walks tile the whole grid, every tile staging the strips it
+// reaches, in one launch; the second reverse pass, whose shell ring leaves
+// room for one block an SM, runs the interior box (the physical grid less R
+// a side) on tiles of its own and the shell's slabs (the z slabs and the x
+// slabs of the box's planes, the y slabs' whole planes) beside them on a
+// side stream. The CPML memories are stored on their strips only (20% of
+// the cells at this grid, touched by one extra strip launch per step), u =
+// C lambda is never written, and the reverse fuses the reconstruction into
+// the first cell pass, so the reverse reads each full field about twice per
+// step. variant 1 launches the gather passes over the whole grid instead
+// (one thread per cell, every tap and strip value a global load), which
+// compute the same values bitwise: checks hold the tiled passes against
+// them. Left for later: TMA tile loads and warp specialisation, fewer
+// integer operations a tiled cell (several cells a thread, vector copies),
+// a persistent kernel or CUDA graph instead of 4-7 launches per step, and
+// the one-block source and receiver kernels.
 //
 // Tapes. Row t holds rings(P_t) after the sources, in RingSpec order
 // (tpufwi_torch/propagators/boundary.py), fp32 or bf16 (rounded to nearest
@@ -64,12 +66,12 @@ int check_variant(int variant, const TilePlan& plan, const Dims& D) {
   return (int)cudaErrorInvalidValue;
 }
 
-// The tiled variant's side stream: each cell pass forks it from the
-// caller's stream, runs the box's tiles on the caller's stream and the
-// shell on the side one, and joins it back, so the shell's latency-bound
-// strip work fills the SMs the tiles' last wave leaves idle. Created and
-// destroyed by each loop (destruction waits for nothing: the CUDA runtime
-// frees the stream and events once their work is done).
+// The tiled variant's side stream (r3_cells2 only): the pass forks it from
+// the caller's stream, runs the box's tiles on the caller's stream and the
+// shell's on the side one, and joins it back, so that either fills the SMs
+// the other's last wave leaves idle. Created and destroyed by each reverse
+// loop (destruction waits for nothing: the CUDA runtime frees the stream
+// and events once their work is done).
 struct Side {
   cudaStream_t s = nullptr;
   cudaEvent_t fork = nullptr, join = nullptr;
@@ -96,42 +98,9 @@ struct Side {
   }
 };
 
-// The tiled variant's cell passes: the box's tiles (none when the box is
-// empty) and the shell
-template <int R>
-void f3_tiled(const float* p, float* pnext, const float* c2, const Strips& phi,
-              const Strips& psi, const float* prof, float* illum, const Dims& D, int fs,
-              const Taps3& tp, int cy, const Side& side, cudaStream_t st) {
-  side.pass(
-      st,
-      [&](cudaStream_t s) {
-        if (const int n = tile_blocks<R>(D, cy))
-          f3_cells_tiled<R><<<n, kTileBlock, RingF3<R>::BYTES, s>>>(p, pnext, c2, phi, psi, prof,
-                                                                     illum, D, fs, tp, cy);
-      },
-      [&](cudaStream_t s) {
-        f3_shell<R><<<shell_blocks<R>(D), kStripBlock, 0, s>>>(p, pnext, c2, phi, psi, prof,
-                                                               illum, D, fs, tp);
-      });
-}
-
-template <int R>
-void r3_tiled1(float* q, const float* c2, const float* p_t, float* p_tp1, float* gacc,
-               const Strips& psb, const Strips& w, const float* prof, const Dims& D, int fs,
-               const Taps3& tp, int cy, const Side& side, cudaStream_t st) {
-  side.pass(
-      st,
-      [&](cudaStream_t s) {
-        if (const int n = tile_blocks<R>(D, cy))
-          r3_cells1_tiled<R><<<n, kTileBlock, RingR1<R>::BYTES, s>>>(q, c2, p_t, p_tp1, gacc, psb,
-                                                                      w, prof, D, fs, tp, cy);
-      },
-      [&](cudaStream_t s) {
-        r3_shell1<R><<<shell_blocks<R>(D), kStripBlock, 0, s>>>(q, c2, p_t, p_tp1, gacc, psb, w,
-                                                                prof, D, fs, tp);
-      });
-}
-
+// The tiled variant's cell passes: f3 and r3_cells1 one walk over the whole
+// grid; r3_cells2 the box's tiles (none when the box is empty) and the
+// shell's
 template <int R>
 void r3_tiled2(const float* qcur, float* qoth, const float* c2, const Strips& w,
                const Strips& yv, const Dims& D, const Taps3& tp, int cy, const Side& side,
@@ -144,20 +113,24 @@ void r3_tiled2(const float* qcur, float* qoth, const float* c2, const Strips& w,
                                                                       tp, cy);
       },
       [&](cudaStream_t s) {
-        r3_shell2<R><<<shell_blocks<R>(D), kStripBlock, 0, s>>>(qcur, qoth, c2, w, yv, D, tp);
+        r3_shell2<R><<<shell_blocks<R>(D, cy), kTileBlock, RingR2S<R>::bytes(D.S), s>>>(
+            qcur, qoth, c2, w, yv, D, tp, cy);
       });
 }
 
 template <int R>
-int allow_forward_smem(int variant) {
-  return variant == 0 ? allow_smem(f3_cells_tiled<R>, RingF3<R>::BYTES) : 0;
+int allow_forward_smem(int variant, const Dims& D) {
+  if (variant != 0) return 0;
+  if (const int err = allow_smem(f3_cells_tiled<R, true>, RingF3S<R>::bytes(D.S))) return err;
+  return allow_smem(f3_cells_tiled<R, false>, RingF3S<R>::bytes(D.S));
 }
 
 template <int R>
-int allow_reverse_smem(int variant) {
+int allow_reverse_smem(int variant, const Dims& D) {
   if (variant != 0) return 0;
-  if (const int err = allow_smem(r3_cells1_tiled<R>, RingR1<R>::BYTES)) return err;
-  return allow_smem(r3_cells2_tiled<R>, RingR2<R>::BYTES);
+  if (const int err = allow_smem(r3_cells1_tiled<R>, RingR1S<R>::bytes(D.S))) return err;
+  if (const int err = allow_smem(r3_cells2_tiled<R>, RingR2<R>::BYTES)) return err;
+  return allow_smem(r3_shell2<R>, RingR2S<R>::bytes(D.S));
 }
 
 template <int R, typename T>
@@ -167,19 +140,18 @@ int forward_loop(const float* c2, const float* prof, const float* w, const long 
                  int fs, int n_ring, const Taps3& tp, int variant, const TilePlan& plan,
                  cudaStream_t st) {
   if (const int err = check_variant<R>(variant, plan, D)) return err;
-  if (const int err = allow_forward_smem<R>(variant)) return err;
-  Side side;
-  if (variant == 0)
-    if (const int err = side.open()) return err;
+  if (const int err = allow_forward_smem<R>(variant, D)) return err;
   const Strips phi = strips_at(strips, D.n[0], D.n[1], D.n[2], D.S);
   const Strips psi = strips_at(strips + strip_total(D.n[0], D.n[1], D.n[2], D.S), D.n[0],
                                D.n[1], D.n[2], D.S);
+  const auto walk = illum != nullptr ? f3_cells_tiled<R, true> : f3_cells_tiled<R, false>;
   float* cur = pb;   // P_{t-1}
   float* prev = pa;  // P_{t-2}, overwritten by P_t
   for (int t = 0; t < nt; ++t) {
     f3_phi<R><<<strip_blocks(D), kStripBlock, 0, st>>>(cur, phi, prof, D, tp);
     if (variant == 0)
-      f3_tiled<R>(cur, prev, c2, phi, psi, prof, illum, D, fs, tp, plan.cy, side, st);
+      walk<<<grid_blocks<R>(D, plan.cy), kTileBlock, RingF3S<R>::bytes(D.S), st>>>(
+          cur, prev, c2, phi, psi, prof, illum, D, fs, tp, plan.cy);
     else
       f3_cells<R><<<cell_grid(D), kCellBlock, 0, st>>>(cur, prev, c2, phi, psi, prof, illum, D,
                                                         fs, tp);
@@ -207,7 +179,7 @@ int reverse_loop(const float* c2, const float* prof, const float* w, const float
                  int n_ring, const RingFrame3& frame, const Taps3& tp, int variant,
                  const TilePlan& plan, cudaStream_t st) {
   if (const int err = check_variant<R>(variant, plan, D)) return err;
-  if (const int err = allow_reverse_smem<R>(variant)) return err;
+  if (const int err = allow_reverse_smem<R>(variant, D)) return err;
   Side side;
   if (variant == 0)
     if (const int err = side.open()) return err;
@@ -221,7 +193,8 @@ int reverse_loop(const float* c2, const float* prof, const float* w, const float
     r3_inject<R><<<1, kSmallBlock, 0, st>>>(qc, ybar, t, rcv, chain, src, lam_src, nsrc, nrec,
                                             D, fs);
     if (variant == 0)
-      r3_tiled1<R>(qc, c2, p_t, p_tp1, gacc, psb, wv, prof, D, fs, tp, plan.cy, side, st);
+      r3_cells1_tiled<R><<<grid_blocks<R>(D, plan.cy), kTileBlock, RingR1S<R>::bytes(D.S), st>>>(
+          qc, c2, p_t, p_tp1, gacc, psb, wv, prof, D, fs, tp, plan.cy);
     else
       r3_cells1<R><<<cell_grid(D), kCellBlock, 0, st>>>(qc, c2, p_t, p_tp1, gacc, psb, wv,
                                                          prof, D, fs, tp);
@@ -255,8 +228,8 @@ extern "C" {
 // fields; strips: 2 x strip_total zeroed floats (phi, then psi); tape (with
 // ring) and illum may be null; tape_bf16 selects the tape's type. variant
 // 0 runs the tiled cell passes on the plan (tz, tx, cy, smem: the largest
-// pass's shared bytes), which must be one this library was built for; 1
-// the gather passes (plan unread).
+// pass's shared bytes, box or shell), which must be one this library was
+// built for; 1 the gather passes (plan unread).
 int tpufwi_a3d_forward(const float* c2, const float* prof, const float* w,
                        const long long* src, const long long* rcv, float* seis, const int* ring,
                        void* tape, float* illum, float* pa, float* pb, float* strips, int NY,

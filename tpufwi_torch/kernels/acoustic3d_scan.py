@@ -13,13 +13,17 @@ field at the sources. The CUDA sources are ``csrc/acoustic3d_scan.cu`` and
 ``csrc/acoustic3d_kernels.cuh``.
 
 The cell passes of both kernels march 2.5D shared-memory tiles along y
-over the interior box (``interior_box``) and run the CPML shell around it
-one thread a cell (``variant="tiled"``, the default, on the launch plan
-``a3d_tile_plan``). ``variant="gather"`` launches the earlier passes, one
+(``variant="tiled"``, the default, on the launch plan ``a3d_tile_plan``):
+the forward's and the first reverse pass's over the whole grid in one
+launch (``walk_regions``), the second reverse pass's over the interior box
+(``interior_box``) and, beside them, over the slabs of the CPML shell
+around it (``shell_slabs``). A tile that reaches the CPML stages the strip
+values its cells read in shared memory too. ``variant="gather"`` launches the earlier passes, one
 thread a cell of the whole grid, every tap gathered from device memory:
 they compute the same values bitwise and exist for the checks that hold
 the tiled passes to them (``chip_smoke.py``, ``tests/test_torch_cuda.py``);
-no engine passes it.
+no engine passes it. A tiled call adds its shell cells x nt to the
+``a3d_shell_tiled_cells`` counter (``profiling``).
 
 Each wrapper takes its plain version for tensors on the CPU, and only then;
 on a CUDA tensor it launches the kernel or raises (a tiled launch is never
@@ -60,17 +64,20 @@ VARIANTS = ("tiled", "gather")  # the C entry points' variant 0 and 1
 
 # the tile the library is built for (csrc/acoustic3d_kernels.cuh: kTZ x kTX
 # threads, x contiguous, one warp a z row), how many planes ahead its loads
-# run (kAhead) and its rings' slots (kFieldSlots, kOpSlots)
+# run (kAhead) and its rings' slots (kFieldSlots, kOpSlots: the operands'
+# and the strip tiles')
 TILE_Z, TILE_X, AHEAD = 16, 32, 3
 FIELD_SLOTS, OP_SLOTS = 8, 4
-# the passes' shared-memory rings (the header's RingF3, RingR1, RingR2):
-# (field tiles, operands a cell)
-RINGS = {"f3_cells_tiled": (1, 3), "r3_cells1_tiled": (1, 4), "r3_cells2_tiled": (2, 1)}
+# the passes' shared-memory rings (the header's RingF3S, RingR1S, RingR2,
+# RingR2S; a tile of the first two that reaches no CPML leaves the strip
+# part unused): (field tiles, operands a cell, strip arrays read along their
+# axis, strip arrays read at the cell, operand slots)
+RINGS = {"f3_cells_tiled": (1, 3, 1, 1, AHEAD), "r3_cells1_tiled": (1, 4, 0, 1, AHEAD),
+         "r3_cells2_tiled": (2, 1, 0, 0, OP_SLOTS), "r3_shell2": (2, 1, 2, 0, OP_SLOTS)}
 SMS = 132  # the H100 SXM's streaming multiprocessors
 L2_BYTES = 50 * 2**20  # its L2 cache
 RESIDENT = 2  # tiled blocks an SM holds: 512 threads, __launch_bounds__(kTileThreads, 2)
 MIN_BLOCKS = 4 * SMS
-MIN_CY_PER_R = 20  # a chunk of cy planes re-reads 2R of them: at most 10%
 
 
 class TilePlan(NamedTuple):
@@ -83,47 +90,98 @@ class TilePlan(NamedTuple):
     smem: int
 
 
-def ring_bytes(R: int, kernel: str) -> int:
-    """Shared bytes of a tiled pass at radius R: its field tiles' ring
-    (FIELD_SLOTS plane tiles of (TILE_Z + 2R) x (TILE_X + 2R) each) and its
-    operands' ring (OP_SLOTS planes of TILE_Z x TILE_X each), fp32."""
-    fields, ops = RINGS[kernel]
+def ring_bytes(R: int, kernel: str, S: int) -> int:
+    """Shared bytes of a tiled pass at radius R and strip depth S, fp32: its
+    field tiles' ring (FIELD_SLOTS plane tiles of (TILE_Z + 2R) x (TILE_X +
+    2R) each) and its operands' ring (its operand slots of TILE_Z x TILE_X
+    each); with strip arrays, its operands also hold its cells' own strip
+    values (three axes an array read at the cell) and the y columns' fronts,
+    then its strip tiles (OP_SLOTS planes of an x tile, TILE_Z x (TILE_X +
+    2R), and a z tile, (TILE_Z + 2R) x TILE_X, an array read along its axis)
+    and, with an array read at the cell, the 12 S profiles."""
+    fields, ops, along, at, slots = RINGS[kernel]
     plane = (TILE_Z + 2 * R) * (TILE_X + 2 * R)
-    return 4 * (fields * FIELD_SLOTS * plane + ops * OP_SLOTS * TILE_Z * TILE_X)
+    ops += 3 * at + along
+    strips = along * OP_SLOTS * (TILE_Z * (TILE_X + 2 * R) + (TILE_Z + 2 * R) * TILE_X)
+    return 4 * (fields * FIELD_SLOTS * plane + ops * slots * TILE_Z * TILE_X + strips
+                + (12 * S if at else 0))
 
 
 def interior_box(grid: Grid):
     """(lo, (ny, nz, nx)): the box of cells at least S + R from every face
     of the padded grid, where the CPML adds nothing (its extents all 0 when
-    it is empty). The tiled passes march it; the rest, the shell, runs the
-    gather variant's cell code (csrc/acoustic3d_kernels.cuh interior_box)."""
+    it is empty). The rest is the shell (``shell_slabs``)
+    (csrc/acoustic3d_kernels.cuh interior_box)."""
     lo = strip_depth(grid) + grid.radius
     n = tuple(N - 2 * lo for N in grid.padded_shape)
     return lo, (n if min(n) > 0 else (0, 0, 0))
 
 
+def walk_regions(grid: Grid):
+    """The whole grid's walk (the forward's and the first reverse pass's) in
+    whole planes, each ((y0, y1), (0, NZ), (0, NX)): the box's planes, then
+    the low and high y slabs; with an empty box the whole grid
+    (csrc/acoustic3d_kernels.cuh walk_region)."""
+    NY, NZ, NX = grid.padded_shape
+    L, (ny, _, _) = interior_box(grid)
+    if not ny:
+        return [((0, NY), (0, NZ), (0, NX))]
+    return [((y0, y1), (0, NZ), (0, NX)) for y0, y1 in ((L, L + ny), (0, L), (L + ny, NY))]
+
+
+def shell_slabs(grid: Grid):
+    """The shell's slabs in launch order, each ((y0, y1), (z0, z1), (x0,
+    x1)): over the box's planes the low and high z slabs (whole rows) and
+    the x slabs of the middle rows, then the low and high y slabs (whole
+    planes); with an empty box the whole grid (csrc/acoustic3d_kernels.cuh
+    shell_slab)."""
+    NY, NZ, NX = grid.padded_shape
+    L, (ny, nz, nx) = interior_box(grid)
+    if not ny:
+        return [((0, NY), (0, NZ), (0, NX))]
+    mid, rows = (L, L + ny), (L, L + nz)
+    return [(mid, (0, L), (0, NX)), (mid, (L + nz, NZ), (0, NX)), (mid, rows, (0, L)),
+            (mid, rows, (L + nx, NX)), ((0, L), (0, NZ), (0, NX)), ((L + ny, NY), (0, NZ), (0, NX))]
+
+
+def slab_tiles(slab, cy: int):
+    """The tiles of a slab (the whole grid, the box) in block order, x
+    fastest, then z, then the y chunks of ``cy`` planes: (y0, y1, z0, x0,
+    nz, nx), nz and nx the rows and columns of the tile's cells
+    (csrc/acoustic3d_kernels.cuh tile_span)."""
+    (ya, yb), (za, zb), (xa, xb) = slab
+    return [(y0, min(y0 + cy, yb), z0, x0, min(TILE_Z, zb - z0), min(TILE_X, xb - x0))
+            for y0 in range(ya, yb, cy) for z0 in range(za, zb, TILE_Z)
+            for x0 in range(xa, xb, TILE_X)]
+
+
+def shell_cells(grid: Grid) -> int:
+    """Cells of the shell: the padded grid less the box."""
+    return int(np.prod(grid.padded_shape)) - int(np.prod(interior_box(grid)[1]))
+
+
 def a3d_tile_plan(grid: Grid) -> TilePlan:
-    """The tiled passes' plan for ``grid``: the box's y extent is cut into
-    c even chunks. Rules: the tiles make at least ``MIN_BLOCKS`` blocks (4
-    a streaming multiprocessor); where a field outgrows the L2, a chunk's
-    2R re-read halo planes come from device memory and a chunk keeps at
-    least 20R planes (at most 10% re-read), which wins over the block
-    count. Within them, c minimises waves x planes a chunk (the blocks run
-    ``RESIDENT`` an SM at a time, each marching its chunk), the fewest
-    chunks on a tie."""
+    """The tiled passes' plan for ``grid``: the box's y extent (the whole
+    grid's when the box is empty) is cut into c even chunks of cy planes,
+    by which every walk cuts its regions. Rules: the tiles of a whole plane
+    make at least ``MIN_BLOCKS`` blocks (4 a streaming multiprocessor) where
+    a field outgrows the L2, one a streaming multiprocessor where it fits;
+    within that, c minimises waves x (planes a chunk + the 2R halo planes
+    its prologue loads again), the blocks running ``RESIDENT`` an SM at a
+    time; the fewest chunks on a tie. (Measured on the H100: at the 3D main
+    path's grid chunks of 49 planes against 98 took the forward's walk from
+    545 to 512 us and the first reverse pass's from 720 to 700; on the
+    smoke's free-surface grid, 92 x 76 x 108, chunks of 4-8 planes against 1
+    took the forward from 62 to 45 us a step and the reverse from 150 to
+    92-95.)"""
     NY, NZ, NX = grid.padded_shape
     R = grid.radius
-    _, (ny, nz, nx) = interior_box(grid)
-    tiles = -(-nz // TILE_Z) * -(-nx // TILE_X)
-    smem = max(ring_bytes(R, k) for k in RINGS)
-    if not tiles:
-        return TilePlan(TILE_Z, TILE_X, 1, smem)
-    hi = ny
-    if 4 * NY * NZ * NX > L2_BYTES:
-        hi = max(1, ny // (MIN_CY_PER_R * R))
-    lo = min(-(-MIN_BLOCKS // tiles), hi)
-    c = min(range(lo, hi + 1),
-            key=lambda c: (-(-tiles * c // (RESIDENT * SMS)) * -(-ny // c), c))
+    ny = interior_box(grid)[1][0] or NY
+    tiles = -(-NZ // TILE_Z) * -(-NX // TILE_X)
+    smem = max(ring_bytes(R, k, strip_depth(grid)) for k in RINGS)
+    blocks = MIN_BLOCKS if 4 * NY * NZ * NX > L2_BYTES else SMS
+    c = min(range(min(-(-blocks // tiles), ny), ny + 1),
+            key=lambda c: (-(-tiles * c // (RESIDENT * SMS)) * (-(-ny // c) + 2 * R), c))
     return TilePlan(TILE_Z, TILE_X, -(-ny // c), smem)
 
 
@@ -276,6 +334,8 @@ def a3d_forward(grid, c2, profiles, wavelet, src_idx, rcv_idx, tape_dtype=None, 
         )
     raise_on(lib, "a3d_forward", err)
     a3d_forward.launches += nt
+    if code == 0:
+        profiling.count("a3d_shell_tiled_cells", shell_cells(grid) * nt)
     last, penult = (pa, pb) if (nt - 1) % 2 == 0 else (pb, pa)
     return seis, tape, _inner(grid, penult), _inner(grid, last), acc
 
@@ -334,6 +394,8 @@ def a3d_reverse(grid, c2, profiles, wavelet, ybar, tape, p_penult, p_last, src_i
         )
     raise_on(lib, "a3d_reverse", err)
     a3d_reverse.launches += nt
+    if code == 0:
+        profiling.count("a3d_shell_tiled_cells", shell_cells(grid) * nt)
     if not return_field:
         return gbar, lam_src
     return gbar, lam_src, _inner(grid, p_tp1 if nt % 2 == 0 else p_t)

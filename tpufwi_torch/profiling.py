@@ -39,7 +39,10 @@ wrappers' ``.launches``, which stay the kernels' step counters):
 - ``host_syncs``: each place on the graded path where the program waits
   on the device (the kernel wrappers' index checks);
 - ``grad_shots``, ``loss_shots``: shots run by the objectives' ``vg`` and
-  ``loss``.
+  ``loss``;
+- ``a3d_shell_tiled_cells``: the CPML shell's cells x nt of each
+  ``a3d_forward`` / ``a3d_reverse`` call that marched them in shared-memory
+  tiles (the default variant; 0 under ``variant="gather"``).
 
 ``trace(run_dir, label)`` profiles a block into a Chrome/Perfetto trace
 with the spans in it. ``roofline_report`` of the reference is not ported:
@@ -61,7 +64,7 @@ from torch.autograd import profiler as _autograd_profiler
 
 SPANS = ("objective.evaluation", "objective.shot", "propagator.call", "engine.forward",
          "engine.reverse", "kernels.forward", "kernels.reverse")
-COUNTERS = ("host_syncs", "grad_shots", "loss_shots")
+COUNTERS = ("host_syncs", "grad_shots", "loss_shots", "a3d_shell_tiled_cells")
 
 # a profiler range with no device-side twin (a user annotation gets one)
 _RANGE = getattr(torch._C._profiler, "_RecordFunctionFast", None)
