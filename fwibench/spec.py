@@ -1,16 +1,15 @@
 """A cell of ``BENCHMARK.json`` and the files it names, found by name:
-``configs/<config>.json``, ``traffic/<traffic>.json``, ``checks/<cell>.json``
-and ``metrics/<metric>.py``; and the survey geometry a configuration's
-layout describes."""
+``configs/<config>.json``, ``traffic/<traffic>.json``, ``checks/<cell>.json``,
+``physics/<physics>.py``, ``layouts/<layout>.py`` and ``metrics/<metric>.py``;
+and the survey geometry a configuration's layout describes."""
 
 from __future__ import annotations
 
 import dataclasses
 import importlib.util
 import json
+import sys
 from pathlib import Path
-
-import numpy as np
 
 HERE = Path(__file__).resolve().parent
 ROOT = HERE.parent
@@ -25,6 +24,8 @@ class Cell:
     check: dict
     end_to_end: list
     per_layer: list
+    physics: object  # the module ``physics`` finds for the configuration
+    layout: object  # the module of the configuration's survey layout
 
     @property
     def shape(self) -> tuple:
@@ -62,56 +63,74 @@ def load_cell(name: str, bench: dict | None = None, base: Path = HERE) -> Cell:
     if name not in cells:
         raise KeyError(f"no workload {name!r} in BENCHMARK.json: {sorted(cells)}")
     w = cells[name]
-    return Cell(name=name, chips=int(w["chips"]),
-                config=load_json(base / "configs" / f"{w['config']}.json"),
+    config = load_json(base / "configs" / f"{w['config']}.json")
+    return Cell(name=name, chips=int(w["chips"]), config=config,
                 traffic=load_json(base / "traffic" / f"{w['traffic']}.json"),
                 check=load_json(base / "checks" / f"{name}.json"),
                 end_to_end=metrics_for(bench["end_to_end"], name),
-                per_layer=metrics_for(bench["per_layer"], name))
+                per_layer=metrics_for(bench["per_layer"], name),
+                physics=physics(config.get("physics", "acoustic"), base),
+                layout=find("layouts", config["survey"]["layout"], base))
+
+
+def load_module(name: str, path: Path):
+    """The module at ``path``, loaded anew as ``name`` and entered in
+    ``sys.modules`` (its dataclasses look themselves up there)."""
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[name] = mod
+    spec.loader.exec_module(mod)
+    return mod
 
 
 def reader(metric: str):
     """``read(run)`` of ``metrics/<metric>.py``: the metric's value, or None
     where the run holds nothing to read it from."""
-    path = HERE / "metrics" / f"{metric}.py"
-    spec = importlib.util.spec_from_file_location(f"fwibench_metric_{metric}", path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod.read
+    return load_module(f"fwibench_metric_{metric}", HERE / "metrics" / f"{metric}.py").read
+
+
+def physics(name: str, base: Path = HERE):
+    """The module ``physics/<name>.py`` under ``base``, else under
+    ``fwibench/``: everything the harness does that depends on the
+    equations a configuration solves. It provides
+
+    - ``inputs(cell, seed, device)``: the run's inputs made from the seed,
+      an object with at least ``src`` (nshot, nsrc, ndim) and ``nt``;
+    - ``model(cell, inputs, seed, e)``: evaluation e's model, a tuple of
+      fields;
+    - ``program(cell, inputs, device, split)``: the system under test set
+      up and warmed, a ``harness.Program``, with the set-up's parts in
+      seconds added to ``split``;
+    - ``reference_outputs(cell, inputs, model, sample, device, dtype)``:
+      the plain reference's (seismograms (k, nt, ...), J (k,), gradients
+      (a (k, *shape) tensor per field of the model) or None) of the
+      sampled shots, with fields of ``dtype``;
+    - ``misfit(cell, inputs, seis, d_obs)``: the objective's J summed over
+      the given shots' seismograms (k, nt, ...) against their observed data,
+      on the device they are on;
+    - ``shot_bound_s(cell, inputs)``: the least seconds a shot can take on
+      the card.
+    """
+    return find("physics", name, base)
+
+
+def find(kind: str, name: str, base: Path = HERE):
+    """The module ``<kind>/<name>.py`` under ``base``, else under
+    ``fwibench/``; a name that neither holds fails, naming it. A survey
+    layout (``layouts/``) provides ``geometry(shape, survey)``: the sources
+    (nshot, 1, ndim) and receivers (nrec, ndim), physical cells."""
+    for root in (Path(base), HERE):
+        path = root / kind / f"{name}.py"
+        if path.is_file():
+            return load_module(f"fwibench_{kind}_{name}", path)
+    raise FileNotFoundError(f"no {kind} {name!r}: neither {Path(base) / kind} nor "
+                            f"{HERE / kind} holds {name}.py")
 
 
 # ------------------------------------------------------------------ survey
 
 
-def split_spread(shape, s):
-    """Shots evenly spread along x (the ends left out), every shot recorded
-    by one receiver line (``tpufwi_torch.acquisition.split_spread_survey``)."""
-    nx = shape[1]
-    sx = np.linspace(0, nx - 1, s["shots"] + 2)[1:-1].round().astype(np.int64)
-    src = np.array([[[s["src_depth"], x]] for x in sx])
-    rx = np.arange(0, nx, s["rcv_every"])
-    rcv = np.stack([np.full_like(rx, s["rcv_depth"]), rx], 1)
-    return src, rcv
-
-
-def carpet(shape, s):
-    """Surface shots on a (y, x) grid and a receiver carpet every
-    ``rcv_every`` cells, 10 cells in from the sides
-    (``scripts/overthrust_ms.py:97-140``)."""
-    ny, _, nx = shape
-    ey, ex = s["rcv_every"]
-    rcv = np.array([[y, s["rcv_depth"], x] for y in range(10, ny - 10, ey)
-                    for x in range(10, nx - 10, ex)])
-    sy, sx = s["shots"]
-    src = np.array([[[int(y), s["src_depth"], int(x)]] for y in np.linspace(0.2 * ny, 0.8 * ny, sy)
-                    for x in np.linspace(0.15 * nx, 0.75 * nx, sx)])
-    return src, rcv
-
-
-LAYOUTS = {"split_spread": split_spread, "carpet": carpet}
-
-
 def geometry(cell: Cell):
-    """(sources (nshot, 1, ndim), receivers (nrec, ndim)), physical cells."""
-    s = cell.config["survey"]
-    return LAYOUTS[s["layout"]](cell.shape, s)
+    """(sources (nshot, 1, ndim), receivers (nrec, ndim)), physical cells:
+    ``geometry(shape, survey)`` of the configuration's survey layout."""
+    return cell.layout.geometry(cell.shape, cell.config["survey"])

@@ -1,9 +1,10 @@
 """CPU tests of the benchmark: its files are found by name, it refuses to
 run without a card, its last line has the contract's keys, the copied
 counts give the port's bounds, the reference agrees with the program's
-exact CPU engine, and the control and each fault the cells can have make
-``correct`` false. The tiny cells under ``cells/`` drive whole runs on the
-CPU (the program's ``eager`` engine).
+exact CPU engine, the control and each fault the cells can have make
+``correct`` false, and a configuration's physics is a module found by name.
+The tiny cells under ``cells/`` drive whole runs on the CPU (the program's
+``eager`` engines).
 
     python -m pytest fwibench/tests -q
 """
@@ -12,6 +13,7 @@ from __future__ import annotations
 
 import json
 import re
+import sys
 import time
 from pathlib import Path
 
@@ -25,14 +27,15 @@ CELLS = Path(__file__).resolve().parent / "cells"
 BENCH = spec.load_json(spec.ROOT / "BENCHMARK.json")
 TINY = {"tiny2d.survey_grad": ("tiny2d", "survey_grad"),
         "tiny2d.survey_fwd": ("tiny2d", "survey_fwd"),
-        "tiny3d.survey_grad": ("tiny3d", "survey_grad")}
+        "tiny3d.survey_grad": ("tiny3d", "survey_grad"),
+        "tiny_elastic.survey_grad": ("tiny_elastic", "survey_grad")}
 SEED = 2**31 + 17
 
 
-def tiny(name):
+def tiny(name, base=CELLS):
     bench = dict(BENCH, workloads=[dict(name=n, config=c, traffic=t, chips=1, why="test")
                                    for n, (c, t) in TINY.items()])
-    return spec.load_cell(name, bench=bench, base=CELLS)
+    return spec.load_cell(name, bench=bench, base=base)
 
 
 def run_tiny(name, seed=SEED, trace_on=False, control=None):
@@ -54,6 +57,9 @@ def test_cells_found_by_name(cell):
         {"grad_err"} if c.gradient else set())
     for m in c.end_to_end + c.per_layer:
         assert callable(spec.reader(m["name"]))
+    assert Path(c.physics.__file__) == spec.HERE / "physics" / "acoustic.py"
+    layout = c.config["survey"]["layout"]
+    assert Path(c.layout.__file__) == spec.HERE / "layouts" / f"{layout}.py"
 
 
 def test_benchmark_file_keeps_the_contract():
@@ -70,6 +76,9 @@ def test_benchmark_file_keeps_the_contract():
     e2e = {m["name"] for m in BENCH["end_to_end"]}
     assert "setup_s" in e2e and all(0.01 <= m["bound"] <= 0.25 for m in BENCH["end_to_end"])
     assert all(m["moves"] in e2e for m in BENCH["per_layer"])
+    # every per-layer metric names its cells, so that a cell added later need not read it
+    cells = {w["name"] for w in BENCH["workloads"]}
+    assert all(m["workloads"] and set(m["workloads"]) <= cells for m in BENCH["per_layer"])
     assert 1 <= BENCH["run_seconds"] <= 51
 
 
@@ -102,6 +111,31 @@ def test_too_few_cards_fail_without_a_result(monkeypatch, capsys):
     rc = run.main(["--workload", BENCH["workloads"][0]["name"], "--seed", "1",
                    "--seconds", "1", "--trace", "0"])
     assert rc != 0 and capsys.readouterr().out == ""
+
+
+@pytest.mark.parametrize("loaded", [None, "jax", "jaxlib.xla_client", "flax", "tpufwi.grid"])
+def test_a_run_that_loaded_jax_prints_no_result(monkeypatch, capsys, loaded):
+    """The port's name begins with the JAX package's: top-level names are
+    compared whole, so ``tpufwi_torch`` alone lets the result through."""
+    import types
+
+    import tpufwi_torch.grid  # noqa: F401
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    monkeypatch.setattr(torch, "set_num_threads", lambda n: None)
+    monkeypatch.setattr(harness, "run_cell", lambda *a, **k: {"correct": True})
+    for name in [n for n in sys.modules if n.partition(".")[0] in run.JAX_MODULES]:
+        monkeypatch.delitem(sys.modules, name)
+    if loaded:
+        monkeypatch.setitem(sys.modules, loaded, types.ModuleType(loaded))
+    rc = run.main(["--workload", BENCH["workloads"][0]["name"], "--seed", "1",
+                   "--seconds", "1", "--trace", "0"])
+    out = capsys.readouterr()
+    if loaded:
+        assert rc != 0 and out.out == "" and loaded.partition(".")[0] in out.err
+    else:
+        assert rc == 0 and json.loads(out.out) == {"correct": True}
 
 
 @pytest.mark.parametrize("name", sorted(TINY))
@@ -265,3 +299,75 @@ def test_busy_time_is_the_union_of_overlapping_kernels():
     assert s.kernels == 4 and s.device_ops[0] == ["a", pytest.approx(20e-9)]
     assert dict((k, v) for k, v in s.idle_gaps) == pytest.approx(
         {"sync": 5e-9, "launch": 10e-9, "outer": 5e-9})
+
+
+# -------------------------------------------------------- the physics seam
+
+
+def test_a_physics_is_found_by_the_name_its_configuration_gives():
+    """The elastic test cell's physics and survey layout are files of the
+    test tree alone: no file of the harness names them."""
+    c = tiny("tiny_elastic.survey_grad")
+    assert Path(c.physics.__file__) == CELLS / "physics" / "elastic_plumbing.py"
+    assert Path(c.layout.__file__) == CELLS / "layouts" / "edge_spread.py"
+    src, rcv = spec.geometry(c)
+    assert src[:, 0, 1].tolist() == [6, 13, 21] and rcv[:, 1].tolist() == [4, 8, 12, 16, 20]
+    acoustic = tiny("tiny2d.survey_grad")
+    assert Path(acoustic.physics.__file__) == spec.HERE / "physics" / "acoustic.py"
+    assert Path(acoustic.layout.__file__) == spec.HERE / "layouts" / "split_spread.py"
+    outside = [p for p in spec.HERE.rglob("*.*") if "tests" not in p.relative_to(spec.HERE).parts]
+    assert not [p for p in outside + [spec.ROOT / "BENCHMARK.json"] if p.suffix != ".pyc"
+                and ("elastic_plumbing" in p.read_text() or "edge_spread" in p.read_text())]
+
+
+@pytest.mark.parametrize("key", ["physics", "layout"])
+def test_an_unknown_physics_fails_when_the_cell_is_loaded(tmp_path, key):
+    """So does an unknown survey layout, each naming what it lacks."""
+    for sub, name in (("configs", "tiny2d.json"), ("traffic", "survey_grad.json"),
+                      ("checks", "tiny2d.survey_grad.json")):
+        (tmp_path / sub).mkdir()
+        text = (CELLS / sub / name).read_text()
+        if sub == "configs":
+            cfg = json.loads(text)
+            if key == "physics":
+                cfg["physics"] = "no_such_physics"
+            else:
+                cfg["survey"] = dict(cfg["survey"], layout="no_such_layout")
+            text = json.dumps(cfg)
+        (tmp_path / sub / name).write_text(text)
+    with pytest.raises(FileNotFoundError, match=f"no_such_{key}"):
+        tiny("tiny2d.survey_grad", base=tmp_path)
+
+
+def test_a_reference_without_every_fields_gradient_fails_the_comparison():
+    """``grad_err`` covers every field: a reference that leaves one out
+    stops the comparison, it does not drop the field."""
+    seis, g = torch.ones(2, 5, 3), (torch.ones(4), torch.ones(4), torch.ones(4))
+    ref = (seis, torch.ones(2), tuple(torch.ones(2, 4) for _ in range(3)))
+    assert check.readings(seis, 2.0, g, ref)["grad_err"] == pytest.approx(0.5)
+    with pytest.raises(ValueError):
+        check.readings(seis, 2.0, g, ref[:2] + (ref[2][:2],))
+
+
+def test_one_fields_gradient_off_by_a_percent_is_not_correct(monkeypatch):
+    """The harness's plumbing, not the physics (``cells/physics/
+    elastic_plumbing.py`` is its own reference): a three-field model runs
+    through ``run_cell`` with two-component seismograms and a gradient per
+    field, and the evaluation's rho gradient scaled by 1.01 where it is
+    captured fails ``grad_err``, which takes the worst field."""
+    seen = []
+    take = check.Captured.take
+
+    def scaled(prog, sample):
+        got = take(prog, sample)
+        got.g[2].mul_(1.01)
+        seen.append(got)
+        return got
+
+    monkeypatch.setattr(check.Captured, "take", staticmethod(scaled))
+    out = run_tiny("tiny_elastic.survey_grad")
+    (got,) = seen
+    assert tuple(got.seis.shape) == (3, 120, 5, 2) and len(got.g) == len(got.grads) == 3
+    assert all(tuple(g.shape) == (3, 20, 28) for g in got.grads)
+    assert out["correct"] is False
+    assert [k for k, v in out["check"].items() if v["value"] > v["limit"]] == ["grad_err"]
