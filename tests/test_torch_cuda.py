@@ -529,6 +529,70 @@ def test_estep_gradient_matches_escan(device, source_type, record, free_surface)
         assert _rel(b, a) <= 1e-5
 
 
+def test_elastic_objective_agrees_with_the_plain_reference_and_records_its_spans(device):
+    """The benchmark's elastic comparison at a small size: a two-shot land
+    survey's objective on cuda_escan (``ElasticFwiProblem`` over
+    ``ElasticPropagator(impl="auto")``) against ``fwibench/reference_elastic.py``
+    in fp32 (seismograms, J, the vp / vs / rho gradients), within the limits of
+    ``checks/marmousi2_elastic.survey_grad.json``. The material map and the
+    gradient finish record device spans inside ``profiling.recording()``, under
+    the propagator call and the engine's reverse, and nothing outside it."""
+    from fwibench import check, reference, reference_elastic, spec
+    from tpufwi_torch import profiling
+    from tpufwi_torch.acquisition import Geometry
+    from tpufwi_torch.invert import ElasticFwiProblem
+    from tpufwi_torch.propagators.elastic2d import ElasticPropagator
+
+    limits = spec.load_json(spec.HERE / "checks" / "marmousi2_elastic.survey_grad.json")["limits"]
+    shape, h, f0, band, nt, vmax = (120, 300), (10.0, 10.0), 12.0, 5.0, 1200, 4700.0
+    grid = Grid(shape=shape, h=h, pml=20, order=8)
+    dt = reference_elastic.cfl_dt(h, vmax, 8, 0.7)
+    z = torch.arange(shape[0], dtype=torch.float64, device=device)[:, None]
+    x = torch.arange(shape[1], dtype=torch.float64, device=device)[None, :]
+    vp = 1800.0 + 12.0 * z + 150.0 * torch.sin(x / 40.0) * (z > 50)
+    true = tuple(f.float() for f in (vp, vp / 1.9, 310.0 * vp**0.25))
+    m = tuple((f * (1.0 + 0.01 * torch.cos(x / 25.0 + z / 15.0))).float()
+              for f in (vp, vp / 1.9, 310.0 * vp**0.25))
+    src = np.array([[[2, 60]], [[2, 237]]])
+    rcv = np.stack([np.full(73, 2), np.arange(4, 296, 4)], 1)
+    prop = ElasticPropagator(grid, dt, f0, vmax, source_type="force_z", record="v",
+                             device=device)
+    geoms = Geometry.stack([Geometry.from_physical(grid, s, rcv, device=device) for s in src])
+    w_np = ricker_np(f0, dt, nt)
+    w = torch.as_tensor(w_np, dtype=torch.float32, device=device)
+    with torch.no_grad():
+        d_obs = torch.stack([prop(*true, geoms.shot(i), w) for i in range(2)])
+    vg, _ = ElasticFwiProblem(prop=prop, geoms=geoms, d_obs=d_obs, wavelet=w,
+                              dt=dt).stage_objectives(band)
+    assert prop.impl == "cuda_escan"
+    profiling.clear()
+    vg(m)
+    torch.cuda.synchronize()
+    assert profiling.spans() == []
+    with profiling.recording():
+        J, g = vg(m)
+        with torch.no_grad():
+            seis = torch.stack([prop(*m, geoms.shot(i), w) for i in range(2)])
+    torch.cuda.synchronize()
+    spans = profiling.spans()
+    ids = {s.id: s for s in spans}
+    mats = [s for s in spans if s.name == "propagator.materials"]
+    finish = [s for s in spans if s.name == "engine.finish"]
+    assert len(mats) == 4 and len(finish) == 2  # two shots of vg, two forwards
+    assert {ids[s.parent].name for s in mats} == {"propagator.call"}
+    assert {ids[s.parent].name for s in finish} == {"engine.reverse"}
+    assert all(s.device_s > 0 for s in mats + finish)
+    profiling.clear()
+
+    med = reference_elastic.Medium(shape, h, 20, 8, dt, vmax, f0, device=device)
+    sv = reference_elastic.make_survey(med, src, np.repeat(rcv[None], 2, 0), w_np,
+                                       reference.lowpass_response(nt, dt, band))
+    d_f = reference.lowpass(reference_elastic.forward(sv, true)[0], sv.h2, axis=1)
+    J_r, g_r, seis_r = reference_elastic.value_and_grad(sv, m, d_f, segment=64)
+    got = check.readings(seis, J, g, (seis_r, J_r, g_r))
+    assert all(got[k] <= limits[k] for k in got), got
+
+
 # ------------------------------------------------------------- 3D (12-17)
 
 
@@ -928,7 +992,8 @@ def test_no_program_span_on_the_device_timeline(device):
     on_device, on_host = set(), set()
     for ev in prof.profiler.kineto_results.events():
         (on_device if ev.device_type() == DeviceType.CUDA else on_host).add(ev.name())
-    assert set(profiling.SPANS) <= on_host
+    # every span but the elastic propagator's two
+    assert set(profiling.SPANS) - {"propagator.materials", "engine.finish"} <= on_host
     assert not on_device & set(profiling.SPANS), on_device & set(profiling.SPANS)
     spans = profiling.spans()
     (shot,) = [s for s in spans if s.name == "objective.shot"]

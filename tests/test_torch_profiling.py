@@ -88,7 +88,9 @@ def test_span_tree_over_a_survey_objective(monkeypatch):
         assert len(mine["propagator.call"]) == len(mine["engine.forward"]) == 2
         assert {s.attrs["engine"] for s in mine["propagator.call"]} == {"cuda_scansnap"}
         assert len(mine.get("engine.reverse", [])) == (2 if e.attrs["kind"] == "grad" else 0)
-    assert set(by) == set(profiling.SPANS) - {"kernels.forward", "kernels.reverse"}
+    # the kernels' spans are the card's, the last two the elastic propagator's
+    assert set(by) == set(profiling.SPANS) - {"kernels.forward", "kernels.reverse",
+                                              "propagator.materials", "engine.finish"}
 
 
 class _Event:

@@ -11,6 +11,11 @@ Spans mark the layer boundaries of the graded path, outermost first
   ``__call__``; engine.
 - ``engine.forward`` / ``engine.reverse``: the whole-scan engines' forward
   (with and without grad) and backward.
+- ``propagator.materials``, *device*: ``ElasticPropagator.__call__``'s map
+  from (vp, vs, rho) to the padded staggered materials (elastic only).
+- ``engine.finish``, *device*: the elastic engines' ``finish_elastic_gradient``
+  inside ``engine.reverse`` (the force's buoy_z term, the wavelet's cotangent,
+  the valid-region mask; elastic only).
 - ``kernels.forward`` / ``kernels.reverse``, *device*: the C entry-point
   call alone of each whole-scan wrapper; wrapper, variant, nt,
   tape_bytes (the tape it allocated).
@@ -63,7 +68,8 @@ import torch
 from torch.autograd import profiler as _autograd_profiler
 
 SPANS = ("objective.evaluation", "objective.shot", "propagator.call", "engine.forward",
-         "engine.reverse", "kernels.forward", "kernels.reverse")
+         "engine.reverse", "kernels.forward", "kernels.reverse", "propagator.materials",
+         "engine.finish")
 COUNTERS = ("host_syncs", "grad_shots", "loss_shots", "a3d_shell_tiled_cells")
 
 # a profiler range with no device-side twin (a user annotation gets one)

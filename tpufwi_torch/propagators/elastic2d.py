@@ -125,8 +125,9 @@ def make_elastic_function(grid: Grid, dt: float, f0: float, c_max: float, forwar
                 grads, srcrow = reverse(grid, dt, mats, profiles_for(mats[0]), wavelet,
                                         seis_bar.contiguous(), tape, finals, src_idx, rcv_idx,
                                         source_type, record)
-                grads, wbar = finish_elastic_gradient(rings, dt, grads, srcrow, mats[4],
-                                                      wavelet, src_idx, source_type)
+                with profiling.span("engine.finish", device=mats[0].device):
+                    grads, wbar = finish_elastic_gradient(rings, dt, grads, srcrow, mats[4],
+                                                          wavelet, src_idx, source_type)
                 return (*grads, wbar, None, None)
 
     def simulate(lam, l2m, muxz, bxm, bzm, wavelet, src_idx, rcv_idx):
@@ -311,7 +312,8 @@ class ElasticPropagator:
         pressure, differentiable in vp, vs, rho and the wavelet."""
         impl = self.resolve_impl(geom, nt=int(wavelet.shape[0]))
         with profiling.span("propagator.call", engine=impl):
-            mats = self.material_fields(vp, vs, rho)
+            with profiling.span("propagator.materials", device=vp.device):
+                mats = self.material_fields(vp, vs, rho)
             return self._sim(impl)(*mats, wavelet.to(self.dtype), geom.src_idx, geom.rcv_idx)
 
     @torch.no_grad()
