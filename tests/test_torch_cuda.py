@@ -317,7 +317,8 @@ def test_kstep_wrappers_raise_instead_of_falling_back(device):
 # ------------------------------------------------------------ elastic (8-9)
 
 
-def _elastic_case(device, source_type, record, free_surface, order, nt, shape=(40, 56)):
+def _elastic_case(device, source_type, record, free_surface, order, nt, shape=(40, 56),
+                  edge=False):
     from tpufwi_torch.propagators.elastic2d import ElasticPropagator, elastic_cfl_dt
 
     grid = Grid(shape=shape, h=(10.0, 12.0), pml=8, order=order, free_surface=free_surface)
@@ -335,6 +336,11 @@ def _elastic_case(device, source_type, record, free_surface, order, nt, shape=(4
     src = np.array([[2, 20], [24, 33]]) + grid.pad
     rx = np.arange(4, 52, 3)
     rcv = np.concatenate([np.stack([np.full(rx.size, 2), rx], 1), [[2, 4], [9, 30]]]) + grid.pad
+    if edge:  # two sources and three receivers on a cell of the top ring row (the surface's,
+        # on the velocity image's rows), a receiver on the bottom-left ring corner
+        top = np.array([0, 20]) + grid.pad
+        src = np.stack([top, src[1], top])
+        rcv = np.concatenate([[top], rcv, [top, [shape[0] - 1 + grid.pad, grid.pad], top]])
     w = torch.as_tensor(ricker_np(14.0, dt, nt), dtype=torch.float32, device=device)
     idx = tuple(torch.as_tensor(a, dtype=torch.int64, device=device) for a in (src, rcv))
     return (grid, dt, mats, prof), w, idx
@@ -407,6 +413,75 @@ def test_escan_fused_matches_split_bitwise(device, order, source_type, record, f
         assert torch.equal(sr_f, sr_s), dep
     torch.cuda.synchronize()
     assert ke.escan_reverse.launches - r0 == 3 * w.shape[0]
+
+
+@pytest.mark.parametrize("nt", [1, 2, 33])
+@pytest.mark.parametrize("free_surface", [False, True])
+@pytest.mark.parametrize("source_type,record", [
+    ("force_z", "v"), ("pressure", "p"), ("pressure", "v"), ("force_z", "p"),
+])
+@pytest.mark.parametrize("order", [2, 8])
+def test_escan_fused_edge_cases_match_split_bitwise(device, order, source_type, record,
+                                                    free_surface, nt):
+    """The fused reverse's glue, in the owner threads of er_s and er_v,
+    against the split passes bitwise on the five gradient planes and
+    srcrow where it is hardest to keep the split step's order: two sources
+    and three receivers on one cell (the chains), sources and receivers on
+    ring cells, a source on the free surface's row (its force undone by
+    er_image_tail after the image), and nt 1 and 2 (er_setup's first step,
+    the zero ring row at t = 0). At nt 1 a pressure source recorded by v
+    receivers leaves every output zero (no stress cotangent reaches the
+    source or the stress imaging, and sigma before the step is zero), so
+    only the other cases must read nonzero."""
+    from tpufwi_torch.kernels import elastic2d_scan as ke
+
+    args, w, idx = _elastic_case(device, source_type, record, free_surface, order, nt=nt,
+                                 edge=True)
+    kind = (source_type, record)
+    seis, tape, finals = ke.escan_forward(*args, w, *idx, *kind, tape=True)
+    gen = torch.Generator(device=device).manual_seed(order + nt)
+    ybar = torch.randn(seis.shape, generator=gen, device=device)
+    g_s, sr_s = ke.escan_reverse(*args, w, ybar, tape, finals, *idx, *kind, variant="split")
+    if nt > 1 or kind != ("pressure", "v"):
+        assert max(float(x.abs().max()) for x in (*g_s, sr_s)) > 0.0
+    for dep in (True, False):
+        g_f, sr_f = ke.escan_reverse(*args, w, ybar, tape, finals, *idx, *kind, variant="fused",
+                                     dependent_launch=dep)
+        for name, a, b in zip(("lam", "lam2mu", "mu_xz", "buoy_x", "buoy_z"), g_f, g_s):
+            assert torch.equal(a, b), (dep, name, float((a - b).abs().max()))
+        assert torch.equal(sr_f, sr_s), dep
+
+
+@pytest.mark.parametrize("free_surface", [False, True])
+@pytest.mark.parametrize("variant", ["fused", "split"])
+def test_escan_reverse_launches_as_planned(device, variant, free_surface):
+    """The elastic library's kernels of one short reverse call in a
+    torch.profiler window: ``reverse_launches`` a step times nt, plus the
+    call's own."""
+    import collections
+    import re
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from tpufwi_torch.kernels import elastic2d_scan as ke
+
+    nt = 12
+    args, w, idx = _elastic_case(device, "force_z", "v", free_surface, 8, nt=nt)
+    seis, tape, finals = ke.escan_forward(*args, w, *idx, "force_z", "v", tape=True)
+    ybar = seis.contiguous()
+
+    def run():
+        ke.escan_reverse(*args, w, ybar, tape, finals, *idx, "force_z", "v", variant=variant)
+        torch.cuda.synchronize()
+
+    run()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        run()
+    ours = collections.Counter(
+        m.group(1) for e in prof.events() if e.device_type == DeviceType.CUDA
+        for m in [re.search(r"::(e[fr]?_\w+?)[<(]", e.name)] if m)
+    assert sum(ours.values()) == ke.reverse_launches(variant, free_surface, nt=nt), ours
 
 
 @pytest.mark.parametrize("shape", [(40, 56), (48, 112)])

@@ -4,13 +4,14 @@ TPU kernel 9) transcribed in plain torch, on the CPU, fp32.
 The CUDA passes ``er_s`` and ``er_v`` (csrc/elastic2d_kernels.cuh) run each
 stage as tiles of ``escan_tile_plan``: a tile computes the dbar values over
 its cells and their R reach, writes only its own cells, reads the dual
-memories from one set and writes them to the other (ping-pong), and the
-passes run ahead of the ring impose and the images. ``fused_walk`` runs
-that walk with the plain version's own functions (the step twin's
-``update_s`` / ``update_v`` through ``torch.func.vjp``, the
-reconstruction, the sources, the images, the ring impose) on each tile's
-window, the tiles in turn and in place, so a tile that read what an earlier
-one wrote would show. Per-cell torch arithmetic does not depend on the
+memories from one set and writes them to the other (ping-pong), and runs
+the step's glue (receivers, sources, ring impose) at its own cells, while
+the images run in launches of their own. ``fused_walk`` runs that walk
+with the plain version's own functions (the step twin's ``update_s`` /
+``update_v`` through ``torch.func.vjp``, the reconstruction, the sources,
+the images, the ring impose) on each tile's window, the tiles in turn and
+in place, so a tile that read what an earlier one wrote, or glue out of
+the split step's order, would show. Per-cell torch arithmetic does not depend on the
 window, so the walk must equal ``escan_reverse_plain`` bitwise; and through
 the port's engine it must agree with the reference (the jnp engine, and the
 whole-scan engine in interpret mode) within test_torch_elastic_scan.py's
@@ -48,15 +49,22 @@ def _one_thread():
 
 def fused_walk(grid, dt, mats, profiles, wavelet, ybar, tape, finals, src_idx, rcv_idx,
                source_type="pressure", record="v", plan=None, ping_pong=True):
-    """The fused reverse's walk (``escan_reverse_plain``'s contract): per
-    step the prologue (receiver injection, stress-image transpose,
-    source-point cotangent, source undone), er_s tile by tile, the stress
-    rings imposed, the stress image and the velocity-image transpose, er_v
-    tile by tile, the velocity rings imposed and the velocity image. Each
-    tile reads its window (its cells and their R reach, clipped to the
-    grid) of the current fields and writes its own cells in place; the
-    duals are read from one set and written to the other, swapped each step
-    (``ping_pong=False``: one set, updated in place)."""
+    """The fused reverse's walk (``escan_reverse_plain``'s contract), the
+    step's glue where the CUDA passes run it. Once a call, ``er_setup``'s
+    glue of step nt-1 (a force source undone, the p receivers' cotangents)
+    and, with the free surface, that step's stress-image transpose. Per
+    step t: er_s tile by tile, each tile's glue at its own cells before and
+    after its cells' update (the v receivers' cotangents, the source-point
+    cotangent, a pressure source undone; the stress rings); the stress
+    image and the velocity-image transpose; er_v tile by tile (the velocity
+    rings; for step t-1 a force source undone off the velocity image's rows
+    and the p receivers' cotangents); the velocity image and, for step
+    t-1, the stress-image transpose and a force source undone on the
+    image's rows (``er_image_tail``). Each tile reads its window (its cells
+    and their R reach, clipped to the grid) of the current fields and
+    writes its own cells in place; the duals are read from one set and
+    written to the other, swapped each step (``ping_pong=False``: one set,
+    updated in place)."""
     params = ke._params(grid, mats, profiles, src_idx, rcv_idx)
     no_src = params._replace(src_idx=src_idx[:0])
     step = make_elastic_step(grid, dt, source_type, record)
@@ -68,6 +76,7 @@ def fused_walk(grid, dt, mats, profiles, wavelet, ybar, tape, finals, src_idx, r
     dtype, dev = mats[0].dtype, mats[0].device
     ring_idx = ring_plan(grid, dev)[0]
     n = ring_idx.shape[0]
+    force = source_type == "force_z"
 
     def zeros():
         return torch.zeros((NZ, NX), dtype=dtype, device=dev)
@@ -80,6 +89,36 @@ def fused_walk(grid, dt, mats, profiles, wavelet, ybar, tape, finals, src_idx, r
     srcrow = torch.empty((nt, src_idx.shape[0]), dtype=dtype, device=dev)
     rz, rx = rcv_idx[:, 0], rcv_idx[:, 1]
     sz, sx = src_idx[:, 0], src_idx[:, 1]
+    ring_z, ring_x = ring_idx // NX, ring_idx % NX
+    everywhere = (0, NZ, 0, NX)
+
+    def inside(z, x, tile):
+        z0, z1, x0, x1 = tile
+        return (z >= z0) & (z < z1) & (x >= x0) & (x < x1)
+
+    def undo(sel, t):
+        """The sources ``sel`` of step t undone on the primal."""
+        p = params._replace(src_idx=src_idx[sel])
+        f[1], f[2], f[3] = inject_sources(f[1], f[2], f[3], p, wavelet[t], dt, source_type,
+                                          sign=-1.0)
+
+    def inject(sel, t):
+        """The cotangents of ybar row t of the receivers ``sel``."""
+        at = (rz[sel], rx[sel])
+        if record == "v":
+            cb[1] = cb[1].index_put(at, ybar[t][:, 0][sel], accumulate=True)
+            cb[0] = cb[0].index_put(at, ybar[t][:, 1][sel], accumulate=True)
+        else:
+            cb[2] = cb[2].index_put(at, (-0.5 * ybar[t])[sel], accumulate=True)
+            cb[3] = cb[3].index_put(at, (-0.5 * ybar[t])[sel], accumulate=True)
+
+    def impose(first, count, row, tile):
+        """The ring cells inside ``tile`` of fields first .. first+count-1."""
+        sel = inside(ring_z, ring_x, tile)
+        for j in range(first, first + count):
+            flat = f[j].reshape(-1).clone()
+            flat[ring_idx[sel]] = 0.0 if row is None else row[j * n:(j + 1) * n][sel]
+            f[j] = flat.reshape(NZ, NX)
 
     def window(z0, z1, x0, x1):
         wz, wx = slice(max(0, z0 - R), min(NZ, z1 + R)), slice(max(0, x0 - R), min(NX, x1 + R))
@@ -90,28 +129,28 @@ def fused_walk(grid, dt, mats, profiles, wavelet, ybar, tape, finals, src_idx, r
                             bx=no_src.bx[:, wx])
         return (lambda a: a[wz, wx]), own, (slice(z0, z1), slice(x0, x1)), p
 
+    # er_setup, and the first step's stress-image transpose
+    if force:
+        undo(inside(sz, sx, everywhere), nt - 1)
+    if record == "p":
+        inject(inside(rz, rx, everywhere), nt - 1)
+    if image is not None:
+        cb[3], cb[4] = image.s_t(cb[3], cb[4])
     for t in reversed(range(nt)):
         k = (nt - 1 - t) % 2 if ping_pong else 0
         din, dout = duals[k], duals[1 - k] if ping_pong else duals[k]
         row = tape[t - 1] if t >= 1 else None
         w_t = wavelet[t]
-        # prologue
-        vxb, vzb, sxxb, szzb, sxzb = cb
-        if record == "v":
-            vzb = vzb.index_put((rz, rx), ybar[t][:, 0], accumulate=True)
-            vxb = vxb.index_put((rz, rx), ybar[t][:, 1], accumulate=True)
-        else:
-            sxxb = sxxb.index_put((rz, rx), -0.5 * ybar[t], accumulate=True)
-            szzb = szzb.index_put((rz, rx), -0.5 * ybar[t], accumulate=True)
-        if image is not None:
-            szzb, sxzb = image.s_t(szzb, sxzb)
-        cb = [vxb, vzb, sxxb, szzb, sxzb]
-        srcrow[t] = vzb[sz, sx] if source_type == "force_z" else (sxxb + szzb)[sz, sx]
-        f[1], f[2], f[3] = inject_sources(f[1], f[2], f[3], params, w_t, dt, source_type,
-                                          sign=-1.0)
         # er_s
         for tile in tiles:
             W, own, cells, p = window(*tile)
+            if record == "v":
+                inject(inside(rz, rx, tile), t)
+            here = inside(sz, sx, tile)
+            srcrow[t, here] = (cb[1][sz[here], sx[here]] if force
+                               else cb[2][sz[here], sx[here]] + cb[3][sz[here], sx[here]])
+            if not force:
+                undo(here, t)
             vx, vz, sxx, szz, sxz = (W(a) for a in f)
             _, _, *sig = recon_stress(vx, vz, sxx, szz, sxz, p, w_t)
             z = torch.zeros_like(vx)
@@ -126,12 +165,12 @@ def fused_walk(grid, dt, mats, profiles, wavelet, ybar, tape, finals, src_idx, r
             for j in range(3):
                 f[2 + j][cells] = sig[j][own]
                 g[j][cells] = g[j][cells] + gm[j][own]
+            impose(2, 3, row, tile)
             cb[0][cells] = cb[0][cells] + vxb_s[own]
             cb[1][cells] = cb[1][cells] + vzb_s[own]
             for j in range(4):
                 dout[j][cells] = dual_s[j][own]
-        f[2:5] = ke.impose_rings(f[2:5], ring_idx, None if row is None else row[2 * n:])
-        if image is not None:
+        if image is not None:  # er_image_mid
             f[3], f[4] = image.s(f[3], f[4])
             cb[0], cb[1] = image.v_t(cb[0], cb[1])
         # er_v
@@ -149,23 +188,39 @@ def fused_walk(grid, dt, mats, profiles, wavelet, ybar, tape, finals, src_idx, r
             *sb_v, dual_v, gbx, gbz = pull((W(cb[0]), W(cb[1]), tuple(W(d) for d in din[4:])))
             for j in range(2):
                 f[j][cells] = vel[j][own]
+            impose(0, 2, row, tile)
+            if force and t >= 1:
+                here = inside(sz, sx, tile)
+                if image is not None:
+                    here &= (sz < grid.pad - R) | (sz >= grid.pad + R)
+                undo(here, t - 1)
             for j in range(3):
                 cb[2 + j][cells] = cb[2 + j][cells] + sb_v[j][own]
+            if record == "p" and t >= 1:
+                inject(inside(rz, rx, tile), t - 1)
             g[3][cells] = g[3][cells] + gbx[own]
             g[4][cells] = g[4][cells] + gbz[own]
             for j in range(4):
                 dout[4 + j][cells] = dual_v[j][own]
-        f[0:2] = ke.impose_rings(f[0:2], ring_idx, None if row is None else row[: 2 * n])
-        if image is not None:
+        if image is not None:  # er_image_tail
             f[0], f[1] = image.v(f[0], f[1])
+            if t >= 1:
+                cb[3], cb[4] = image.s_t(cb[3], cb[4])
+                if force:
+                    undo((sz >= grid.pad - R) & (sz < grid.pad + R), t - 1)
     return tuple(g), srcrow
 
 
-def _case(order, source_type, record, free_surface, nt, shape=(40, 50), pml=8, seed=0):
+def _case(order, source_type, record, free_surface, nt, shape=(40, 50), pml=8, seed=0,
+          edge=False):
     """A random model on a ragged padded grid (neither axis a multiple of
     the 16 x 64 tile), a surface source and a deeper one, a receiver line
     at depth 2 with a coinciding pair; the plain forward's tape and final
-    fields and a random receiver cotangent, all made from ``seed``."""
+    fields and a random receiver cotangent, all made from ``seed``. With
+    ``edge`` the first source sits on the top ring row (the free surface's
+    row, so on the velocity image's rows) with a second source and three
+    receivers on its cell, and one more receiver on the bottom-left ring
+    corner."""
     grid = Grid(shape=shape, h=(10.0, 12.0), pml=pml, order=order, free_surface=free_surface)
     rng = np.random.default_rng(seed + order)
     vp = np.clip(2300 + 150 * rng.standard_normal(shape), 2000, 2600)
@@ -180,6 +235,10 @@ def _case(order, source_type, record, free_surface, nt, shape=(40, 50), pml=8, s
     src = torch.as_tensor(np.array([[2, 20], [shape[0] // 2, shape[1] // 3]]) + grid.pad)
     rx = np.arange(3, shape[1] - 3, 3)
     rcv = np.concatenate([np.stack([np.full(rx.size, 2), rx], 1), [[2, 3], [shape[0] - 5, 7]]])
+    if edge:
+        top = [0, 20]
+        src = torch.as_tensor(np.array([top, [shape[0] // 2, shape[1] // 3], top]) + grid.pad)
+        rcv = np.concatenate([[top], rcv, [top, [shape[0] - 1, 0], top]])
     rcv = torch.as_tensor(rcv + grid.pad)
     w = torch.as_tensor(ricker_np(14.0, dt, nt, t0=0.02), dtype=torch.float32)
     args = (grid, dt, mats, prof)
@@ -291,11 +350,35 @@ def test_tile_plan_covers_every_cell_once(order, shape, pml):
     assert set(cells) == cross
 
 
+@pytest.mark.parametrize("nt", [1, 2, 5])
+@pytest.mark.parametrize("free_surface", [False, True])
+@pytest.mark.parametrize("source_type,record", KINDS)
+def test_fused_walk_edge_cases_bitwise(nt, source_type, record, free_surface):
+    """The glue's edge cases, the walk bitwise against the plain reverse:
+    nt 1 and 2 (er_setup's step, the zero ring row at t = 0), two sources
+    and three receivers on one cell (the chains' order), sources and
+    receivers on ring cells, a source on the free surface's row (the tail
+    undoes it there)."""
+    args, w, ybar, tape, finals, idx = _case(4, source_type, record, free_surface, nt=nt,
+                                             edge=True)
+    kind = (source_type, record)
+    g_p, sr_p = ke.escan_reverse_plain(*args, w, ybar, tape, finals, *idx, *kind)
+    g_f, sr_f = fused_walk(*args, w, ybar, tape, finals, *idx, *kind)
+    assert float(sr_p.abs().max()) > 0.0
+    for name, a, b in zip(NAMES, g_f, g_p):
+        assert torch.equal(a, b), (name, float((a - b).abs().max()))
+    assert torch.equal(sr_f, sr_p)
+
+
 def test_reverse_launches_and_variants():
-    """At most 6 launches a fused reverse step without the free surface and
-    9 with it; the wrapper rejects an unknown variant on any device."""
-    assert ke.reverse_launches("fused", False) <= 6 and ke.reverse_launches("fused", True) <= 9
-    assert ke.reverse_launches("split", False) == 8 and ke.reverse_launches("split", True) == 12
+    """2 launches a fused reverse step and 4 with the free surface (its
+    images pair cells of different tiles), plus er_setup a call and with
+    the free surface the first step's stress-image transpose; the wrapper
+    rejects an unknown variant on any device."""
+    assert [ke.reverse_launches("fused", fs) for fs in (False, True)] == [2, 4]
+    assert [ke.reverse_launches("split", fs) for fs in (False, True)] == [8, 12]
+    assert [ke.reverse_launches("fused", fs, nt=10) for fs in (False, True)] == [21, 42]
+    assert [ke.reverse_launches("split", fs, nt=10) for fs in (False, True)] == [81, 121]
     args, w, ybar, tape, finals, idx = _case(4, "force_z", "v", False, nt=4)
     with pytest.raises(ValueError, match="variant"):
         ke.escan_reverse(*args, w, ybar, tape, finals, *idx, "force_z", "v", variant="tiled")

@@ -330,16 +330,18 @@ __global__ void e_image_s(EFields f, int NX, int fs) {
 }
 
 template <int R>
-__global__ void e_image_v(EFields f, int NX, int fs) {
-  dep_wait();
-  dep_trigger();
-  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= R * NX) return;
+__device__ __forceinline__ void e_image_v_cell(EFields f, int NX, int fs, int idx) {
   const int k = idx / NX, x = idx - k * NX;
   const int ld = NX + 2 * R;
   const int col = x + R;
   f.vx[(fs - 1 - k + R) * ld + col] = f.vx[(fs + 1 + k + R) * ld + col];
   f.vz[(fs - 1 - k + R) * ld + col] = f.vz[(fs + k + R) * ld + col];
+}
+
+template <int R>
+__global__ void e_image_v(EFields f, int NX, int fs) {
+  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx < R * NX) e_image_v_cell<R>(f, NX, fs, idx);
 }
 
 // receivers into seis row t, then the five fields' rings into ring_row
@@ -690,7 +692,10 @@ __global__ void er_v2(EFields cb, EFields q, int NZ, int NX, ETaps tp) {
 // since a tile's reach reads the old duals of cells that their own tile
 // updates in the same launch. Every global load of a thread, its own
 // cells' read-modify-write operands included, is issued before the block's
-// one barrier; after it the pass reads only shared memory and registers.
+// one barrier; after it the pass reads only shared memory and registers,
+// except in a tile whose flag word says it holds a source, receiver or
+// ring cell: that tile's owner threads run the step's glue (ERevGlue)
+// through the maps, each at its own cell and in the split step's order.
 
 constexpr int kFRows = 8;          // threads along z
 constexpr int kFTZ = 16, kFTX = 32;  // the tile escan_reverse runs
@@ -725,10 +730,56 @@ constexpr int fused_smem(int planes) {
   return planes * FTile<R, TZ, TX>::N * (int)sizeof(float);
 }
 
+// The glue of fused reverse step t that er_s and er_v run in the owner
+// thread of each cell, through the maps of the reverse's tiles (m, built
+// by er_setup): er_s the v receivers' cotangents of ybar row t, the
+// source-point cotangent into srcrow row t, a pressure source undone, and
+// the stress rings of row (tape row t-1; zeros when null) imposed; er_v the
+// velocity rings imposed and, for step t-1, a force source undone (with
+// the free surface not on the velocity image's rows: er_image_tail's) and
+// the p receivers' cotangents of ybar row t-1.
+struct ERevGlue {
+  SMaps m;
+  const float *w, *ybar, *row;
+  float* srcrow;
+  int t, nsrc, nrec, n_ring, fs, force, rec_v;
+};
+
+// the cotangents of ybar row t of the receivers at compact cell c, summed
+// along their chain in index order (er_inject_rows' sums): (vz, vx) into
+// s0, s1 for a v record, else into s0; false where no receiver sits
+__device__ __forceinline__ bool er_rec_sum(const ERevGlue& gl, int c, int t, float& s0,
+                                           float& s1) {
+  const int r = gl.m.rmap[c] - 1;
+  if (r < 0) return false;
+  if (gl.rec_v) {
+    const float* yb = gl.ybar + 2 * (size_t)t * gl.nrec;
+    s0 = yb[2 * r], s1 = yb[2 * r + 1];
+    for (int n = gl.m.rnext[r]; n >= 0; n = gl.m.rnext[n]) {
+      s0 += yb[2 * n];
+      s1 += yb[2 * n + 1];
+    }
+  } else {
+    const float* yb = gl.ybar + (size_t)t * gl.nrec;
+    s0 = yb[r];
+    for (int n = gl.m.rnext[r]; n >= 0; n = gl.m.rnext[n]) s0 += yb[n];
+  }
+  return true;
+}
+
+// the force sources of step t at compact cell c undone on its vz (bzc: bz
+// there), serially in index order as e_src_apply
+__device__ __forceinline__ void er_undo_force(const ERevGlue& gl, int c, int t, float bzc,
+                                              float dt, float& vz) {
+  float unused = 0.f;
+  for (int k = gl.m.smap[c] - 1; k >= 0; k = gl.m.snext[k])
+    e_src_cell(vz, unused, unused, bzc, gl.w[t], dt, 1, -1.f);
+}
+
 template <int R, int TZ, int TX>
 __global__ void __launch_bounds__(TX * kFRows, 1024 / (TX * kFRows))
     er_s(EFields f, EFields cb, const float* din, float* dout, float* __restrict__ g, EMats mt,
-         EProf pr, int NZ, int NX, int S, ETaps tp) {
+         EProf pr, int NZ, int NX, int S, ETaps tp, ERevGlue gl) {
   dep_wait();
   dep_trigger();
   using T = FTile<R, TZ, TX>;
@@ -783,18 +834,37 @@ __global__ void __launch_bounds__(TX * kFRows, 1024 / (TX * kFRows))
     }
     qexx[s] = qv[0], qezz[s] = qv[1], qhz[s] = qv[2], qhx[s] = qv[3];
   }
+  const int fl = gl.m.flags[blockIdx.y * gridDim.x + blockIdx.x];
   __syncthreads();
 #pragma unroll
   for (int j = 0; j < P; ++j) {
     const int rz = R + threadIdx.y + j * kFRows, z = z0 + rz - R;
     if (z >= NZ || x >= NX) continue;
     const int s = rz * T::W + threadIdx.x + R, c = z * NX + x, i = (z + R) * ld + x + R;
+    if ((fl & 2) && gl.rec_v) {  // the receivers' cotangents
+      float s0, s1 = 0.f;
+      if (er_rec_sum(gl, c, gl.t, s0, s1)) vzb[j] += s0, vxb[j] += s1;
+    }
+    if (fl & 1)  // the source-point cotangent; a pressure source undone
+      for (int k = gl.m.smap[c] - 1; k >= 0; k = gl.m.snext[k]) {
+        gl.srcrow[(size_t)gl.t * gl.nsrc + k] = gl.force ? vzb[j] : sb[j] + zb[j];
+        float unused = 0.f;
+        if (!gl.force) e_src_cell(unused, sxx[j], szz[j], 0.f, gl.w[gl.t], dt, 0, -1.f);
+      }
     const float exx = dminus<R>(svx, s, 1, tp.x);
     const float ezz = dminus<R>(svz, s, T::W, tp.z);
     const float hz = dplus<R>(svx, s, T::W, tp.z);
     const float hx = dplus<R>(svz, s, 1, tp.x);
     rs_cell(exx, ezz, hz, hx, sb[j], zb[j], xb[j], lam[j], l2m[j], mu[j], e_strip(x, NX, S),
             e_strip(z, NZ, S), pr, dt, sxx[j], szz[j], sxz[j], g0[j], g1[j], g2[j]);
+    if (fl & 4) {  // the stress rings
+      const int q = gl.m.gmap[c] - 1, n = gl.n_ring;
+      if (q >= 0) {
+        sxx[j] = gl.row ? gl.row[2 * n + q] : 0.f;
+        szz[j] = gl.row ? gl.row[3 * n + q] : 0.f;
+        sxz[j] = gl.row ? gl.row[4 * n + q] : 0.f;
+      }
+    }
     rs_trans<R>(qexx, qezz, qhz, qhx, s, T::W, tp, vxb[j], vzb[j]);
     f.sxx[i] = sxx[j], f.szz[i] = szz[j], f.sxz[i] = sxz[j];
     g[c] = g0[j], g[pl + c] = g1[j], g[2 * pl + c] = g2[j];
@@ -805,7 +875,7 @@ __global__ void __launch_bounds__(TX * kFRows, 1024 / (TX * kFRows))
 template <int R, int TZ, int TX>
 __global__ void __launch_bounds__(TX * kFRows, 1024 / (TX * kFRows))
     er_v(EFields f, EFields cb, const float* din, float* dout, float* __restrict__ g, EMats mt,
-         EProf pr, int NZ, int NX, int S, ETaps tp) {
+         EProf pr, int NZ, int NX, int S, ETaps tp, ERevGlue gl) {
   dep_wait();
   dep_trigger();
   using T = FTile<R, TZ, TX>;
@@ -861,6 +931,7 @@ __global__ void __launch_bounds__(TX * kFRows, 1024 / (TX * kFRows))
     }
     q1[s] = qv[0], q2[s] = qv[1], q3[s] = qv[2], q4[s] = qv[3];
   }
+  const int fl = gl.m.flags[blockIdx.y * gridDim.x + blockIdx.x];
   __syncthreads();
 #pragma unroll
   for (int j = 0; j < P; ++j) {
@@ -873,7 +944,21 @@ __global__ void __launch_bounds__(TX * kFRows, 1024 / (TX * kFRows))
     const float b2 = dplus<R>(sszz, s, T::W, tp.z);
     rv_cell(a1, a2, b1, b2, vb[j], wb[j], bxm[j], bzm[j], e_strip(x, NX, S), e_strip(z, NZ, S),
             pr, dt, vx[j], vz[j], g3[j], g4[j]);
+    if (fl & 4) {  // the velocity rings
+      const int q = gl.m.gmap[c] - 1;
+      if (q >= 0) {
+        vx[j] = gl.row ? gl.row[q] : 0.f;
+        vz[j] = gl.row ? gl.row[gl.n_ring + q] : 0.f;
+      }
+    }
+    // step t-1's force source (on the image's rows, er_image_tail's)
+    if ((fl & 1) && gl.force && gl.t >= 1 && (gl.fs < 0 || z < gl.fs - R || z >= gl.fs + R))
+      er_undo_force(gl, c, gl.t - 1, bzm[j], dt, vz[j]);
     rv_trans<R>(q1, q2, q3, q4, s, T::W, tp, sxxb[j], szzb[j], sxzb[j]);
+    if ((fl & 2) && !gl.rec_v && gl.t >= 1) {  // step t-1's receivers' cotangents
+      float s0, s1 = 0.f;
+      if (er_rec_sum(gl, c, gl.t - 1, s0, s1)) sxxb[j] += -0.5f * s0, szzb[j] += -0.5f * s0;
+    }
     f.vx[i] = vx[j], f.vz[i] = vz[j];
     g[3 * pl + c] = g3[j], g[4 * pl + c] = g4[j];
     cb.sxx[c] = sxxb[j], cb.szz[c] = szzb[j], cb.sxz[c] = sxzb[j];
@@ -1096,29 +1181,45 @@ __global__ void ef_setup(const long long* __restrict__ src, int nsrc,
   if (k < nsrc) atomicOr(&vflags[((int)src[2 * k] / kEVY) * vnx + (int)src[2 * k + 1] / kEVX], 1);
 }
 
-// The fused step's glue. The prologue, one block: the receiver-cotangent
-// injection, the stress-image transpose, then the source-point cotangent
-// and the source undone (thread 0), each phase after a barrier.
-constexpr int kProThreads = 1024;
+// the entry after j of a (n entries) at j's cell (-1: none)
+__device__ __forceinline__ int next_at(const long long* __restrict__ a, int n, int j) {
+  for (int q = j + 1; q < n; ++q)
+    if (same_cell(a, q, j)) return q;
+  return -1;
+}
 
-template <int R>
-__global__ void __launch_bounds__(kProThreads) er_prologue(
-    EFields f, EFields cb, const float* __restrict__ ybar, int t,
-    const long long* __restrict__ rcv, const int* __restrict__ chain, int nrec, int rec_v,
-    const float* __restrict__ bzm, const float* __restrict__ w,
-    const long long* __restrict__ src, int nsrc, float* __restrict__ srcrow, int NX, float dt,
-    int force, int fs) {
-  dep_wait();
-  dep_trigger();
-  er_inject_rows(cb, ybar, t, rcv, chain, nrec, NX, rec_v, threadIdx.x, kProThreads);
-  if (fs >= 0) {
-    __syncthreads();
-#pragma unroll 4
-    for (int idx = threadIdx.x; idx < R * NX; idx += kProThreads)
-      er_image_s_t_cell<R>(cb, NX, fs, idx);
+// The fused reverse's set-up, once a call: the maps of its tiles (TZ x TX,
+// unshifted, ntx a row; cell_map_entry, one thread per source, receiver and
+// ring cell), and the glue of step t = nt-1 that er_v of a step after it
+// would run: a force source undone and the p receivers' cotangents of
+// ybar row t, by the first entry of each cell along its chain in index
+// order.
+__global__ void er_setup(const long long* __restrict__ src, int nsrc,
+                         const long long* __restrict__ rcv, int nrec,
+                         const int* __restrict__ ring, int n_ring, int NX, int R, int tz, int tx,
+                         int ntx, SMaps m, EFields f, EFields cb, const float* __restrict__ bzm,
+                         const float* __restrict__ w, const float* __restrict__ ybar, int t,
+                         float dt, int force, int rec_v) {
+  const int k = blockIdx.x * blockDim.x + threadIdx.x;
+  cell_map_entry(k, src, nsrc, rcv, nrec, ring, n_ring, NX, tz, tx, ntx, 0, m);
+  int next;
+  if (k < nsrc) {
+    if (!force || !chain_at(src, nsrc, k, next)) return;
+    const int z = (int)src[2 * k], x = (int)src[2 * k + 1];
+    float* vz = f.vz + (z + R) * (NX + 2 * R) + x + R;
+    float unused = 0.f;
+    for (int j = k; j >= 0; j = next_at(src, nsrc, j))
+      e_src_cell(*vz, unused, unused, bzm[z * NX + x], w[t], dt, 1, -1.f);
+  } else if (k < nsrc + nrec && !rec_v) {
+    const int r = k - nsrc;
+    if (!chain_at(rcv, nrec, r, next)) return;
+    const float* yb = ybar + (size_t)t * nrec;
+    float s = yb[r];
+    for (int n = next; n >= 0; n = next_at(rcv, nrec, n)) s += yb[n];
+    const int c = (int)rcv[2 * r] * NX + (int)rcv[2 * r + 1];
+    cb.sxx[c] += -0.5f * s;
+    cb.szz[c] += -0.5f * s;
   }
-  __syncthreads();
-  if (threadIdx.x == 0) er_src_cells(f, cb, bzm, w, t, src, nsrc, srcrow, NX, R, dt, force);
 }
 
 // between the fused passes, with the free surface: the stress image of
@@ -1133,12 +1234,35 @@ __global__ void er_image_mid(EFields f, EFields cb, int NX, int fs) {
   if (idx < R * NX) er_image_v_t_cell<R>(cb, NX, fs, idx);
 }
 
+// after er_v of step t, with the free surface: the velocity image of the
+// primal, then for step t-1 the stress-image transpose of the cotangents
+// and a force source undone on the image's vz rows fs-R .. fs+R-1, which
+// er_v leaves to it (the split step undoes it after the image). Thread
+// idx < R NX owns ghost row fs-1-k and its vz mirror fs+k, column x.
+template <int R>
+__global__ void er_image_tail(EFields f, EFields cb, ERevGlue gl, const float* __restrict__ bzm,
+                              int NX, float dt) {
+  dep_wait();
+  dep_trigger();
+  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= R * NX) return;
+  const int fs = gl.fs;
+  e_image_v_cell<R>(f, NX, fs, idx);
+  if (gl.t < 1) return;
+  er_image_s_t_cell<R>(cb, NX, fs, idx);
+  if (!gl.force) return;
+  const int k = idx / NX, x = idx - k * NX;
+  for (int e = 0; e < 2; ++e) {
+    const int z = e ? fs + k : fs - 1 - k;
+    er_undo_force(gl, z * NX + x, gl.t - 1, bzm[z * NX + x], dt,
+                  f.vz[(z + R) * (NX + 2 * R) + x + R]);
+  }
+}
+
 // nf consecutive ring rows (n_ring cells each) imposed on fields a, b, c
 // (the first nf of them), from row or zeros when row is null
 __global__ void e_impose(float* a, float* b, float* c, int nf, const int* __restrict__ ring,
                          const float* __restrict__ row, int n_ring, int NX, int R) {
-  dep_wait();
-  dep_trigger();
   const int k = blockIdx.x * blockDim.x + threadIdx.x;
   if (k >= nf * n_ring) return;
   const int fi = k / n_ring;
@@ -1274,39 +1398,35 @@ inline int fused_check_plan(const EPlan& plan) {
   return (int)e;
 }
 
-// Reverse step t on the fused passes: the prologue (injection, stress-image
-// transpose, source-point cotangent and source undone), er_s, the stress
-// rings imposed, with the free surface the stress image and the
-// velocity-image transpose, er_v, the velocity rings imposed and re-imaged:
-// 5 launches, 7 with the free surface. er_s and er_v run ahead of the
-// impose and image launches that the split step runs between its passes:
-// those write only the primal fields (the mid image also the velocity
-// cotangents, which er_s writes before it and er_v reads after it), and
-// the second passes read only dbar planes. din / dout: the 8 dual planes
-// read and written, swapped by the caller each step. dep: each launch a
-// programmatic dependent of the one before it (launch_dep).
+// Reverse step t on the fused passes, the glue in their owner threads
+// (ERevGlue, whose t is this step): er_s then er_v, 2 launches; with the
+// free surface 4: er_image_mid between them and er_image_tail after er_v
+// (the images and their transposes pair cells of different tiles). A call
+// runs er_setup, and with the free surface the first step's stress-image
+// transpose, before its first step (reverse_loop). er_s and er_v run
+// ahead of the image launches that the split step runs between its passes:
+// those write only the primal fields and the cotangents that the next pass
+// reads after them, and the second passes read only dbar planes. din /
+// dout: the 8 dual planes read and written, swapped by the caller each
+// step. dep: each launch a programmatic dependent of the one before it
+// (launch_dep).
 template <int R, int TZ, int TX>
 void estage_rfused(EFields f, EFields cb, const float* din, float* dout, float* g, EMats mt,
-                   EProf pr, const float* w, const float* ybar, int t, const long long* src,
-                   int nsrc, const long long* rcv, int nrec, const int* chain, float* srcrow,
-                   const int* ring, const float* ring_row, int n_ring, int NZ, int NX, int S,
-                   int fs, int force, int rec_v, const ETaps& tp, int dep, cudaStream_t st) {
+                   EProf pr, const ERevGlue& gl, int NZ, int NX, int S, const ETaps& tp, int dep,
+                   cudaStream_t st) {
   const size_t pl = (size_t)NZ * NX;
   const dim3 grid((NX + TX - 1) / TX, (NZ + TZ - 1) / TZ), block(TX, kFRows);
   const dim3 small(kESmallBlock);
-  launch_dep(dep, er_prologue<R>, dim3(1), dim3(kProThreads), 0, st, f, cb, ybar, t, rcv,
-             chain, nrec, rec_v, mt.bz, w, src, nsrc, srcrow, NX, tp.dt, force, fs);
   launch_dep(dep, er_s<R, TZ, TX>, grid, block, fused_smem<R, TZ, TX>(6), st, f, cb, din,
-             dout, g, mt, pr, NZ, NX, S, tp);
-  launch_dep(dep, e_impose, dim3(e_blocks(3 * n_ring)), small, 0, st, f.sxx, f.szz, f.sxz, 3,
-             ring, ring_row ? ring_row + 2 * n_ring : nullptr, n_ring, NX, R);
-  if (fs >= 0)
-    launch_dep(dep, er_image_mid<R>, dim3(e_blocks((R + 1) * NX)), small, 0, st, f, cb, NX, fs);
+             dout, g, mt, pr, NZ, NX, S, tp, gl);
+  if (gl.fs >= 0)
+    launch_dep(dep, er_image_mid<R>, dim3(e_blocks((R + 1) * NX)), small, 0, st, f, cb, NX,
+               gl.fs);
   launch_dep(dep, er_v<R, TZ, TX>, grid, block, fused_smem<R, TZ, TX>(7), st, f, cb,
-             din + 4 * pl, dout + 4 * pl, g, mt, pr, NZ, NX, S, tp);
-  launch_dep(dep, e_impose, dim3(e_blocks(2 * n_ring)), small, 0, st, f.vx, f.vz,
-             (float*)nullptr, 2, ring, ring_row, n_ring, NX, R);
-  if (fs >= 0) launch_dep(dep, e_image_v<R>, dim3(e_blocks(R * NX)), small, 0, st, f, NX, fs);
+             din + 4 * pl, dout + 4 * pl, g, mt, pr, NZ, NX, S, tp, gl);
+  if (gl.fs >= 0)
+    launch_dep(dep, er_image_tail<R>, dim3(e_blocks(R * NX)), small, 0, st, f, cb, gl, mt.bz,
+               NX, tp.dt);
 }
 
 }  // namespace

@@ -38,11 +38,21 @@
 //     each, compute the dbar values over their tile and its R reach and
 //     apply the transposed stencils from shared memory, as the TPU kernel
 //     keeps them in VMEM scratch; no dbar plane in device memory, the dual
-//     planes ping-ponged between two sets. 5 launches per reverse step, 7
-//     with the free surface (estage_rfused), each a programmatic dependent
-//     of the one before it: its launch and block scheduling overlap that
-//     kernel's drain, and it waits for that kernel's memory before it
-//     touches any (dependent launch off: plain stream order).
+//     planes ping-ponged between two sets. The step's glue runs in the
+//     thread that owns each cell, as in ef_s_fused: the receiver
+//     cotangents, the source-point cotangent, the source undone and both
+//     ring imposes (a force source's undo and a pressure receiver's
+//     cotangent, which er_s reads over its reach, in er_v of the step
+//     before, or for the call's first step in er_setup). 2 launches per
+//     reverse step (estage_rfused), 4 with the free surface, whose image
+//     launches pair cells of different tiles (er_image_mid; er_image_tail,
+//     which also takes the stress-image transpose and a force source's
+//     undo on the image's rows); once a call er_setup (the maps) and, with
+//     the free surface, the first step's stress-image transpose. Each
+//     launch of a step is a programmatic dependent of the one before it:
+//     its launch and block scheduling overlap that kernel's drain, and it
+//     waits for that kernel's memory before it touches any (dependent
+//     launch off: plain stream order).
 //   variant 1, split: the per-step engine's passes (er_s1 + er_s2, er_v1 +
 //     er_v2, one thread a cell) with four zero-halo dbar planes in device
 //     memory. 8 launches per reverse step, 12 with the free surface
@@ -118,13 +128,13 @@ int forward_loop(int variant, const EPlan& plan, int dep, EMats mt, EProf pr, co
   return (int)cudaGetLastError();
 }
 
-// variant 0: the fused passes on TZ x TX tiles (the plan must say so); 1:
-// the split passes
+// variant 0: the fused passes on TZ x TX tiles (the plan must say so), iws
+// the zeroed maps; 1: the split passes, iws the receiver chain
 template <int R, int TZ, int TX>
 int reverse_loop(int variant, const EPlan& plan, int dep, EMats mt, EProf pr, const float* w,
                  const float* ybar, const float* ring_tape, const int* ring,
                  const long long* src, const long long* rcv, float* g, float* srcrow, float* ws,
-                 int* chain, int NZ, int NX, int S, int nt, int nsrc, int nrec, int fs,
+                 int* iws, int NZ, int NX, int S, int nt, int nsrc, int nrec, int fs,
                  int n_ring, int force, int rec_v, const ETaps& tp, cudaStream_t st) {
   const size_t hp = (size_t)(NZ + 2 * R) * (NX + 2 * R);
   const size_t pl = (size_t)NZ * NX;
@@ -140,17 +150,26 @@ int reverse_loop(int variant, const EPlan& plan, int dep, EMats mt, EProf pr, co
   float* dual = cbb + 5 * pl;
   float* qb = ws + 5 * hp;
   EFields q{qb, qb + hp, qb + 2 * hp, qb + 3 * hp, nullptr};
-  er_chain<<<e_blocks(nrec), kESmallBlock, 0, st>>>(rcv, nrec, chain);
+  const int ntx = (NX + TX - 1) / TX, ntz = (NZ + TZ - 1) / TZ;
+  const SMaps m = variant == 0 ? carve_maps(iws, NZ, NX, ntx * ntz, nsrc) : SMaps{};
+  if (variant == 0) {
+    er_setup<<<e_blocks(nsrc + nrec + n_ring), kESmallBlock, 0, st>>>(
+        src, nsrc, rcv, nrec, ring, n_ring, NX, R, TZ, TX, ntx, m, f, cb, mt.bz, w, ybar,
+        nt - 1, tp.dt, force, rec_v);
+    if (fs >= 0) er_image_s_t<R><<<e_blocks(R * NX), kESmallBlock, 0, st>>>(cb, NX, fs);
+  } else {
+    er_chain<<<e_blocks(nrec), kESmallBlock, 0, st>>>(rcv, nrec, iws);
+  }
   for (int t = nt - 1; t >= 0; --t) {
     const float* row = t >= 1 ? ring_tape + (size_t)(t - 1) * 5 * n_ring : nullptr;
     if (variant == 0) {
       // two sets of 8 dual planes, swapped each step
       const int k = (nt - 1 - t) & 1;
-      estage_rfused<R, TZ, TX>(f, cb, dual + k * 8 * pl, dual + (1 - k) * 8 * pl, g, mt, pr, w,
-                               ybar, t, src, nsrc, rcv, nrec, chain, srcrow, ring, row, n_ring,
-                               NZ, NX, S, fs, force, rec_v, tp, dep, st);
+      const ERevGlue gl{m, w, ybar, row, srcrow, t, nsrc, nrec, n_ring, fs, force, rec_v};
+      estage_rfused<R, TZ, TX>(f, cb, dual + k * 8 * pl, dual + (1 - k) * 8 * pl, g, mt, pr, gl,
+                               NZ, NX, S, tp, dep, st);
     } else {
-      estage_rs<R>(f, cb, dual, q, g, mt, pr, w, ybar, t, src, nsrc, rcv, nrec, chain, srcrow,
+      estage_rs<R>(f, cb, dual, q, g, mt, pr, w, ybar, t, src, nsrc, rcv, nrec, iws, srcrow,
                    ring, row, n_ring, NZ, NX, S, fs, force, rec_v, tp, st);
       estage_rv<R>(f, cb, dual, q, g, mt, pr, ring, row, n_ring, NZ, NX, S, fs, tp, st);
     }
@@ -195,7 +214,9 @@ int tpufwi_escan_forward(const float* lam, const float* l2m, const float* muxz,
 // variant 1 (split) 4 zeroed halo dbar planes, then 5 zeroed compact
 // cotangent planes and zeroed compact dual planes, 8 (split) or 16 (fused:
 // two sets); g: 5 zeroed compact gradient planes (lam, l2m, muxz, bx, bz);
-// srcrow (nt, nsrc); chain: 2 * nrec ints; ring_tape (nt, 5 n_ring).
+// srcrow (nt, nsrc); iws: variant 0 the zeroed int maps of 3 NZ NX +
+// tiles + nsrc + nrec ints, variant 1 the receiver chain of 2 nrec ints;
+// ring_tape (nt, 5 n_ring).
 // variant 0 (fused) runs on the plan (tz, tx, smem: the tile and the
 // larger pass's shared bytes), which must be the one the library was
 // built for, each launch a programmatic dependent of the one before it
@@ -204,7 +225,7 @@ int tpufwi_escan_reverse(const float* lam, const float* l2m, const float* muxz,
                          const float* bxm, const float* bzm, const float* az, const float* bz,
                          const float* ax, const float* bx, const float* w, const float* ybar,
                          const float* ring_tape, const int* ring, const long long* src,
-                         const long long* rcv, float* g, float* srcrow, float* ws, int* chain,
+                         const long long* rcv, float* g, float* srcrow, float* ws, int* iws,
                          int NZ, int NX, int S, int R, int nt, int nsrc, int nrec, int fs,
                          int n_ring, int force, int rec_v, int variant, int tz, int tx, int smem,
                          int dep, const float* taps, void* stream) {
@@ -216,7 +237,7 @@ int tpufwi_escan_reverse(const float* lam, const float* l2m, const float* muxz,
   // (parenthesised: the template's commas are not the macro's)
   TPUFWI_EDISPATCH_R(R, (reverse_loop<kR, kFTZ, kFTX>(variant, plan, dep, mt, pr, w, ybar,
                                                         ring_tape, ring, src, rcv, g, srcrow, ws,
-                                                        chain, NZ, NX, S, nt, nsrc, nrec, fs,
+                                                        iws, NZ, NX, S, nt, nsrc, nrec, fs,
                                                         n_ring, force, rec_v, tp, st)))
 }
 

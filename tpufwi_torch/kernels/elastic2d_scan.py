@@ -25,9 +25,13 @@ fs - 2R, so the stress image stays inside a tile); a tail launch adds the
 last step's force sources. Its split form runs the per-step engine's stage
 launches. The fused reverse runs one shared-memory tiled kernel per stage,
 which computes the dbar values over its tile and their R reach and applies
-the transposed stencils from shared memory (tile walk ``fused_tiles``);
-its split form runs the per-step engine's two passes per stage with the
-dbar planes in device memory. Both fused forms run on the launch plan
+the transposed stencils from shared memory (tile walk ``fused_tiles``),
+with the step's glue in the thread that owns each cell: the receiver
+cotangents, the source-point cotangent, the source undone and both ring
+imposes (``reverse_launches``: 2 launches a step, 4 with the free surface,
+whose images pair cells of different tiles); its split form runs the
+per-step engine's two passes per stage with the dbar planes in device
+memory. Both fused forms run on the launch plan
 ``escan_tile_plan``, each launch a programmatic dependent of the one
 before unless ``dependent_launch`` is False. The CUDA sources are
 ``csrc/elastic2d_scan.cu`` and
@@ -172,9 +176,18 @@ def forward_launches(variant: str, free_surface: bool) -> int:
     return {"fused": (2, 2), "split": (4, 6)}[variant][int(free_surface)]
 
 
-def reverse_launches(variant: str, free_surface: bool) -> int:
-    """Kernel launches of one reverse step (csrc/elastic2d_scan.cu)."""
-    return {"fused": (5, 7), "split": (8, 12)}[variant][int(free_surface)]
+def reverse_launches(variant: str, free_surface: bool, nt: int | None = None) -> int:
+    """Kernel launches of one reverse step (csrc/elastic2d_scan.cu), or with
+    ``nt`` of a whole call: its steps' and its own, the split variant's
+    ``er_chain`` or the fused one's ``er_setup`` (the cell maps, and the
+    first step's force-source undo and pressure-receiver cotangents), with
+    the free surface also the first step's stress-image transpose. A fused
+    step is ``er_s`` and ``er_v``; with the free surface also
+    ``er_image_mid`` and ``er_image_tail``."""
+    step = {"fused": (2, 4), "split": (8, 12)}[variant][int(free_surface)]
+    if nt is None:
+        return step
+    return nt * step + (1 + int(free_surface) if variant == "fused" else 1)
 
 
 def load_library():
@@ -371,14 +384,15 @@ def _check_variant(name, variant):
         raise ValueError(f"{name}: variant must be one of {VARIANTS}, not {variant!r}")
 
 
-def _maps(grid, plan, shift, nsrc, nrec, dev):
-    """The fused forward's zeroed int maps (``SMaps``: three (NZ, NX) cell
-    maps, a flag word per tile, the source and receiver chains), then a
-    flag word per 32 x 8 block of stage V."""
+def _maps(grid, plan, shift, nsrc, nrec, dev, vblocks=True):
+    """The fused passes' zeroed int maps (``SMaps``: three (NZ, NX) cell
+    maps, a flag word per tile of rows shifted by ``shift``, the source and
+    receiver chains), then for the forward (``vblocks``) a flag word per
+    32 x 8 block of stage V."""
     NZ, NX = grid.padded_shape
     tiles = -(-(NZ + shift) // plan.tz) * -(-NX // plan.tx)
-    vblocks = -(-NZ // 8) * -(-NX // 32)
-    return torch.zeros(3 * NZ * NX + tiles + nsrc + nrec + vblocks, dtype=torch.int32,
+    extra = -(-NZ // 8) * -(-NX // 32) if vblocks else 0
+    return torch.zeros(3 * NZ * NX + tiles + nsrc + nrec + extra, dtype=torch.int32,
                        device=dev)
 
 
@@ -477,7 +491,11 @@ def escan_reverse(grid, dt, mats, profiles, wavelet, ybar, tape, finals, src_idx
         fields[k, R:-R, R:-R] = f
     g = torch.zeros((5, NZ, NX), dtype=torch.float32, device=dev)
     srcrow = torch.empty((nt, nsrc), dtype=torch.float32, device=dev)
-    chain = torch.empty(2 * nrec, dtype=torch.int32, device=dev)
+    plan = escan_tile_plan(grid)
+    # fused: the cell maps of the reverse's unshifted tiles; split: the
+    # receiver chain
+    iws = (_maps(grid, plan, 0, nsrc, nrec, dev, vblocks=False) if variant == "fused"
+           else torch.empty(2 * nrec, dtype=torch.int32, device=dev))
     fs, force, rec_v = _flags(grid, source_type, record)
     with torch.cuda.device(dev), profiling.span(
             "kernels.reverse", device=dev, wrapper="escan_reverse", variant=variant, nt=nt,
@@ -486,9 +504,9 @@ def escan_reverse(grid, dt, mats, profiles, wavelet, ybar, tape, finals, src_idx
             *(m.data_ptr() for m in mats), *(p.data_ptr() for p in profiles),
             wavelet.data_ptr(), ybar.data_ptr(), tape.data_ptr(), ring.data_ptr(),
             src_idx.data_ptr(), rcv_idx.data_ptr(), g.data_ptr(), srcrow.data_ptr(),
-            ws.data_ptr(), chain.data_ptr(),
+            ws.data_ptr(), iws.data_ptr(),
             NZ, NX, S, R, nt, nsrc, nrec, fs, n_ring, force, rec_v,
-            VARIANTS.index(variant), *escan_tile_plan(grid), int(dependent_launch),
+            VARIANTS.index(variant), *plan, int(dependent_launch),
             taps_arg(grid, dt), torch.cuda.current_stream().cuda_stream,
         )
     raise_on(lib, "escan_reverse", err)
