@@ -13,20 +13,21 @@ Phases, each printing its own lines; any failure exits non-zero.
      the card, at the main path's padded grid (399 x 1749), nt = 512, one
      shot: the whole-scan forward (snapshot and ring tapes, illumination),
      the snapshot and rings reverses, and the three single-step kernels
-     step by step; the forward's and the snapshot reverse's fused steps
-     (their default: one shared-memory tiled kernel a step) against their
-     split ones (variant="split") in the same calls, in every forward mode,
-     with dependent launches and in plain stream order, bitwise on every
-     output, with ms a step (CUDA events), host us a step (nt-slope) and
-     torch.profiler's device us and launches a step;
+     step by step; the whole-scan kernels' fused steps (one shared-memory
+     tiled kernel a step), with dependent launches and in plain stream
+     order, against their per-step oracles (the single-step engine's passes
+     a step at a time) in the same calls, in every forward mode, bitwise on
+     every output, with ms a step (CUDA events), host us a step (nt-slope)
+     and torch.profiler's device us and launches a step;
      then (phase_kstep_kernels) the K-step forward and reverse (K = 4), the
      merged reverse step and the bare leapfrog, each fed its plain
      version's state, with a free-surface case at nt = 128; ms per call and
      per step (CUDA events), host ms per call, device ms (torch.profiler)
   4. shot: one shot's forward + adjoint and illumination at nt = 4842 (the
      illumination on the forward kernel, beside its plain version); the
-     snapshot forward + adjoint and the illumination also on the split
-     steps, the gradient bitwise against the fused steps' one
+     snapshot and rings forward + adjoint and the illumination also on the
+     per-step oracles, bitwise against the fused steps' gradients and
+     illumination
   5. gradients: one shot at nt = 4842 through the CUDA engines:
      cuda_scanres against cuda_scansnap, cuda_step against cuda_scanres,
      cuda_kstep against cuda_step and the merged cuda_step against the
@@ -52,11 +53,11 @@ Phases, each printing its own lines; any failure exits non-zero.
      tape) and escan_reverse against their plain versions at the elastic
      main path's grid (399 x 1749 padded), order 8, force_z source, v
      record, nt = 512; and a pressure / p-record free-surface case, nt = 128;
-     at both, escan_reverse's fused passes (the default; also launched in
-     plain stream order) and its split ones (variant="split") in the same
-     calls, bitwise against each other, with each one's ms per step (CUDA
-     events) and host ms per call, and torch.profiler's device us and
-     launches per step of each pass
+     at both, escan_forward and escan_reverse (also launched in plain
+     stream order) and their per-step oracles (estep_forward,
+     estep_reverse) in the same calls, bitwise against each other, with
+     each one's ms per step (CUDA events) and host ms per call, and
+     torch.profiler's device us and launches per step of each pass
   9. elastic shot: one shot's forward and value-and-grad on cuda_escan at
      nt = 4885, its ring-tape bytes and peak memory
  10. elastic per-step kernels vs plain: estep_v, estep_s, estep_rs and
@@ -739,43 +740,137 @@ def time_step_kernels(args, w, si, ri, nt, final):
                          ("fused_adjoint_step", adjoint))}, nt)
 
 
+def _halo_planes(grid, n, dev):
+    R = grid.radius
+    NZ, NX = grid.padded_shape
+    return torch.zeros((n, NZ + 2 * R, NX + 2 * R), dtype=torch.float32, device=dev)
+
+
+def scanres_forward_steps(args, w, si, ri, tape=None, illum=False):
+    """scanres_forward's per-step oracle: a loop of fused_forward_step (the
+    single-step engine's forward_step launches), the tape rows written by
+    it, the illumination summed as acc.addcmul_(P_t, P_t). Returns what
+    scanres_forward returns; ``ri`` must hold a receiver (the illumination
+    does not depend on them)."""
+    ks, kst = kernel_modules()
+    grid, c2, prof = args
+    dev, R = c2.device, grid.radius
+    NZ, NX = grid.padded_shape
+    nt = w.shape[0]
+    f, cpml = _halo_planes(grid, 2, dev), _halo_planes(grid, 4, dev)
+    seis = torch.empty((nt, ri.shape[0]), dtype=torch.float32, device=dev)
+    rows = None
+    if tape == "snap":
+        rows = torch.empty((nt, NZ, NX), dtype=torch.bfloat16, device=dev)
+    elif tape == "rings":
+        rows = torch.empty((nt, ks.ring_plan(grid, dev)[0].shape[0]), dtype=torch.float32,
+                           device=dev)
+    acc = torch.zeros((NZ, NX), dtype=torch.float32, device=dev) if illum else None
+    for t in range(nt):
+        row = {} if rows is None else {"snap_row" if tape == "snap" else "ring_row": rows[t]}
+        kst.fused_forward_step(grid, c2, prof, f[(t + 1) % 2], f[t % 2], cpml, w, t, si, ri,
+                               seis, **row)
+        if illum:
+            acc.addcmul_(f[t % 2, R:-R, R:-R], f[t % 2, R:-R, R:-R])
+    return seis, rows, f[nt % 2, R:-R, R:-R], f[(nt - 1) % 2, R:-R, R:-R], acc
+
+
+def scanres_reverse_snap_steps(args, ybar, snap, si, ri):
+    """scanres_reverse_snap's per-step oracle: a loop of
+    fused_adjoint_step imaging with lapw = snap[t] widened to fp32 (exact).
+    Returns (gbar, lam_src)."""
+    _, kst = kernel_modules()
+    grid, c2, prof = args
+    dev = c2.device
+    nt = ybar.shape[0]
+    q, adj = _halo_planes(grid, 2, dev), _halo_planes(grid, kst.ADJ_PLANES, dev)
+    gacc = torch.zeros(grid.padded_shape, dtype=torch.float32, device=dev)
+    lam = torch.empty((nt, si.shape[0]), dtype=torch.float32, device=dev)
+    chain = torch.empty(2 * ri.shape[0], dtype=torch.int32, device=dev)
+    for t in reversed(range(nt)):
+        kst.fused_adjoint_step(grid, c2, prof, q[(nt - 1 - t) % 2], q[(nt - t) % 2], adj,
+                               snap[t].float(), gacc, ybar, t, si, ri, lam, chain,
+                               init_chain=t == nt - 1)
+    return gacc, lam
+
+
+def scanres_reverse_steps(args, w, ybar, tape, ppen, plast, si, ri, return_field=False,
+                          merged=True):
+    """scanres_reverse's per-step oracle: a loop of fused_reverse_step
+    (cuda_step's merged reverse), or with ``merged`` False of recon_step
+    and fused_adjoint_step, each fed ring row t-2 (zeros for t < 2).
+    Returns what scanres_reverse returns."""
+    _, kst = kernel_modules()
+    grid, c2, prof = args
+    dev, R = c2.device, grid.radius
+    nt = ybar.shape[0]
+    p = _halo_planes(grid, 2, dev)
+    p[0, R:-R, R:-R] = plast
+    p[1, R:-R, R:-R] = ppen
+    q, adj = _halo_planes(grid, 2, dev), _halo_planes(grid, kst.ADJ_PLANES, dev)
+    gacc = torch.zeros(grid.padded_shape, dtype=torch.float32, device=dev)
+    lapw = torch.empty_like(gacc)
+    lam = torch.empty((nt, si.shape[0]), dtype=torch.float32, device=dev)
+    chain = torch.empty(2 * ri.shape[0], dtype=torch.int32, device=dev)
+    for t in reversed(range(nt)):
+        row = tape[t - 2] if t >= 2 else None
+        p_t, p_tp1 = p[(nt - t) % 2], p[(nt - 1 - t) % 2]  # P_{t-1}, P_t
+        q_t, q_o = q[(nt - 1 - t) % 2], q[(nt - t) % 2]
+        if merged:
+            kst.fused_reverse_step(grid, c2, prof, p_t, p_tp1, q_t, q_o, adj, gacc, w, ybar, t,
+                                   si, ri, lam, row, chain, init_chain=t == nt - 1)
+        else:
+            kst.recon_step(grid, c2, p_t, p_tp1, lapw, w, t, si, row)
+            kst.fused_adjoint_step(grid, c2, prof, q_t, q_o, adj, lapw, gacc, ybar, t, si, ri,
+                                   lam, chain, init_chain=t == nt - 1)
+    return (gacc, lam, p[nt % 2, R:-R, R:-R]) if return_field else (gacc, lam)
+
+
 SCANRES_MODES = {  # scanres_forward's modes: keyword arguments, and no receivers
     "snap": (dict(tape="snap"), False), "rings": (dict(tape="rings"), False),
     "no tape": (dict(tape=None), False), "illumination": (dict(illum=True), True)}
-SCANRES_RUNS = (("fused", "fused", True), ("fused in stream order", "fused", False),
-                ("split", "split", True))
-SCANRES_PATTERN = r"::((?:fwd|rev|rec|ring|illum|scan)_\w+?)[<(]"
+SCANRES_PATTERN = r"::((?:fwd|rev|rec|ring|illum|scan|kstep)_\w+?)[<(]"
 
 
-def scanres_variants(args, w, si, ri, ybar, snap_p, rings_p, nt):
+def scanres_oracles(args, w, si, ri, ybar, snap_p, rings_p, nt):
     """Rows 1-3's fused steps (with dependent launches and in plain stream
-    order) and split ones in the same calls: {kernel: {mode: {run: (ms a
-    step by CUDA events, host ms a call)}}}, and whether every fused run
-    equals the split one bitwise on every output (forward: seis, tape,
-    final fields, illumination; snapshot reverse: gbar, lam_src; rings
-    reverse, fed ``rings_p`` = (ring tape, P_{nt-2}, P_{nt-1}): gbar,
-    lam_src, P_{-1})."""
+    order) and their per-step oracles (the single-step engine's passes, a
+    launch at a time) in the same calls: {kernel: {mode: {run: (ms a step
+    by CUDA events, host ms a call)}}}, and whether every fused run equals
+    the oracle bitwise on every output (forward: seis, tape, final fields,
+    illumination (its seismogram has no receivers); snapshot reverse: gbar,
+    lam_src; rings reverse, fed ``rings_p`` = (ring tape, P_{nt-2},
+    P_{nt-1}): gbar, lam_src, P_{-1})."""
     ks, _ = kernel_modules()
     calls = {"scanres_forward": {
-        mode: functools.partial(ks.scanres_forward, *args, w, si, ri[:0] if bare else ri, **kw)
+        mode: (functools.partial(ks.scanres_forward, *args, w, si, ri[:0] if bare else ri, **kw),
+               functools.partial(scanres_forward_steps, args, w, si, ri, **kw), bare)
         for mode, (kw, bare) in SCANRES_MODES.items()},
-        "scanres_reverse_snap": {"snap": functools.partial(ks.scanres_reverse_snap, *args, ybar,
-                                                           snap_p, si, ri)},
-        "scanres_reverse": {"rings": functools.partial(ks.scanres_reverse, *args, w, ybar,
-                                                       *rings_p, si, ri, return_field=True)}}
+        "scanres_reverse_snap": {"snap": (
+            functools.partial(ks.scanres_reverse_snap, *args, ybar, snap_p, si, ri),
+            functools.partial(scanres_reverse_snap_steps, args, ybar, snap_p, si, ri), False)},
+        "scanres_reverse": {"rings": (
+            functools.partial(ks.scanres_reverse, *args, w, ybar, *rings_p, si, ri,
+                              return_field=True),
+            functools.partial(scanres_reverse_steps, args, w, ybar, *rings_p, si, ri,
+                              return_field=True), False)}}
     times, bitwise = {}, True
     for kernel, modes in calls.items():
         times[kernel] = {}
-        for mode, fn in modes.items():
+        for mode, (fn, oracle, bare) in modes.items():
+            runs = {"fused": functools.partial(fn, dependent_launch=True),
+                    "fused in stream order": functools.partial(fn, dependent_launch=False),
+                    "per-step oracle": oracle}
             times[kernel][mode], outs = {}, {}
-            for label, v, dep in SCANRES_RUNS:
-                run = functools.partial(fn, variant=v, dependent_launch=dep)
+            for label, run in runs.items():
                 ev_ms, host_ms = events_ms(run, 3)
                 times[kernel][mode][label] = (ev_ms / nt, host_ms)
                 outs[label] = run()
             for label in outs:
                 bitwise &= all((a is None and b is None) or torch.equal(a, b)
-                               for a, b in zip(outs[label], outs["split"]))
+                               for i, (a, b) in enumerate(zip(outs[label],
+                                                              outs["per-step oracle"]))
+                               if not (bare and i == 0))
     return times, bitwise
 
 
@@ -798,27 +893,34 @@ def host_us_per_step(run, nts=(32, 288)):
 
 
 def scanres_profile(args, w, si, ri, ybar, snap_p, rings_p, nt):
-    """Per variant, of one scanres_forward with the snapshot tape, one
+    """Of one scanres_forward with the snapshot tape, one
     scanres_reverse_snap and one scanres_reverse (the rings, from the last
     two fields, a timing input) over the first nt steps, in plain stream
     order (with dependent launches a kernel's profiler span includes its
-    wait): torch.profiler's rows [(kernel, device us a step, launches a
-    step)], and the host enqueue us a step (host_us_per_step, the default
-    run's: with dependent launches)."""
+    wait), and of their per-step oracles: torch.profiler's rows [(kernel,
+    device us a step, launches a step)], and the host enqueue us a step
+    (host_us_per_step; the fused kernels' with dependent launches)."""
     ks, _ = kernel_modules()
     tape, ppen, plast = rings_p
-    calls = {"scanres_forward": lambda n, **kw: ks.scanres_forward(
-                 *args, w[:n], si, ri, tape="snap", **kw),
-             "scanres_reverse_snap": lambda n, **kw: ks.scanres_reverse_snap(
-                 *args, ybar[:n], snap_p[:n], si, ri, **kw),
-             "scanres_reverse": lambda n, **kw: ks.scanres_reverse(
-                 *args, w[:n], ybar[:n], tape[:n], ppen, plast, si, ri, **kw)}
+    calls = {"scanres_forward": (
+                 lambda n, **kw: ks.scanres_forward(*args, w[:n], si, ri, tape="snap", **kw),
+                 lambda n: scanres_forward_steps(args, w[:n], si, ri, tape="snap")),
+             "scanres_reverse_snap": (
+                 lambda n, **kw: ks.scanres_reverse_snap(*args, ybar[:n], snap_p[:n], si, ri,
+                                                         **kw),
+                 lambda n: scanres_reverse_snap_steps(args, ybar[:n], snap_p[:n], si, ri)),
+             "scanres_reverse": (
+                 lambda n, **kw: ks.scanres_reverse(*args, w[:n], ybar[:n], tape[:n], ppen,
+                                                    plast, si, ri, **kw),
+                 lambda n: scanres_reverse_steps(args, w[:n], ybar[:n], tape[:n], ppen, plast,
+                                                 si, ri))}
     out = {}
-    for kernel, fn in calls.items():
-        for v in ks.VARIANTS:
-            rows = device_us_per_step(lambda: fn(nt, variant=v, dependent_launch=False), nt,
-                                      SCANRES_PATTERN, calls=True)
-            out[(kernel, v)] = (rows, host_us_per_step(lambda n: fn(n, variant=v)))
+    for kernel, (fn, oracle) in calls.items():
+        rows = device_us_per_step(lambda: fn(nt, dependent_launch=False), nt, SCANRES_PATTERN,
+                                  calls=True)
+        out[(kernel, "fused")] = (rows, host_us_per_step(fn))
+        rows = device_us_per_step(lambda: oracle(nt), nt, SCANRES_PATTERN, calls=True)
+        out[(kernel, "per-step oracle")] = (rows, host_us_per_step(oracle))
     return out
 
 
@@ -889,7 +991,7 @@ def phase_kernels(dev, smi, nz=351, nx=1701, nt=NT_CHECK, quiet=False):
     if quiet:
         return entries
     rings_in = (rings_p, rpen_p, rlast_p)
-    var_times, var_bitwise = scanres_variants(args, w, si, ri, ybar, snap_p, rings_in, nt)
+    var_times, var_bitwise = scanres_oracles(args, w, si, ri, ybar, snap_p, rings_in, nt)
     nt_prof = 64
     prof = scanres_profile(args, w, si, ri, ybar, snap_p, rings_in, nt_prof)
     print(f"[kernels] {smi}: grid {NZ}x{NX} nt {nt}, ms per step, kernel (plain; bound):",
@@ -909,19 +1011,20 @@ def phase_kernels(dev, smi, nz=351, nx=1701, nt=NT_CHECK, quiet=False):
     plan = ks.scanres_tile_plan(grid)
     for kernel, modes in var_times.items():
         for mode, runs in modes.items():
-            print(f"[kernels] {kernel} variants, {mode}, nt {nt} (tile {plan.tz} x {plan.tx}): "
-                  + "; ".join(f"{label} {ms:.5f} ms a step by CUDA events, host {host:.3f} ms a "
-                              "call" for label, (ms, host) in runs.items()), flush=True)
-    print("[kernels] every fused run == split bitwise (forward: seis, tape, final fields, "
-          "illumination; snapshot reverse: gbar, lam_src; rings reverse: gbar, lam_src, "
+            print(f"[kernels] {kernel} and its per-step oracle, {mode}, nt {nt} (tile "
+                  f"{plan.tz} x {plan.tx}): " + "; ".join(
+                      f"{label} {ms:.5f} ms a step by CUDA events, host {host:.3f} ms a call"
+                      for label, (ms, host) in runs.items()), flush=True)
+    print("[kernels] every fused run == its per-step oracle bitwise (forward: seis, tape, final "
+          "fields, illumination; snapshot reverse: gbar, lam_src; rings reverse: gbar, lam_src, "
           f"P_-1): {var_bitwise}", flush=True)
     for (kernel, v), (rows, host) in prof.items():
         shown = ", ".join(f"{k} {us:.2f} (x{n:.4g})" for k, us, n in rows) or "not measured"
+        planned = (f" (planned {ks.STEP_LAUNCHES} a step, +1 a call)" if v == "fused" else "")
         print(f"[kernels] torch.profiler device us per step (launches per step), nt {nt_prof}, "
               f"{kernel} {v} in stream order: {shown}; device us a step "
-              f"{sum(r[1] for r in rows):.2f}, launches a step {sum(r[2] for r in rows):.4g} "
-              f"(planned {ks.step_launches(kernel, v, 'snap')} a step, +1 a call); host enqueue "
-              f"{host:.2f} us a step (nt-slope 32 to 288)", flush=True)
+              f"{sum(r[1] for r in rows):.2f}, launches a step {sum(r[2] for r in rows):.4g}"
+              f"{planned}; host enqueue {host:.2f} us a step (nt-slope 32 to 288)", flush=True)
     print(f"[kernels] rel err {json.dumps(errs)}; snapshot max err {snap_err:.3e} vs 1 bf16 "
           f"ulp {snap_ulp:.3e}", flush=True)
     for group in errs.values():
@@ -931,7 +1034,7 @@ def phase_kernels(dev, smi, nz=351, nx=1701, nt=NT_CHECK, quiet=False):
     if not snap_err <= snap_ulp:
         fail(f"snapshot tape disagrees with the plain version: {snap_err:.3e} > {snap_ulp:.3e}")
     if not var_bitwise:
-        fail("the fused scanres steps are not bitwise equal to the split ones")
+        fail("the fused scanres steps are not bitwise equal to their per-step oracles")
     return entries
 
 
@@ -1140,20 +1243,19 @@ def phase_kstep_kernels(dev, smi, nt=NT_CHECK, nt_fs=128, quiet=False):
     rel_fs, _, _, _ = kstep_kernels_vs_plain(fs_args, fs_w, fs_si, fs_ri, nt_fs)
     times = time_kstep_kernels(args, w, si, ri, nt, final)
     grid = args[0]
-    # the same steps as ordinary launches: the whole-scan kernels' split
-    # passes' device time per step (no launch gaps) against the K-step
-    # kernels', which run the same phases
+    # the same steps as ordinary launches: the single-step engine's passes'
+    # device time per step (no launch gaps) against the K-step kernels',
+    # which run the same phases
     m = min(64, nt)
     wp = w[:m].contiguous()
-    seis_m, tape_m, pen_m, last_m, _ = ks.scanres_forward(*args, wp, si, ri, tape="rings",
-                                                          variant="split")
+    seis_m, tape_m, pen_m, last_m, _ = scanres_forward_steps(args, wp, si, ri, tape="rings")
     scan_us = {
         "forward": device_us_per_step(
-            lambda: ks.scanres_forward(*args, wp, si, ri, tape="rings", variant="split"), m,
+            lambda: scanres_forward_steps(args, wp, si, ri, tape="rings"), m,
             r"::((?:fwd|ring)_\w+?)[<(]"),
         "reverse": device_us_per_step(
-            lambda: ks.scanres_reverse(*args, wp, seis_m.contiguous(), tape_m, pen_m, last_m,
-                                       si, ri), m, r"::((?:rev|rec)_\w+?)[<(]"),
+            lambda: scanres_reverse_steps(args, wp, seis_m.contiguous(), tape_m, pen_m, last_m,
+                                          si, ri, merged=False), m, r"::((?:rev|rec)_\w+?)[<(]"),
     }
     counts = step_counts(grid, ri.shape[0], si.shape[0], ks.ring_plan(grid, dev)[0].shape[0])
     steps = {"kstep_forward": K_CHECK, "kstep_reverse": K_CHECK, "fused_reverse_step": 1,
@@ -1184,7 +1286,8 @@ def phase_kstep_kernels(dev, smi, nt=NT_CHECK, nt_fs=128, quiet=False):
     per_step = {d: sum(us for _, us in rows) for d, rows in scan_us.items()}
     coop = {"forward": times["kstep_forward"][3], "reverse": times["kstep_reverse"][3]}
     print("[kstep kernels] device us per step, cooperative K-step kernel against the same steps "
-          "as ordinary launches (whole-scan kernels, torch.profiler, no launch gaps): " + "; ".join(
+          "as ordinary launches (single-step kernels, torch.profiler, no launch gaps): "
+          + "; ".join(
               f"{d} {'not measured' if coop[d] is None else f'{coop[d] / K_CHECK:.2f}'} against "
               f"{per_step[d]:.2f} (" + ", ".join(f"{n} {us:.2f}" for n, us in scan_us[d]) + ")"
               for d in ("forward", "reverse")), flush=True)
@@ -1212,45 +1315,53 @@ def phase_shot(dev, smi):
     args, w, si, ri, (vp, dt, f0, c_max) = one_shot(dev, t_max=4.0)
     nt = w.shape[0]
 
-    def fwd_adj(variant="fused"):
-        seis, tape, _, _, _ = ks.scanres_forward(*args, w, si, ri, tape="snap", variant=variant)
-        return ks.scanres_reverse_snap(*args, seis, tape, si, ri, variant=variant)
+    def fwd_adj(steps=False):
+        if steps:  # the per-step oracles
+            seis, tape, _, _, _ = scanres_forward_steps(args, w, si, ri, tape="snap")
+            return scanres_reverse_snap_steps(args, seis, tape, si, ri)
+        seis, tape, _, _, _ = ks.scanres_forward(*args, w, si, ri, tape="snap")
+        return ks.scanres_reverse_snap(*args, seis, tape, si, ri)
 
-    def fwd_adj_rings(variant="fused"):
+    def fwd_adj_rings(steps=False):
         seis, tape, ppen, plast, _ = ks.scanres_forward(*args, w, si, ri, tape="rings")
-        return ks.scanres_reverse(*args, w, seis, tape, ppen, plast, si, ri, variant=variant)
+        if steps:
+            return scanres_reverse_steps(args, w, seis, tape, ppen, plast, si, ri)
+        return ks.scanres_reverse(*args, w, seis, tape, ppen, plast, si, ri)
 
     ms, (g, _) = timed_ms(fwd_adj, reps=2)
-    split_ms, (g_s, _) = timed_ms(functools.partial(fwd_adj, "split"), reps=2)
-    ms2, _ = timed_ms(fwd_adj, reps=2)  # fused, split, fused: the drift shows
+    oracle_ms, (g_s, _) = timed_ms(functools.partial(fwd_adj, True), reps=2)
+    ms2, _ = timed_ms(fwd_adj, reps=2)  # fused, oracle, fused: the drift shows
     rings_ms, (gr, _) = timed_ms(fwd_adj_rings, reps=2)
-    rings_split_ms, (gr_s, _) = timed_ms(functools.partial(fwd_adj_rings, "split"), reps=2)
+    rings_oracle_ms, (gr_s, _) = timed_ms(functools.partial(fwd_adj_rings, True), reps=2)
     rings_ms2, _ = timed_ms(fwd_adj_rings, reps=2)
     fwd_ms, _ = timed_ms(lambda: ks.scanres_forward(*args, w, si, ri, tape=None))
     prop = AcousticPropagator(args[0], dt, f0, c_max, device=dev)
     launched = ks.scanres_forward.launches
     illum_ms, illum = timed_ms(lambda: prop.illumination(vp, Geometry(si, ri), w), reps=2)
     launched = ks.scanres_forward.launches - launched
-    il_split_ms, _ = timed_ms(lambda: ks.scanres_forward(*args, w, si, ri[:0], illum=True,
-                                                         variant="split"), reps=2)
+    il_oracle_ms, il_s = timed_ms(lambda: scanres_forward_steps(args, w, si, ri, illum=True),
+                                 reps=2)
     plain_ms, out_p = timed_ms(
         lambda: ks.scanres_forward_plain(*args, w, si, ri[:0], illum=True), warmup=False)
     err = rel_err(illum, out_p[4][args[0].interior])
     if not all(bool(torch.isfinite(x).all()) for x in (g, gr, illum)):
         fail("one-shot gradient or illumination is not finite")
+    il_same = bool(torch.equal(ks.scanres_forward(*args, w, si, ri[:0], illum=True)[4], il_s[4]))
     print(f"[shot] {smi}: nt {nt}: snapshot forward+adjoint, fused steps {ms / 1e3:.4f} / "
-          f"{ms2 / 1e3:.4f} s/shot, split steps {split_ms / 1e3:.4f} (same gradient bitwise: "
-          f"{bool(torch.equal(g, g_s))}); rings forward+adjoint, fused reverse "
-          f"{rings_ms / 1e3:.4f} / {rings_ms2 / 1e3:.4f} s/shot, split reverse "
-          f"{rings_split_ms / 1e3:.4f} (same gradient bitwise: {bool(torch.equal(gr, gr_s))}); "
-          f"illumination split steps {il_split_ms / 1e3:.4f} s/shot", flush=True)
+          f"{ms2 / 1e3:.4f} s/shot, per-step oracles {oracle_ms / 1e3:.4f} (same gradient "
+          f"bitwise: {bool(torch.equal(g, g_s))}); rings forward+adjoint, fused reverse "
+          f"{rings_ms / 1e3:.4f} / {rings_ms2 / 1e3:.4f} s/shot, per-step oracle reverse "
+          f"{rings_oracle_ms / 1e3:.4f} (same gradient bitwise: {bool(torch.equal(gr, gr_s))}); "
+          f"illumination per-step oracle {il_oracle_ms / 1e3:.4f} s/shot (same bitwise: "
+          f"{il_same})", flush=True)
     print(f"[shot] {smi}: nt {nt}: forward+adjoint {ms / 1e3:.3f} s/shot (snapshot), "
           f"{rings_ms / 1e3:.3f} s/shot (rings), tape-free forward {fwd_ms / 1e3:.3f} s/shot, "
           f"illumination (kernel) {illum_ms / 1e3:.4f} s/shot ({prop.resolve_impl(nt)}, "
           f"{launched} forward-kernel steps in 3 calls), its plain version {plain_ms / 1e3:.3f} "
           f"s/shot, error {err:.3e} of max (tolerance {TOL['illum']:.0e})", flush=True)
-    if not (torch.equal(g, g_s) and torch.equal(gr, gr_s)):
-        fail("the one-shot gradient differs between the fused and split scanres steps")
+    if not (torch.equal(g, g_s) and torch.equal(gr, gr_s) and il_same):
+        fail("the one-shot gradient or illumination differs between the fused scanres steps "
+             "and their per-step oracles")
     if launched != 3 * nt:
         fail(f"the illumination launched the forward kernel for {launched} steps, not 3 x {nt}")
     if not err <= TOL["illum"]:
@@ -1512,42 +1623,43 @@ def _max_rel(got, ref):
     return max(rel_err(a, b) for a, b in zip(got, ref))
 
 
-ELASTIC_RUNS = (("fused", "fused", True), ("fused in stream order", "fused", False),
-                ("split", "split", True))
-
-
-def elastic_variants(fn, nt):
-    """``fn(variant=, dependent_launch=)`` in each of ELASTIC_RUNS, in the
-    same calls: {run: (outputs, ms a step by CUDA events, host ms a call
-    (to the call's return, no sync))}, and whether every run's outputs
-    equal the split run's bitwise."""
+def elastic_oracles(fn, oracle, nt):
+    """``fn(dependent_launch=)`` with and without dependent launches and its
+    per-step oracle ``oracle()`` in the same calls: {run: (outputs, ms a
+    step by CUDA events, host ms a call (to the call's return, no sync))},
+    and whether every run's outputs equal the oracle's bitwise."""
     out = {}
-    for label, v, dep in ELASTIC_RUNS:
-        run = functools.partial(fn, variant=v, dependent_launch=dep)
+    runs = {"fused": functools.partial(fn, dependent_launch=True),
+            "fused in stream order": functools.partial(fn, dependent_launch=False),
+            "per-step oracle": oracle}
+    for label, run in runs.items():
         ev_ms, host_ms = events_ms(run, 3)
         out[label] = (run(), ev_ms / nt, host_ms)
 
     def flat(o):
         return [x for part in o for x in (part if isinstance(part, tuple) else (part,))]
 
-    ref = flat(out["split"][0])
+    ref = flat(out["per-step oracle"][0])
     return out, all((a is None and b is None) or torch.equal(a, b)
                     for r in out.values() for a, b in zip(flat(r[0]), ref))
 
 
 def elastic_kernels_vs_plain(dev, nt, source_type, record, free_surface):
     """Both elastic kernels against their plain versions on one shot, and
-    each kernel's variants in the same calls (the fused passes also in
-    plain stream order), held bitwise against the split ones: ({output: rel
-    err}, entries' numbers)."""
+    each kernel (also in plain stream order) held bitwise against its
+    per-step oracle, the per-step engine's estep_forward / estep_reverse,
+    in the same calls: ({output: rel err}, entries' numbers)."""
+    from tpufwi_torch.adjoint_elastic_step import estep_reverse
+
     ke = elastic_module()
     args, w, si, ri, _ = elastic_shot(dev, nt, source_type, record, free_surface)
     kind = (source_type, record)
     plain_ms, (seis_p, tape_p, fin_p) = timed_ms(
         lambda: ke.escan_forward_plain(*args, w, si, ri, *kind, tape=True), warmup=False)
-    fwd, fwd_bitwise = elastic_variants(
-        functools.partial(ke.escan_forward, *args, w, si, ri, *kind, tape=True), nt)
-    (seis, tape, fin), ms = fwd[ke.FORWARD_DEFAULT][0], fwd[ke.FORWARD_DEFAULT][1] * nt
+    fwd, fwd_bitwise = elastic_oracles(
+        functools.partial(ke.escan_forward, *args, w, si, ri, *kind, tape=True),
+        functools.partial(estep_module().estep_forward, *args, w, si, ri, *kind, tape=True), nt)
+    (seis, tape, fin), ms = fwd["fused"][0], fwd["fused"][1] * nt
     free_ms, (seis_n, _, _) = timed_ms(
         lambda: ke.escan_forward(*args, w, si, ri, *kind, tape=False), reps=3)
     scale = max(float(f.abs().max()) for f in fin_p)
@@ -1558,18 +1670,18 @@ def elastic_kernels_vs_plain(dev, nt, source_type, record, free_surface):
     plain_rev_ms, (g_p, sr_p) = timed_ms(
         lambda: ke.escan_reverse_plain(*args, w, ybar, tape_p, fin_p, si, ri, *kind),
         warmup=False)
-    rev, rev_bitwise = elastic_variants(
-        functools.partial(ke.escan_reverse, *args, w, ybar, tape_p, fin_p, si, ri, *kind), nt)
-    default = ke.REVERSE_DEFAULT
-    g, sr = rev[default][0]
+    rev, rev_bitwise = elastic_oracles(
+        functools.partial(ke.escan_reverse, *args, w, ybar, tape_p, fin_p, si, ri, *kind),
+        functools.partial(estep_reverse, *args, w, ybar, tape_p, fin_p, si, ri, *kind), nt)
+    g, sr = rev["fused"][0]
     errs.update(grads=_max_rel(g, g_p), srcrow=rel_err(sr, sr_p))
     nums = dict(
         fwd=(float((seis.double() - seis_p.double()).abs().max()), ms / nt, plain_ms / nt),
         free_ms=free_ms / nt,
         rev=(max(float((a.double() - b.double()).abs().max()) for a, b in zip(g, g_p)),
-             rev[default][1], plain_rev_ms / nt),
-        variants={v: r[1:] for v, r in rev.items()},
-        fwd_variants={v: r[1:] for v, r in fwd.items()},
+             rev["fused"][1], plain_rev_ms / nt),
+        runs={v: r[1:] for v, r in rev.items()},
+        fwd_runs={v: r[1:] for v, r in fwd.items()},
         bitwise=rev_bitwise, fwd_bitwise=fwd_bitwise,
         counts=elastic_step_counts(args[0], seis.shape[1] * (2 if record == "v" else 1),
                                    si.shape[0], tape.shape[1] // 5),
@@ -1614,34 +1726,43 @@ def host_enqueue_ms(run):
 
 def elastic_profile(dev, nt=64):
     """Device us per step (and launches per step) of each CUDA kernel of
-    one escan_forward with tape and one escan_reverse, each in each
-    variant, and the calls' host enqueue ms: {(kernel, variant): (rows,
-    host ms a call)}. The fused variant is profiled in plain stream order
-    (with dependent launches a kernel's span includes its wait for the one
-    before it, so the spans overlap); its host ms is the default's."""
+    one escan_forward with tape and one escan_reverse, and of their
+    per-step oracles, and the calls' host enqueue ms: {(kernel, run):
+    (rows, host ms a call)}. The fused kernels are profiled in plain stream
+    order (with dependent launches a kernel's span includes its wait for
+    the one before it, so the spans overlap); their host ms is with
+    dependent launches."""
+    from tpufwi_torch.adjoint_elastic_step import estep_reverse
+
     ke = elastic_module()
     args, w, si, ri, _ = elastic_shot(dev, nt)
     kind = ("force_z", "v")
     pattern = r"::(e[fr]?_\w+?)[<(]"
     seis, tape, fin = ke.escan_forward(*args, w, si, ri, *kind, tape=True)
-    calls = {"forward": functools.partial(ke.escan_forward, *args, w, si, ri, *kind, tape=True),
-             "reverse": functools.partial(ke.escan_reverse, *args, w, seis.contiguous(), tape,
-                                          fin, si, ri, *kind)}
+    calls = {"forward": (
+                 functools.partial(ke.escan_forward, *args, w, si, ri, *kind, tape=True),
+                 functools.partial(estep_module().estep_forward, *args, w, si, ri, *kind,
+                                   tape=True)),
+             "reverse": (
+                 functools.partial(ke.escan_reverse, *args, w, seis.contiguous(), tape, fin, si,
+                                   ri, *kind),
+                 functools.partial(estep_reverse, *args, w, seis.contiguous(), tape, fin, si, ri,
+                                   *kind))}
     out = {}
-    for kernel, fn in calls.items():
-        for v in ke.VARIANTS:
-            run = functools.partial(fn, variant=v)
-            serial = functools.partial(run, dependent_launch=False)
-            out[(kernel, v)] = (device_us_per_step(serial, nt, pattern, calls=True),
-                                host_enqueue_ms(run))
+    for kernel, (fn, oracle) in calls.items():
+        serial = functools.partial(fn, dependent_launch=False)
+        out[(kernel, "fused")] = (device_us_per_step(serial, nt, pattern, calls=True),
+                                  host_enqueue_ms(fn))
+        out[(kernel, "per-step oracle")] = (device_us_per_step(oracle, nt, pattern, calls=True),
+                                            host_enqueue_ms(oracle))
     return out
 
 
 def phase_elastic_kernels(dev, smi, nt=NT_CHECK, nt_fs=128):
     """escan_forward (with and without tape) and escan_reverse against
     their plain versions: the main path's force / v case at nt, and a
-    pressure / p free-surface case at nt_fs; each kernel's fused and split
-    variants in the same calls, held bitwise against each other."""
+    pressure / p free-surface case at nt_fs; each kernel and its per-step
+    oracle in the same calls, held bitwise against each other."""
     elastic_kernels_vs_plain(dev, 8, "force_z", "v", False)  # first-use costs
     ke = elastic_module()
     before = (ke.escan_forward.launches, ke.escan_reverse.launches)
@@ -1668,13 +1789,13 @@ def phase_elastic_kernels(dev, smi, nt=NT_CHECK, nt_fs=128):
           f"({nums_fs['rev'][2]:.4f})", flush=True)
     for tag, n, ns in (("force_z / v", nt, nums), ("free surface, pressure / p", nt_fs, nums_fs)):
         for kernel, key, outs, ok in (
-                ("escan_forward", "fwd_variants", "seis, tape, five finals", "fwd_bitwise"),
-                ("escan_reverse", "variants", "five gradients, srcrow", "bitwise")):
-            print(f"[elastic kernels] {kernel} variants, {tag}, nt {n} (default fused, tile "
+                ("escan_forward", "fwd_runs", "seis, tape, five finals", "fwd_bitwise"),
+                ("escan_reverse", "runs", "five gradients, srcrow", "bitwise")):
+            print(f"[elastic kernels] {kernel} and its per-step oracle, {tag}, nt {n} (tile "
                   f"{ke.TILE_Z} x {ke.TILE_X}): " + "; ".join(
                       f"{v} {ms:.5f} ms a step by CUDA events, host {host:.3f} ms a call"
                       for v, (ms, host) in ns[key].items())
-                  + f"; every fused run == split bitwise ({outs}): {ns[ok]}", flush=True)
+                  + f"; every fused run == its oracle bitwise ({outs}): {ns[ok]}", flush=True)
     print(f"[elastic kernels] rel err force/v {json.dumps(errs)}; pressure/p free surface "
           f"{json.dumps(errs_fs)}; tolerances {json.dumps(ETOL)}; launches in these checks: "
           f"escan_forward {launched[0]}, escan_reverse {launched[1]}", flush=True)
@@ -1687,11 +1808,13 @@ def phase_elastic_kernels(dev, smi, nt=NT_CHECK, nt_fs=128):
     print("[elastic kernels] torch.profiler device us per step (launches per step), nt "
           f"{nt_prof}:", flush=True)
     for (kernel, v), (rows, host) in prof.items():
-        order = " in stream order" if v == "fused" else ""
-        planned = (ke.forward_launches if kernel == "forward" else ke.reverse_launches)(v, False)
-        print(f"[elastic kernels]   {kernel} {v}{order}: {show(rows)}; device us a step "
-              f"{sum(r[1] for r in rows):.2f}, launches a step {sum(r[2] for r in rows):g} "
-              f"(planned {planned}); host enqueue {host:.3f} ms a call, "
+        planned = ""
+        if v == "fused":
+            planned = " (planned {})".format(
+                ke.FORWARD_LAUNCHES if kernel == "forward" else ke.reverse_launches(False))
+        print(f"[elastic kernels]   {kernel} {v}{' in stream order' if planned else ''}: "
+              f"{show(rows)}; device us a step {sum(r[1] for r in rows):.2f}, launches a step "
+              f"{sum(r[2] for r in rows):g}{planned}; host enqueue {host:.3f} ms a call, "
               f"{1e3 * host / nt_prof:.2f} us a step", flush=True)
     for group in (errs, errs_fs):
         for name, err in group.items():
@@ -1699,9 +1822,9 @@ def phase_elastic_kernels(dev, smi, nt=NT_CHECK, nt_fs=128):
                 fail(f"elastic {name} disagrees with the plain version: {err:.3e} > "
                      f"{ETOL[name]:.0e}")
     if not (nums["bitwise"] and nums_fs["bitwise"]):
-        fail("escan_reverse's fused passes are not bitwise equal to its split ones")
+        fail("escan_reverse's fused passes are not bitwise equal to its per-step oracle")
     if not (nums["fwd_bitwise"] and nums_fs["fwd_bitwise"]):
-        fail("escan_forward's fused step is not bitwise equal to its split passes")
+        fail("escan_forward's fused step is not bitwise equal to its per-step oracle")
     return entries
 
 

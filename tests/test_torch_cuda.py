@@ -12,7 +12,10 @@ ring tape 1e-5 of the field's max; snapshot tape within one bf16 ulp of
 its max; gradient and lambda at the sources 1e-4 of their max, each
 reverse fed the same tape and cotangent in both runs; the single-step
 kernels, each fed its plain version's inputs at every step, with
-chip_smoke.py's tolerances.
+chip_smoke.py's tolerances. Each whole-scan kernel is also held bitwise
+against its per-step oracle, the per-step engine that launches the same
+passes a step at a time (chip_smoke.py's ``scanres_*_steps``;
+``estep_forward`` and ``estep_reverse``).
 """
 
 import numpy as np
@@ -98,50 +101,50 @@ def test_kernels_match_plain(device, order, nsrc, free_surface, dup):
 @pytest.mark.parametrize("order", [2, 4, 8])
 def test_scanres_fused_matches_split_bitwise(device, order, free_surface, shape):
     """scanres_forward's and scanres_reverse_snap's fused steps, with
-    dependent launches and in plain stream order, against their split ones,
+    dependent launches and in plain stream order, against the same passes
+    launched a step at a time (the single-step engine's, per-step oracles
+    chip_smoke.scanres_forward_steps / scanres_reverse_snap_steps),
     bitwise: the forward in each mode (no tape, snapshot tape, ring tape,
-    illumination without receivers) on every output, with three sources
-    (one in the ring, one on the surface row with the free surface) and
-    coinciding receivers; the reverse on gbar and lam_src, fed the fused
-    forward's snapshot tape and a random receiver cotangent."""
+    illumination without receivers: its fields and illumination) on every
+    output, with three sources (one in the ring, one on the surface row
+    with the free surface) and coinciding receivers; the reverse on gbar
+    and lam_src, fed the fused forward's snapshot tape and a random
+    receiver cotangent; each fused call counts nt launches."""
     args, w, (si, ri) = _case(device, order, 3, free_surface, True, nt=96, in_ring=True,
                               shape=shape)
     nt = w.shape[0]
-    modes = [dict(tape=None), dict(tape="snap"), dict(tape="rings"),
-             dict(rcv=ri[:0], illum=True)]
+    modes = [dict(tape=None), dict(tape="snap"), dict(tape="rings"), dict(illum=True)]
     f0 = ks.scanres_forward.launches
-    for mode in modes:
-        kw = dict(mode)
-        rcv = kw.pop("rcv", ri)
-        split = ks.scanres_forward(*args, w, si, rcv, variant="split", **kw)
-        assert float(split[3].abs().max()) > 0.0
+    for kw in modes:
+        ref = chip_smoke.scanres_forward_steps(args, w, si, ri, **kw)
+        assert float(ref[3].abs().max()) > 0.0
+        rcv = ri[:0] if kw.get("illum") else ri
         for dep in (True, False):
-            fused = ks.scanres_forward(*args, w, si, rcv, variant="fused", dependent_launch=dep,
-                                       **kw)
-            for name, a, b in zip(("seis", "tape", "penult", "last", "illum"), fused, split):
-                assert (a is None) == (b is None), (mode, name)
-                assert a is None or torch.equal(a, b), (mode, dep, name)
+            fused = ks.scanres_forward(*args, w, si, rcv, dependent_launch=dep, **kw)
+            for name, a, b in zip(("seis", "tape", "penult", "last", "illum"), fused, ref):
+                if rcv is ri or name != "seis":
+                    assert (a is None) == (b is None), (kw, name)
+                    assert a is None or torch.equal(a, b), (kw, dep, name)
     torch.cuda.synchronize()
-    assert ks.scanres_forward.launches - f0 == 3 * len(modes) * nt
+    assert ks.scanres_forward.launches - f0 == 2 * len(modes) * nt
     seis, snap, _, _, _ = ks.scanres_forward(*args, w, si, ri, tape="snap")
     gen = torch.Generator(device=device).manual_seed(order)
     ybar = torch.randn(seis.shape, generator=gen, device=device)
     r0 = ks.scanres_reverse_snap.launches
-    g_s, ls_s = ks.scanres_reverse_snap(*args, ybar, snap, si, ri, variant="split")
+    g_s, ls_s = chip_smoke.scanres_reverse_snap_steps(args, ybar, snap, si, ri)
     assert float(g_s.abs().max()) > 0.0
     for dep in (True, False):
-        g_f, ls_f = ks.scanres_reverse_snap(*args, ybar, snap, si, ri, variant="fused",
-                                            dependent_launch=dep)
+        g_f, ls_f = ks.scanres_reverse_snap(*args, ybar, snap, si, ri, dependent_launch=dep)
         assert torch.equal(g_f, g_s), (dep, float((g_f - g_s).abs().max()))
         assert torch.equal(ls_f, ls_s), dep
     torch.cuda.synchronize()
-    assert ks.scanres_reverse_snap.launches - r0 == 3 * nt
+    assert ks.scanres_reverse_snap.launches - r0 == 2 * nt
 
 
 def test_scanres_tiles_script_on_the_card(device):
-    """The tile sweep at two tiles and a short nt: every tile's fused steps
-    bitwise equal to the split ones, positive times, and the engine's own
-    library and tile restored after it."""
+    """The tile sweep at two tiles and a short nt: every tile's steps
+    bitwise equal to the engine's own build, positive times, and the
+    engine's own library and tile restored after it."""
     from tpufwi_torch.bench import scanres_tiles
 
     before = (ks.LIBRARY, ks.TILE_Z, ks.TILE_X, ks.TILE_ROWS)
@@ -162,10 +165,6 @@ def test_cuda_wrapper_raises_instead_of_falling_back(device):
     seis, tape, ppen, plast, _ = ks.scanres_forward(grid, c2, prof, w, *idx, tape="rings")
     with pytest.raises(ValueError, match="tape"):
         ks.scanres_reverse(grid, c2, prof, w, seis, tape[:-1], ppen, plast, *idx)
-    with pytest.raises(ValueError, match="variant"):
-        ks.scanres_forward(grid, c2, prof, w, *idx, variant="tiled")
-    with pytest.raises(ValueError, match="variant"):
-        ks.scanres_reverse(grid, c2, prof, w, seis, tape, ppen, plast, *idx, variant="split2")
 
 
 CASES = [(8, 1, False, False, False), (8, 3, True, True, True), (4, 2, False, True, True)]
@@ -210,7 +209,8 @@ def test_rings_kernels_match_plain(device, order, nsrc, free_surface, dup, in_ri
 @pytest.mark.parametrize("order", [2, 4, 8])
 def test_scanres_rings_fused_matches_split_bitwise(device, order, free_surface, shape):
     """scanres_reverse's fused step, with dependent launches and in plain
-    stream order, against its split passes, bitwise on gbar, lam_src and
+    stream order, against its per-step oracle (cuda_step's merged reverse
+    step, chip_smoke.scanres_reverse_steps), bitwise on gbar, lam_src and
     the reconstructed P_{-1}: three sources (one in the boundary ring, one
     on the surface row with the free surface, one on a receiver cell),
     coinciding receivers, fed the kernel forward's ring tape and last
@@ -222,16 +222,16 @@ def test_scanres_rings_fused_matches_split_bitwise(device, order, free_surface, 
     gen = torch.Generator(device=device).manual_seed(order)
     ybar = torch.randn(seis.shape, generator=gen, device=device)
     r0 = ks.scanres_reverse.launches
-    ref = ks.scanres_reverse(*args, w, ybar, rings, ppen, plast, si, ri, return_field=True,
-                             variant="split")
+    ref = chip_smoke.scanres_reverse_steps(args, w, ybar, rings, ppen, plast, si, ri,
+                                           return_field=True)
     assert float(ref[0].abs().max()) > 0.0
     for dep in (True, False):
         got = ks.scanres_reverse(*args, w, ybar, rings, ppen, plast, si, ri, return_field=True,
-                                 variant="fused", dependent_launch=dep)
+                                 dependent_launch=dep)
         for name, a, b in zip(("gbar", "lam_src", "field"), got, ref):
             assert torch.equal(a, b), (dep, name, float((a - b).abs().max()))
     torch.cuda.synchronize()
-    assert ks.scanres_reverse.launches - r0 == 3 * w.shape[0]
+    assert ks.scanres_reverse.launches - r0 == 2 * w.shape[0]
 
 
 @pytest.mark.parametrize("order,nsrc,free_surface,dup,in_ring", CASES)
@@ -389,11 +389,11 @@ def test_elastic_kernels_match_plain(device, source_type, record, order, free_su
 def test_escan_fused_matches_split_bitwise(device, order, source_type, record, free_surface,
                                             shape):
     """escan_reverse's fused passes, with dependent launches and in plain
-    stream order, against its split ones (the per-step engine's), bitwise
-    on the
-    five gradient planes and srcrow, fed the kernel forward's tape and
-    final fields and a random receiver cotangent; each call counts nt
-    launches."""
+    stream order, against its per-step oracle (the per-step engine's
+    estep_reverse), bitwise on the five gradient planes and srcrow, fed the
+    kernel forward's tape and final fields and a random receiver cotangent;
+    each call counts nt launches."""
+    from tpufwi_torch.adjoint_elastic_step import estep_reverse
     from tpufwi_torch.kernels import elastic2d_scan as ke
 
     args, w, idx = _elastic_case(device, source_type, record, free_surface, order, nt=120,
@@ -403,16 +403,16 @@ def test_escan_fused_matches_split_bitwise(device, order, source_type, record, f
     gen = torch.Generator(device=device).manual_seed(order)
     ybar = torch.randn(seis.shape, generator=gen, device=device)
     r0 = ke.escan_reverse.launches
-    g_s, sr_s = ke.escan_reverse(*args, w, ybar, tape, finals, *idx, *kind, variant="split")
+    g_s, sr_s = estep_reverse(*args, w, ybar, tape, finals, *idx, *kind)
     assert float(g_s[0].abs().max()) > 0.0
     for dep in (True, False):
-        g_f, sr_f = ke.escan_reverse(*args, w, ybar, tape, finals, *idx, *kind, variant="fused",
+        g_f, sr_f = ke.escan_reverse(*args, w, ybar, tape, finals, *idx, *kind,
                                      dependent_launch=dep)
         for name, a, b in zip(("lam", "lam2mu", "mu_xz", "buoy_x", "buoy_z"), g_f, g_s):
             assert torch.equal(a, b), (dep, name, float((a - b).abs().max()))
         assert torch.equal(sr_f, sr_s), dep
     torch.cuda.synchronize()
-    assert ke.escan_reverse.launches - r0 == 3 * w.shape[0]
+    assert ke.escan_reverse.launches - r0 == 2 * w.shape[0]
 
 
 @pytest.mark.parametrize("nt", [1, 2, 33])
@@ -424,8 +424,9 @@ def test_escan_fused_matches_split_bitwise(device, order, source_type, record, f
 def test_escan_fused_edge_cases_match_split_bitwise(device, order, source_type, record,
                                                     free_surface, nt):
     """The fused reverse's glue, in the owner threads of er_s and er_v,
-    against the split passes bitwise on the five gradient planes and
-    srcrow where it is hardest to keep the split step's order: two sources
+    against its per-step oracle (estep_reverse) bitwise on the five
+    gradient planes and srcrow where it is hardest to keep the per-step
+    engine's order: two sources
     and three receivers on one cell (the chains), sources and receivers on
     ring cells, a source on the free surface's row (its force undone by
     er_image_tail after the image), and nt 1 and 2 (er_setup's first step,
@@ -433,6 +434,7 @@ def test_escan_fused_edge_cases_match_split_bitwise(device, order, source_type, 
     receivers leaves every output zero (no stress cotangent reaches the
     source or the stress imaging, and sigma before the step is zero), so
     only the other cases must read nonzero."""
+    from tpufwi_torch.adjoint_elastic_step import estep_reverse
     from tpufwi_torch.kernels import elastic2d_scan as ke
 
     args, w, idx = _elastic_case(device, source_type, record, free_surface, order, nt=nt,
@@ -441,11 +443,11 @@ def test_escan_fused_edge_cases_match_split_bitwise(device, order, source_type, 
     seis, tape, finals = ke.escan_forward(*args, w, *idx, *kind, tape=True)
     gen = torch.Generator(device=device).manual_seed(order + nt)
     ybar = torch.randn(seis.shape, generator=gen, device=device)
-    g_s, sr_s = ke.escan_reverse(*args, w, ybar, tape, finals, *idx, *kind, variant="split")
+    g_s, sr_s = estep_reverse(*args, w, ybar, tape, finals, *idx, *kind)
     if nt > 1 or kind != ("pressure", "v"):
         assert max(float(x.abs().max()) for x in (*g_s, sr_s)) > 0.0
     for dep in (True, False):
-        g_f, sr_f = ke.escan_reverse(*args, w, ybar, tape, finals, *idx, *kind, variant="fused",
+        g_f, sr_f = ke.escan_reverse(*args, w, ybar, tape, finals, *idx, *kind,
                                      dependent_launch=dep)
         for name, a, b in zip(("lam", "lam2mu", "mu_xz", "buoy_x", "buoy_z"), g_f, g_s):
             assert torch.equal(a, b), (dep, name, float((a - b).abs().max()))
@@ -453,11 +455,11 @@ def test_escan_fused_edge_cases_match_split_bitwise(device, order, source_type, 
 
 
 @pytest.mark.parametrize("free_surface", [False, True])
-@pytest.mark.parametrize("variant", ["fused", "split"])
-def test_escan_reverse_launches_as_planned(device, variant, free_surface):
+@pytest.mark.parametrize("dependent_launch", [True, False])
+def test_escan_reverse_launches_as_planned(device, dependent_launch, free_surface):
     """The elastic library's kernels of one short reverse call in a
-    torch.profiler window: ``reverse_launches`` a step times nt, plus the
-    call's own."""
+    torch.profiler window, with dependent launches and in plain stream
+    order: ``reverse_launches`` a step times nt, plus the call's own."""
     import collections
     import re
 
@@ -472,7 +474,8 @@ def test_escan_reverse_launches_as_planned(device, variant, free_surface):
     ybar = seis.contiguous()
 
     def run():
-        ke.escan_reverse(*args, w, ybar, tape, finals, *idx, "force_z", "v", variant=variant)
+        ke.escan_reverse(*args, w, ybar, tape, finals, *idx, "force_z", "v",
+                         dependent_launch=dependent_launch)
         torch.cuda.synchronize()
 
     run()
@@ -481,7 +484,7 @@ def test_escan_reverse_launches_as_planned(device, variant, free_surface):
     ours = collections.Counter(
         m.group(1) for e in prof.events() if e.device_type == DeviceType.CUDA
         for m in [re.search(r"::(e[fr]?_\w+?)[<(]", e.name)] if m)
-    assert sum(ours.values()) == ke.reverse_launches(variant, free_surface, nt=nt), ours
+    assert sum(ours.values()) == ke.reverse_launches(free_surface, nt=nt), ours
 
 
 @pytest.mark.parametrize("shape", [(40, 56), (48, 112)])
@@ -491,11 +494,13 @@ def test_escan_reverse_launches_as_planned(device, variant, free_surface):
 def test_escan_forward_fused_matches_split_bitwise(device, order, source_type, record,
                                                    free_surface, shape):
     """escan_forward's fused step, with dependent launches and in plain
-    stream order, against its split passes (the per-step engine's), bitwise
-    on the seismogram, the ring tape and the five final fields, and without
-    the tape on the seismogram; coinciding sources, coinciding receivers
-    and a receiver on a source cell; each call counts nt launches."""
+    stream order, against its per-step oracle (the per-step engine's
+    estep_forward), bitwise on the seismogram, the ring tape and the five
+    final fields, and without the tape on the seismogram; coinciding
+    sources, coinciding receivers and a receiver on a source cell; each
+    call counts nt launches."""
     from tpufwi_torch.kernels import elastic2d_scan as ke
+    from tpufwi_torch.kernels.elastic2d_step import estep_forward
 
     args, w, (si, ri) = _elastic_case(device, source_type, record, free_surface, order,
                                       nt=120, shape=shape)
@@ -503,19 +508,19 @@ def test_escan_forward_fused_matches_split_bitwise(device, order, source_type, r
     ri = torch.cat([ri, si[1:2]])
     kind = (source_type, record)
     f0 = ke.escan_forward.launches
-    ref = ke.escan_forward(*args, w, si, ri, *kind, tape=True, variant="split")
+    ref = estep_forward(*args, w, si, ri, *kind, tape=True)
     assert float(ref[0].abs().max()) > 0.0
     for dep in (True, False):
         seis, tape, finals = ke.escan_forward(*args, w, si, ri, *kind, tape=True,
-                                              variant="fused", dependent_launch=dep)
+                                              dependent_launch=dep)
         assert torch.equal(seis, ref[0]), (dep, "seis", float((seis - ref[0]).abs().max()))
         assert torch.equal(tape, ref[1]), (dep, "tape", float((tape - ref[1]).abs().max()))
         for name, a, b in zip(("vx", "vz", "sxx", "szz", "sxz"), finals, ref[2]):
             assert torch.equal(a, b), (dep, name, float((a - b).abs().max()))
-    seis_n, tape_n, _ = ke.escan_forward(*args, w, si, ri, *kind, variant="fused")
+    seis_n, tape_n, _ = ke.escan_forward(*args, w, si, ri, *kind)
     assert tape_n is None and torch.equal(seis_n, ref[0])
     torch.cuda.synchronize()
-    assert ke.escan_forward.launches - f0 == 4 * w.shape[0]
+    assert ke.escan_forward.launches - f0 == 3 * w.shape[0]
 
 
 def test_elastic_wrapper_raises_instead_of_falling_back(device):
@@ -527,10 +532,6 @@ def test_elastic_wrapper_raises_instead_of_falling_back(device):
     seis, tape, finals = ke.escan_forward(grid, dt, mats, prof, w, *idx, tape=True)
     with pytest.raises(ValueError, match="tape"):
         ke.escan_reverse(grid, dt, mats, prof, w, seis, tape[:-1].contiguous(), finals, *idx)
-    with pytest.raises(ValueError, match="variant"):
-        ke.escan_reverse(grid, dt, mats, prof, w, seis, tape, finals, *idx, variant="tiled")
-    with pytest.raises(ValueError, match="variant"):
-        ke.escan_forward(grid, dt, mats, prof, w, *idx, variant="tiled")
 
 
 # ------------------------------------------------------- elastic (10-11)

@@ -1,5 +1,5 @@
-"""The fused elastic reverse's walk (``escan_reverse(..., variant="fused")``,
-TPU kernel 9) transcribed in plain torch, on the CPU, fp32.
+"""The fused elastic reverse's walk (``escan_reverse``, TPU kernel 9)
+transcribed in plain torch, on the CPU, fp32.
 
 The CUDA passes ``er_s`` and ``er_v`` (csrc/elastic2d_kernels.cuh) run each
 stage as tiles of ``escan_tile_plan``: a tile computes the dbar values over
@@ -11,7 +11,7 @@ with the plain version's own functions (the step twin's ``update_s`` /
 ``update_v`` through ``torch.func.vjp``, the reconstruction, the sources,
 the images, the ring impose) on each tile's window, the tiles in turn and
 in place, so a tile that read what an earlier one wrote, or glue out of
-the split step's order, would show. Per-cell torch arithmetic does not depend on the
+the per-step engine's order, would show. Per-cell torch arithmetic does not depend on the
 window, so the walk must equal ``escan_reverse_plain`` bitwise; and through
 the port's engine it must agree with the reference (the jnp engine, and the
 whole-scan engine in interpret mode) within test_torch_elastic_scan.py's
@@ -371,18 +371,18 @@ def test_fused_walk_edge_cases_bitwise(nt, source_type, record, free_surface):
 
 
 def test_reverse_launches_and_variants():
-    """2 launches a fused reverse step and 4 with the free surface (its
-    images pair cells of different tiles), plus er_setup a call and with
-    the free surface the first step's stress-image transpose; the wrapper
-    rejects an unknown variant on any device."""
-    assert [ke.reverse_launches("fused", fs) for fs in (False, True)] == [2, 4]
-    assert [ke.reverse_launches("split", fs) for fs in (False, True)] == [8, 12]
-    assert [ke.reverse_launches("fused", fs, nt=10) for fs in (False, True)] == [21, 42]
-    assert [ke.reverse_launches("split", fs, nt=10) for fs in (False, True)] == [81, 121]
+    """2 launches a reverse step and 4 with the free surface (its images
+    pair cells of different tiles), plus er_setup a call and with the free
+    surface the first step's stress-image transpose; on the CPU the wrapper
+    is the plain version, with and without dependent launches, and
+    launches nothing."""
+    assert [ke.reverse_launches(fs) for fs in (False, True)] == [2, 4]
+    assert [ke.reverse_launches(fs, nt=10) for fs in (False, True)] == [21, 42]
     args, w, ybar, tape, finals, idx = _case(4, "force_z", "v", False, nt=4)
-    with pytest.raises(ValueError, match="variant"):
-        ke.escan_reverse(*args, w, ybar, tape, finals, *idx, "force_z", "v", variant="tiled")
-    g, sr = ke.escan_reverse(*args, w, ybar, tape, finals, *idx, "force_z", "v",
-                             variant="split")
+    r0 = ke.escan_reverse.launches
     g_p, sr_p = ke.escan_reverse_plain(*args, w, ybar, tape, finals, *idx, "force_z", "v")
-    assert all(torch.equal(a, b) for a, b in zip(g, g_p)) and torch.equal(sr, sr_p)
+    for dep in (True, False):
+        g, sr = ke.escan_reverse(*args, w, ybar, tape, finals, *idx, "force_z", "v",
+                                 dependent_launch=dep)
+        assert all(torch.equal(a, b) for a, b in zip(g, g_p)) and torch.equal(sr, sr_p)
+    assert ke.escan_reverse.launches == r0

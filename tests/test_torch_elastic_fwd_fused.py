@@ -1,8 +1,8 @@
-"""The fused elastic forward's walk (``escan_forward(..., variant="fused")``,
-TPU kernel 8) transcribed in plain torch, on the CPU, fp32.
+"""The fused elastic forward's walk (``escan_forward``, TPU kernel 8)
+transcribed in plain torch, on the CPU, fp32.
 
 The fused forward runs two launches a step (csrc/elastic2d_scan.cu): stage
-V over the whole grid in place (the split step's ``ef_v``), which first
+V over the whole grid in place (the per-step engine's ``ef_v``), which first
 adds the step before's force sources to vz; then ``ef_s_fused``
 (csrc/elastic2d_kernels.cuh) as the tiles of ``forward_tiles``: a tile
 copies v over its cells and their R cross, a free-surface ghost row from
@@ -268,15 +268,15 @@ def test_forward_tile_plan(order, free_surface, shape, pml):
 
 
 def test_forward_launches_and_variants():
-    """Two launches a fused forward step with and without the free surface
-    (ef_setup and, with a force source, its tail once a call), the split
-    step's 4 and 6; both variants are the
-    plain version on the CPU; an unknown variant raises on any device."""
-    assert [ke.forward_launches("fused", fs) for fs in (False, True)] == [2, 2]
-    assert [ke.forward_launches("split", fs) for fs in (False, True)] == [4, 6]
+    """Two launches a forward step with and without the free surface
+    (ef_setup and, with a force source, its tail once a call); on the CPU
+    the wrapper is the plain version, with and without dependent launches,
+    and launches nothing."""
+    assert ke.FORWARD_LAUNCHES == 2
     args, w, _, _, _, idx = _case(2, "pressure", "p", True, nt=4)
-    outs = [ke.escan_forward(*args, w, *idx, "pressure", "p", tape=True, variant=v)
-            for v in ke.VARIANTS]
-    _assert_same(outs[0], outs[1])
-    with pytest.raises(ValueError, match="variant"):
-        ke.escan_forward(*args, w, *idx, "pressure", "p", variant="tiled")
+    f0 = ke.escan_forward.launches
+    ref = ke.escan_forward_plain(*args, w, *idx, "pressure", "p", tape=True)
+    for dep in (True, False):
+        _assert_same(ke.escan_forward(*args, w, *idx, "pressure", "p", tape=True,
+                                      dependent_launch=dep), ref)
+    assert ke.escan_forward.launches == f0

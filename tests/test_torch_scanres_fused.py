@@ -1,5 +1,5 @@
 """The fused whole-scan steps' walk (``scanres_forward`` and
-``scanres_reverse_snap`` with ``variant="fused"``, TPU kernels 1 and 2)
+``scanres_reverse_snap``, TPU kernels 1 and 2)
 transcribed in plain torch, on the CPU, fp32.
 
 The CUDA passes ``fwd_fused`` and ``rev_fused`` (csrc/acoustic2d_scanres.cu)
@@ -25,7 +25,6 @@ The plan's tile walk is checked as the C side computes it.
 """
 
 import functools
-import itertools
 import types
 
 import jax.numpy as jnp
@@ -419,23 +418,18 @@ def test_tile_plan_covers_every_cell_once(order, shape, pml):
 
 
 def test_variants_and_launches():
-    """On the CPU both variants are the plain version; an unknown variant
-    raises on any device; one launch a fused step in every forward mode,
-    the split step's 3-5 and 4."""
+    """On the CPU the wrappers are the plain version, with and without
+    dependent launches, and launch nothing; one launch a step of every
+    whole-scan kernel in every mode."""
     args, w, idx = _case(4, True, nt=6)
+    f0, r0 = ks.scanres_forward.launches, ks.scanres_reverse_snap.launches
     for mode in (dict(tape="snap"), dict(tape="rings", illum=True)):
-        outs = [ks.scanres_forward(*args, w, *idx, variant=v, **mode) for v in ks.VARIANTS]
-        _assert_same(outs[0], outs[1], FWD_NAMES)
-    seis, snap = outs[1][0], ks.scanres_forward(*args, w, *idx, tape="snap")[1]
-    revs = [ks.scanres_reverse_snap(*args, seis, snap, *idx, variant=v) for v in ks.VARIANTS]
-    _assert_same(revs[0], revs[1], ("gbar", "lam_src"))
-    with pytest.raises(ValueError, match="variant"):
-        ks.scanres_forward(*args, w, *idx, variant="tiled")
-    with pytest.raises(ValueError, match="variant"):
-        ks.scanres_reverse_snap(*args, seis, snap, *idx, variant="merged")
-    modes = list(itertools.product(ks.TAPE_MODES, (False, True)))
-    assert all(ks.step_launches("scanres_forward", "fused", t, i) == 1 for t, i in modes)
-    assert ks.step_launches("scanres_reverse_snap", "fused") == 1
-    assert [ks.step_launches("scanres_forward", "split", t, i) for t, i in modes] == \
-        [3, 4, 3, 4, 4, 5]
-    assert ks.step_launches("scanres_reverse_snap", "split") == 4
+        ref = ks.scanres_forward_plain(*args, w, *idx, **mode)
+        for dep in (True, False):
+            _assert_same(ks.scanres_forward(*args, w, *idx, dependent_launch=dep, **mode), ref,
+                         FWD_NAMES)
+    seis, snap = ks.scanres_forward(*args, w, *idx, tape="snap")[:2]
+    _assert_same(ks.scanres_reverse_snap(*args, seis, snap, *idx, dependent_launch=False),
+                 ks.scanres_reverse_snap_plain(*args, seis, snap, *idx), ("gbar", "lam_src"))
+    assert (ks.scanres_forward.launches, ks.scanres_reverse_snap.launches) == (f0, r0)
+    assert ks.STEP_LAUNCHES == 1

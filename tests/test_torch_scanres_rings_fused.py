@@ -1,5 +1,5 @@
-"""The fused rings reverse's walk (``scanres_reverse(..., variant="fused")``,
-TPU kernel 3) transcribed in plain torch, on the CPU, fp32.
+"""The fused rings reverse's walk (``scanres_reverse``, TPU kernel 3)
+transcribed in plain torch, on the CPU, fp32.
 
 The CUDA pass is the snapshot reverse's ``rev_fused`` (csrc/
 acoustic2d_scanres.cu) in its rings form: besides the transposed step, a
@@ -125,16 +125,16 @@ def test_rings_walk_matches_reference_jnp_engine(monkeypatch, nsrc, free_surface
 
 
 def test_rings_variants_and_launches():
-    """On the CPU both variants of the rings reverse are the plain version
-    (with the field it returns); an unknown variant raises on any device;
-    one launch a fused step, the split step's 5."""
+    """On the CPU the rings reverse is the plain version (with the field it
+    returns), with and without dependent launches, and launches nothing;
+    one launch a step; the rings pass takes the most shared bytes."""
     args, w, ybar, tape, ppen, plast, idx = _rings_case(4, True, nt=6)
-    outs = [ks.scanres_reverse(*args, w, ybar, tape, ppen, plast, *idx, return_field=True,
-                               variant=v) for v in ks.VARIANTS]
-    _assert_same(outs[0], outs[1], NAMES)
-    with pytest.raises(ValueError, match="variant"):
-        ks.scanres_reverse(*args, w, ybar, tape, ppen, plast, *idx, variant="tiled")
-    assert ks.step_launches("scanres_reverse", "fused") == 1
-    assert ks.step_launches("scanres_reverse", "split") == 5
+    r0 = ks.scanres_reverse.launches
+    ref = ks.scanres_reverse_plain(*args, w, ybar, tape, ppen, plast, *idx, return_field=True)
+    for dep in (True, False):
+        _assert_same(ks.scanres_reverse(*args, w, ybar, tape, ppen, plast, *idx,
+                                        return_field=True, dependent_launch=dep), ref, NAMES)
+    assert ks.scanres_reverse.launches == r0
+    assert ks.STEP_LAUNCHES == 1
     assert functools.reduce(max, (ks.fused_smem(4, k) for k in ks.FUSED_KERNELS)) == \
         ks.fused_smem(4, "rev_fused_rings")

@@ -132,6 +132,31 @@ def test_forward_step_matches_pallas_kernel(free_surface):
         assert _rel(got_s, ref_s) < STEP_TOL
 
 
+def test_forward_steps_write_the_whole_scan_snapshot_tape():
+    """A loop of fused_forward_step, handed a bf16 row each step (the
+    whole-scan forward's per-step oracle, chip_smoke.scanres_forward_steps),
+    gives scanres_forward_plain(tape="snap")'s seismogram, snapshot tape and
+    last two fields bitwise: with the free surface, a source in the ring
+    and coinciding receivers."""
+    import chip_smoke
+    from tpufwi_torch.kernels import acoustic2d_scanres as ks
+
+    grid = Grid(**_grid_kw(True))
+    dt = grid.cfl_dt(2500.0, 0.7)
+    rng = np.random.default_rng(5)
+    c2 = torch.tensor(((2000.0 + 400.0 * rng.random(grid.padded_shape)) * dt) ** 2,
+                      dtype=torch.float32)
+    args = (grid, c2, tuple(map(torch.tensor, strip_profiles(grid, dt, 2500.0, 14.0))))
+    w = torch.tensor(ricker_np(14.0, dt, 12), dtype=torch.float32)
+    src, rcv = map(torch.tensor, _geometry(grid))
+    got = chip_smoke.scanres_forward_steps(args, w, src, rcv, tape="snap")
+    ref = ks.scanres_forward_plain(*args, w, src, rcv, "snap")
+    assert got[1].dtype == torch.bfloat16 and got[4] is None and ref[4] is None
+    assert float(got[1].float().abs().max()) > 0.0
+    for name, a, b in zip(("seis", "tape", "penult", "last"), got, ref):
+        assert torch.equal(a, b), name
+
+
 @pytest.mark.parametrize("free_surface", [False, True])
 def test_recon_step_matches_pallas_kernel(free_surface):
     kw = _grid_kw(free_surface)

@@ -3,20 +3,20 @@
     python -m tpufwi_torch.bench.scanres_tiles [tz,tx,rows,minblocks ...] [--nt N]
 
 ``scanres_forward`` and ``scanres_reverse_snap`` run one shared-memory tiled
-kernel a time step (``variant="fused"``) on the tile that
+kernel a time step on the tile that
 ``csrc/acoustic2d_scanres.cu`` is built for (``TPUFWI_SCAN_TILE``: tz x tx
 cells, a block of tx x rows threads, at least minblocks blocks an SM).
 This script builds one library per tile given (default: the engine's tile
 and four others) from a source that defines ``TPUFWI_SCAN_TILE`` and
 includes the engine's, then, per tile, at the main path's grid (Marmousi-
 like 351 x 1701 at 10 m, order 8, pml 20: padded 399 x 1749; one surface
-shot, a receiver every other column, nt steps): holds the fused steps
-bitwise against the split ones (the snapshot forward's seismogram, tape
-and fields; the reverse's gradient and lambda at the sources; the
-illumination), and times ms a step by CUDA events of the fused steps
-(with dependent launches and in plain stream order) and of the split
-steps, in the same calls, two rounds over the tiles. Prints one JSON line
-per tile and round, with the card's name. Needs a CUDA card.
+shot, a receiver every other column, nt steps): holds the steps bitwise
+against the engine's own build (a tile changes no arithmetic: the snapshot
+forward's seismogram, tape and fields; the reverse's gradient and lambda
+at the sources; the illumination), and times ms a step by CUDA events,
+with dependent launches and in plain stream order, in the same calls, two
+rounds over the tiles. Prints one JSON line per tile and round, with the
+card's name. Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -47,9 +47,7 @@ def tile_library(tile) -> Library:
     src.write_text(f"#define TPUFWI_SCAN_TILE {', '.join(map(str, tile))}\n"
                    f'#include "{CSRC / "acoustic2d_scanres.cu"}"\n')
     return Library(stem, (src,), (CSRC / "acoustic2d_scanres.cu", *ks.LIBRARY.headers),
-                   lambda lib: declare_all(lib, {
-                       "tpufwi_scanres_forward": (15, 14), "tpufwi_scanres_reverse_snap": (13, 13),
-                       "tpufwi_scanres_reverse_rings": (15, 19)}))
+                   lambda lib: declare_all(lib, ks.SCAN_SIGNATURES))
 
 
 def main_path_shot(dev, nt):
@@ -111,12 +109,11 @@ def main(argv=None):
     dev = torch.device("cuda", 0)
     nt = args.nt
     shot, w, si, ri = main_path_shot(dev, nt)
-    fwd_ref = ks.scanres_forward(*shot, w, si, ri, tape="snap", variant="split")
+    fwd_ref = ks.scanres_forward(*shot, w, si, ri, tape="snap")
     ybar, snap = fwd_ref[0].contiguous(), fwd_ref[1]
-    rev_ref = ks.scanres_reverse_snap(*shot, ybar, snap, si, ri, variant="split")
-    il_ref = ks.scanres_forward(*shot, w, si, ri[:0], illum=True, variant="split")[4]
-    runs = {"fused": ("fused", True), "fused in stream order": ("fused", False),
-            "split": ("split", True)}
+    rev_ref = ks.scanres_reverse_snap(*shot, ybar, snap, si, ri)
+    il_ref = ks.scanres_forward(*shot, w, si, ri[:0], illum=True)[4]
+    runs = {"dependent launch": True, "stream order": False}
     library, tile_z, tile_x, tile_rows = ks.LIBRARY, ks.TILE_Z, ks.TILE_X, ks.TILE_ROWS
     out = []
     try:
@@ -135,8 +132,7 @@ def main(argv=None):
                         "device": torch.cuda.get_device_name(0)}
                 for name, fn in calls.items():
                     line[name] = {label: ms_per_step(functools.partial(
-                        fn, variant=v, dependent_launch=dep), nt) for label, (v, dep)
-                        in runs.items()}
+                        fn, dependent_launch=dep), nt) for label, dep in runs.items()}
                 line["bitwise"] = (
                     all(torch.equal(a, b) for a, b in zip(calls["forward"](), fwd_ref)
                         if a is not None)
@@ -148,7 +144,7 @@ def main(argv=None):
         ks.LIBRARY = library
         ks.TILE_Z, ks.TILE_X, ks.TILE_ROWS = tile_z, tile_x, tile_rows
     if not all(line["bitwise"] for line in out):
-        raise RuntimeError("a tile's fused steps differ from the split ones")
+        raise RuntimeError("a tile's steps differ from the engine's own build")
     return out
 
 

@@ -25,15 +25,14 @@
 //                             sources sum in a fixed order), then receivers
 //             F4 ring_get     optional: one thread per ring cell, the ring
 //                             of the post-source field into a tape row
-//             F5 illum_add    optional (whole-scan forward): one thread per
-//                             cell, illum += P_t^2 after the sources and pin
 //   reverse:  R0 rev_inject   one block: receiver-cotangent injection (each
 //                             cell owned by its first receiver, which sums
 //                             the others in index order), lambda at sources
 //             R1 rev_cells1   one thread per cell: surface mask, u = C lambda,
 //                             imaging, psi-bar ring -> w
-//                (rev_cells1_rings: the same, with the reconstruction of
-//                             P_{t-2} and its lapw fused in)
+//                (rev_cell1_rings: the same, with the reconstruction of
+//                             P_{t-2} and its lapw fused in; the K-step
+//                             reverse's cell body)
 //             R2 rev_strips   phi-bar ring -> y (needs D1 u and D1 w)
 //             R3 rev_cells2   one thread per cell: lambda_{t-1} =
 //                             2 lambda_t - lambda_{t+1} + D2 u + D2 w - D1 y
@@ -41,10 +40,9 @@
 //                      with the pin off, the bare leapfrog)
 //                   C2 rec_src_ring (sources outside the ring, then the
 //                      ring imposed from the tape row, or zeros)
-// The whole-scan forward and snapshot reverse also have fused passes
-// (acoustic2d_scanres.cu, variant "fused", their default): one
-// shared-memory tiled kernel a time step, F1-F5 in fwd_fused and R0-R3 in
-// rev_fused. Every engine runs the per-cell tails below (tap_sum,
+// The whole-scan engine fuses a step into one shared-memory tiled kernel
+// (acoustic2d_scanres.cu): F1-F4 and the illumination in fwd_fused, R0-R3
+// in rev_fused. Every engine runs the per-cell tails below (tap_sum,
 // phi_update, psi_update, leapfrog_update, add_source, adj_w, adj_y,
 // rev_lap, rev_leapfrog): a
 // product that could contract into an FMA is fused explicitly (fmaf), so a
@@ -88,9 +86,6 @@ __device__ __forceinline__ bool in_ring(int z, int x, const RingFrame& f) {
   if (z < f.z0 || z >= f.z1 || x < f.x0 || x >= f.x1) return false;
   return z < f.z0 + f.w || z >= f.z1 - f.w || x < f.x0 + f.w || x >= f.x1 - f.w;
 }
-
-__device__ __forceinline__ float to_float(float v) { return v; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
 
 // index of row z (or column x) into a (2, S) strip profile, -1 outside
 __device__ __forceinline__ int strip_index(int z, int n, int S) {
@@ -188,8 +183,8 @@ __device__ __forceinline__ float tap_sum_uw(const float* __restrict__ u, int iu,
 
 // R3's sum for lambda_{t-1}: D2 u, then in the z band D2z wz - D1z yz, then
 // in the x band D2x wx - D1x yx, one accumulator in that order. Each array
-// at its own index and z stride (x stride 1): the split pass reads halo
-// planes, the fused one shared-memory planes.
+// at its own index and z stride (x stride 1): the single-step pass reads
+// halo planes, the fused one shared-memory planes.
 template <int R>
 __device__ __forceinline__ float rev_lap(const float* __restrict__ u, int iu, int su,
                                          const float* __restrict__ wz, int iwz, int swz,
@@ -371,17 +366,6 @@ __global__ void ring_get(const float* __restrict__ p, const int* __restrict__ ri
   if (k < n_ring) ring_cell(p, ring, row, k, NX, R);
 }
 
-// F5 (optional): illum += P_t^2 on the (NZ, NX) grid, P_t after the sources
-// and the surface pin, the field the reference's illumination sums
-__global__ void illum_add(const float* __restrict__ p, float* __restrict__ illum, int NZ,
-                          int NX, int R) {
-  const int x = blockIdx.x * blockDim.x + threadIdx.x;
-  const int z = blockIdx.y * blockDim.y + threadIdx.y;
-  if (x >= NX || z >= NZ) return;
-  const float v = p[(z + R) * (NX + 2 * R) + x + R];
-  illum[z * NX + x] = fmaf(v, v, illum[z * NX + x]);
-}
-
 // ---------------------------------------------------------- reconstruction
 
 // p_tp1 holds P_t on entry and 2 P_{t-1} - P_t + C lapw (surface pinned) on
@@ -512,11 +496,10 @@ __device__ __forceinline__ void transposed_cell(
   if (sx >= 0) adj_w(psbx[i], uu, ax[sx], bx[sx], psbx[i], wx[i]);
 }
 
-// img_row: the bf16 snapshot tape row (snapshot reverse) or the fp32 lapw of
-// the reconstruction (single-step adjoint)
-template <int R, typename T>
+// img_row: the fp32 lapw of the reconstruction (or a snapshot row widened)
+template <int R>
 __global__ void rev_cells1(float* __restrict__ q, float* __restrict__ u,
-                           const float* __restrict__ c2, const T* __restrict__ img_row,
+                           const float* __restrict__ c2, const float* __restrict__ img_row,
                            float* __restrict__ gacc, float* __restrict__ psbz,
                            float* __restrict__ wz, float* __restrict__ psbx,
                            float* __restrict__ wx, const float* __restrict__ az,
@@ -528,7 +511,7 @@ __global__ void rev_cells1(float* __restrict__ q, float* __restrict__ u,
   const int i = (z + R) * (NX + 2 * R) + x + R;
   const int c = z * NX + x;
   transposed_cell(q, u, c2, gacc, psbz, wz, psbx, wx, az, bz, ax, bx, z, x, i, c, NZ, NX, S,
-                  fs, to_float(img_row[c]));
+                  fs, img_row[c]);
 }
 
 // R1 with the reconstruction fused in, for cell (z, x): lapw of p_t =
@@ -548,22 +531,6 @@ __device__ __forceinline__ void rev_cell1_rings(
   p_tp1[i] = (z == fs) ? 0.f : leapfrog_update(p_t[i], p_tp1[i], c2[c], lap);
   transposed_cell(q, u, c2, gacc, psbz, wz, psbx, wx, az, bz, ax, bx, z, x, i, c, NZ, NX, S,
                   fs, lap);
-}
-
-template <int R>
-__global__ void rev_cells1_rings(float* __restrict__ q, float* __restrict__ u,
-                                 const float* __restrict__ c2, const float* __restrict__ p_t,
-                                 float* __restrict__ p_tp1, float* __restrict__ gacc,
-                                 float* __restrict__ psbz, float* __restrict__ wz,
-                                 float* __restrict__ psbx, float* __restrict__ wx,
-                                 const float* __restrict__ az, const float* __restrict__ bz,
-                                 const float* __restrict__ ax, const float* __restrict__ bx,
-                                 int NZ, int NX, int S, int fs, Taps tp) {
-  const int x = blockIdx.x * blockDim.x + threadIdx.x;
-  const int z = blockIdx.y * blockDim.y + threadIdx.y;
-  if (x >= NX || z >= NZ) return;
-  rev_cell1_rings<R>(q, u, c2, p_t, p_tp1, gacc, psbz, wz, psbx, wx, az, bz, ax, bx, z, x, NZ, NX,
-                     S, fs, tp);
 }
 
 // R2 for strip cell idx of [0, 2 S NX + 2 NZ S): z strips, then x strips
@@ -682,16 +649,14 @@ void forward_step(const float* c2, const float* az, const float* bz, const float
     ring_get<<<blocks_for(n_ring), kSmallBlock, 0, st>>>(prev, ring, ring_row, n_ring, NX, R);
 }
 
-// R0, then R1 (img_row is null for the fused reconstruction of the rings
-// reverse, which then reads p_t and rewrites p_tp1), R2, R3. adj holds the
-// 9 planes u, psibar_z, w_z, phibar_z, y_z, psibar_x, w_x, phibar_x, y_x.
-template <int R, typename T>
+// R0, then R1 imaging with img_row, R2, R3. adj holds the 9 planes u,
+// psibar_z, w_z, phibar_z, y_z, psibar_x, w_x, phibar_x, y_x.
+template <int R>
 void reverse_step(const float* c2, const float* az, const float* bz, const float* ax,
-                  const float* bx, const float* ybar, int t, const T* img_row,
-                  const float* p_t, float* p_tp1, const long long* src, const long long* rcv,
-                  const int* chain, float* gacc, float* lam_src, float* qc, float* qo,
-                  float* adj, size_t plane, int NZ, int NX, int S, int nsrc, int nrec, int fs,
-                  const Taps& tp, cudaStream_t st) {
+                  const float* bx, const float* ybar, int t, const float* img_row,
+                  const long long* src, const long long* rcv, const int* chain, float* gacc,
+                  float* lam_src, float* qc, float* qo, float* adj, size_t plane, int NZ,
+                  int NX, int S, int nsrc, int nrec, int fs, const Taps& tp, cudaStream_t st) {
   float* u = adj;
   float* psbz = adj + plane;
   float* wz = adj + 2 * plane;
@@ -703,12 +668,8 @@ void reverse_step(const float* c2, const float* az, const float* bz, const float
   float* yx = adj + 8 * plane;
   rev_inject<<<1, kSmallBlock, 0, st>>>(qc, ybar, t, rcv, chain, src, lam_src, nsrc, nrec, NX,
                                         R, fs);
-  if (img_row != nullptr)
-    rev_cells1<R, T><<<cell_grid(NZ, NX), kCellBlock, 0, st>>>(
-        qc, u, c2, img_row, gacc, psbz, wz, psbx, wx, az, bz, ax, bx, NZ, NX, S, fs);
-  else
-    rev_cells1_rings<R><<<cell_grid(NZ, NX), kCellBlock, 0, st>>>(
-        qc, u, c2, p_t, p_tp1, gacc, psbz, wz, psbx, wx, az, bz, ax, bx, NZ, NX, S, fs, tp);
+  rev_cells1<R><<<cell_grid(NZ, NX), kCellBlock, 0, st>>>(
+      qc, u, c2, img_row, gacc, psbz, wz, psbx, wx, az, bz, ax, bx, NZ, NX, S, fs);
   rev_strips<R><<<strip_blocks(NZ, NX, S), kStripBlock, 0, st>>>(u, wz, wx, pbz, yz, pbx, yx, az,
                                                                   bz, ax, bx, NZ, NX, S, tp);
   rev_cells2<R><<<cell_grid(NZ, NX), kCellBlock, 0, st>>>(qc, qo, u, wz, yz, wx, yx, NZ, NX, S,

@@ -6,15 +6,15 @@
 // P0, "leapfrog only", and P1, "+ CPML strip algebra"). On the TPU the
 // probe mirrored its production kernel's layout and helpers; here it
 // launches the production kernels of acoustic2d_kernels.cuh from a host
-// loop on halo-padded fields, as the whole-scan forward does
-// (acoustic2d_scanres.cu forward_loop):
+// loop on halo-padded fields, as the single-step forward does
+// (forward_step):
 //   P0 (strips = 0): rec_cells<R> with the pin off, the bare leapfrog
 //                    P_t = 2 P_{t-1} - P_{t-2} + C Lap(P_{t-1})
 //                    (what tpufwi_leapfrog launches), one launch a step;
 //   P1 (strips = 1): fwd_strips<R> then fwd_cells<R> with no tape row and
-//                    no surface pin, the whole-scan forward's step without
-//                    its one-block source and receiver kernel.
-// So P1 - P0 on the card is the strip cost the production forward pays.
+//                    no surface pin, the single-step forward's step
+//                    without its one-block source and receiver kernel.
+// So P1 - P0 on the card is the strip cost those passes pay.
 // The reference's MXU precision switch (highest / default) has no
 // counterpart: every operation here is fp32 FMA, no tensor cores, no TF32.
 //

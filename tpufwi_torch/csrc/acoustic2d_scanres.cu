@@ -12,25 +12,23 @@
 //                            transposed CPML step + imaging)
 // Plain C interface, built by nvcc into a shared library together with
 // acoustic2d_step.cu and acoustic2d_kstep.cu and called through ctypes
-// (tpufwi_torch/kernels/acoustic2d_scanres.py). The per-cell arithmetic and
-// the split passes are in acoustic2d_kernels.cuh.
+// (tpufwi_torch/kernels/acoustic2d_scanres.py). The per-cell arithmetic is
+// in acoustic2d_kernels.cuh.
 //
 // Design. On the TPU the whole loop is one pallas_call with the state in
 // VMEM. Here the state lives in device memory (a 399x1749 fp32 field is
 // 2.8 MB; the working set of one step fits the 50 MB L2) and a host loop in
 // this file launches each time step on the caller's stream, so the Python
 // side makes one call per propagation. At that size a step is paced by
-// launches and latency, not by bytes, so the forward and both reverses have
-// two variants of their step, equal bitwise:
-//   variant 0, fused (the default): one shared-memory tiled kernel a step
-//     (fwd_fused, rev_fused below), each a programmatic dependent of the
-//     one before it (dependent launch off: plain stream order), after one
-//     small launch a call (scan_setup: the cell maps of the sources,
-//     receivers and ring cells; in the reverse also lambda_{nt-1}).
-//   variant 1, split: the ordered launches of acoustic2d_kernels.cuh
-//     (forward_step: 3 a step, 4 with the ring tape, +1 with the
-//     illumination; reverse_step: 4 a step, the rings reverse's 5 with
-//     rec_src_ring), which the single-step and K-step engines also run.
+// launches and latency, not by bytes, so the forward and both reverses run
+// one shared-memory tiled kernel a step (fwd_fused, rev_fused below), each
+// a programmatic dependent of the one before it (dependent launch off:
+// plain stream order), after one small launch a call (scan_setup: the cell
+// maps of the sources, receivers and ring cells; in the reverse also
+// lambda_{nt-1}). Their oracle on the card is the single-step engine
+// (acoustic2d_step.cu), which runs the header's passes a launch at a time
+// (forward_step, reverse_step; the rings reverse's is the merged step of
+// acoustic2d_kstep.cu): the same per-cell arithmetic, so bitwise equal.
 //
 // The fused forward step. A block of TX x ROWS threads owns a TZ x TX tile
 // of cells, TZ / ROWS rows a thread (TPUFWI_SCAN_TILE: 16 x 32 cells, 256
@@ -64,15 +62,14 @@
 // receiver or ring cell (a flag word a tile) reads the cell maps, after
 // the barrier. The block rows of the CPML band's tiles, which reach 2R and
 // take a second barrier, are dispatched first (tile_row). The per-cell
-// arithmetic is the split passes' (the header's tails, in the same tap
-// order), so fused and split are bitwise equal.
+// arithmetic is the header's tails, in the single-step passes' tap order.
 //
 // The fused rings-reverse step is rev_fused in its rings form: the image
 // is the fp32 D2 laplacian of P_{t-1}, copied over the tile's R cross (no
 // tile writes P_{t-1} in the step), and the owner rewrites its P_t in place
 // with P_{t-2} = 2 P_{t-1} - P_t + C lap, pins the surface, undoes its
 // sources outside the ring and off the surface in index order, and imposes
-// ring row t-2 (zeros for t < 2), as rev_cells1_rings and rec_src_ring do.
+// ring row t-2 (zeros for t < 2), as rev_cell1_rings and rec_sources do.
 //
 // Tapes. Snapshot row t is bf16(D2 laplacian of P_{t-1}), the field step t
 // starts from (2 bytes per cell per step, 6.8 GB at 399x1749x4842). Ring
@@ -83,12 +80,11 @@
 //
 // What bounds it: latency and launches at the main grid (the field sits in
 // L2); only the tape must reach HBM (2 bytes a cell a step). On an NVIDIA
-// H100 80GB HBM3 at 700 W, 399 x 1749, order 8 (chip_smoke.py): a fused
-// forward step took 9.1 us of device time against the split passes' 11.7
-// in 3 launches, a fused reverse step 12.4 against 20.9 in 4 (the rings
-// form 14.7 against 23.3 in 5), and the host enqueues a fused step in 2-4
-// us, under the device time. The fused
-// passes' tile and shared bytes are the plan that
+// H100 80GB HBM3 at 700 W, 399 x 1749, order 8 (chip_smoke.py): a forward
+// step took 9.1 us of device time against 11.7 for the same passes in 3
+// launches, a reverse step 12.4 against 20.9 in 4 (the rings form 14.7
+// against 23.3 in 5), and the host enqueues a step in 2-4 us, under the
+// device time. The passes' tile and shared bytes are the plan that
 // kernels/acoustic2d_scanres.py::scanres_tile_plan states.
 
 #include <cuda_bf16.h>
@@ -98,7 +94,7 @@
 
 namespace {
 
-// ------------------------------------------------------------ fused passes
+// ------------------------------------------------------------------ passes
 
 // the tile the loops run: TZ x TX cells, a block of TX x ROWS threads, at
 // least MINB blocks an SM (the register cap)
@@ -704,10 +700,10 @@ inline int tiles_x(int NX, int tx) { return (NX + tx - 1) / tx; }
 
 // ------------------------------------------------------------ host loops
 
-// ws: pa, pb, phi_z, psi_z, phi_x, psi_x, then (fused) the second phi_z,
-// phi_x; iws (fused): the maps (SMaps), zeroed
+// ws: pa, pb, phi_z, psi_z, phi_x, psi_x, then the second phi_z, phi_x;
+// iws: the maps (SMaps), zeroed
 template <int R, int TZ, int TX, int ROWS, int MINB>
-int forward_loop(int variant, const SPlan& plan, int dep, const float* c2, const float* az,
+int forward_loop(const SPlan& plan, int dep, const float* c2, const float* az,
                  const float* bz, const float* ax, const float* bx, const float* w,
                  const long long* src, const long long* rcv, float* seis, __nv_bfloat16* snap,
                  const int* ring, float* ring_tape, int n_ring, float* illum, float* ws, int* iws,
@@ -718,43 +714,23 @@ int forward_loop(int variant, const SPlan& plan, int dep, const float* c2, const
   float* pb = ws + plane;  // P_t for odd t
   float* cur = pb;         // P_{t-1}
   float* prev = pa;        // P_{t-2}, overwritten by P_t
-  if (variant == 0) {
-    if (const int err = scan_check_plan<R, TZ, TX, ROWS, MINB>(plan)) return err;
-    const dim3 grid(tiles_x(NX, TX), (NZ + TZ - 1) / TZ), block(TX, ROWS);
-    const SMaps m = carve_maps(iws, NZ, NX, grid.x * grid.y, nsrc);
-    scan_setup<<<blocks_for(nsrc + nrec + n_ring), kSmallBlock, 0, st>>>(
-        src, nsrc, rcv, nrec, ring, ring_tape ? n_ring : 0, NX, R, TZ, TX, grid.x, m, nullptr,
-        nullptr, nullptr, fs);
-    const FwdArgs a{c2, az, bz, ax, bx, w, seis, ws + 3 * plane, ws + 5 * plane, illum, m,
-                    NZ, NX, S, fs, nrec, tp};
-    float* phiz[2] = {ws + 2 * plane, ws + 6 * plane};
-    float* phix[2] = {ws + 4 * plane, ws + 7 * plane};
-    for (int t = 0; t < nt; ++t) {
-      const int k = t & 1;
-      launch_dep(dep, fwd_fused<R, TZ, TX, ROWS, MINB>, grid, block,
-                 (size_t)STile<R, TZ, TX, ROWS, MINB>::FWD, st, a, t, (const float*)cur, prev,
-                 (const float*)phiz[k], (const float*)phix[k], phiz[1 - k], phix[1 - k],
-                 snap ? snap + (size_t)t * NZ * NX : nullptr,
-                 ring_tape ? ring_tape + (size_t)t * n_ring : nullptr);
-      if (t == 0) {
-        const cudaError_t err = cudaGetLastError();
-        if (err != cudaSuccess) return (int)err;
-      }
-      float* tmp = cur;
-      cur = prev;
-      prev = tmp;
-    }
-    return (int)cudaGetLastError();
-  }
-  if (variant != 1) return (int)cudaErrorInvalidValue;
+  if (const int err = scan_check_plan<R, TZ, TX, ROWS, MINB>(plan)) return err;
+  const dim3 grid(tiles_x(NX, TX), (NZ + TZ - 1) / TZ), block(TX, ROWS);
+  const SMaps m = carve_maps(iws, NZ, NX, grid.x * grid.y, nsrc);
+  scan_setup<<<blocks_for(nsrc + nrec + n_ring), kSmallBlock, 0, st>>>(
+      src, nsrc, rcv, nrec, ring, ring_tape ? n_ring : 0, NX, R, TZ, TX, grid.x, m, nullptr,
+      nullptr, nullptr, fs);
+  const FwdArgs a{c2, az, bz, ax, bx, w, seis, ws + 3 * plane, ws + 5 * plane, illum, m,
+                  NZ, NX, S, fs, nrec, tp};
+  float* phiz[2] = {ws + 2 * plane, ws + 6 * plane};
+  float* phix[2] = {ws + 4 * plane, ws + 7 * plane};
   for (int t = 0; t < nt; ++t) {
-    forward_step<R>(c2, az, bz, ax, bx, w, t, src, rcv, seis,
-                    snap ? snap + (size_t)t * NZ * NX : nullptr, ring,
-                    ring_tape ? ring_tape + (size_t)t * n_ring : nullptr, n_ring, cur, prev,
-                    ws + 2 * plane, ws + 3 * plane, ws + 4 * plane, ws + 5 * plane, NZ, NX, S,
-                    nsrc, nrec, fs, tp, st);
-    if (illum != nullptr)
-      illum_add<<<cell_grid(NZ, NX), kCellBlock, 0, st>>>(prev, illum, NZ, NX, R);
+    const int k = t & 1;
+    launch_dep(dep, fwd_fused<R, TZ, TX, ROWS, MINB>, grid, block,
+               (size_t)STile<R, TZ, TX, ROWS, MINB>::FWD, st, a, t, (const float*)cur, prev,
+               (const float*)phiz[k], (const float*)phix[k], phiz[1 - k], phix[1 - k],
+               snap ? snap + (size_t)t * NZ * NX : nullptr,
+               ring_tape ? ring_tape + (size_t)t * n_ring : nullptr);
     if (t == 0) {
       const cudaError_t err = cudaGetLastError();
       if (err != cudaSuccess) return (int)err;
@@ -766,11 +742,10 @@ int forward_loop(int variant, const SPlan& plan, int dep, const float* c2, const
   return (int)cudaGetLastError();
 }
 
-// ws: lambda ping-pong q0, q1, then fused: psibar_z, phibar_z, psibar_x,
-// phibar_x in two sets; split: the 9 adjoint planes. iws: fused the maps
-// (SMaps), split the receiver chain (2 nrec ints)
+// ws: lambda ping-pong q0, q1, then psibar_z, phibar_z, psibar_x, phibar_x
+// in two sets. iws: the maps (SMaps), zeroed
 template <int R, int TZ, int TX, int ROWS, int MINB>
-int reverse_snap_loop(int variant, const SPlan& plan, int dep, const float* c2, const float* az,
+int reverse_snap_loop(const SPlan& plan, int dep, const float* c2, const float* az,
                       const float* bz, const float* ax, const float* bx, const float* ybar,
                       const __nv_bfloat16* snap, const long long* src, const long long* rcv,
                       float* gacc, float* lam_src, float* ws, int* iws, int NZ, int NX, int S,
@@ -778,41 +753,24 @@ int reverse_snap_loop(int variant, const SPlan& plan, int dep, const float* c2, 
   const size_t plane = (size_t)(NZ + 2 * R) * (NX + 2 * R);
   float* qc = ws;          // lambda_t
   float* qo = ws + plane;  // lambda_{t+1}, overwritten by lambda_{t-1}
-  if (variant == 0) {
-    if (const int err = scan_check_plan<R, TZ, TX, ROWS, MINB>(plan)) return err;
-    const dim3 grid(tiles_x(NX, TX), (NZ + TZ - 1) / TZ), block(TX, ROWS);
-    const SMaps m = carve_maps(iws, NZ, NX, grid.x * grid.y, nsrc);
-    scan_setup<<<blocks_for(nsrc + nrec), kSmallBlock, 0, st>>>(
-        src, nsrc, rcv, nrec, nullptr, 0, NX, R, TZ, TX, grid.x, m,
-        ybar + (size_t)(nt - 1) * nrec, qc, lam_src + (size_t)(nt - 1) * nsrc, fs);
-    const RevArgs a{c2, az, bz, ax, bx, ybar, gacc, lam_src, m, NZ, NX, S, fs, nsrc, nrec, tp,
-                    nullptr, RingFrame{}};
-    float* set[2] = {ws + 2 * plane, ws + 6 * plane};  // psibar_z, phibar_z, psibar_x, phibar_x
-    for (int t = nt - 1; t >= 0; --t) {
-      const int k = (nt - 1 - t) & 1;
-      const float* in = set[k];
-      float* out = set[1 - k];
-      launch_dep(dep, rev_fused<R, TZ, TX, ROWS, MINB, false>, grid, block,
-                 (size_t)STile<R, TZ, TX, ROWS, MINB>::REV, st, a, t, (const float*)qc, qo, in,
-                 in + plane, in + 2 * plane, in + 3 * plane, out, out + plane, out + 2 * plane,
-                 out + 3 * plane, snap + (size_t)t * NZ * NX, (const float*)nullptr,
-                 (float*)nullptr, (const float*)nullptr);
-      if (t == nt - 1) {
-        const cudaError_t err = cudaGetLastError();
-        if (err != cudaSuccess) return (int)err;
-      }
-      float* tmp = qc;
-      qc = qo;
-      qo = tmp;
-    }
-    return (int)cudaGetLastError();
-  }
-  if (variant != 1) return (int)cudaErrorInvalidValue;
-  rev_chain<<<blocks_for(nrec), kSmallBlock, 0, st>>>(rcv, nrec, iws);
+  if (const int err = scan_check_plan<R, TZ, TX, ROWS, MINB>(plan)) return err;
+  const dim3 grid(tiles_x(NX, TX), (NZ + TZ - 1) / TZ), block(TX, ROWS);
+  const SMaps m = carve_maps(iws, NZ, NX, grid.x * grid.y, nsrc);
+  scan_setup<<<blocks_for(nsrc + nrec), kSmallBlock, 0, st>>>(
+      src, nsrc, rcv, nrec, nullptr, 0, NX, R, TZ, TX, grid.x, m,
+      ybar + (size_t)(nt - 1) * nrec, qc, lam_src + (size_t)(nt - 1) * nsrc, fs);
+  const RevArgs a{c2, az, bz, ax, bx, ybar, gacc, lam_src, m, NZ, NX, S, fs, nsrc, nrec, tp,
+                  nullptr, RingFrame{}};
+  float* set[2] = {ws + 2 * plane, ws + 6 * plane};  // psibar_z, phibar_z, psibar_x, phibar_x
   for (int t = nt - 1; t >= 0; --t) {
-    reverse_step<R, __nv_bfloat16>(c2, az, bz, ax, bx, ybar, t, snap + (size_t)t * NZ * NX,
-                                   nullptr, nullptr, src, rcv, iws, gacc, lam_src, qc, qo,
-                                   ws + 2 * plane, plane, NZ, NX, S, nsrc, nrec, fs, tp, st);
+    const int k = (nt - 1 - t) & 1;
+    const float* in = set[k];
+    float* out = set[1 - k];
+    launch_dep(dep, rev_fused<R, TZ, TX, ROWS, MINB, false>, grid, block,
+               (size_t)STile<R, TZ, TX, ROWS, MINB>::REV, st, a, t, (const float*)qc, qo, in,
+               in + plane, in + 2 * plane, in + 3 * plane, out, out + plane, out + 2 * plane,
+               out + 3 * plane, snap + (size_t)t * NZ * NX, (const float*)nullptr,
+               (float*)nullptr, (const float*)nullptr);
     if (t == nt - 1) {
       const cudaError_t err = cudaGetLastError();
       if (err != cudaSuccess) return (int)err;
@@ -825,12 +783,11 @@ int reverse_snap_loop(int variant, const SPlan& plan, int dep, const float* c2, 
 }
 
 // ws: P_t, P_{t-1} (set by the caller), the lambda ping-pong q0, q1, then
-// fused: psibar_z, phibar_z, psibar_x, phibar_x in two sets; split: the 9
-// adjoint planes. iws: fused the maps (SMaps, zeroed), split the receiver
-// chain (2 nrec ints). The two field planes swap every step, so P_{-1} ends
-// in plane nt % 2 in both variants.
+// psibar_z, phibar_z, psibar_x, phibar_x in two sets. iws: the maps (SMaps),
+// zeroed. The two field planes swap every step, so P_{-1} ends in plane
+// nt % 2.
 template <int R, int TZ, int TX, int ROWS, int MINB>
-int reverse_rings_loop(int variant, const SPlan& plan, int dep, const float* c2,
+int reverse_rings_loop(const SPlan& plan, int dep, const float* c2,
                        const float* az, const float* bz, const float* ax, const float* bx,
                        const float* w, const float* ybar, const float* ring_tape,
                        const int* ring, int n_ring, const long long* src, const long long* rcv,
@@ -842,48 +799,25 @@ int reverse_rings_loop(int variant, const SPlan& plan, int dep, const float* c2,
   float* p_t = ws + plane;    // P_{t-1}
   float* qc = ws + 2 * plane;
   float* qo = ws + 3 * plane;
-  if (variant == 0) {
-    if (const int err = scan_check_plan<R, TZ, TX, ROWS, MINB>(plan)) return err;
-    const dim3 grid(tiles_x(NX, TX), (NZ + TZ - 1) / TZ), block(TX, ROWS);
-    const SMaps m = carve_maps(iws, NZ, NX, grid.x * grid.y, nsrc);
-    scan_setup<<<blocks_for(nsrc + nrec + n_ring), kSmallBlock, 0, st>>>(
-        src, nsrc, rcv, nrec, ring, n_ring, NX, R, TZ, TX, grid.x, m,
-        ybar + (size_t)(nt - 1) * nrec, qc, lam_src + (size_t)(nt - 1) * nsrc, fs);
-    const RevArgs a{c2, az, bz, ax, bx, ybar, gacc, lam_src, m, NZ, NX, S, fs, nsrc, nrec, tp,
-                    w, frame};
-    float* set[2] = {ws + 4 * plane, ws + 8 * plane};
-    for (int t = nt - 1; t >= 0; --t) {
-      const int k = (nt - 1 - t) & 1;
-      const float* in = set[k];
-      float* out = set[1 - k];
-      launch_dep(dep, rev_fused<R, TZ, TX, ROWS, MINB, true>, grid, block,
-                 (size_t)STile<R, TZ, TX, ROWS, MINB>::REV_RINGS, st, a, t, (const float*)qc, qo,
-                 in, in + plane, in + 2 * plane, in + 3 * plane, out, out + plane,
-                 out + 2 * plane, out + 3 * plane, (const __nv_bfloat16*)nullptr,
-                 (const float*)p_t, p_tp1,
-                 t >= 2 ? ring_tape + (size_t)(t - 2) * n_ring : (const float*)nullptr);
-      if (t == nt - 1) {
-        const cudaError_t err = cudaGetLastError();
-        if (err != cudaSuccess) return (int)err;
-      }
-      float* tmp = p_t;
-      p_t = p_tp1;
-      p_tp1 = tmp;
-      tmp = qc;
-      qc = qo;
-      qo = tmp;
-    }
-    return (int)cudaGetLastError();
-  }
-  if (variant != 1) return (int)cudaErrorInvalidValue;
-  rev_chain<<<blocks_for(nrec), kSmallBlock, 0, st>>>(rcv, nrec, iws);
+  if (const int err = scan_check_plan<R, TZ, TX, ROWS, MINB>(plan)) return err;
+  const dim3 grid(tiles_x(NX, TX), (NZ + TZ - 1) / TZ), block(TX, ROWS);
+  const SMaps m = carve_maps(iws, NZ, NX, grid.x * grid.y, nsrc);
+  scan_setup<<<blocks_for(nsrc + nrec + n_ring), kSmallBlock, 0, st>>>(
+      src, nsrc, rcv, nrec, ring, n_ring, NX, R, TZ, TX, grid.x, m,
+      ybar + (size_t)(nt - 1) * nrec, qc, lam_src + (size_t)(nt - 1) * nsrc, fs);
+  const RevArgs a{c2, az, bz, ax, bx, ybar, gacc, lam_src, m, NZ, NX, S, fs, nsrc, nrec, tp,
+                  w, frame};
+  float* set[2] = {ws + 4 * plane, ws + 8 * plane};
   for (int t = nt - 1; t >= 0; --t) {
-    reverse_step<R, float>(c2, az, bz, ax, bx, ybar, t, nullptr, p_t, p_tp1, src, rcv, iws,
-                           gacc, lam_src, qc, qo, ws + 4 * plane, plane, NZ, NX, S, nsrc, nrec,
-                           fs, tp, st);
-    rec_src_ring<<<blocks_for(n_ring), kSmallBlock, 0, st>>>(
-        p_tp1, c2, w, t, src, nsrc, ring, t >= 2 ? ring_tape + (size_t)(t - 2) * n_ring : nullptr,
-        n_ring, NX, R, fs, frame);
+    const int k = (nt - 1 - t) & 1;
+    const float* in = set[k];
+    float* out = set[1 - k];
+    launch_dep(dep, rev_fused<R, TZ, TX, ROWS, MINB, true>, grid, block,
+               (size_t)STile<R, TZ, TX, ROWS, MINB>::REV_RINGS, st, a, t, (const float*)qc, qo,
+               in, in + plane, in + 2 * plane, in + 3 * plane, out, out + plane,
+               out + 2 * plane, out + 3 * plane, (const __nv_bfloat16*)nullptr,
+               (const float*)p_t, p_tp1,
+               t >= 2 ? ring_tape + (size_t)(t - 2) * n_ring : (const float*)nullptr);
     if (t == nt - 1) {
       const cudaError_t err = cudaGetLastError();
       if (err != cudaSuccess) return (int)err;
@@ -902,70 +836,65 @@ int reverse_rings_loop(int variant, const SPlan& plan, int dep, const float* c2,
 
 extern "C" {
 
-// ws: 6 zeroed halo planes (pa, pb, phiz, psiz, phix, psix), 8 for variant
-// 0 (fused: two sets of phiz, phix); iws (fused): the zeroed int maps of
-// 3 NZ NX + tiles + nsrc + nrec ints; snap, ring and ring_tape may be null
-// (ring and ring_tape together); illum, when given, is a (NZ, NX)
-// accumulator that gains P_t^2 for every step t. variant 0 runs the fused
-// pass on the plan (tz, tx, smem: the tile and the larger pass's shared
-// bytes, rejected unless it is the tile the library was built for), each
-// step a programmatic dependent of the one before when dep is 1; variant 1
-// the split passes, which read neither.
+// ws: 8 zeroed halo planes (pa, pb, phiz, psiz, phix, psix, and a second
+// phiz, phix); iws: the zeroed int maps of 3 NZ NX + tiles + nsrc + nrec
+// ints; snap, ring and ring_tape may be null (ring and ring_tape together);
+// illum, when given, is a (NZ, NX) accumulator that gains P_t^2 for every
+// step t. The pass runs on the plan (tz, tx, smem: the tile and the larger
+// pass's shared bytes, rejected unless it is the tile the library was built
+// for), each step a programmatic dependent of the one before when dep is 1.
 int tpufwi_scanres_forward(const float* c2, const float* az, const float* bz,
                            const float* ax, const float* bx, const float* w,
                            const long long* src, const long long* rcv, float* seis,
                            void* snap, const int* ring, float* ring_tape, float* illum,
                            float* ws, int* iws, int NZ, int NX, int S, int R, int nt, int nsrc,
-                           int nrec, int fs, int n_ring, int variant, int tz, int tx, int smem,
-                           int dep, const float* taps, void* stream) {
+                           int nrec, int fs, int n_ring, int tz, int tx, int smem, int dep,
+                           const float* taps, void* stream) {
   const Taps tp = load_taps(taps);
   const SPlan plan{tz, tx, smem};
   auto* sb = static_cast<__nv_bfloat16*>(snap);
   auto st = static_cast<cudaStream_t>(stream);
   TPUFWI_DISPATCH_R(R, (forward_loop<kR, TPUFWI_SCAN_TILE>(
-                           variant, plan, dep, c2, az, bz, ax, bx, w, src, rcv, seis, sb, ring,
+                           plan, dep, c2, az, bz, ax, bx, w, src, rcv, seis, sb, ring,
                            ring_tape, n_ring, illum, ws, iws, NZ, NX, S, nt, nsrc, nrec, fs, tp,
                            st)))
 }
 
-// ws: 11 zeroed halo planes (10 for variant 0); gacc (NZ, NX) zeroed; iws:
-// split 2 nrec ints, fused the zeroed int maps (as the forward's); variant,
-// plan and dep as the forward's.
+// ws: 10 zeroed halo planes; gacc (NZ, NX) zeroed; iws: the zeroed int maps
+// (as the forward's); plan and dep as the forward's.
 int tpufwi_scanres_reverse_snap(const float* c2, const float* az, const float* bz,
                                 const float* ax, const float* bx, const float* ybar,
                                 const void* snap, const long long* src, const long long* rcv,
                                 float* gacc, float* lam_src, float* ws, int* iws, int NZ,
-                                int NX, int S, int R, int nt, int nsrc, int nrec, int fs,
-                                int variant, int tz, int tx, int smem, int dep,
-                                const float* taps, void* stream) {
+                                int NX, int S, int R, int nt, int nsrc, int nrec, int fs, int tz,
+                                int tx, int smem, int dep, const float* taps, void* stream) {
   const Taps tp = load_taps(taps);
   const SPlan plan{tz, tx, smem};
   auto* sb = static_cast<const __nv_bfloat16*>(snap);
   auto st = static_cast<cudaStream_t>(stream);
   TPUFWI_DISPATCH_R(R, (reverse_snap_loop<kR, TPUFWI_SCAN_TILE>(
-                           variant, plan, dep, c2, az, bz, ax, bx, ybar, sb, src, rcv, gacc,
+                           plan, dep, c2, az, bz, ax, bx, ybar, sb, src, rcv, gacc,
                            lam_src, ws, iws, NZ, NX, S, nt, nsrc, nrec, fs, tp, st)))
 }
 
-// ws: 13 halo planes (12 for variant 0): P_{nt-1}, P_{nt-2} (set by the
-// caller), then zeroed (the lambda ping-pong and the adjoint planes); gacc
-// (NZ, NX) zeroed; iws: split 2 nrec ints, fused the zeroed int maps (as
-// the forward's); ring_tape (nt, n_ring) with row t = rings(P_t); variant,
-// plan and dep as the forward's.
+// ws: 12 halo planes: P_{nt-1}, P_{nt-2} (set by the caller), then zeroed
+// (the lambda ping-pong and the adjoint planes); gacc (NZ, NX) zeroed; iws:
+// the zeroed int maps (as the forward's); ring_tape (nt, n_ring) with row
+// t = rings(P_t); plan and dep as the forward's.
 int tpufwi_scanres_reverse_rings(const float* c2, const float* az, const float* bz,
                                  const float* ax, const float* bx, const float* w,
                                  const float* ybar, const float* ring_tape, const int* ring,
                                  const long long* src, const long long* rcv, float* gacc,
                                  float* lam_src, float* ws, int* iws, int NZ, int NX, int S,
                                  int R, int nt, int nsrc, int nrec, int fs, int n_ring, int z0,
-                                 int z1, int x0, int x1, int rw, int variant, int tz, int tx,
-                                 int smem, int dep, const float* taps, void* stream) {
+                                 int z1, int x0, int x1, int rw, int tz, int tx, int smem,
+                                 int dep, const float* taps, void* stream) {
   const Taps tp = load_taps(taps);
   const RingFrame frame{z0, z1, x0, x1, rw};
   const SPlan plan{tz, tx, smem};
   auto st = static_cast<cudaStream_t>(stream);
   TPUFWI_DISPATCH_R(R, (reverse_rings_loop<kR, TPUFWI_SCAN_TILE>(
-                           variant, plan, dep, c2, az, bz, ax, bx, w, ybar, ring_tape, ring,
+                           plan, dep, c2, az, bz, ax, bx, w, ybar, ring_tape, ring,
                            n_ring, src, rcv, gacc, lam_src, ws, iws, NZ, NX, S, nt, nsrc, nrec,
                            fs, frame, tp, st)))
 }

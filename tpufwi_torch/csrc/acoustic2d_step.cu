@@ -19,11 +19,12 @@
 //                          sources or surface pin)
 // The merged reverse step (tpufwi_step_reverse) is the K-step reverse
 // kernel with k = 1, in acoustic2d_kstep.cu.
-// Built into one library with acoustic2d_scanres.cu, whose kernels these
-// entry points launch (acoustic2d_kernels.cuh): a step here is the same few
-// ordered launches as a step of the whole-scan loops, so the two engines do
-// the same arithmetic. The state is the caller's halo-laid tensors; nothing
-// is allocated here.
+// Built into one library with acoustic2d_scanres.cu. A step here is a few
+// ordered launches of the header's passes (acoustic2d_kernels.cuh), whose
+// per-cell arithmetic the whole-scan engine's fused kernels run too: the
+// two engines agree bitwise, and these entry points are the fused kernels'
+// oracle on the card (chip_smoke.py scanres_*_steps). The state is the
+// caller's halo-laid tensors; nothing is allocated here.
 //
 // What bounds it: the host. Each kernel call is one ctypes call from
 // Python; at 399x1749 a call took 0.05-0.07 ms of host time, as long as the
@@ -38,11 +39,11 @@ namespace {
 template <int R>
 int step_forward(const float* c2, const float* az, const float* bz, const float* ax,
                  const float* bx, const float* w, int t, const long long* src,
-                 const long long* rcv, float* seis, const int* ring, float* ring_row, int n_ring,
-                 const float* cur, float* prev, float* cpml, int NZ, int NX, int S, int nsrc,
-                 int nrec, int fs, const Taps& tp, cudaStream_t st) {
+                 const long long* rcv, float* seis, __nv_bfloat16* snap_row, const int* ring,
+                 float* ring_row, int n_ring, const float* cur, float* prev, float* cpml, int NZ,
+                 int NX, int S, int nsrc, int nrec, int fs, const Taps& tp, cudaStream_t st) {
   const size_t plane = (size_t)(NZ + 2 * R) * (NX + 2 * R);
-  forward_step<R>(c2, az, bz, ax, bx, w, t, src, rcv, seis, nullptr, ring, ring_row, n_ring,
+  forward_step<R>(c2, az, bz, ax, bx, w, t, src, rcv, seis, snap_row, ring, ring_row, n_ring,
                   cur, prev, cpml, cpml + plane, cpml + 2 * plane, cpml + 3 * plane, NZ, NX, S,
                   nsrc, nrec, fs, tp, st);
   return (int)cudaGetLastError();
@@ -67,8 +68,8 @@ int step_adjoint(const float* c2, const float* az, const float* bz, const float*
                  int S, int nsrc, int nrec, int fs, const Taps& tp, cudaStream_t st) {
   const size_t plane = (size_t)(NZ + 2 * R) * (NX + 2 * R);
   if (init_chain) rev_chain<<<blocks_for(nrec), kSmallBlock, 0, st>>>(rcv, nrec, chain);
-  reverse_step<R, float>(c2, az, bz, ax, bx, ybar, t, lapw, nullptr, nullptr, src, rcv, chain,
-                         gacc, lam_src, q, qo, adj, plane, NZ, NX, S, nsrc, nrec, fs, tp, st);
+  reverse_step<R>(c2, az, bz, ax, bx, ybar, t, lapw, src, rcv, chain, gacc, lam_src, q, qo, adj,
+                  plane, NZ, NX, S, nsrc, nrec, fs, tp, st);
   return (int)cudaGetLastError();
 }
 
@@ -85,16 +86,19 @@ extern "C" {
 
 // cur = P_{t-1}; prev = P_{t-2}, overwritten by P_t; cpml: 4 halo planes
 // (phiz, psiz, phix, psix) updated in place; seis[t] <- P_t[rcv];
-// ring_row (may be null) <- rings(P_t).
+// ring_row (may be null) <- rings(P_t); snap_row (may be null), a bf16
+// (NZ, NX) row <- the D2 laplacian of P_{t-1}, as the whole-scan forward's
+// snapshot row t.
 int tpufwi_step_forward(const float* c2, const float* az, const float* bz, const float* ax,
                         const float* bx, const float* w, const long long* src,
                         const long long* rcv, float* seis, const int* ring, float* ring_row,
-                        const float* cur, float* prev, float* cpml, int t, int n_ring, int NZ,
-                        int NX, int S, int R, int nsrc, int nrec, int fs, const float* taps,
-                        void* stream) {
+                        void* snap_row, const float* cur, float* prev, float* cpml, int t,
+                        int n_ring, int NZ, int NX, int S, int R, int nsrc, int nrec, int fs,
+                        const float* taps, void* stream) {
   const Taps tp = load_taps(taps);
+  auto* sb = static_cast<__nv_bfloat16*>(snap_row);
   auto st = static_cast<cudaStream_t>(stream);
-  TPUFWI_DISPATCH_R(R, step_forward<kR>(c2, az, bz, ax, bx, w, t, src, rcv, seis, ring,
+  TPUFWI_DISPATCH_R(R, step_forward<kR>(c2, az, bz, ax, bx, w, t, src, rcv, seis, sb, ring,
                                         ring_row, n_ring, cur, prev, cpml, NZ, NX, S, nsrc, nrec,
                                         fs, tp, st))
 }

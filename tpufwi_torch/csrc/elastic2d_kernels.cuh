@@ -2,9 +2,8 @@
 // per-step kernels and the host functions that launch one stage of a
 // forward or reverse time step on a stream (estage_v, estage_s, estage_rs,
 // estage_rv; estage_rfused, a whole reverse step on the fused passes). The
-// whole-scan loops (elastic2d_scan.cu) and the per-step
-// entry points (elastic2d_step.cu) include it and launch the same
-// functions. Every kernel has internal linkage.
+// whole-scan loops (elastic2d_scan.cu) and the per-step entry points
+// (elastic2d_step.cu) include it. Every kernel has internal linkage.
 //
 // Semantics (the step twin, tpufwi_torch/kernels/elastic2d_eager.py), with
 // D+ f[i] = sum_k c_k (f[i+1+k] - f[i-k]) and D- f[i] = sum_k c_k (f[i+k] -
@@ -34,18 +33,18 @@
 // total derivative d + m', tot = q + dual, dual' = b tot, dbar = q + a tot.
 // The transposes of the stencils are gathers ((D+)^T = -D-, (D-)^T = -D+)
 // over dbar values that are zero outside the grid, never atomics, so the
-// result is deterministic. The split passes (both engines) keep the dbar
-// values in four zero-halo planes in device memory; the fused passes
-// (escan_reverse's default) keep them in a shared-memory tile.
+// result is deterministic. The per-step engine's passes keep the dbar
+// values in four zero-halo planes in device memory; the whole-scan engine's
+// fused passes keep them in a shared-memory tile.
 // All arithmetic is fp32 (FMA); no tensor cores.
 //
-// Layout: the five primal fields and the split passes' four dbar planes are
-// stored with a zero halo of R cells on each side ((NZ+2R) x (NX+2R), row
-// stride NX+2R); kernels write only the interior. Materials, CPML memories, their duals,
-// cotangents and gradients are compact (NZ, NX); the memories stay zero
-// outside the strips. Ring cells are int32 indices into the flattened
-// padded grid, and a tape row holds the five fields' rings in the order
-// vx, vz, sxx, szz, sxz.
+// Layout: the five primal fields and the per-step passes' four dbar planes
+// are stored with a zero halo of R cells on each side ((NZ+2R) x (NX+2R),
+// row stride NX+2R); kernels write only the interior. Materials, CPML
+// memories, their duals, cotangents and gradients are compact (NZ, NX); the
+// memories stay zero outside the strips. Ring cells are int32 indices into
+// the flattened padded grid, and a tape row holds the five fields' rings in
+// the order vx, vz, sxx, szz, sxz.
 
 #pragma once
 
@@ -125,7 +124,7 @@ __device__ __forceinline__ float e_dual(const float* din, float* dout, int c, fl
 
 // --------------------------------------------------------------- forward
 
-// The forward cell bodies, one arithmetic for the split passes (ef_v, ef_s,
+// The forward cell bodies, one arithmetic for the per-step passes (ef_v, ef_s,
 // e_src) and the fused one (ef_s_fused): every product that could contract
 // into an FMA is fused or rounded explicitly, so the two agree bitwise.
 
@@ -211,7 +210,7 @@ __device__ __forceinline__ void e_mem_store(float* __restrict__ mem, int c, size
 }
 
 // the force sources that the fused forward's stage V adds, at its own
-// cells, to vz before its update: those of the step before (the split step
+// cells, to vz before its update: those of the step before (the per-step
 // adds them after its stage S, where the fused one cannot, since other
 // tiles read vz in that launch); flags (null: none) is a word per block
 // of ef_v (kEVX x kEVY cells), 1 where one of its cells holds a source;
@@ -475,7 +474,7 @@ __global__ void er_src(EFields f, EFields cb, const float* __restrict__ bzm,
     er_src_cells(f, cb, bzm, w, t, src, nsrc, srcrow, NX, R, dt, force);
 }
 
-// The reverse cell bodies, one arithmetic for the split passes (er_s1 +
+// The reverse cell bodies, one arithmetic for the per-step passes (er_s1 +
 // er_s2, er_v1 + er_v2) and the fused ones (er_s, er_v): products that
 // could contract into an FMA are fused or rounded explicitly (fmaf,
 // __fmul_rn), so the two agree bitwise however each is compiled.
@@ -591,9 +590,8 @@ __device__ __forceinline__ void rv_trans(const float* q1, const float* q2, const
   sxzb -= dplus<R>(q2, s, ld, tp.z) + dplus<R>(q3, s, 1, tp.x);
 }
 
-// ---- the split passes (the per-step engine's, and escan_reverse's
-// variant "split"): one thread a cell, the dbar planes through device
-// memory
+// ---- the per-step engine's passes: one thread a cell, the dbar planes
+// through device memory
 
 // R-S, first pass: strains of the carried v, sigma_t reconstructed in
 // place, imaging, and the four zero-halo dbar planes q (exx, ezz, D+z vx,
@@ -679,7 +677,7 @@ __global__ void er_v2(EFields cb, EFields q, int NZ, int NX, ETaps tp) {
               cb.sxz[c]);
 }
 
-// ---- the fused passes (escan_reverse's variant "fused"): a block of
+// ---- the fused passes (escan_reverse's): a block of
 // TX x kFRows threads owns a TZ x TX tile of cells, TZ / kFRows rows a
 // thread. Shared memory holds planes of (TZ + 2R) x (TX + 2R) cells, the
 // tile and its R reach: the stencil inputs (v for er_s, the stresses for
@@ -687,7 +685,7 @@ __global__ void er_v2(EFields cb, EFields q, int NZ, int NX, ETaps tp) {
 // too (the neighbouring tile computes the same values there, with the same
 // arithmetic) and reads back through the transposed stencils. Only the
 // cross of the tile and its reach along z and along x is filled: no
-// stencil reads the corners. q outside the grid is 0, as the split passes'
+// stencil reads the corners. q outside the grid is 0, as the per-step passes'
 // zero halo; the duals are read from din and written to dout (ping-pong),
 // since a tile's reach reads the old duals of cells that their own tile
 // updates in the same launch. Every global load of a thread, its own
@@ -695,7 +693,7 @@ __global__ void er_v2(EFields cb, EFields q, int NZ, int NX, ETaps tp) {
 // one barrier; after it the pass reads only shared memory and registers,
 // except in a tile whose flag word says it holds a source, receiver or
 // ring cell: that tile's owner threads run the step's glue (ERevGlue)
-// through the maps, each at its own cell and in the split step's order.
+// through the maps, each at its own cell and in the per-step engine's order.
 
 constexpr int kFRows = 8;          // threads along z
 constexpr int kFTZ = 16, kFTX = 32;  // the tile escan_reverse runs
@@ -965,13 +963,13 @@ __global__ void __launch_bounds__(TX * kFRows, 1024 / (TX * kFRows))
   }
 }
 
-// ---- the fused forward (escan_forward's variant "fused"): two launches a
-// step, each a programmatic dependent of the one before. Stage V is the
-// split step's ef_v, which also adds the step before's force sources;
+// ---- the fused forward (escan_forward's): two launches a step, each a
+// programmatic dependent of the one before. Stage V is the per-step
+// engine's ef_v, which also adds the step before's force sources;
 // ef_s_fused then runs, on TZ x TX tiles (FTile's thread layout), stage S
 // from v copied over the tile and its R cross (a ghost row of the free
 // surface copied from its mirror row: the velocity image) and folds in the
-// glue the split step launches after it: the sources (a force source's vz
+// glue the per-step engine launches after it: the sources (a force source's vz
 // only in registers, for the receivers and the tape: vz is read by other
 // tiles in this launch, so stage V adds it in the next step, and the call's
 // last step's in a tail launch), the stress image and the surface pin, the
@@ -987,13 +985,6 @@ __global__ void __launch_bounds__(TX * kFRows, 1024 / (TX * kFRows))
 // holds a source, receiver or ring cell, after it.
 
 constexpr int kEFMinBlocks = 4;  // ef_s_fused's register cap: 4 blocks an SM
-
-// 1: ef_s_fused waits on the step before it ahead of its material copies
-// too (tpufwi_torch/bench/escan_forward_loads.py builds it so to time the
-// lever); 0, the engine's: the copies of the materials overlap the wait
-#ifndef TPUFWI_EF_WAIT_FIRST
-#define TPUFWI_EF_WAIT_FIRST 0
-#endif
 
 // ef_s_fused's shared floats: v over the tile and its R cross (N each);
 // sxx, szz, sxz, lam, l2m, mu_xz and stage S's four memories over the tile
@@ -1054,10 +1045,6 @@ __global__ void __launch_bounds__(TX * kFRows, kEFMinBlocks)
   const bool surf = fs >= 0 && z0 == fs - 2 * R;  // the tile row of the stress image
   const bool band = x0 < S || x0 + TX > NX - S || z0 < S || z0 + TZ > NZ - S;
 
-  if (TPUFWI_EF_WAIT_FIRST) {
-    dep_wait();
-    dep_trigger();
-  }
 #pragma unroll
   for (int j = 0; j < P; ++j) {
     const int oz = ty + j * kFRows, z = z0 + oz, o = oz * TX + tx;
@@ -1067,10 +1054,8 @@ __global__ void __launch_bounds__(TX * kFRows, kEFMinBlocks)
     cp_async4(own + 4 * OWN + o, a.mt.l2m + c, on);
     cp_async4(own + 5 * OWN + o, a.mt.muxz + c, on);
   }
-  if (!TPUFWI_EF_WAIT_FIRST) {
-    dep_wait();
-    dep_trigger();
-  }
+  dep_wait();
+  dep_trigger();
 #pragma unroll
   for (int j = 0; j < P; ++j) {
     const int oz = ty + j * kFRows, z = z0 + oz, o = oz * TX + tx;
@@ -1237,7 +1222,7 @@ __global__ void er_image_mid(EFields f, EFields cb, int NX, int fs) {
 // after er_v of step t, with the free surface: the velocity image of the
 // primal, then for step t-1 the stress-image transpose of the cotangents
 // and a force source undone on the image's vz rows fs-R .. fs+R-1, which
-// er_v leaves to it (the split step undoes it after the image). Thread
+// er_v leaves to it (the per-step engine undoes it after the image). Thread
 // idx < R NX owns ghost row fs-1-k and its vz mirror fs+k, column x.
 template <int R>
 __global__ void er_image_tail(EFields f, EFields cb, ERevGlue gl, const float* __restrict__ bzm,
@@ -1291,11 +1276,12 @@ inline ETaps load_etaps(const float* host) {
 //
 // One host function per TPU call of the per-step engine, each with the glue
 // the reference runs around that call as XLA ops. A forward step is
-// estage_v then estage_s, a reverse step estage_rs then estage_rv, in the
-// whole-scan loops (elastic2d_scan.cu) and behind the per-step entry points
-// (elastic2d_step.cu) alike, so the two engines launch the same kernels in
-// the same order. mem: 8 compact CPML memory planes, stage V's four then
-// stage S's four; dual: 8 compact dual planes, R-S's four then R-V's four.
+// estage_v then estage_s, a reverse step estage_rs then estage_rv, behind
+// the per-step entry points (elastic2d_step.cu); the whole-scan engine's
+// fused passes (elastic2d_scan.cu) run the same cell bodies and glue, so
+// the per-step engine is their oracle. mem: 8 compact CPML memory planes,
+// stage V's four then stage S's four; dual: 8 compact dual planes, R-S's
+// four then R-V's four.
 
 // Stage V (TPU kernel 10a), then the mid-step velocity image. mem: the 8
 // memory planes; stage V updates planes 0-3.
@@ -1404,7 +1390,7 @@ inline int fused_check_plan(const EPlan& plan) {
 // (the images and their transposes pair cells of different tiles). A call
 // runs er_setup, and with the free surface the first step's stress-image
 // transpose, before its first step (reverse_loop). er_s and er_v run
-// ahead of the image launches that the split step runs between its passes:
+// ahead of the image launches that the per-step engine runs between its passes:
 // those write only the primal fields and the cotangents that the next pass
 // reads after them, and the second passes read only dbar planes. din /
 // dout: the 8 dual planes read and written, swapped by the caller each

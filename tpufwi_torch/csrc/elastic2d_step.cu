@@ -17,11 +17,12 @@
 //   tpufwi_estep_rv  <- the same builder's kernel_rv (R-V), with the
 //                       re-imaging of the reconstructed velocities
 // Built into one library with elastic2d_scan.cu. Each entry point launches
-// one of the header's stage functions (elastic2d_kernels.cuh), which the
-// whole-scan loops launch too: both engines run the same kernels in the same
-// order. The state is the caller's tensors (five zero-halo field planes,
-// compact memory, cotangent, dual and gradient planes, four zero-halo dbar
-// planes); nothing is allocated here.
+// one of the header's stage functions (elastic2d_kernels.cuh), whose cell
+// bodies and glue the whole-scan engine's fused passes run too: the two
+// engines agree bitwise, and these entry points are the fused passes'
+// oracle on the card (chip_smoke.py). The state is the caller's tensors
+// (five zero-halo field planes, compact memory, cotangent, dual and gradient
+// planes, four zero-halo dbar planes); nothing is allocated here.
 //
 // What bounds it: the host. Each stage is one ctypes call from Python. At
 // 399x1749, order 8, a call took 0.06-0.13 ms of host time and its kernels

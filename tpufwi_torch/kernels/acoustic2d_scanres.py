@@ -15,16 +15,15 @@ the laplacian of the reconstruction. Both return the imaged gradient and
 the adjoint field at the sources. The CUDA sources are
 ``csrc/acoustic2d_scanres.cu`` and ``csrc/acoustic2d_kernels.cuh``.
 
-All three come in two variants (``variant=``), equal bitwise:
-``"fused"`` (the default) runs one shared-memory tiled kernel a time step
-(launch plan ``scanres_tile_plan``, tile walk ``fused_tiles``) after one
-small launch a call, each step a programmatic dependent of the one before
-unless ``dependent_launch`` is False (plain stream order, for profiling: a
-dependent kernel's profiler span includes its wait); ``"split"`` runs the
-ordered per-step launches that the single-step and K-step engines share
-(``step_launches``). The rings reverse's fused step is the snapshot
-reverse's kernel with the reconstruction folded into the thread that owns
-each cell.
+Each runs one shared-memory tiled kernel a time step (launch plan
+``scanres_tile_plan``, tile walk ``fused_tiles``) after one small launch a
+call, each step a programmatic dependent of the one before unless
+``dependent_launch`` is False (plain stream order, for profiling: a
+dependent kernel's profiler span includes its wait). The rings reverse's
+step is the snapshot reverse's kernel with the reconstruction folded into
+the thread that owns each cell. On the card each is held against the
+single-step engine that runs the same passes a launch at a time
+(``kernels/acoustic2d_step.py``; ``chip_smoke.py``'s ``scanres_*_steps``).
 
 Each wrapper takes its plain version for tensors on the CPU, and only
 then; on a CUDA tensor it launches the kernel or raises. ``launches`` on
@@ -59,16 +58,16 @@ from .acoustic2d_eager import (
 from .build import CSRC, Library, declare_all, raise_on  # noqa: F401 (raise_on: re-export)
 from .stencils import apply_stencil, scaled_taps
 
-VARIANTS = ("fused", "split")  # the C entry points' variant 0 and 1
-# halo planes of the workspace per variant: forward pa, pb, phi_z, psi_z,
-# phi_x, psi_x (fused: and a second phi_z, phi_x); snapshot reverse q0, q1,
-# then fused psibar/phibar for z and x in two sets, split the 9 adjoint
-# planes (u, then psibar/w/phibar/y for z and for x); the rings reverse P_t
-# and P_{t-1} before the snapshot reverse's planes
-_FWD_PLANES = {"fused": 8, "split": 6}
-_ADJ_PLANES = 9
-_REV_SNAP_PLANES = {"fused": 2 + 8, "split": 2 + _ADJ_PLANES}
-_REV_RINGS_PLANES = {v: 2 + n for v, n in _REV_SNAP_PLANES.items()}
+# halo planes of the workspace: forward pa, pb, phi_z, psi_z, phi_x, psi_x
+# and a second phi_z, phi_x; snapshot reverse q0, q1, then psibar/phibar for
+# z and x in two sets; the rings reverse P_t and P_{t-1} before the
+# snapshot reverse's planes
+_FWD_PLANES = 8
+_REV_SNAP_PLANES = 2 + 8
+_REV_RINGS_PLANES = 2 + _REV_SNAP_PLANES
+# kernel launches of a time step of each whole-scan kernel, in every mode;
+# each call adds one (scan_setup)
+STEP_LAUNCHES = 1
 TAPE_MODES = (None, "snap", "rings")
 
 # the fused passes' tile (csrc/acoustic2d_scanres.cu TPUFWI_SCAN_TILE:
@@ -130,23 +129,6 @@ def fused_tiles(plan: ScanresPlan, NZ: int, NX: int):
         z0 = tile_row(by, n) * plan.tz
         for x0 in range(0, NX, plan.tx):
             yield z0, min(z0 + plan.tz, NZ), x0, min(x0 + plan.tx, NX)
-
-
-def step_launches(kernel: str, variant: str, tape=None, illum=False) -> int:
-    """Kernel launches of one time step of ``scanres_forward`` (with its
-    tape mode and illumination), ``scanres_reverse_snap`` or
-    ``scanres_reverse``; the fused variant adds one launch a call
-    (``scan_setup``), the split reverses one (``rev_chain``)."""
-    if variant == "fused":
-        return 1
-    if kernel == "scanres_forward":
-        return 3 + (tape == "rings") + bool(illum)
-    return 5 if kernel == "scanres_reverse" else 4
-
-
-def _check_variant(name, variant):
-    if variant not in VARIANTS:
-        raise ValueError(f"{name}: variant must be one of {VARIANTS}, not {variant!r}")
 
 
 def strip_depth(grid: Grid) -> int:
@@ -319,6 +301,13 @@ def scanres_reverse_plain(grid, c2, profiles, wavelet, ybar, tape, p_penult, p_l
 
 # ------------------------------------------------------------------- build
 
+# the whole-scan entry points' ctypes signatures (pointers, ints)
+SCAN_SIGNATURES = {
+    "tpufwi_scanres_forward": (15, 13),
+    "tpufwi_scanres_reverse_snap": (13, 12),
+    "tpufwi_scanres_reverse_rings": (15, 18),
+}
+
 LIBRARY = Library(
     "acoustic2d",
     (CSRC / "acoustic2d_scanres.cu", CSRC / "acoustic2d_step.cu",
@@ -326,10 +315,8 @@ LIBRARY = Library(
     (CSRC / "acoustic2d_kernels.cuh", CSRC / "pdl.cuh", CSRC / "cell_maps.cuh"),
     lambda lib: declare_all(lib, {
         # pointers..., ints..., taps, stream
-        "tpufwi_scanres_forward": (15, 14),
-        "tpufwi_scanres_reverse_snap": (13, 13),
-        "tpufwi_scanres_reverse_rings": (15, 19),
-        "tpufwi_step_forward": (14, 9),
+        **SCAN_SIGNATURES,
+        "tpufwi_step_forward": (15, 9),
         "tpufwi_step_recon": (8, 12),
         "tpufwi_step_adjoint": (15, 9),
         "tpufwi_leapfrog": (4, 3),
@@ -424,13 +411,11 @@ def _maps(grid, nsrc, nrec, dev):
 
 
 def scanres_forward(grid, c2, profiles, wavelet, src_idx, rcv_idx, tape=None, illum=False,
-                    variant="fused", dependent_launch=True):
+                    dependent_launch=True):
     """Whole forward propagation (see ``scanres_forward_plain`` for the
     contract). ``profiles`` are the strip profiles as tensors; ``rcv_idx``
-    may hold no receiver. ``variant``: one of ``VARIANTS`` (on the CPU both
-    are the plain version); ``dependent_launch``: the fused steps as
-    programmatic dependents (False: plain stream order)."""
-    _check_variant("scanres_forward", variant)
+    may hold no receiver. ``dependent_launch``: the steps as programmatic
+    dependents (False: plain stream order; the CPU path has neither)."""
     if c2.device.type == "cpu":
         return scanres_forward_plain(grid, c2, profiles, wavelet, src_idx, rcv_idx, tape,
                                      illum)
@@ -455,21 +440,19 @@ def scanres_forward(grid, c2, profiles, wavelet, src_idx, rcv_idx, tape=None, il
         n_ring = ring.shape[0]
         rows = torch.empty((nt, n_ring), dtype=torch.float32, device=dev)
     acc = torch.zeros((NZ, NX), dtype=torch.float32, device=dev) if illum else None
-    ws = torch.zeros((_FWD_PLANES[variant], NZ + 2 * R, NX + 2 * R), dtype=torch.float32,
-                     device=dev)
+    ws = torch.zeros((_FWD_PLANES, NZ + 2 * R, NX + 2 * R), dtype=torch.float32, device=dev)
     nsrc = src_idx.shape[0]
-    iws = _maps(grid, nsrc, nrec, dev) if variant == "fused" else None
+    iws = _maps(grid, nsrc, nrec, dev)
     fs = surface_row(grid)
     with torch.cuda.device(dev), profiling.span(
-            "kernels.forward", device=dev, wrapper="scanres_forward", variant=variant, nt=nt,
+            "kernels.forward", device=dev, wrapper="scanres_forward", nt=nt,
             tape_bytes=sum(t.nbytes for t in (snap, rows) if t is not None)):
         err = lib.tpufwi_scanres_forward(
             c2.data_ptr(), *(p.data_ptr() for p in profiles), wavelet.data_ptr(),
             src_idx.data_ptr(), rcv_idx.data_ptr(), seis.data_ptr(), _ptr(snap), _ptr(ring),
-            _ptr(rows), _ptr(acc), ws.data_ptr(), _ptr(iws),
-            NZ, NX, S, R, nt, nsrc, nrec, fs, n_ring, VARIANTS.index(variant),
-            *scanres_tile_plan(grid), int(dependent_launch), taps_arg(grid),
-            torch.cuda.current_stream().cuda_stream,
+            _ptr(rows), _ptr(acc), ws.data_ptr(), iws.data_ptr(),
+            NZ, NX, S, R, nt, nsrc, nrec, fs, n_ring, *scanres_tile_plan(grid),
+            int(dependent_launch), taps_arg(grid), torch.cuda.current_stream().cuda_stream,
         )
     raise_on(lib, "scanres_forward", err)
     scanres_forward.launches += nt
@@ -486,11 +469,10 @@ def _check_ybar(name, ybar, rcv_idx):
         raise ValueError(f"{name}: ybar must be (nt > 0, nrec)")
 
 
-def scanres_reverse_snap(grid, c2, profiles, ybar, tape, src_idx, rcv_idx, variant="fused",
+def scanres_reverse_snap(grid, c2, profiles, ybar, tape, src_idx, rcv_idx,
                          dependent_launch=True):
     """Snapshot reverse (see ``scanres_reverse_snap_plain`` for the
-    contract); ``variant`` and ``dependent_launch`` as ``scanres_forward``'s."""
-    _check_variant("scanres_reverse_snap", variant)
+    contract); ``dependent_launch`` as ``scanres_forward``'s."""
     if c2.device.type == "cpu":
         return scanres_reverse_snap_plain(grid, c2, profiles, ybar, tape, src_idx, rcv_idx)
     require_cuda("scanres_reverse_snap", c2)
@@ -506,21 +488,19 @@ def scanres_reverse_snap(grid, c2, profiles, ybar, tape, src_idx, rcv_idx, varia
     nsrc = src_idx.shape[0]
     gbar = torch.zeros((NZ, NX), dtype=torch.float32, device=c2.device)
     lam_src = torch.empty((nt, nsrc), dtype=torch.float32, device=c2.device)
-    ws = torch.zeros((_REV_SNAP_PLANES[variant], NZ + 2 * R, NX + 2 * R), dtype=torch.float32,
+    ws = torch.zeros((_REV_SNAP_PLANES, NZ + 2 * R, NX + 2 * R), dtype=torch.float32,
                      device=c2.device)
-    iws = (_maps(grid, nsrc, nrec, c2.device) if variant == "fused"
-           else torch.empty(2 * nrec, dtype=torch.int32, device=c2.device))
+    iws = _maps(grid, nsrc, nrec, c2.device)
     fs = surface_row(grid)
     with torch.cuda.device(c2.device), profiling.span(
-            "kernels.reverse", device=c2.device, wrapper="scanres_reverse_snap",
-            variant=variant, nt=nt, tape_bytes=0):
+            "kernels.reverse", device=c2.device, wrapper="scanres_reverse_snap", nt=nt,
+            tape_bytes=0):
         err = lib.tpufwi_scanres_reverse_snap(
             c2.data_ptr(), *(p.data_ptr() for p in profiles), ybar.data_ptr(),
             tape.data_ptr(), src_idx.data_ptr(), rcv_idx.data_ptr(), gbar.data_ptr(),
             lam_src.data_ptr(), ws.data_ptr(), iws.data_ptr(),
-            NZ, NX, S, R, nt, nsrc, nrec, fs, VARIANTS.index(variant),
-            *scanres_tile_plan(grid), int(dependent_launch), taps_arg(grid),
-            torch.cuda.current_stream().cuda_stream,
+            NZ, NX, S, R, nt, nsrc, nrec, fs, *scanres_tile_plan(grid), int(dependent_launch),
+            taps_arg(grid), torch.cuda.current_stream().cuda_stream,
         )
     raise_on(lib, "scanres_reverse_snap", err)
     scanres_reverse_snap.launches += nt
@@ -531,13 +511,11 @@ scanres_reverse_snap.launches = 0
 
 
 def scanres_reverse(grid, c2, profiles, wavelet, ybar, tape, p_penult, p_last,
-                    src_idx, rcv_idx, return_field=False, variant="fused",
-                    dependent_launch=True):
+                    src_idx, rcv_idx, return_field=False, dependent_launch=True):
     """Rings reverse (see ``scanres_reverse_plain`` for the contract):
     ``tape`` is the (nt, n_ring) fp32 ring tape and ``p_penult``, ``p_last``
     the last two fields of ``scanres_forward(..., tape="rings")``;
-    ``variant`` and ``dependent_launch`` as ``scanres_forward``'s."""
-    _check_variant("scanres_reverse", variant)
+    ``dependent_launch`` as ``scanres_forward``'s."""
     if c2.device.type == "cpu":
         return scanres_reverse_plain(grid, c2, profiles, wavelet, ybar, tape, p_penult,
                                      p_last, src_idx, rcv_idx, return_field)
@@ -558,31 +536,30 @@ def scanres_reverse(grid, c2, profiles, wavelet, ybar, tape, p_penult, p_last,
     nsrc = src_idx.shape[0]
     gbar = torch.zeros((NZ, NX), dtype=torch.float32, device=c2.device)
     lam_src = torch.empty((nt, nsrc), dtype=torch.float32, device=c2.device)
-    ws = torch.zeros((_REV_RINGS_PLANES[variant], NZ + 2 * R, NX + 2 * R), dtype=torch.float32,
+    ws = torch.zeros((_REV_RINGS_PLANES, NZ + 2 * R, NX + 2 * R), dtype=torch.float32,
                      device=c2.device)
     ws[0, R:-R, R:-R] = p_last
     ws[1, R:-R, R:-R] = p_penult
-    iws = (_maps(grid, nsrc, nrec, c2.device) if variant == "fused"
-           else torch.empty(2 * nrec, dtype=torch.int32, device=c2.device))
+    iws = _maps(grid, nsrc, nrec, c2.device)
     fs = surface_row(grid)
     with torch.cuda.device(c2.device), profiling.span(
-            "kernels.reverse", device=c2.device, wrapper="scanres_reverse", variant=variant,
-            nt=nt, tape_bytes=0):
+            "kernels.reverse", device=c2.device, wrapper="scanres_reverse", nt=nt,
+            tape_bytes=0):
         err = lib.tpufwi_scanres_reverse_rings(
             c2.data_ptr(), *(p.data_ptr() for p in profiles), wavelet.data_ptr(),
             ybar.data_ptr(), tape.data_ptr(), ring.data_ptr(), src_idx.data_ptr(),
             rcv_idx.data_ptr(), gbar.data_ptr(), lam_src.data_ptr(), ws.data_ptr(),
             iws.data_ptr(),
             NZ, NX, S, R, nt, nsrc, nrec, fs, n_ring, z0, z1, x0, x1, rw,
-            VARIANTS.index(variant), *scanres_tile_plan(grid), int(dependent_launch),
-            taps_arg(grid), torch.cuda.current_stream().cuda_stream,
+            *scanres_tile_plan(grid), int(dependent_launch), taps_arg(grid),
+            torch.cuda.current_stream().cuda_stream,
         )
     raise_on(lib, "scanres_reverse", err)
     scanres_reverse.launches += nt
     if not return_field:
         return gbar, lam_src
-    # both loops swap their two field planes every step: P_{-1} ends in
-    # plane 0 after an even number of steps
+    # the loop swaps its two field planes every step: P_{-1} ends in plane
+    # 0 after an even number of steps
     return gbar, lam_src, ws[nt % 2, R:-R, R:-R]
 
 

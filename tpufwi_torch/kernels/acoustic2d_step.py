@@ -11,7 +11,9 @@ halo of R cells around the padded grid, which the kernels never write.
 - ``fused_forward_step``: ``prev`` (P_{t-2}) <- P_t from ``cur`` (P_{t-1}),
   the CPML planes ``cpml`` (phi_z, psi_z, phi_x, psi_x) updated, the
   sources added, ``seis[t]`` <- P_t at the receivers and, when given,
-  ``ring_row`` <- the ring cells of P_t.
+  ``ring_row`` <- the ring cells of P_t and ``snap_row`` (bf16, the padded
+  grid) <- the D2 laplacian of P_{t-1}: the whole-scan forward's snapshot
+  row t, which no engine takes from here.
 - ``recon_step``: ``p_tp1`` (P_t) <- P_{t-2}, reconstructed from ``p_t``
   (P_{t-1}) with the sources added before the ring cells are imposed from
   ``ring_row`` (zeros when None); ``lapw`` <- the D2 laplacian of P_{t-1}.
@@ -85,10 +87,12 @@ def check_fields(name, grid, device, fields, n_planes=()):
 
 
 def fused_forward_step_plain(grid, c2, profiles, cur, prev, cpml, wavelet, t, src_idx,
-                             rcv_idx, seis, ring_row=None):
+                             rcv_idx, seis, ring_row=None, snap_row=None):
     a, b = full_profiles(grid, profiles)
     step = make_acoustic_step(grid)
     ic = _inner(grid, cpml)
+    if snap_row is not None:
+        snap_row.copy_(interior_lap(grid, _inner(grid, cur)).to(torch.bfloat16))
     state = AcousticState(_inner(grid, prev), _inner(grid, cur), (ic[0], ic[2]), (ic[1], ic[3]))
     new, rec = step(state, AcousticParams(c2, a, b, src_idx, rcv_idx), wavelet[t])
     _inner(grid, prev).copy_(new.p)
@@ -151,11 +155,11 @@ def leapfrog_plain(grid, c2, p, p_other, lap=None):
 
 
 def fused_forward_step(grid, c2, profiles, cur, prev, cpml, wavelet, t, src_idx, rcv_idx,
-                       seis, ring_row=None):
+                       seis, ring_row=None, snap_row=None):
     """One forward step in place (see the module docstring)."""
     if c2.device.type == "cpu":
         return fused_forward_step_plain(grid, c2, profiles, cur, prev, cpml, wavelet, t,
-                                        src_idx, rcv_idx, seis, ring_row)
+                                        src_idx, rcv_idx, seis, ring_row, snap_row)
     require_cuda("fused_forward_step", c2)
     check_args("fused_forward_step", grid, c2, profiles, (wavelet, seis), src_idx, rcv_idx,
                bounds=False)
@@ -164,14 +168,20 @@ def fused_forward_step(grid, c2, profiles, cur, prev, cpml, wavelet, t, src_idx,
     if ring_row is not None and (tuple(ring_row.shape) != tuple(ring.shape)
                                  or ring_row.dtype != torch.float32):
         raise ValueError(f"fused_forward_step: ring_row must be fp32 {tuple(ring.shape)}")
+    NZ, NX = grid.padded_shape
+    if snap_row is not None and (tuple(snap_row.shape) != (NZ, NX)
+                                 or snap_row.dtype != torch.bfloat16
+                                 or snap_row.device != c2.device
+                                 or not snap_row.is_contiguous()):
+        raise ValueError(f"fused_forward_step: snap_row must be contiguous bf16 {(NZ, NX)}")
     if not 0 <= t < wavelet.shape[0] or seis.shape != (wavelet.shape[0], rcv_idx.shape[0]):
         raise ValueError("fused_forward_step: t outside the wavelet, or seis not (nt, nrec)")
     lib = load_library()
-    NZ, NX = grid.padded_shape
     err = lib.tpufwi_step_forward(
         c2.data_ptr(), *(p.data_ptr() for p in profiles), wavelet.data_ptr(),
         src_idx.data_ptr(), rcv_idx.data_ptr(), seis.data_ptr(), ring.data_ptr(),
-        None if ring_row is None else ring_row.data_ptr(), cur.data_ptr(), prev.data_ptr(),
+        None if ring_row is None else ring_row.data_ptr(),
+        None if snap_row is None else snap_row.data_ptr(), cur.data_ptr(), prev.data_ptr(),
         cpml.data_ptr(), t, ring.shape[0], NZ, NX, strip_depth(grid), grid.radius,
         src_idx.shape[0], rcv_idx.shape[0], surface_row(grid), taps_arg(grid),
         torch.cuda.current_stream(c2.device).cuda_stream,

@@ -11,10 +11,9 @@ reconstructs the fields backwards from the final ones and the tape while it
 runs the exact transposed stages, and returns the five material-field
 cotangents (lam, lam2mu, mu_xz, buoy_x, buoy_z, before the source-point
 chain and the valid-region mask) and the per-step source-point cotangent
-``srcrow``. Both come in two variants (``variant=``), equal bitwise:
-``"fused"`` (the default) and ``"split"``. The fused forward runs two
-launches a step: stage V (the split step's kernel, which also adds the
-step before's force sources), then one shared-memory tiled kernel that
+``srcrow``. The forward runs two launches a step (``FORWARD_LAUNCHES``):
+stage V (the per-step engine's kernel, which also adds the step before's
+force sources), then one shared-memory tiled kernel that
 computes stage S from v over its tile and their R cross (a free-surface
 ghost row read from its mirror: the velocity image) with the glue folded
 into the thread that owns each cell: the sources (a force source's vz kept
@@ -22,18 +21,19 @@ in registers for the receivers and the tape), the stress image and the
 surface pin, the receivers, the tape entries and the ghost rows' image
 (tile walk ``forward_tiles``: with the free surface a tile row starts at
 fs - 2R, so the stress image stays inside a tile); a tail launch adds the
-last step's force sources. Its split form runs the per-step engine's stage
-launches. The fused reverse runs one shared-memory tiled kernel per stage,
-which computes the dbar values over its tile and their R reach and applies
-the transposed stencils from shared memory (tile walk ``fused_tiles``),
+last step's force sources. The reverse runs one shared-memory tiled kernel
+per stage, which computes the dbar values over its tile and their R reach
+and applies the transposed stencils from shared memory (tile walk
+``fused_tiles``),
 with the step's glue in the thread that owns each cell: the receiver
 cotangents, the source-point cotangent, the source undone and both ring
 imposes (``reverse_launches``: 2 launches a step, 4 with the free surface,
-whose images pair cells of different tiles); its split form runs the
-per-step engine's two passes per stage with the dbar planes in device
-memory. Both fused forms run on the launch plan
+whose images pair cells of different tiles). Both run on the launch plan
 ``escan_tile_plan``, each launch a programmatic dependent of the one
-before unless ``dependent_launch`` is False. The CUDA sources are
+before unless ``dependent_launch`` is False. On the card each is held
+against the per-step engine (``kernels/elastic2d_step.py``
+``estep_forward``, ``adjoint_elastic_step.estep_reverse``), which runs the
+same stages with the same per-cell arithmetic. The CUDA sources are
 ``csrc/elastic2d_scan.cu`` and
 ``csrc/elastic2d_kernels.cuh``, built at first use by one nvcc call into
 the elastic library (``kernels/build.py``), with the per-step kernels of
@@ -76,8 +76,8 @@ LIBRARY = Library(
     (CSRC / "elastic2d_kernels.cuh", CSRC / "pdl.cuh", CSRC / "cell_maps.cuh"),
     lambda lib: declare_all(lib, {
         # pointers..., ints..., taps and dt, stream
-        "tpufwi_escan_forward": (17, 16),
-        "tpufwi_escan_reverse": (19, 16),
+        "tpufwi_escan_forward": (17, 15),
+        "tpufwi_escan_reverse": (19, 15),
         # the per-step kernels (kernels/elastic2d_step.py)
         "tpufwi_estep_v": (11, 5),
         "tpufwi_estep_s": (17, 11),
@@ -87,12 +87,9 @@ LIBRARY = Library(
 )
 
 _FWD_HALO, _FWD_COMPACT = 5, 8  # the forward's fields; CPML memories
-# the reverse's: halo planes (fields, then the split passes' dbar planes)
-# and compact ones (cotangents, then the duals: the fused passes ping-pong
-# two sets of 8)
-_REV_PLANES = {"fused": (5, 5 + 16), "split": (9, 5 + 8)}
-VARIANTS = ("fused", "split")  # the C entry points' variant 0 and 1
-FORWARD_DEFAULT = REVERSE_DEFAULT = "fused"
+# the reverse's: halo planes (the fields) and compact ones (cotangents, then
+# the duals, ping-ponged in two sets of 8)
+_REV_HALO, _REV_COMPACT = 5, 5 + 16
 
 # the fused passes' tile (csrc/elastic2d_kernels.cuh kFTZ x kFTX cells, a
 # block of TILE_X x TILE_ROWS threads, TILE_Z / TILE_ROWS rows a thread)
@@ -169,25 +166,23 @@ def reach_cells(plan: EscanPlan, R: int):
     return out
 
 
-def forward_launches(variant: str, free_surface: bool) -> int:
-    """Kernel launches of one forward step (csrc/elastic2d_scan.cu); the
-    fused variant adds one a call (``ef_setup``), and one more with a force
-    source (the last step's)."""
-    return {"fused": (2, 2), "split": (4, 6)}[variant][int(free_surface)]
+# kernel launches of one forward step (csrc/elastic2d_scan.cu), with or
+# without the free surface; a call adds one (``ef_setup``), and one more
+# with a force source (the last step's)
+FORWARD_LAUNCHES = 2
 
 
-def reverse_launches(variant: str, free_surface: bool, nt: int | None = None) -> int:
+def reverse_launches(free_surface: bool, nt: int | None = None) -> int:
     """Kernel launches of one reverse step (csrc/elastic2d_scan.cu), or with
-    ``nt`` of a whole call: its steps' and its own, the split variant's
-    ``er_chain`` or the fused one's ``er_setup`` (the cell maps, and the
-    first step's force-source undo and pressure-receiver cotangents), with
-    the free surface also the first step's stress-image transpose. A fused
-    step is ``er_s`` and ``er_v``; with the free surface also
+    ``nt`` of a whole call: its steps' and its own, ``er_setup`` (the cell
+    maps, and the first step's force-source undo and pressure-receiver
+    cotangents), with the free surface also the first step's stress-image
+    transpose. A step is ``er_s`` and ``er_v``; with the free surface also
     ``er_image_mid`` and ``er_image_tail``."""
-    step = {"fused": (2, 4), "split": (8, 12)}[variant][int(free_surface)]
+    step = 4 if free_surface else 2
     if nt is None:
         return step
-    return nt * step + (1 + int(free_surface) if variant == "fused" else 1)
+    return nt * step + 1 + int(free_surface)
 
 
 def load_library():
@@ -379,13 +374,8 @@ def _flags(grid, source_type, record):
             int(record == "v"))
 
 
-def _check_variant(name, variant):
-    if variant not in VARIANTS:
-        raise ValueError(f"{name}: variant must be one of {VARIANTS}, not {variant!r}")
-
-
 def _maps(grid, plan, shift, nsrc, nrec, dev, vblocks=True):
-    """The fused passes' zeroed int maps (``SMaps``: three (NZ, NX) cell
+    """The passes' zeroed int maps (``SMaps``: three (NZ, NX) cell
     maps, a flag word per tile of rows shifted by ``shift``, the source and
     receiver chains), then for the forward (``vblocks``) a flag word per
     32 x 8 block of stage V."""
@@ -397,13 +387,11 @@ def _maps(grid, plan, shift, nsrc, nrec, dev, vblocks=True):
 
 
 def escan_forward(grid, dt, mats, profiles, wavelet, src_idx, rcv_idx,
-                  source_type="pressure", record="v", tape=False, variant=FORWARD_DEFAULT,
-                  dependent_launch=True):
+                  source_type="pressure", record="v", tape=False, dependent_launch=True):
     """Whole elastic forward (see ``escan_forward_plain`` for the
     contract). ``mats`` are the five padded material fields, ``profiles``
-    the strip profiles as tensors, fp32 on one card. ``variant`` and
-    ``dependent_launch`` as ``escan_reverse``'s."""
-    _check_variant("escan_forward", variant)
+    the strip profiles as tensors, fp32 on one card. ``dependent_launch``
+    as ``escan_reverse``'s."""
     if mats[0].device.type == "cpu":
         return escan_forward_plain(grid, dt, mats, profiles, wavelet, src_idx, rcv_idx,
                                    source_type, record, tape)
@@ -429,18 +417,16 @@ def escan_forward(grid, dt, mats, profiles, wavelet, src_idx, rcv_idx,
     ws = torch.zeros(_FWD_HALO * halo + _FWD_COMPACT * NZ * NX, dtype=torch.float32, device=dev)
     plan = escan_tile_plan(grid)
     nsrc = src_idx.shape[0]
-    iws = (_maps(grid, plan, forward_shift(plan, grid), nsrc, nrec, dev)
-           if variant == "fused" else None)
+    iws = _maps(grid, plan, forward_shift(plan, grid), nsrc, nrec, dev)
     fs, force, rec_v = _flags(grid, source_type, record)
     with torch.cuda.device(dev), profiling.span(
-            "kernels.forward", device=dev, wrapper="escan_forward", variant=variant, nt=nt,
+            "kernels.forward", device=dev, wrapper="escan_forward", nt=nt,
             tape_bytes=0 if rows is None else rows.nbytes):
         err = lib.tpufwi_escan_forward(
             *(m.data_ptr() for m in mats), *(p.data_ptr() for p in profiles),
             wavelet.data_ptr(), src_idx.data_ptr(), rcv_idx.data_ptr(), seis.data_ptr(),
-            _ptr(ring), _ptr(rows), ws.data_ptr(), _ptr(iws),
-            NZ, NX, S, R, nt, nsrc, nrec, fs, n_ring, force, rec_v,
-            VARIANTS.index(variant), *plan, int(dependent_launch),
+            _ptr(ring), _ptr(rows), ws.data_ptr(), iws.data_ptr(),
+            NZ, NX, S, R, nt, nsrc, nrec, fs, n_ring, force, rec_v, *plan, int(dependent_launch),
             taps_arg(grid, dt), torch.cuda.current_stream().cuda_stream,
         )
     raise_on(lib, "escan_forward", err)
@@ -453,17 +439,14 @@ escan_forward.launches = 0
 
 
 def escan_reverse(grid, dt, mats, profiles, wavelet, ybar, tape, finals, src_idx, rcv_idx,
-                  source_type="pressure", record="v", variant=REVERSE_DEFAULT,
-                  dependent_launch=True):
+                  source_type="pressure", record="v", dependent_launch=True):
     """Whole elastic reverse (see ``escan_reverse_plain`` for the
     contract): ``tape`` (nt, 5 n_ring) and ``finals`` as
-    ``escan_forward(..., tape=True)`` returns them. ``variant``: one of
-    ``VARIANTS`` (module note); the fused passes' launches are each a
+    ``escan_forward(..., tape=True)`` returns them. The launches are each a
     programmatic dependent of the one before it (its launch overlapping
     that kernel's drain) unless ``dependent_launch`` is False (plain stream
     order, in which a profiler's kernel spans do not overlap). The plain
     version has neither."""
-    _check_variant("escan_reverse", variant)
     if mats[0].device.type == "cpu":
         return escan_reverse_plain(grid, dt, mats, profiles, wavelet, ybar, tape, finals,
                                    src_idx, rcv_idx, source_type, record)
@@ -484,29 +467,23 @@ def escan_reverse(grid, dt, mats, profiles, wavelet, ybar, tape, finals, src_idx
         raise ValueError(f"escan_reverse: five fp32 final fields {(NZ, NX)} expected")
     lib = load_library()
     halo = (NZ + 2 * R) * (NX + 2 * R)
-    n_halo, n_compact = _REV_PLANES[variant]
-    ws = torch.zeros(n_halo * halo + n_compact * NZ * NX, dtype=torch.float32, device=dev)
+    ws = torch.zeros(_REV_HALO * halo + _REV_COMPACT * NZ * NX, dtype=torch.float32, device=dev)
     fields = ws[: 5 * halo].view(5, NZ + 2 * R, NX + 2 * R)
     for k, f in enumerate(finals):
         fields[k, R:-R, R:-R] = f
     g = torch.zeros((5, NZ, NX), dtype=torch.float32, device=dev)
     srcrow = torch.empty((nt, nsrc), dtype=torch.float32, device=dev)
     plan = escan_tile_plan(grid)
-    # fused: the cell maps of the reverse's unshifted tiles; split: the
-    # receiver chain
-    iws = (_maps(grid, plan, 0, nsrc, nrec, dev, vblocks=False) if variant == "fused"
-           else torch.empty(2 * nrec, dtype=torch.int32, device=dev))
+    iws = _maps(grid, plan, 0, nsrc, nrec, dev, vblocks=False)  # the reverse's unshifted tiles
     fs, force, rec_v = _flags(grid, source_type, record)
     with torch.cuda.device(dev), profiling.span(
-            "kernels.reverse", device=dev, wrapper="escan_reverse", variant=variant, nt=nt,
-            tape_bytes=0):
+            "kernels.reverse", device=dev, wrapper="escan_reverse", nt=nt, tape_bytes=0):
         err = lib.tpufwi_escan_reverse(
             *(m.data_ptr() for m in mats), *(p.data_ptr() for p in profiles),
             wavelet.data_ptr(), ybar.data_ptr(), tape.data_ptr(), ring.data_ptr(),
             src_idx.data_ptr(), rcv_idx.data_ptr(), g.data_ptr(), srcrow.data_ptr(),
             ws.data_ptr(), iws.data_ptr(),
-            NZ, NX, S, R, nt, nsrc, nrec, fs, n_ring, force, rec_v,
-            VARIANTS.index(variant), *plan, int(dependent_launch),
+            NZ, NX, S, R, nt, nsrc, nrec, fs, n_ring, force, rec_v, *plan, int(dependent_launch),
             taps_arg(grid, dt), torch.cuda.current_stream().cuda_stream,
         )
     raise_on(lib, "escan_reverse", err)

@@ -17,8 +17,8 @@ Spans mark the layer boundaries of the graded path, outermost first
   inside ``engine.reverse`` (the force's buoy_z term, the wavelet's cotangent,
   the valid-region mask; elastic only).
 - ``kernels.forward`` / ``kernels.reverse``, *device*: the C entry-point
-  call alone of each whole-scan wrapper; wrapper, variant, nt,
-  tape_bytes (the tape it allocated).
+  call alone of each whole-scan wrapper; wrapper, nt, tape_bytes (the tape
+  it allocated), and for the 3D wrappers variant.
 
 Each recorded span holds its name, host start and end, its parent span,
 the evaluation it belongs to (the ``objective.evaluation`` span that
