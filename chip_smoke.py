@@ -73,11 +73,15 @@ Phases, each printing its own lines; any failure exits non-zero.
      seismogram; fp32 and bf16 tapes) against their plain versions at the 3D
      main path's padded grid (428 x 188 x 588), one surface shot, nt = 64;
      and a free-surface case on a smaller grid, nt = 128; at both, the
-     tiled cell passes (the default: 2.5D tiles over the whole grid, and
-     over the interior box and the CPML shell's slabs, the shell's tiles
-     staging their strip values) against the gather ones
-     (variant="gather"), bitwise on every output, with each variant's ms
-     per step and torch.profiler's device us per pass
+     tiled cell passes (the default: one walk of 2.5D tiles over the whole
+     grid each, the tiles that reach the CPML staging their strip values or,
+     in the reverse's second pass, copying the line pass's terms) against
+     the gather ones (variant="gather"), bitwise on every output, with each
+     variant's ms per step and torch.profiler's device us per pass; the
+     reverse's line pass (r3_lines) and second cell pass (the walk
+     r3_cells2_tiled, its gather r3_cells2) alone at the main grid, us a
+     launch by CUDA events, the walk bitwise against the gather; and each
+     walk's registers and blocks an SM
  13. full Overthrust: one shot on the SEG/EAGE Overthrust grid (801 x 187 x
      801 at 25 m, padded 829 x 215 x 829, nt = 3028): 'auto' resolves to the
      bf16 ring tape; a tape-free forward and a value-and-grad
@@ -2426,6 +2430,34 @@ def a3d_bf16_gradient(dev, nt):
     return float((b - a).norm() / a.norm()), float(a @ b / (a.norm() * b.norm()))
 
 
+def a3d_pass_times(dev, grid, calls=20):
+    """The reverse's second half, pass by pass, on random inputs at
+    ``grid``: ({pass: us a launch by CUDA events} for the line pass, the
+    tiled walk and its gather variant, whether the walk's lambda_{t-1} is
+    bitwise the gather's)."""
+    from tpufwi_torch.kernels.acoustic2d_scanres import strip_profiles
+
+    k3 = a3d_module()
+    dt = grid.cfl_dt(6000.0, safety=0.7)
+    prof = tuple(torch.as_tensor(p, device=dev) for p in strip_profiles(grid, dt, 6000.0, 6.0))
+    g = torch.Generator(device=dev).manual_seed(5)
+    N, ns = grid.padded_shape, k3.strip_cells(grid)
+    lam, lam_next = (torch.randn(N, device=dev, generator=g) for _ in range(2))
+    c2 = torch.rand(N, device=dev, generator=g) * 0.3
+    w, pbar = (torch.randn(ns, device=dev, generator=g) for _ in range(2))
+    buf = k3.pass_buffers(grid, lam, c2, prof, other=lam_next, w=w, pbar=pbar)
+    k3.a3d_reverse_pass(grid, "lines", buf)
+    outs = {}
+    for name in ("walk", "gather"):
+        b = k3.PassBuffers(buf.lam, buf.other.clone(), buf.c2, buf.prof, buf.strips)
+        k3.a3d_reverse_pass(grid, name, b)
+        outs[name] = b.other
+    same = torch.equal(outs["walk"], outs["gather"])
+    us = {name: 1e3 * events_ms(lambda: k3.a3d_reverse_pass(grid, name, buf), calls)[0]
+          for name in k3.REVERSE_PASSES}
+    return us, same
+
+
 def phase_a3d_kernels(dev, smi, nt=64, nt_fs=128, nt_bf16=400):
     """a3d_forward and a3d_reverse against their plain versions: one
     surface shot of the 3D main path's survey at nt, and a free-surface
@@ -2493,13 +2525,28 @@ def phase_a3d_kernels(dev, smi, nt=64, nt_fs=128, nt_bf16=400):
         print(f"[a3d kernels] torch.profiler device us per step, variant {v} (forward with the "
               "fp32 tape + reverse, nt 16): " + (", ".join(f"{k} {us:.2f}" for k, us in rows)
                                                  or "not measured"), flush=True)
-    gather_names = {"f3_cells", "r3_cells1", "r3_cells2"}
-    tiled_names = {"f3_cells_tiled", "r3_cells1_tiled", "r3_cells2_tiled", "r3_shell2"}
+    grid = survey[0]
+    pass_us, walk_same = a3d_pass_times(dev, grid)
+    occ = k3.walk_occupancy(grid)
+    print(f"[a3d kernels] the reverse's second half alone, grid {nums['grid']}, us a launch "
+          "(CUDA events, 20 launches): line pass r3_lines " + f"{pass_us['lines']:.1f}, walk "
+          f"r3_cells2_tiled {pass_us['walk']:.1f}, gather r3_cells2 {pass_us['gather']:.1f}; "
+          f"walk bitwise the gather's: {walk_same}; walks (registers, shared bytes, blocks an "
+          f"SM): {json.dumps(occ)}", flush=True)
+    # both variants run the line pass
+    gather_names = {"f3_cells", "r3_cells1", "r3_cells2", "r3_lines"}
+    tiled_names = {"f3_cells_tiled", "r3_cells1_tiled", "r3_cells2_tiled", "r3_lines"}
     ran = {v: {k for k, _ in rows} for v, rows in prof.items()}
-    if ran["tiled"] and (ran["tiled"] & gather_names or not tiled_names <= ran["tiled"]):
+    if ran["tiled"] and (ran["tiled"] & (gather_names - tiled_names)
+                         or not tiled_names <= ran["tiled"]):
         fail(f"the default 3D call's cell passes were {sorted(ran['tiled'])}, not the tiled ones")
-    if ran["gather"] and (ran["gather"] & tiled_names or not gather_names <= ran["gather"]):
+    if ran["gather"] and (ran["gather"] & (tiled_names - gather_names)
+                          or not gather_names <= ran["gather"]):
         fail(f"variant='gather' ran {sorted(ran['gather'])}, not the gather cell passes")
+    if not walk_same:
+        fail("the reverse's second pass alone: the tiled walk differs from the gather pass")
+    if any(regs > 64 or blocks != k3.RESIDENT for regs, _, blocks in occ.values()):
+        fail(f"a 3D walk does not hold {k3.RESIDENT} blocks an SM: {occ}")
     for tag, group in (("main grid", bits), ("free surface", bits_fs)):
         unequal = {k: d for k, d in group.items() if d != 0.0}
         if unequal:

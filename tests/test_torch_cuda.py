@@ -737,8 +737,10 @@ A3D_RAGGED = {
     (4, True, "one_tile_box"), (8, True, "ragged_slabs"), (2, False, "ragged_slabs"),
 ])
 def test_a3d_tiled_matches_gather_bitwise(device, monkeypatch, order, free_surface, shape, cy):
-    """The tiled cell passes, box and shell, against the gather ones
-    (variant="gather"), bitwise on every output: the seismogram and both
+    """The tiled cell passes, one walk each over the grid (the reverse's
+    second with the line pass's terms as operands), against the gather ones
+    (variant="gather", after the same line pass), bitwise on every output:
+    the seismogram and both
     last fields with and without the tape, the fp32 and bf16 tape rows, the
     illumination, and the reverse's gradient, lambda at the sources (fp32
     and bf16 tapes) and reconstructed P_{-1}; with the free surface a source
@@ -791,6 +793,109 @@ def test_a3d_shell_tiled_cells_counts_the_tiled_shell(device):
     assert count() == c1
 
 
+def test_a3d_tcpml_cells_counts_the_line_pass(device):
+    """a3d_tcpml_cells rises by the term cells x nt at each a3d_reverse call,
+    tiled or gather (both run the line pass), and a3d_forward leaves it."""
+    from tpufwi_torch import profiling
+    from tpufwi_torch.kernels import acoustic3d_scan as k3
+
+    args, w, si, ri = _a3d_case(device, 8, False, nt=16)
+    nt, grid = w.shape[0], args[0]
+    per_call = k3.term_cells(grid) * nt
+    # (40, 44, 48) padded, S + R = 14: every axis 28 cells of its line
+    assert per_call == 28 * (44 * 48 + 40 * 48 + 40 * 44) * nt
+
+    def count():
+        return profiling.counters()["a3d_tcpml_cells"]
+
+    c0 = count()
+    seis, tape, ppen, plast, _ = k3.a3d_forward(*args, w, si, ri, torch.float32)
+    assert count() == c0
+    for n, variant in enumerate(k3.VARIANTS, 1):
+        k3.a3d_reverse(*args, w, seis.contiguous(), tape, ppen, plast, si, ri, variant=variant)
+        assert count() - c0 == n * per_call
+    torch.cuda.synchronize()
+
+
+# (shape, pml, order): the main path's order at a small grid, orders 4 and 2
+# on odd extents, and axes shorter than 2R, whose two term bands overlap
+A3D_LINES = [((20, 24, 28), 6, 8), ((25, 17, 41), 4, 4), ((27, 19, 43), 4, 2),
+             ((6, 3, 29), 3, 8)]
+
+
+def _a3d_pass_inputs(device, shape, pml, order, seed=0):
+    from tpufwi_torch.kernels import acoustic3d_scan as k3
+    from tpufwi_torch.kernels.acoustic2d_scanres import strip_profiles
+
+    grid = Grid(shape=shape, h=(10.0, 11.0, 12.0), pml=pml, order=order)
+    dt = grid.cfl_dt(2600.0, safety=0.7)
+    prof = tuple(torch.as_tensor(p, device=device)
+                 for p in strip_profiles(grid, dt, 2600.0, 18.0))
+    g = torch.Generator(device=device).manual_seed(seed)
+    N, ns = grid.padded_shape, k3.strip_cells(grid)
+    lam, lam_next = (torch.randn(N, device=device, generator=g) for _ in range(2))
+    c2 = torch.rand(N, device=device, generator=g) * 0.3
+    w, pbar = (torch.randn(ns, device=device, generator=g) for _ in range(2))
+    return grid, lam, lam_next, c2, prof, w, pbar
+
+
+@pytest.mark.parametrize("shape,pml,order", A3D_LINES)
+def test_a3d_line_pass_matches_plain_fp64(device, shape, pml, order):
+    """The line pass alone (a3d_lines: phibar' and each axis's term D2 w -
+    D1 y at every cell within S + R of a face) against its plain version in
+    fp64 on the same inputs, within 1e-5 of each output's max (fp32 against
+    fp64: the measured error is ~1e-7); the slots no cell owns stay zero."""
+    from tpufwi_torch.kernels import acoustic3d_scan as k3
+
+    grid, lam, _, c2, prof, w, pbar = _a3d_pass_inputs(device, shape, pml, order)
+    pb, t = k3.a3d_lines(grid, lam, c2, prof, w, pbar)
+    pb_p, t_p = k3.a3d_lines_plain(grid, lam.double(), c2.double(), prof, w.double(),
+                                   pbar.double())
+    torch.cuda.synchronize()
+    assert t.numel() == k3.strip_cells(grid, k3.term_depth(grid))
+    for got, ref in ((pb, pb_p), (t, t_p)):
+        assert _rel(got, ref) <= 1e-5
+    assert torch.equal(t[t_p == 0], torch.zeros_like(t[t_p == 0]))
+
+
+@pytest.mark.parametrize("shape,pml,order", A3D_LINES[:3])
+def test_a3d_second_pass_walk_matches_gather_bitwise(device, shape, pml, order):
+    """The reverse's second cell pass alone (a3d_reverse_pass), the tiled
+    walk against its gather variant, bitwise, from the line pass's terms on
+    random inputs, one launch and three in a row."""
+    from tpufwi_torch.kernels import acoustic3d_scan as k3
+
+    grid, lam, lam_next, c2, prof, w, pbar = _a3d_pass_inputs(device, shape, pml, order, 1)
+    base = k3.pass_buffers(grid, lam, c2, prof, other=lam_next, w=w, pbar=pbar)
+    k3.a3d_reverse_pass(grid, "lines", base)
+    for reps in (1, 3):
+        out = {}
+        for name in ("walk", "gather"):
+            buf = k3.PassBuffers(base.lam, base.other.clone(), base.c2, base.prof, base.strips)
+            for _ in range(reps):
+                k3.a3d_reverse_pass(grid, name, buf)
+            out[name] = buf.other
+        torch.cuda.synchronize()
+        assert torch.equal(out["walk"], out["gather"])
+        assert not torch.equal(out["walk"], base.other)
+
+
+def test_a3d_walks_hold_two_blocks_an_sm(device):
+    """At the 3D main path's order and strip depth every tiled walk runs
+    within 64 registers a thread and two blocks an SM
+    (cudaOccupancyMaxActiveBlocksPerMultiprocessor at its largest ring),
+    r3_cells2_tiled within 96 KB of shared memory (RESIDENT)."""
+    from tpufwi_torch.kernels import acoustic3d_scan as k3
+
+    grid = Grid(shape=(400, 160, 560), h=(25.0,) * 3, pml=10, order=8)
+    occ = k3.walk_occupancy(grid)
+    assert set(occ) == set(k3.RINGS)
+    for kernel, (regs, smem, blocks) in occ.items():
+        assert regs <= 64 and blocks == k3.RESIDENT, (kernel, occ[kernel])
+        assert smem == k3.ring_bytes(grid.radius, kernel, k3.strip_depth(grid))
+    assert occ["r3_cells2_tiled"][1] <= 96 * 1024
+
+
 def test_a3d_wrapper_raises_instead_of_falling_back(device):
     from tpufwi_torch.kernels import acoustic3d_scan as k3
 
@@ -808,6 +913,9 @@ def test_a3d_wrapper_raises_instead_of_falling_back(device):
         k3.a3d_reverse(grid, c2, prof, w, seis, tape[:-1].contiguous(), ppen, plast, si, ri)
     with pytest.raises(ValueError, match="tape"):
         k3.a3d_reverse(grid, c2, prof, w, seis, tape.double(), ppen, plast, si, ri)
+    buf = k3.pass_buffers(grid, ppen, c2, prof)
+    with pytest.raises(ValueError, match="pass"):
+        k3.a3d_reverse_pass(grid, "shell", buf)
 
 
 def test_scanres_illumination_matches_plain(device):

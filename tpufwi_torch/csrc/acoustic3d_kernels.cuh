@@ -46,17 +46,23 @@
 //                           of P_{t-2} over P_t, imaging, surface mask,
 //                           psibar -> w
 //             R1b r3_src_ring the reconstruction's sources, the ring imposed
-//             R2 r3_strips  one thread per strip cell: phibar -> y
-//             R3 r3_cells2_tiled over the interior box + r3_shell2 over the
-//                           shell's slabs (w and y staged) on a side stream,
-//                           C and lambda_t tiled (u = C lambda formed once a
-//                           tap read): D2 u, then r3_tail2: lambda_{t-1}
+//             R2 r3_lines   the line pass: a block owns whole lines along
+//                           one axis, through both of its strips: phibar ->
+//                           y (kept in shared memory), then the axis's
+//                           transposed CPML term t = D2 w - D1 y of every
+//                           cell within S + R of a face, into the term
+//                           arrays (see "line pass")
+//             R3 r3_cells2_tiled one walk over the grid, C and lambda_t
+//                           tiled (u = C lambda formed once a tap read), the
+//                           cell's three terms as operands: D2 u, then
+//                           r3_tail2: lambda_{t-1}
 // The gather variants f3_cells, r3_cells1 and r3_cells2 (one thread per
 // cell of the whole grid, every tap and strip value a global load; u formed
 // 25 times a cell) compute the same values in the same order: every variant
 // runs the same tails, reading the strips through a reader (DeviceStrips,
-// TileStrips), so the tiled variant is bitwise equal to them. They run only
-// when a check asks for them (variant 1 of the entry points).
+// TileStrips) and the terms at the cell, so the tiled variant is bitwise
+// equal to them. They run only when a check asks for them (variant 1 of the
+// entry points); both variants run the same line pass.
 //
 // Layout. The wavefields (p, lambda) and C are stored with a zero halo of R
 // cells on every side ((NY+2R) x (NZ+2R) x (NX+2R), x contiguous), so the
@@ -67,9 +73,12 @@
 // memories live on their strips only (width S = pml + R on each face): the
 // axis-d strip array has the padded grid's extent on the other two axes and
 // 2S (low strip, then high) on axis d; values outside a strip are zero and
-// are never stored. Ring cells are int32 indices into the flattened
-// (NY, NZ, NX) padded grid. Every count fits int32 at the full SEG/EAGE
-// Overthrust grid (837 x 223 x 837 halo cells); tape offsets are size_t.
+// are never stored. The reverse's term arrays have the same layout, 2(S + R)
+// deep on their axis (the cells within S + R of either face; where the two
+// bands of a short axis overlap, a cell is held in the low band only). Ring
+// cells are int32 indices into the flattened (NY, NZ, NX) padded grid.
+// Every count fits int32 at the full SEG/EAGE Overthrust grid (837 x 223 x
+// 837 halo cells); tape offsets are size_t.
 
 #pragma once
 
@@ -117,14 +126,18 @@ __device__ __forceinline__ int coord(int y, int z, int x) {
   return AX == 0 ? y : (AX == 1 ? z : x);
 }
 
-// strip coordinate (0 .. 2S) of padded coordinate c on an axis of n cells,
-// -1 outside both strips or outside the grid
+// band coordinate (0 .. 2S) of padded coordinate c on an axis of n cells
+// for bands S deep at either face (the strips; the terms' bands are S + R
+// deep), -1 outside both bands or outside the grid
 __device__ __forceinline__ int strip_coord(int c, int n, int S) {
   if (c < 0 || c >= n) return -1;
   if (c < S) return c;
   if (c >= n - S) return c - n + 2 * S;
   return -1;
 }
+
+// the padded coordinate of band coordinate j (bands S deep, axis of n)
+__device__ __forceinline__ int band_pos(int j, int n, int S) { return j < S ? j : n - 2 * S + j; }
 
 // offset of (y, z, x), with its axis-AX coordinate replaced by strip
 // coordinate j, in the axis-AX strip array
@@ -134,6 +147,14 @@ __device__ __forceinline__ int strip_off(int y, int z, int x, int j, const Dims&
   if (AX == 0) return (j * D.n[1] + z) * D.n[2] + x;
   if (AX == 1) return (y * S2 + j) * D.n[2] + x;
   return (y * D.n[1] + z) * S2 + j;
+}
+
+// the same in an axis-AX array 2 SB deep on AX (the term arrays: SB = S + R)
+template <int AX>
+__device__ __forceinline__ int band_off(int y, int z, int x, int j, const Dims& D, int SB) {
+  if (AX == 0) return (j * D.n[1] + z) * D.n[2] + x;
+  if (AX == 1) return (y * 2 * SB + j) * D.n[2] + x;
+  return (y * D.n[1] + z) * 2 * SB + j;
 }
 
 // value of the axis-AX strip array k cells along AX from (y, z, x); zero
@@ -241,7 +262,7 @@ struct GridField {
 // physical grid less R a side): there every axis's cpml_terms and
 // tcpml_terms is 0 without a load and no psibar strip exists. The shell is
 // the rest, the CPML reach (30% of the cells at the 3D main path's grid):
-// cells whose tails read strip values.
+// cells whose tails read strip values or terms.
 struct Box {
   int lo;    // S + R: the box's first cell on every axis
   int n[3];  // its extents, all 0 when it is empty
@@ -257,37 +278,6 @@ __host__ __device__ inline Box interior_box(const Dims& D, int R) {
   }
   if (empty) b.n[0] = b.n[1] = b.n[2] = 0;
   return b;
-}
-
-// The shell's slabs, in launch order: over the box's planes (y in [L, L +
-// ny)) the low and high z slabs (whole rows) and the x slabs of the middle
-// rows, then the low and high y slabs (whole planes); with an empty box the
-// whole grid. Slab k as [lo, hi) per axis (y, z, x); false past the last.
-__host__ __device__ inline bool shell_slab(const Dims& D, const Box& b, int k, int* lo, int* hi) {
-  const int L = b.lo;
-  for (int d = 0; d < 3; ++d) {
-    lo[d] = 0;
-    hi[d] = D.n[d];
-  }
-  if (b.n[0] == 0) return k == 0;
-  if (k < 4) {
-    lo[0] = L;
-    hi[0] = L + b.n[0];
-  }
-  if (k == 2 || k == 3) {
-    lo[1] = L;
-    hi[1] = L + b.n[1];
-  }
-  switch (k) {
-    case 0: hi[1] = L; break;
-    case 1: lo[1] = L + b.n[1]; break;
-    case 2: hi[2] = L; break;
-    case 3: lo[2] = L + b.n[2]; break;
-    case 4: hi[0] = L; break;
-    case 5: lo[0] = L + b.n[0]; break;
-    default: return false;
-  }
-  return true;
 }
 
 // this thread's cell of the 3D cell grid (cell_grid); false past the grid
@@ -337,11 +327,10 @@ struct DeviceStrips {
 //
 // The tiled cell passes share one walk, march(). A block of kTZ x kTX threads
 // (x contiguous: a warp is the 32 x of one z row) owns a (z, x) tile and
-// marches along y over a chunk of planes: the tiles of the whole grid (f3,
-// r3_cells1: the box's planes in chunks of cy, then the y slabs;
-// walk_region), or of the interior box and of each of the shell's slabs
-// (r3_cells2: shell_slab), in chunks of cy; a tile at the far edge of its
-// region runs only its rows and columns inside (TileSpan). Each thread keeps
+// marches along y over a chunk of planes: the tiles of the whole grid (the
+// box's planes in chunks of cy, then the y slabs; walk_region); a tile at
+// the far edge of its region runs only its rows and columns inside
+// (TileSpan). Each thread keeps
 // its column's 2R+1 values of the stencil field along y in registers (q[k] at
 // plane y - R + k), shifted one plane a step; each value enters the column
 // once, as plane y + R. The z and x taps come from the plane tile, (kTZ + 2R)
@@ -371,7 +360,10 @@ struct DeviceStrips {
 // + R), the cell's own strip values as operands, the profiles once a block. A
 // tile copies an axis's strip values only where it reaches that axis's CPML
 // (TileSpan reach); outside a strip a copy fills the zero the tails expect. A
-// tile that reaches none runs as a box tile.
+// tile that reaches none runs as a box tile. The second reverse pass stages
+// no strip values: its cells read the terms the line pass wrote, an operand
+// per axis, copied where the tile reaches that axis's CPML (a zero fill at
+// cells outside the reach) and zero elsewhere.
 //
 // Ragged edges: every thread copies its share and joins the barriers; a copy
 // from outside the halo layout ((NY+2R) x (NZ+2R) x (NX+2R)) or past the rows
@@ -380,7 +372,7 @@ struct DeviceStrips {
 // cells run the cell. The launch plan (chunk depth cy and the largest pass's
 // shared bytes, checked against these shapes) is computed in Python, and the
 // walks' regions mirrored there: kernels/acoustic3d_scan.py a3d_tile_plan,
-// walk_regions, shell_slabs.
+// walk_regions.
 constexpr int kTZ = 16;
 constexpr int kTX = 32;
 constexpr int kAhead = 3;
@@ -396,13 +388,17 @@ static_assert(4 + kAhead + 1 <= kFieldSlots && kAhead + 1 <= kOpSlots, "ring slo
 // lambda), NH tail operands at the cell's halo offset, NG at its (NY, NZ,
 // NX) offset; a staging ring's NA strip arrays read along their axis (an x
 // and a z tile each, and a y column whose front is an operand) and NP read
-// at the cell (an operand per axis); operands in that order, in NO_ slots
-// (kOpSlots, or kAhead read before their refill)
-template <int R, int NF_, int NH_, int NG_, int NA_ = 0, int NP_ = 0, int NO_ = kOpSlots>
+// at the cell (an operand per axis); NT term arrays read at the cell (an
+// operand per axis, zero outside its reach); operands in that order, in NO_
+// slots (kOpSlots, or kAhead read before their refill)
+template <int R, int NF_, int NH_, int NG_, int NA_ = 0, int NP_ = 0, int NO_ = kOpSlots,
+          int NT_ = 0>
 struct Ring {
   static_assert(NO_ == kOpSlots || NO_ == kAhead, "operand slots");
-  static constexpr int NF = NF_, NH = NH_, NB = NH_ + NG_, NA = NA_, NP = NP_;
-  static constexpr int NOP = NB + 3 * NP_ + NA_;
+  static constexpr int NF = NF_, NH = NH_, NB = NH_ + NG_, NA = NA_, NP = NP_, NT = NT_;
+  static constexpr int NK = NB + 3 * NT_;          // operand arrays: NB, then the terms'
+  static constexpr int TERM = NB + 3 * NP_ + NA_;  // the first term operand
+  static constexpr int NOP = TERM + 3 * NT_;
   static constexpr int W = kTX + 2 * R;  // row stride, floats
   static constexpr int PLANE = (kTZ + 2 * R) * W;
   static constexpr int XT = kTZ * W;            // an x-strip tile
@@ -423,30 +419,28 @@ struct Ring {
     return BYTES + (NP > 0 ? 12 * S * (int)sizeof(float) : 0);
   }
 };
-// the passes' rings, for tiles that reach no CPML and (S) for tiles that do:
-// f3 (P_{t-1}; P_{t-2}, C, illum; phi' along, psi at the cell) and r3_cells1
-// (P_{t-1}; C, P_t, lambda_t, gacc; psibar at the cell), whose walks tile the
-// whole grid in one launch; r3_cells2 (C and lambda_t; lambda_{t+1}; w and y
-// along) over the box and the shell's slabs. Every tiled pass is held to 2
-// blocks an SM by its 64 registers a thread: RingF3S and RingR1S leave room
-// for two, RingR2S for one, so r3_cells2's box keeps its own ring and the
-// shell its own launch. Measured on the H100, two blocks of 108.7 KB an SM
-// left too little L1 for the copies in flight and ran the box's tiles 14%
-// slower than at 96 KB: RingF3S and RingR1S keep kAhead operand slots, and
-// RingR1, which ran 3% faster so (r3_cells2's rings ran slower so).
+// the passes' rings, for tiles that reach no CPML and (S, T) for tiles that
+// do; every walk tiles the whole grid in one launch: f3 (P_{t-1}; P_{t-2},
+// C, illum; phi' along, psi at the cell), r3_cells1 (P_{t-1}; C, P_t,
+// lambda_t, gacc; psibar at the cell) and r3_cells2 (C and lambda_t;
+// lambda_{t+1}; the three terms at the cell). Every tiled pass is held to 2
+// blocks an SM by its 64 registers a thread, and its largest ring leaves
+// room for two. Measured on the H100, two blocks of 108.7 KB an SM left too
+// little L1 for the copies in flight and ran the box's tiles 14% slower than
+// at 96 KB: RingF3S and RingR1S keep kAhead operand slots, and RingR1, which
+// ran 3% faster so (r3_cells2's rings ran slower so).
 template <int R> using RingF3 = Ring<R, 1, 2, 1>;
 template <int R> using RingR1 = Ring<R, 1, 3, 1, 0, 0, kAhead>;
 template <int R> using RingR2 = Ring<R, 2, 1, 0>;
 template <int R> using RingF3S = Ring<R, 1, 2, 1, 1, 1, kAhead>;
 template <int R> using RingR1S = Ring<R, 1, 3, 1, 0, 1, kAhead>;
-template <int R> using RingR2S = Ring<R, 2, 1, 0, 2, 0>;
-static_assert(RingR2S<4>::BYTES <= 227 * 1024 && RingF3S<4>::BYTES <= 227 * 1024,
-              "the rings fit one block's shared memory");
+template <int R> using RingR2T = Ring<R, 2, 1, 0, 0, 0, kOpSlots, 1>;
+static_assert(RingR2T<4>::BYTES <= 96 * 1024 && RingF3S<4>::BYTES <= 227 * 1024,
+              "r3_cells2's ring leaves room for two blocks an SM");
 
 template <int R>
 inline int ring_bytes_max(int S) {
-  const int b[4] = {RingF3S<R>::bytes(S), RingR1S<R>::bytes(S), RingR2<R>::BYTES,
-                    RingR2S<R>::bytes(S)};
+  const int b[3] = {RingF3S<R>::bytes(S), RingR1S<R>::bytes(S), RingR2T<R>::BYTES};
   int m = 0;
   for (int v : b) m = v > m ? v : m;
   return m;
@@ -507,10 +501,47 @@ __host__ __device__ inline int slab_blocks(const int* lo, const int* hi, int cy)
          ((hi[0] - lo[0] + cy - 1) / cy);
 }
 
-// The whole grid's walk (f3, r3_cells1) in whole planes: the box's planes
-// (y in [L, L + ny)) in chunks of cy, then the low and high y slabs, a
-// chunk each when cy allows (with an empty box, the whole grid). Region k
-// as [lo, hi) per axis; false past the last.
+// Slabs of the grid around the interior box, slab k as [lo, hi) per axis
+// (y, z, x), false past the last: 0 the box's planes (y in [L, L + ny)),
+// 4 and 5 the low and high y slabs (whole planes); with an empty box the
+// whole grid. Only walk_region reads it, and only slabs 0, 4 and 5 (it
+// widens slab 0 to whole rows); cases 1-3, the z and x slabs of the box's
+// planes, are reached by nothing. The function keeps this form because the
+// forward's walk is compiled from it: a switch of walk_region's own changed
+// that walk's SASS and ran it 2-3% slower on the H100 (PERF.md).
+__host__ __device__ inline bool shell_slab(const Dims& D, const Box& b, int k, int* lo, int* hi) {
+  const int L = b.lo;
+  for (int d = 0; d < 3; ++d) {
+    lo[d] = 0;
+    hi[d] = D.n[d];
+  }
+  if (b.n[0] == 0) return k == 0;
+  if (k < 4) {
+    lo[0] = L;
+    hi[0] = L + b.n[0];
+  }
+  if (k == 2 || k == 3) {
+    lo[1] = L;
+    hi[1] = L + b.n[1];
+  }
+  switch (k) {
+    case 0: hi[1] = L; break;
+    case 1: lo[1] = L + b.n[1]; break;
+    case 2: hi[2] = L; break;
+    case 3: lo[2] = L + b.n[2]; break;
+    case 4: hi[0] = L; break;
+    case 5: lo[0] = L + b.n[0]; break;
+    default: return false;
+  }
+  return true;
+}
+
+// The whole grid's walk in whole planes: the box's planes (y in [L, L +
+// ny)) in chunks of cy, then the low and high y slabs, a chunk each when cy
+// allows (with an empty box, the whole grid). Region k as [lo, hi) per
+// axis; false past the last. (Read off shell_slab's slabs 0, 4 and 5: a
+// switch of its own changed the forward's compiled walk, which then ran
+// 2-3% slower on the H100, PERF.md.)
 __host__ __device__ inline bool walk_region(const Dims& D, const Box& b, int k, int* lo,
                                             int* hi) {
   if (!shell_slab(D, b, k == 0 ? 0 : k + 3, lo, hi)) return false;
@@ -532,42 +563,6 @@ __device__ __forceinline__ TileSpan grid_tile(const Dims& D, int cy) {
   const Box b = interior_box(D, R);
   int lo[3], hi[3], e = blockIdx.x;
   for (int k = 0; walk_region(D, b, k, lo, hi); ++k) {
-    const int n = slab_blocks(lo, hi, cy);
-    if (e < n) break;
-    e -= n;
-  }
-  return tile_span(e, lo, hi, cy, D, R);
-}
-
-// the tiles of the box
-template <int R>
-__host__ __device__ inline int tile_blocks(const Dims& D, int cy) {
-  const Box b = interior_box(D, R);
-  const int lo[3] = {b.lo, b.lo, b.lo}, hi[3] = {b.lo + b.n[0], b.lo + b.n[1], b.lo + b.n[2]};
-  return b.n[0] ? slab_blocks(lo, hi, cy) : 0;
-}
-
-template <int R>
-__device__ __forceinline__ TileSpan box_tile(const Dims& D, int cy) {
-  const Box b = interior_box(D, R);
-  const int lo[3] = {b.lo, b.lo, b.lo}, hi[3] = {b.lo + b.n[0], b.lo + b.n[1], b.lo + b.n[2]};
-  return tile_span(blockIdx.x, lo, hi, cy, D, R);
-}
-
-// the tiles of the shell: its slabs' in order
-template <int R>
-__host__ __device__ inline int shell_blocks(const Dims& D, int cy) {
-  const Box b = interior_box(D, R);
-  int lo[3], hi[3], n = 0;
-  for (int k = 0; shell_slab(D, b, k, lo, hi); ++k) n += slab_blocks(lo, hi, cy);
-  return n;
-}
-
-template <int R>
-__device__ __forceinline__ TileSpan shell_tile(const Dims& D, int cy) {
-  const Box b = interior_box(D, R);
-  int lo[3], hi[3], e = blockIdx.x;
-  for (int k = 0; shell_slab(D, b, k, lo, hi); ++k) {
     const int n = slab_blocks(lo, hi, cy);
     if (e < n) break;
     e -= n;
@@ -601,21 +596,24 @@ struct TileStrips {
 
 // Walk tile s over its chunk of planes. fields: the NF halo fields whose
 // value (field_val) is stenciled; ops: the tail's operand arrays, the
-// first RG::NH indexed by the cell's halo offset, the rest by its (NY, NZ,
-// NX) offset (a null pointer reads zeros); sin: the pass's strip arrays
-// and profiles, staged when RG has strips; cell(y, z, x, i,
-// c, o, q, f, rd) runs each cell of the tile: i its halo offset, c its
-// (NY, NZ, NX) offset, o its operands, q its column, f its slot in plane
-// y's first field tile (f[dz * W + dx] at (y, z + dz, x + dx); the second
-// tile RG::NS * RG::PLANE further), rd its strip reader.
-template <int R, typename RG, int NA, int NP, typename Cell>
+// first RG::NH indexed by the cell's halo offset, the rest of the first
+// RG::NB by its (NY, NZ, NX) offset (a null pointer is not copied: its
+// operand is unread), then, when RG has terms, the three axes' term arrays
+// (read at the cell's band coordinate, zero outside each axis's reach);
+// sin: the pass's strip arrays and profiles, staged when RG has strips;
+// cell(y, z, x, i, c, o, q, f, rd) runs each cell of the tile: i its halo
+// offset, c its (NY, NZ, NX) offset, o its operands, q its column, f its
+// slot in plane y's first field tile (f[dz * W + dx] at (y, z + dz, x +
+// dx); the second tile RG::NS * RG::PLANE further), rd its strip reader.
+template <int R, typename RG, int NK, int NA, int NP, typename Cell>
 __device__ __forceinline__ void march(const TileSpan& s, const float* const (&fields)[RG::NF],
-                                      const float* const (&ops)[RG::NB],
+                                      const float* const (&ops)[NK],
                                       const StripIn<NA, NP>& sin, const Dims& D,
                                       const Cell& cell) {
   constexpr int NF = RG::NF, NOP = RG::NOP, NB = RG::NB;
   constexpr bool STAGED = RG::NA + RG::NP > 0;
   static_assert(!STAGED || (RG::NA == NA && RG::NP == NP), "a ring stages the pass's strips");
+  static_assert(NK >= RG::NK, "an array for every operand");
   constexpr int FS = RG::NS * RG::PLANE;  // stride between the field tiles' rings
   constexpr int ST = RG::XT + RG::ZT;     // one strip array's tiles
   constexpr int NC = RG::NA > 0 ? RG::NA : 1;
@@ -670,6 +668,15 @@ __device__ __forceinline__ void march(const TileSpan& s, const float* const (&fi
     if (on_grid) {
       jz = strip_coord(z, D.n[1], D.S);
       jx = strip_coord(x, D.n[2], D.S);
+    }
+  }
+  // the cell's term coordinates along z and x (-1: outside the reach)
+  [[maybe_unused]] const int SE = D.S + R;
+  [[maybe_unused]] int tjz = -1, tjx = -1;
+  if constexpr (RG::NT > 0) {
+    if (on_grid) {
+      tjz = strip_coord(z, D.n[1], SE);
+      tjx = strip_coord(x, D.n[2], SE);
     }
   }
   // grid plane p's field tiles into their slot
@@ -729,6 +736,20 @@ __device__ __forceinline__ void march(const TileSpan& s, const float* const (&fi
         }
       }
     }
+    if constexpr (RG::NT > 0) {
+      // the cell's terms on the axes the tile reaches (zero-filled outside
+      // the reach); the others are zeroed as they are read
+      float* d = dst + RG::TERM * kTileThreads;
+      const int tjy = strip_coord(p, D.n[0], SE);
+      if (s.reach[0] && on_grid)
+        cp_async4(d, ops[NB] + (tjy >= 0 ? band_off<0>(p, z, x, tjy, D, SE) : 0), tjy >= 0);
+      if (s.reach[1] && on_grid)
+        cp_async4(d + kTileThreads,
+                  ops[NB + 1] + (tjz >= 0 ? band_off<1>(p, z, x, tjz, D, SE) : 0), tjz >= 0);
+      if (s.reach[2] && on_grid)
+        cp_async4(d + 2 * kTileThreads,
+                  ops[NB + 2] + (tjx >= 0 ? band_off<2>(p, z, x, tjx, D, SE) : 0), tjx >= 0);
+    }
   };
   // the column below the chunk (grid planes y0 - R .. y0 - 1): plain loads
   float q[2 * R + 1];
@@ -774,6 +795,11 @@ __device__ __forceinline__ void march(const TileSpan& s, const float* const (&fi
       const float* os = oring + (y % RG::NO) * NOP * kTileThreads + t;
 #pragma unroll
       for (int k = 0; k < NOP; ++k) o[k] = os[k * kTileThreads];
+      if constexpr (RG::NT > 0) {
+#pragma unroll
+        for (int a = 0; a < 3; ++a)
+          if (!s.reach[a]) o[RG::TERM + a] = 0.f;
+      }
     };
     if (RG::EARLY && on_grid) read_ops();
     if (y + R + kAhead < y1 + R) copy_field(y + R + kAhead);
@@ -1236,39 +1262,124 @@ __global__ void r3_src_ring(float* __restrict__ p, const float* __restrict__ c2,
   if (k < n_ring) p[halo_of_flat<R>(ring[k], D)] = row ? to_float(row[k]) : 0.f;
 }
 
+// ------------------------------------------------------------- line pass
+//
+// Axis AX's transposed CPML term at a cell, t = D2 w - D1 y along AX from
+// w and y on the cell's own line, is needed at every cell within S + R of a
+// face of AX, and y (phibar -> y) reads only u + w on the same line. So
+// r3_lines hands a block kLines whole lines along one axis (x fastest: for
+// the y and z axes 32 consecutive x of a row, for the x axis 32 consecutive
+// z of a plane), through both of their strips, and runs for them: the
+// lines' windows and the strip cells' phibar into shared memory, every load
+// a cp.async started before the first barrier; phibar -> (phibar', y) at
+// every strip cell (phibar_cell), y into the windows; then, after the
+// second barrier, t at every cell within S + R of a face (tcpml_terms), into
+// the axis's term array.
+// A line's window of a band (0: low, 1: high) is S + 3R cells along AX from
+// padded coordinate -R (low) or n - S - 2R (high): every tap of the band's
+// strip cells and term cells lies in it, so a tap is one shared load at a
+// fixed offset. It holds w and y (zero outside the strips; a window reaches
+// into the other band's strip where the two bands of a short axis overlap,
+// and a cell in both is computed once, in the low band) and C and lambda
+// where the band's strip cells read them. r3_cells2 then reads at most
+// three terms at its cell.
+constexpr int kLines = 32;
+constexpr int kLineThreads = 256;
+
+// the lines' groups of axis AX (kLines lines each, the last of a row or a
+// plane ragged)
+template <int AX>
+__host__ __device__ inline int line_groups(const Dims& D) {
+  const int gx = (D.n[2] + kLines - 1) / kLines, gz = (D.n[1] + kLines - 1) / kLines;
+  return AX == 0 ? D.n[1] * gx : (AX == 1 ? D.n[0] * gx : D.n[0] * gz);
+}
+
+// a line pass block's shared floats: w, y, C and lambda windows of both
+// bands of kLines lines, then their strip cells' phibar
+__host__ __device__ inline int line_floats(int S, int R) {
+  return (4 * 2 * (S + 3 * R) + 2 * S) * kLines;
+}
+
+// Block g's lines of axis AX and their windows: window cell s of band b of
+// array a (0 w, 1 y, 2 C, 3 lambda) of line l at slot(a, b, s, l), s
+// stepping by step, so that a warp's loads and stores coalesce in device
+// memory and in shared memory alike
 template <int R, int AX>
-__device__ __forceinline__ void phibar_cell(const float* __restrict__ q,
-                                            const float* __restrict__ c2, const Strips& w,
-                                            const Strips& pb, const Strips& yv,
-                                            const float* __restrict__ prof, int e,
-                                            const Dims& D, const Taps3& tp) {
-  int y, z, x, j;
-  strip_cell<AX>(e, D, y, z, x, j);
-  const int i = halo_at<R>(y, z, x, D);
-  const int st = axis_stride<AX>(D);
-  float d1 = 0.f;  // D1 (u + w); its transpose enters with a minus sign
+struct LineGroup {
+  int y, z, x;  // line 0's coordinates (its AX coordinate unused)
+  int lines;    // its lines
+  int n, S, L;  // the axis's cells, the strip depth, the window's S + 3R
+  __device__ LineGroup(int g, const Dims& D) : y(0), z(0), x(0), n(D.n[AX]), S(D.S) {
+    L = S + 3 * R;
+    const int gx = (D.n[2] + kLines - 1) / kLines, gz = (D.n[1] + kLines - 1) / kLines;
+    if (AX < 2) {
+      (AX == 0 ? z : y) = g / gx;
+      x = g % gx * kLines;
+      lines = min(kLines, D.n[2] - x);
+    } else {
+      y = g / gz;
+      z = g % gz * kLines;
+      lines = min(kLines, D.n[1] - z);
+    }
+  }
+  static constexpr int kStep = AX < 2 ? kLines : 1;  // between a window's cells
+  __device__ __forceinline__ int slot(int a, int b, int s, int l) const {
+    return AX < 2 ? ((a * 2 + b) * L + s) * kLines + l : ((a * 2 + b) * kLines + l) * L + s;
+  }
+  // the first window cell's padded coordinate
+  __device__ __forceinline__ int win0(int b) const { return b == 0 ? -R : n - S - 2 * R; }
+  // item e of count per line (x fastest): its line l and index i
+  __device__ __forceinline__ static void split(int e, int count, int& l, int& i) {
+    if (AX < 2) {
+      l = e % kLines;
+      i = e / kLines;
+    } else {
+      l = e / count;
+      i = e - l * count;
+    }
+  }
+  // the cell of line l at padded coordinate c along AX
+  __device__ __forceinline__ void cell(int l, int c, int& cy, int& cz, int& cx) const {
+    cy = AX == 0 ? c : y;
+    cz = AX == 1 ? c : (AX == 2 ? z + l : z);
+    cx = AX == 2 ? c : x + l;
+  }
+};
+
+// the strip reader of a cell in its window (DeviceStrips' nb): array 0 w,
+// array 1 y, at the cell's slots, taps step apart
+template <int AX>
+struct LineStrips {
+  const float* s[2];
+  int step;
+  template <int A>
+  __device__ __forceinline__ float nb(int a, int k) const {
+    static_assert(A == AX, "a line reads along its own axis");
+    return s[a][k * step];
+  }
+};
+
+// phibar at a strip cell of axis AX and band coordinate j, phibar there:
+// pt = phibar - D1 (u + w) (the transpose enters with a minus sign);
+// returns phibar' = b pt and sets y = a pt. w, c and q: the cell's slots of
+// its window's w, C and lambda, taps step apart. u = C lambda and u + w are
+// rounded as written (__fmul_rn, __fadd_rn), not left to the compiler's
+// contraction.
+template <int R, int AX>
+__device__ __forceinline__ float phibar_cell(const float* w, const float* c, const float* q,
+                                             int step, float phibar,
+                                             const float* __restrict__ prof, int j,
+                                             const Dims& D, const Taps3& tp, float& y) {
+  float d1 = 0.f;
 #pragma unroll
   for (int k = 0; k <= 2 * R; ++k) {
     if (k == R) continue;
-    const int o = i + (k - R) * st;
-    d1 = fmaf(tp.d1[AX][k], c2[o] * q[o] + strip_at<AX>(w.s[AX], y, z, x, k - R, D), d1);
+    const int h = (k - R) * step;
+    d1 = fmaf(tp.d1[AX][k], __fadd_rn(__fmul_rn(c[h], q[h]), w[h]), d1);
   }
-  const float pt = pb.s[AX][e] - d1;
-  pb.s[AX][e] = prof_b(prof, AX, D.S)[j] * pt;
-  yv.s[AX][e] = prof_a(prof, AX, D.S)[j] * pt;
-}
-
-template <int R>
-__global__ void r3_strips(const float* __restrict__ q, const float* __restrict__ c2, Strips w,
-                          Strips pb, Strips yv, const float* __restrict__ prof, Dims D,
-                          Taps3 tp) {
-  int e = blockIdx.x * blockDim.x + threadIdx.x;
-  const int ny = strip_cells<0>(D), nz = strip_cells<1>(D), nx = strip_cells<2>(D);
-  if (e < ny) return phibar_cell<R, 0>(q, c2, w, pb, yv, prof, e, D, tp);
-  e -= ny;
-  if (e < nz) return phibar_cell<R, 1>(q, c2, w, pb, yv, prof, e, D, tp);
-  e -= nz;
-  if (e < nx) phibar_cell<R, 2>(q, c2, w, pb, yv, prof, e, D, tp);
+  const float pt = phibar - d1;
+  y = prof_a(prof, AX, D.S)[j] * pt;
+  return prof_b(prof, AX, D.S)[j] * pt;
 }
 
 // axis AX's transposed CPML terms at (y, z, x): D2 w - D1 y within R of
@@ -1288,34 +1399,120 @@ __device__ __forceinline__ float tcpml_terms(const RD& rd, int y, int z, int x, 
   return acc;
 }
 
-// The second reverse cell pass's tail, shared by every variant: lap is the
-// D2 laplacian of u = C lambda_t at the cell, and the cell's operands as
-// R2Ops: qc = lambda_t, qold = lambda_{t+1} (qoth on entry); rd reads w
-// and y. qoth holds lambda_{t+1} on entry and lambda_{t-1} (before its
-// receiver injection) on exit; each cell reads and writes it only at
-// itself.
-struct R2Ops {
-  float qc, qold;
-};
-
-__device__ __forceinline__ R2Ops r2_fetch(const float* __restrict__ qcur, const float* qoth,
-                                          int i) {
-  return R2Ops{qcur[i], qoth[i]};
+// block g's lines of axis AX; sh: line_floats(S, R)
+template <int R, int AX>
+__device__ __forceinline__ void r3_line_group(int g, const float* __restrict__ q,
+                                              const float* __restrict__ c2, const Strips& w,
+                                              const Strips& pb, const Strips& tv,
+                                              const float* __restrict__ prof, const Dims& D,
+                                              const Taps3& tp, float* sh) {
+  const LineGroup<R, AX> lg(g, D);
+  const int n = lg.n, S = D.S, SE = D.S + R, L = lg.L;
+  constexpr int step = LineGroup<R, AX>::kStep;
+  float* const pbs = sh + 4 * 2 * L * kLines;  // phibar of the strip cells, item order
+  int l, i, y, z, x;
+  // every load a cp.async started before the first barrier: the windows (w,
+  // zero-filled outside the strips; C and lambda at the band's strip
+  // cells' taps, low: window cells s < S + 2R, high: s >= R) and the strip
+  // cells' phibar; y zeroed
+  for (int e = threadIdx.x; e < kLines * 2 * L; e += kLineThreads) {
+    LineGroup<R, AX>::split(e, 2 * L, l, i);
+    if (l >= lg.lines) continue;
+    const int b = i / L, s = i - b * L, c = lg.win0(b) + s;
+    lg.cell(l, c, y, z, x);
+    const int j = strip_coord(c, n, S);
+    cp_async4(sh + lg.slot(0, b, s, l), w.s[AX] + (j < 0 ? 0 : strip_off<AX>(y, z, x, j, D)),
+              j >= 0);
+    sh[lg.slot(1, b, s, l)] = 0.f;
+    if (b == 0 ? s < S + 2 * R : s >= R) {
+      const int h = halo_at<R>(y, z, x, D);
+      cp_async4(sh + lg.slot(2, b, s, l), c2 + h, true);
+      cp_async4(sh + lg.slot(3, b, s, l), q + h, true);
+    }
+  }
+  for (int e = threadIdx.x; e < kLines * 2 * S; e += kLineThreads) {
+    LineGroup<R, AX>::split(e, 2 * S, l, i);
+    if (l >= lg.lines) continue;
+    lg.cell(l, band_pos(i, n, S), y, z, x);
+    cp_async4(pbs + e, pb.s[AX] + strip_off<AX>(y, z, x, i, D), true);
+  }
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+  for (int e = threadIdx.x; e < kLines * 2 * S; e += kLineThreads) {
+    LineGroup<R, AX>::split(e, 2 * S, l, i);
+    if (l >= lg.lines) continue;
+    const int b = i < S ? 0 : 1, c = band_pos(i, n, S), s = c - lg.win0(b);
+    lg.cell(l, c, y, z, x);
+    float yv;
+    pb.s[AX][strip_off<AX>(y, z, x, i, D)] =
+        phibar_cell<R, AX>(sh + lg.slot(0, b, s, l), sh + lg.slot(2, b, s, l),
+                           sh + lg.slot(3, b, s, l), step, pbs[e], prof, i, D, tp, yv);
+    sh[lg.slot(1, b, s, l)] = yv;
+    // (and into the other band's window where it reaches this cell)
+    const int so = c - lg.win0(1 - b);
+    if (so >= 0 && so < L) sh[lg.slot(1, 1 - b, so, l)] = yv;
+  }
+  __syncthreads();
+  for (int e = threadIdx.x; e < kLines * 2 * SE; e += kLineThreads) {
+    LineGroup<R, AX>::split(e, 2 * SE, l, i);
+    const int c = band_pos(i, n, SE);
+    // (a cell in both bands of a short axis is the low band's)
+    if (l >= lg.lines || strip_coord(c, n, SE) != i) continue;
+    const int b = i < SE ? 0 : 1, s = c - lg.win0(b);
+    lg.cell(l, c, y, z, x);
+    const LineStrips<AX> rd{{sh + lg.slot(0, b, s, l), sh + lg.slot(1, b, s, l)}, step};
+    tv.s[AX][band_off<AX>(y, z, x, i, D, SE)] = tcpml_terms<R, AX>(rd, y, z, x, D, tp);
+  }
 }
 
-template <int R, typename RD>
+// the line pass: the y axis's line groups, then the z axis's, then the x
+// axis's, a block each
+template <int R>
+__global__ void __launch_bounds__(kLineThreads)
+    r3_lines(const float* __restrict__ q, const float* __restrict__ c2, Strips w, Strips pb,
+             Strips tv, const float* __restrict__ prof, Dims D, Taps3 tp) {
+  extern __shared__ float smem[];
+  int g = blockIdx.x;
+  if (g < line_groups<0>(D)) return r3_line_group<R, 0>(g, q, c2, w, pb, tv, prof, D, tp, smem);
+  g -= line_groups<0>(D);
+  if (g < line_groups<1>(D)) return r3_line_group<R, 1>(g, q, c2, w, pb, tv, prof, D, tp, smem);
+  g -= line_groups<1>(D);
+  r3_line_group<R, 2>(g, q, c2, w, pb, tv, prof, D, tp, smem);
+}
+
+// ------------------------------------------------------- second cell pass
+
+// axis AX's term at (y, z, x) in its term array t, 0 outside its reach
+template <int R, int AX>
+__device__ __forceinline__ float term_at(const float* __restrict__ t, int y, int z, int x,
+                                         const Dims& D) {
+  const int SE = D.S + R;
+  const int j = strip_coord(coord<AX>(y, z, x), D.n[AX], SE);
+  return j < 0 ? 0.f : t[band_off<AX>(y, z, x, j, D, SE)];
+}
+
+// The second reverse cell pass's tail, shared by every variant: lap is the
+// D2 laplacian of u = C lambda_t at the cell, and the cell's operands as
+// R2Ops: qc = lambda_t, qold = lambda_{t+1} (qoth on entry), and the three
+// axes' terms (0 outside each axis's reach), added in the order y, z, x.
+// qoth holds lambda_{t+1} on entry and lambda_{t-1} (before its receiver
+// injection) on exit; each cell reads and writes it only at itself.
+struct R2Ops {
+  float qc, qold, ty, tz, tx;
+};
+
 __device__ __forceinline__ void r3_tail2(float lap, const R2Ops& o, float* __restrict__ qoth,
-                                         const RD& rd, int y, int z, int x, int i,
-                                         const Dims& D, const Taps3& tp) {
-  lap += tcpml_terms<R, 0>(rd, y, z, x, D, tp);
-  lap += tcpml_terms<R, 1>(rd, y, z, x, D, tp);
-  lap += tcpml_terms<R, 2>(rd, y, z, x, D, tp);
+                                         int i) {
+  lap += o.ty;
+  lap += o.tz;
+  lap += o.tx;
   qoth[i] = 2.f * o.qc - o.qold + lap;
 }
 
 template <int R>
 __global__ void r3_cells2(const float* __restrict__ qcur, float* __restrict__ qoth,
-                          const float* __restrict__ c2, Strips w, Strips yv, Dims D, Taps3 tp) {
+                          const float* __restrict__ c2, Strips tv, Dims D, Taps3 tp) {
   int y, z, x;
   if (!my_grid_cell(D, y, z, x)) return;
   const int i = halo_at<R>(y, z, x, D);
@@ -1327,25 +1524,26 @@ __global__ void r3_cells2(const float* __restrict__ qcur, float* __restrict__ qo
     lap = fmaf(tp.d2[1][k], __fmul_rn(c2[oz], qcur[oz]), lap);
     lap = fmaf(tp.d2[2][k], __fmul_rn(c2[ox], qcur[ox]), lap);
   }
-  const StripIn<2, 0> in{{w, yv}, {}, nullptr};
-  r3_tail2<R>(lap, r2_fetch(qcur, qoth, i), qoth, DeviceStrips<2, 0>{in, y, z, x, D}, y, z, x,
-              i, D, tp);
+  r3_tail2(lap,
+           R2Ops{qcur[i], qoth[i], term_at<R, 0>(tv.s[0], y, z, x, D),
+                 term_at<R, 1>(tv.s[1], y, z, x, D), term_at<R, 2>(tv.s[2], y, z, x, D)},
+           qoth, i);
 }
 
 // the tiled variant: C and lambda_t tiled, u = C lambda_t formed from them
-// at each tap read (the same rounded product as the gather variant's), over
-// the box (RingR2) or the shell (RingR2S, w and y staged)
+// at each tap read (the same rounded product as the gather variant's), the
+// terms as operands where the tile reaches the CPML (RingR2T)
 template <int R, typename RG>
 __device__ __forceinline__ void r3_tiles2(const TileSpan& s, const float* __restrict__ qcur,
                                           float* __restrict__ qoth,
-                                          const float* __restrict__ c2, const Strips& w,
-                                          const Strips& yv, const Dims& D, const Taps3& tp) {
-  constexpr int W = RG::W, FS = RG::NS * RG::PLANE;
+                                          const float* __restrict__ c2, const Strips& tv,
+                                          const Dims& D, const Taps3& tp) {
+  constexpr int W = RG::W, FS = RG::NS * RG::PLANE, T = RG::TERM;
   const float* const fields[2] = {c2, qcur};
-  const float* const ops[1] = {qoth};
-  const StripIn<2, 0> in{{w, yv}, {}, nullptr};
-  auto cell = [&](int y, int z, int x, int i, int, const float (&o)[RG::NOP],
-                  const float (&u)[2 * R + 1], const float* t, const auto& rd) {
+  const float* const ops[4] = {qoth, tv.s[0], tv.s[1], tv.s[2]};
+  const StripIn<0, 0> in{};
+  auto cell = [&](int, int, int, int i, int, const float (&o)[RG::NOP],
+                  const float (&u)[2 * R + 1], const float* t, const auto&) {
     float lap = 0.f;
 #pragma unroll
     for (int k = 0; k <= 2 * R; ++k) {
@@ -1353,25 +1551,25 @@ __device__ __forceinline__ void r3_tiles2(const TileSpan& s, const float* __rest
       lap = fmaf(tp.d2[1][k], field_val<2>(t, FS, (k - R) * W), lap);
       lap = fmaf(tp.d2[2][k], field_val<2>(t, FS, k - R), lap);
     }
-    r3_tail2<R>(lap, R2Ops{t[FS], o[0]}, qoth, rd, y, z, x, i, D, tp);
+    if constexpr (RG::NT > 0)
+      r3_tail2(lap, R2Ops{t[FS], o[0], o[T], o[T + 1], o[T + 2]}, qoth, i);
+    else
+      r3_tail2(lap, R2Ops{t[FS], o[0], 0.f, 0.f, 0.f}, qoth, i);
   };
   march<R, RG>(s, fields, ops, in, D, cell);
 }
 
+// one walk over the whole grid, as f3_cells_tiled: a tile that reaches the
+// CPML copies its cells' terms, one that does not runs as a box tile
 template <int R>
 __global__ void __launch_bounds__(kTileThreads, 2)
     r3_cells2_tiled(const float* __restrict__ qcur, float* __restrict__ qoth,
-                    const float* __restrict__ c2, Strips w, Strips yv, Dims D, Taps3 tp,
-                    int cy) {
-  r3_tiles2<R, RingR2<R>>(box_tile<R>(D, cy), qcur, qoth, c2, w, yv, D, tp);
-}
-
-// (its rings leave room for one block an SM: no cap on its registers)
-template <int R>
-__global__ void __launch_bounds__(kTileThreads, 1)
-    r3_shell2(const float* __restrict__ qcur, float* __restrict__ qoth,
-              const float* __restrict__ c2, Strips w, Strips yv, Dims D, Taps3 tp, int cy) {
-  r3_tiles2<R, RingR2S<R>>(shell_tile<R>(D, cy), qcur, qoth, c2, w, yv, D, tp);
+                    const float* __restrict__ c2, Strips tv, Dims D, Taps3 tp, int cy) {
+  const TileSpan s = grid_tile<R>(D, cy);
+  if (s.reach[0] || s.reach[1] || s.reach[2])
+    r3_tiles2<R, RingR2T<R>>(s, qcur, qoth, c2, tv, D, tp);
+  else
+    r3_tiles2<R, RingR2<R>>(s, qcur, qoth, c2, tv, D, tp);
 }
 
 // ------------------------------------------------------------ launch shapes
@@ -1415,6 +1613,14 @@ inline int strip_blocks(const Dims& D) {
 }
 
 inline int blocks_for(int n) { return (n + kSmallBlock - 1) / kSmallBlock; }
+
+// the line pass: a block per line group of the three axes, and its shared
+// bytes (its lines' windows)
+inline int line_blocks(const Dims& D) {
+  return line_groups<0>(D) + line_groups<1>(D) + line_groups<2>(D);
+}
+template <int R>
+inline int line_smem(const Dims& D) { return line_floats(D.S, R) * (int)sizeof(float); }
 
 inline Dims make_dims(int NY, int NZ, int NX, int S, int R) {
   Dims D;

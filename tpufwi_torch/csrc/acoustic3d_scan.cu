@@ -28,26 +28,29 @@
 // tiles"), each value of the stencil field loaded from device memory about
 // once, its 25 taps from registers and shared memory. The cells of the CPML
 // shell (within S + R of a face, 30% of the cells at this grid) read strip
-// values in their tails: their tiles stage them through shared memory in
-// the same cp.async groups as the field, before the plane's barrier (PR 9's
-// tiles, whose strip gathers ran after the barrier, made every tile wait on
-// them and lost to the gather passes, PERF.md). The forward's and the first
-// reverse pass's walks tile the whole grid, every tile staging the strips it
-// reaches, in one launch; the second reverse pass, whose shell ring leaves
-// room for one block an SM, runs the interior box (the physical grid less R
-// a side) on tiles of its own and the shell's slabs (the z slabs and the x
-// slabs of the box's planes, the y slabs' whole planes) beside them on a
-// side stream. The CPML memories are stored on their strips only (20% of
-// the cells at this grid, touched by one extra strip launch per step), u =
-// C lambda is never written, and the reverse fuses the reconstruction into
-// the first cell pass, so the reverse reads each full field about twice per
-// step. variant 1 launches the gather passes over the whole grid instead
-// (one thread per cell, every tap and strip value a global load), which
-// compute the same values bitwise: checks hold the tiled passes against
-// them. Left for later: TMA tile loads and warp specialisation, fewer
-// integer operations a tiled cell (several cells a thread, vector copies),
-// a persistent kernel or CUDA graph instead of 4-7 launches per step, and
-// the one-block source and receiver kernels.
+// values in their tails: the forward's and the first reverse pass's tiles
+// stage them through shared memory in the same cp.async groups as the field,
+// before the plane's barrier (tiles whose strip gathers ran after the
+// barrier made every tile wait on them and lost to the gather passes,
+// PERF.md). The second reverse pass's cells read each axis's transposed
+// CPML term, D2 w - D1 y along the axis; a line pass (r3_lines) computes
+// them a block per group of whole lines along one axis, y of its strips
+// kept in shared memory, so that the pass's tiles copy at most three terms
+// at the cell as operands and its ring leaves room for two blocks an SM.
+// Every cell pass is one walk over the whole grid in one launch, and every
+// launch goes to the caller's stream. The CPML memories are stored on their
+// strips only (26% of the cells at this grid a quantity, the terms 34%:
+// the forward's strip pass and the line pass are one extra launch per step
+// each), u = C lambda is never written, and the reverse fuses the
+// reconstruction into the first cell pass, so the reverse reads each full
+// field about twice per step.
+// variant 1 launches the gather passes over the whole grid instead (one
+// thread per cell, every tap and strip value a global load), which compute
+// the same values bitwise: checks hold the tiled passes against them. Left
+// for later: TMA tile loads and warp specialisation, fewer integer
+// operations a tiled cell (several cells a thread, vector copies), a
+// persistent kernel or CUDA graph instead of 4-6 launches per step, and the
+// one-block source and receiver kernels.
 //
 // Tapes. Row t holds rings(P_t) after the sources, in RingSpec order
 // (tpufwi_torch/propagators/boundary.py), fp32 or bf16 (rounded to nearest
@@ -66,58 +69,6 @@ int check_variant(int variant, const TilePlan& plan, const Dims& D) {
   return (int)cudaErrorInvalidValue;
 }
 
-// The tiled variant's side stream (r3_cells2 only): the pass forks it from
-// the caller's stream, runs the box's tiles on the caller's stream and the
-// shell's on the side one, and joins it back, so that either fills the SMs
-// the other's last wave leaves idle. Created and destroyed by each reverse
-// loop (destruction waits for nothing: the CUDA runtime frees the stream
-// and events once their work is done).
-struct Side {
-  cudaStream_t s = nullptr;
-  cudaEvent_t fork = nullptr, join = nullptr;
-  int open() {
-    cudaError_t e = cudaStreamCreateWithFlags(&s, cudaStreamNonBlocking);
-    if (e == cudaSuccess) e = cudaEventCreateWithFlags(&fork, cudaEventDisableTiming);
-    if (e == cudaSuccess) e = cudaEventCreateWithFlags(&join, cudaEventDisableTiming);
-    return (int)e;
-  }
-  ~Side() {
-    if (join) cudaEventDestroy(join);
-    if (fork) cudaEventDestroy(fork);
-    if (s) cudaStreamDestroy(s);
-  }
-  // launch tiles(st) and shell(s) as one pass of the caller's stream st
-  template <typename Tiles, typename Shell>
-  void pass(cudaStream_t st, const Tiles& tiles, const Shell& shell) const {
-    cudaEventRecord(fork, st);
-    cudaStreamWaitEvent(s, fork, 0);
-    tiles(st);
-    shell(s);
-    cudaEventRecord(join, s);
-    cudaStreamWaitEvent(st, join, 0);
-  }
-};
-
-// The tiled variant's cell passes: f3 and r3_cells1 one walk over the whole
-// grid; r3_cells2 the box's tiles (none when the box is empty) and the
-// shell's
-template <int R>
-void r3_tiled2(const float* qcur, float* qoth, const float* c2, const Strips& w,
-               const Strips& yv, const Dims& D, const Taps3& tp, int cy, const Side& side,
-               cudaStream_t st) {
-  side.pass(
-      st,
-      [&](cudaStream_t s) {
-        if (const int n = tile_blocks<R>(D, cy))
-          r3_cells2_tiled<R><<<n, kTileBlock, RingR2<R>::BYTES, s>>>(qcur, qoth, c2, w, yv, D,
-                                                                      tp, cy);
-      },
-      [&](cudaStream_t s) {
-        r3_shell2<R><<<shell_blocks<R>(D, cy), kTileBlock, RingR2S<R>::bytes(D.S), s>>>(
-            qcur, qoth, c2, w, yv, D, tp, cy);
-      });
-}
-
 template <int R>
 int allow_forward_smem(int variant, const Dims& D) {
   if (variant != 0) return 0;
@@ -127,10 +78,43 @@ int allow_forward_smem(int variant, const Dims& D) {
 
 template <int R>
 int allow_reverse_smem(int variant, const Dims& D) {
+  if (const int err = allow_smem(r3_lines<R>, line_smem<R>(D))) return err;
   if (variant != 0) return 0;
   if (const int err = allow_smem(r3_cells1_tiled<R>, RingR1S<R>::bytes(D.S))) return err;
-  if (const int err = allow_smem(r3_cells2_tiled<R>, RingR2<R>::BYTES)) return err;
-  return allow_smem(r3_shell2<R>, RingR2S<R>::bytes(D.S));
+  return allow_smem(r3_cells2_tiled<R>, RingR2T<R>::BYTES);
+}
+
+// the reverse's strip buffers: psibar, w and phibar (strip_total floats
+// each), then the terms (strip_total at depth S + R)
+struct RevStrips {
+  Strips psb, wv, pbar, tv;
+  RevStrips(float* strips, const Dims& D, int R) {
+    const size_t ns = strip_total(D.n[0], D.n[1], D.n[2], D.S);
+    psb = strips_at(strips, D.n[0], D.n[1], D.n[2], D.S);
+    wv = strips_at(strips + ns, D.n[0], D.n[1], D.n[2], D.S);
+    pbar = strips_at(strips + 2 * ns, D.n[0], D.n[1], D.n[2], D.S);
+    tv = strips_at(strips + 3 * ns, D.n[0], D.n[1], D.n[2], D.S + R);
+  }
+};
+
+// the reverse's second half, one step: the line pass (q = lambda_t), then
+// the second cell pass (variant 0: the tiled walk on chunks of cy planes;
+// 1: gather) from qc = lambda_t into qo
+template <int R>
+void r3_lines_launch(const float* q, const float* c2, const float* prof, const RevStrips& sv,
+                     const Dims& D, const Taps3& tp, cudaStream_t st) {
+  r3_lines<R><<<line_blocks(D), kLineThreads, line_smem<R>(D), st>>>(q, c2, sv.wv, sv.pbar, sv.tv,
+                                                                  prof, D, tp);
+}
+
+template <int R>
+void r3_cells2_launch(const float* qc, float* qo, const float* c2, const RevStrips& sv,
+                      const Dims& D, const Taps3& tp, int variant, int cy, cudaStream_t st) {
+  if (variant == 0)
+    r3_cells2_tiled<R><<<grid_blocks<R>(D, cy), kTileBlock, RingR2T<R>::BYTES, st>>>(
+        qc, qo, c2, sv.tv, D, tp, cy);
+  else
+    r3_cells2<R><<<cell_grid(D), kCellBlock, 0, st>>>(qc, qo, c2, sv.tv, D, tp);
 }
 
 template <int R, typename T>
@@ -180,32 +164,22 @@ int reverse_loop(const float* c2, const float* prof, const float* w, const float
                  const TilePlan& plan, cudaStream_t st) {
   if (const int err = check_variant<R>(variant, plan, D)) return err;
   if (const int err = allow_reverse_smem<R>(variant, D)) return err;
-  Side side;
-  if (variant == 0)
-    if (const int err = side.open()) return err;
-  const size_t ns = strip_total(D.n[0], D.n[1], D.n[2], D.S);
-  const Strips psb = strips_at(strips, D.n[0], D.n[1], D.n[2], D.S);
-  const Strips wv = strips_at(strips + ns, D.n[0], D.n[1], D.n[2], D.S);
-  const Strips pbar = strips_at(strips + 2 * ns, D.n[0], D.n[1], D.n[2], D.S);
-  const Strips yv = strips_at(strips + 3 * ns, D.n[0], D.n[1], D.n[2], D.S);
+  const RevStrips sv(strips, D, R);
   if (nrec > 0) r3_chain<<<blocks_for(nrec), kSmallBlock, 0, st>>>(rcv, nrec, chain);
   for (int t = nt - 1; t >= 0; --t) {
     r3_inject<R><<<1, kSmallBlock, 0, st>>>(qc, ybar, t, rcv, chain, src, lam_src, nsrc, nrec,
                                             D, fs);
     if (variant == 0)
       r3_cells1_tiled<R><<<grid_blocks<R>(D, plan.cy), kTileBlock, RingR1S<R>::bytes(D.S), st>>>(
-          qc, c2, p_t, p_tp1, gacc, psb, wv, prof, D, fs, tp, plan.cy);
+          qc, c2, p_t, p_tp1, gacc, sv.psb, sv.wv, prof, D, fs, tp, plan.cy);
     else
-      r3_cells1<R><<<cell_grid(D), kCellBlock, 0, st>>>(qc, c2, p_t, p_tp1, gacc, psb, wv,
+      r3_cells1<R><<<cell_grid(D), kCellBlock, 0, st>>>(qc, c2, p_t, p_tp1, gacc, sv.psb, sv.wv,
                                                          prof, D, fs, tp);
     r3_src_ring<R, T><<<blocks_for(n_ring), kSmallBlock, 0, st>>>(
         p_tp1, c2, w, t, src, nsrc, ring, t >= 2 ? tape + (size_t)(t - 2) * n_ring : nullptr,
         n_ring, D, fs, frame);
-    r3_strips<R><<<strip_blocks(D), kStripBlock, 0, st>>>(qc, c2, wv, pbar, yv, prof, D, tp);
-    if (variant == 0)
-      r3_tiled2<R>(qc, qo, c2, wv, yv, D, tp, plan.cy, side, st);
-    else
-      r3_cells2<R><<<cell_grid(D), kCellBlock, 0, st>>>(qc, qo, c2, wv, yv, D, tp);
+    r3_lines_launch<R>(qc, c2, prof, sv, D, tp, st);
+    r3_cells2_launch<R>(qc, qo, c2, sv, D, tp, variant, plan.cy, st);
     if (t == nt - 1) {
       const cudaError_t err = cudaGetLastError();
       if (err != cudaSuccess) return (int)err;
@@ -220,6 +194,45 @@ int reverse_loop(const float* c2, const float* prof, const float* w, const float
   return (int)cudaGetLastError();
 }
 
+// pass 0: the line pass, 1: the tiled second cell pass, 2: its gather
+// variant
+template <int R>
+int reverse_pass(int pass, const float* qcur, float* qoth, const float* c2, const float* prof,
+                 float* strips, const Dims& D, const Taps3& tp, const TilePlan& plan,
+                 cudaStream_t st) {
+  if (pass < 0 || pass > 2) return (int)cudaErrorInvalidValue;
+  const int variant = pass == 2 ? 1 : 0;
+  if (pass == 1)
+    if (const int err = check_variant<R>(variant, plan, D)) return err;
+  if (const int err = allow_reverse_smem<R>(variant, D)) return err;
+  const RevStrips sv(strips, D, R);
+  if (pass == 0)
+    r3_lines_launch<R>(qcur, c2, prof, sv, D, tp, st);
+  else
+    r3_cells2_launch<R>(qcur, qoth, c2, sv, D, tp, variant, plan.cy, st);
+  return (int)cudaGetLastError();
+}
+
+// a walk's registers a thread, dynamic shared bytes and blocks an SM at
+// them (its largest ring)
+template <typename K>
+int occupancy(K kernel, int bytes, int* out) {
+  if (const int err = allow_smem(kernel, bytes)) return err;
+  cudaFuncAttributes a;
+  cudaError_t e = cudaFuncGetAttributes(&a, reinterpret_cast<const void*>(kernel));
+  if (e != cudaSuccess) return (int)e;
+  out[0] = a.numRegs;
+  out[1] = bytes;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(out + 2, kernel, kTileThreads, bytes);
+}
+
+template <int R>
+int walk_occupancy(int S, int* out) {
+  if (const int err = occupancy(f3_cells_tiled<R, false>, RingF3S<R>::bytes(S), out)) return err;
+  if (const int err = occupancy(r3_cells1_tiled<R>, RingR1S<R>::bytes(S), out + 3)) return err;
+  return occupancy(r3_cells2_tiled<R>, RingR2T<R>::BYTES, out + 6);
+}
+
 }  // namespace
 
 extern "C" {
@@ -228,8 +241,8 @@ extern "C" {
 // fields; strips: 2 x strip_total zeroed floats (phi, then psi); tape (with
 // ring) and illum may be null; tape_bf16 selects the tape's type. variant
 // 0 runs the tiled cell passes on the plan (tz, tx, cy, smem: the largest
-// pass's shared bytes, box or shell), which must be one this library was
-// built for; 1 the gather passes (plan unread).
+// walk's shared bytes), which must be one this library was built for; 1 the
+// gather passes (plan unread).
 int tpufwi_a3d_forward(const float* c2, const float* prof, const float* w,
                        const long long* src, const long long* rcv, float* seis, const int* ring,
                        void* tape, float* illum, float* pa, float* pb, float* strips, int NY,
@@ -254,7 +267,8 @@ int tpufwi_a3d_forward(const float* c2, const float* prof, const float* w,
 }
 
 // p_tp1 = P_{nt-1}, p_t = P_{nt-2} (halo fields set by the caller); qa, qb:
-// zeroed halo fields; strips: 4 x strip_total zeroed floats; gacc (NY, NZ,
+// zeroed halo fields; strips: 3 x strip_total zeroed floats (psibar, w,
+// phibar), then strip_total at depth S + R (the terms); gacc (NY, NZ,
 // NX) zeroed; chain: 2 * nrec ints; tape (nt, n_ring) with row t = rings(P_t).
 // After the loop P_{-1} is in p_tp1 for even nt, in p_t for odd nt.
 // variant and plan as tpufwi_a3d_forward's.
@@ -283,6 +297,33 @@ int tpufwi_a3d_reverse(const float* c2, const float* prof, const float* w, const
                                                  lam_src, p_tp1, p_t, qa, qb, strips, chain, D,
                                                  nt, nsrc, nrec, fs, n_ring, frame, tp, variant,
                                                  plan, st)))
+}
+
+// One pass of the reverse's second half alone on the stream, for the checks
+// and their timing (the reverse runs the two each step, in this order):
+// pass 0 the line pass (qcur = lambda_t, c2, w and
+// phibar in strips -> phibar' and the terms in strips), 1 the tiled second
+// cell pass on the plan, 2 its gather variant (qcur = lambda_t, qoth =
+// lambda_{t+1}, the terms -> qoth = lambda_{t-1}). qcur, qoth and c2 are
+// halo fields, strips as tpufwi_a3d_reverse's; the plan as its (unread by
+// passes 0 and 2).
+int tpufwi_a3d_reverse_pass(const float* qcur, float* qoth, const float* c2, const float* prof,
+                            float* strips, int pass, int NY, int NZ, int NX, int S, int R,
+                            int tz, int tx, int cy, int smem, const float* taps,
+                            void* stream) {
+  const Taps3 tp = load_taps3(taps);
+  const Dims D = make_dims(NY, NZ, NX, S, R);
+  const TilePlan plan{tz, tx, cy, smem};
+  auto st = static_cast<cudaStream_t>(stream);
+  TPUFWI_DISPATCH_R3(R, (reverse_pass<kR>(pass, qcur, qoth, c2, prof, strips, D, tp, plan, st)))
+}
+
+// The tiled walks at radius R and strip depth S: f3_cells_tiled (without
+// illumination), r3_cells1_tiled and r3_cells2_tiled in turn, each its
+// registers a thread, its dynamic shared bytes and the blocks an SM holds
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor): 9 ints into out.
+int tpufwi_a3d_walk_occupancy(int R, int S, int* out) {
+  TPUFWI_DISPATCH_R3(R, (walk_occupancy<kR>(S, out)))
 }
 
 const char* tpufwi_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }

@@ -47,7 +47,10 @@ wrappers' ``.launches``, which stay the kernels' step counters):
   ``loss``;
 - ``a3d_shell_tiled_cells``: the CPML shell's cells x nt of each
   ``a3d_forward`` / ``a3d_reverse`` call that marched them in shared-memory
-  tiles (the default variant; 0 under ``variant="gather"``).
+  tiles (the default variant; 0 under ``variant="gather"``);
+- ``a3d_tcpml_cells``: the transposed CPML terms x nt that the line pass of
+  each ``a3d_reverse`` call on the card wrote (every cell within S + R of a
+  face, once an axis; both variants run the line pass).
 
 ``trace(run_dir, label)`` profiles a block into a Chrome/Perfetto trace
 with the spans in it. ``roofline_report`` of the reference is not ported:
@@ -70,7 +73,8 @@ from torch.autograd import profiler as _autograd_profiler
 SPANS = ("objective.evaluation", "objective.shot", "propagator.call", "engine.forward",
          "engine.reverse", "kernels.forward", "kernels.reverse", "propagator.materials",
          "engine.finish")
-COUNTERS = ("host_syncs", "grad_shots", "loss_shots", "a3d_shell_tiled_cells")
+COUNTERS = ("host_syncs", "grad_shots", "loss_shots", "a3d_shell_tiled_cells",
+            "a3d_tcpml_cells")
 
 # a profiler range with no device-side twin (a user annotation gets one)
 _RANGE = getattr(torch._C._profiler, "_RecordFunctionFast", None)
