@@ -68,6 +68,12 @@ Phases, each printing its own lines; any failure exits non-zero.
  11. elastic per-step shot: one shot at nt = 4885 through cuda_estep and
      cuda_escan: seismograms, forward_fused and the five material gradients
      against each other within 1e-5 of max; times and peak memory
+ 11b. marine shot: one shot of the marine cell (the water layer, the free
+     surface, a pressure source, hydrophones) at nt = 4885 through cuda_escan
+     and cuda_estep, the seismogram and gradients bitwise equal and
+     escan_image_steps raised by nt; the reverse alone by CUDA events (with
+     dependent launches and in stream order) and its passes' device us a
+     step, with the image launches' share
  12. 3D kernels vs plain: a3d_forward (no tape, fp32 and bf16 ring tapes,
      illumination) and a3d_reverse (fed the plain forward's tape, fields and
      seismogram; fp32 and bf16 tapes) against their plain versions at the 3D
@@ -2092,6 +2098,128 @@ def phase_estep_shot(dev, smi):
             fail(f"cuda_estep {name} off cuda_escan's by {err:.3e} > 1e-5")
 
 
+MARINE_NT = 4885  # the marine cell's: t_max 4 s at the CFL 0.7 step for 4700 m/s
+MARINE_WATER_M = 450.0
+
+
+def marine_shot(dev, nt, nz=351, nx=1701, dx=10.0):
+    """The marine cell's kernel inputs for one mid-line shot: marmousi_like
+    with its water layer (vp 1500, vs 0, rho 1000 above the seabed; vs = vp
+    / 1.9 and Gardner's rho below it), order 8, pml 20 on the bottom and the
+    sides, the free surface, a pressure source at depth 2 and hydrophones
+    every 2 cells at depth 2: (grid, dt, mats, profiles), wavelet, src_idx,
+    rcv_idx on ``dev``, and (vp, vs, rho, f0, vp_max, water rows)."""
+    from tpufwi_torch.adjoint_scanres import profile_source
+    from tpufwi_torch.grid import Grid
+    from tpufwi_torch.io import marmousi_like
+    from tpufwi_torch.propagators.elastic2d import ElasticPropagator, elastic_cfl_dt
+    from tpufwi_torch.wavelets import ricker_np
+
+    vp, dx = marmousi_like(nz=nz, nx=nx, dx=dx, water_depth_m=MARINE_WATER_M)
+    nw = int(MARINE_WATER_M / dx)
+    vs, rho = vp / 1.9, 310.0 * vp**0.25
+    vs[:nw], rho[:nw] = 0.0, 1000.0
+    grid = Grid(shape=vp.shape, h=(dx, dx), pml=20, order=8, free_surface=True)
+    vp_max, f0 = 4700.0, 12.0
+    dt = elastic_cfl_dt(grid.h, vp_max, 8, safety=0.7)
+
+    def on(x, dtype=torch.float32):
+        return torch.as_tensor(np.ascontiguousarray(x), dtype=dtype, device=dev)
+
+    model = tuple(on(x) for x in (vp, vs, rho))
+    prop = ElasticPropagator(grid, dt, f0, vp_max, source_type="pressure", record="p",
+                             device=dev)
+    mats = tuple(m.contiguous() for m in prop.material_fields(*model))
+    rx = np.arange(0, nx, 2)
+    src = on(np.array([[2, nx // 2]]) + grid.pad, torch.int64)
+    rcv = on(np.stack([np.full(rx.size, 2), rx], 1) + grid.pad, torch.int64)
+    prof = profile_source(grid, dt, f0, vp_max)(mats[0])
+    return (grid, dt, mats, prof), on(ricker_np(f0, dt, nt)), src, rcv, (*model, f0, vp_max, nw)
+
+
+def phase_marine_shot(dev, smi, nt=MARINE_NT, nt_prof=256):
+    """One shot of the marine cell (351 x 1701, the water layer, the free
+    surface, a pressure source, hydrophones) at its nt through cuda_escan
+    and cuda_estep: a value-and-grad of 0.5 |seis(m0) - d|^2 in the five
+    material fields and the wavelet on each, bitwise equal (the same
+    per-cell bodies), and escan_image_steps raised by nt by the reverse.
+    Then the reverse alone, fed the shot's tape: ms a step by CUDA events
+    with dependent launches and in plain stream order, and torch.profiler's
+    device us a step of each pass in stream order over the first
+    ``nt_prof`` steps, whose image launches' share of the stream-order
+    reverse it prints."""
+    from tpufwi_torch import profiling
+    from tpufwi_torch.adjoint_elastic_scan import make_elastic_simulator_scan
+    from tpufwi_torch.adjoint_elastic_step import make_elastic_simulator_fused
+    from tpufwi_torch.propagators.elastic2d import ElasticPropagator
+
+    ke = elastic_module()
+    args, w, si, ri, (vp, vs, rho, f0, vp_max, nw) = marine_shot(dev, nt)
+    grid, dt, mats, prof = args
+    kind = ("pressure", "p")
+    sims = {"cuda_escan": make_elastic_simulator_scan(grid, dt, f0, vp_max, *kind),
+            "cuda_estep": make_elastic_simulator_fused(grid, dt, f0, vp_max, *kind)}
+    with torch.no_grad():
+        fwd_ms, d = timed_ms(lambda: sims["cuda_escan"](*mats, w, si, ri))
+    # the start: vp and vs smoothed below the seabed, the water kept
+    m0 = []
+    for x in (vp, vs):
+        sm = torch.nn.functional.avg_pool2d(x[None, None], 9, 1, 4, count_include_pad=False)[0, 0]
+        m0.append(torch.cat([x[:nw], sm[nw:]]))
+    mats0 = tuple(m.detach().contiguous() for m in ElasticPropagator(
+        grid, dt, f0, vp_max, source_type="pressure", record="p", device=dev).material_fields(
+            *m0, rho))
+
+    def value_and_grad(sim):
+        m = [x.clone().requires_grad_(True) for x in (*mats0, w)]
+        seis = sim(*m, si, ri)
+        J = 0.5 * ((seis - d) ** 2).sum()
+        return (J.detach(), seis.detach(), *torch.autograd.grad(J, m))
+
+    vg = {}
+    for impl, sim in sims.items():
+        torch.cuda.reset_peak_memory_stats()
+        c0 = profiling.counters()["escan_image_steps"]
+        ms, out = timed_ms(lambda s=sim: value_and_grad(s), warmup=False)
+        vg[impl] = (ms, out, torch.cuda.max_memory_allocated(),
+                    profiling.counters()["escan_image_steps"] - c0)
+    a, b = vg["cuda_escan"][1], vg["cuda_estep"][1]
+    bitwise = all(bool(torch.equal(x, y)) for x, y in zip(a[1:], b[1:]))
+    finite = all(bool(torch.isfinite(x).all()) for x in a)
+    print(f"[marine shot] {smi}: grid {'x'.join(map(str, grid.padded_shape))} (water "
+          f"{nw} rows, free surface), pressure / p, {ri.shape[0]} hydrophones, nt {nt}: "
+          f"tape-free forward {fwd_ms / 1e3:.3f} s; value-and-grad cuda_escan "
+          f"{vg['cuda_escan'][0] / 1e3:.3f} s (peak {vg['cuda_escan'][2] / 2**30:.2f} GiB), "
+          f"cuda_estep {vg['cuda_estep'][0] / 1e3:.3f} s (peak "
+          f"{vg['cuda_estep'][2] / 2**30:.2f} GiB); J {float(a[0]):.6e}; seismogram and six "
+          f"gradients bitwise equal: {bitwise}; escan_image_steps raised by "
+          f"{vg['cuda_escan'][3]} (cuda_estep {vg['cuda_estep'][3]})", flush=True)
+    if not finite or float(a[2].abs().max()) == 0.0:
+        fail("the marine gradient is not finite and nonzero on cuda_escan")
+    if not bitwise:
+        fail("the marine shot's cuda_escan and cuda_estep outputs are not bitwise equal")
+    if (vg["cuda_escan"][3], vg["cuda_estep"][3]) != (nt, 0):
+        fail("escan_image_steps did not rise by nt in the free-surface reverse")
+
+    def reverse(n, **kw):
+        """escan_reverse of the shot's first n steps, fed their tape."""
+        seis, tape, fin = ke.escan_forward(*args, w[:n], si, ri, *kind, tape=True)
+        return functools.partial(ke.escan_reverse, *args, w[:n], (seis - d[:n]).contiguous(),
+                                 tape, fin, si, ri, *kind, **kw)
+
+    ev = {dep: events_ms(reverse(nt, dependent_launch=dep), 3)[0] / nt for dep in (True, False)}
+    # a short call in the profiler: a whole call's ~20,000 launches stall it
+    rows = device_us_per_step(reverse(nt_prof, dependent_launch=False), nt_prof,
+                              r"::(e[fr]?_\w+?)[<(]", calls=True)
+    image = sum(us for k, us, _ in rows if k.startswith("er_image"))
+    print(f"[marine shot] escan_reverse alone, nt {nt}: {1e3 * ev[True]:.2f} us a step by CUDA "
+          f"events with dependent launches, {1e3 * ev[False]:.2f} in plain stream order; "
+          f"torch.profiler in stream order (nt {nt_prof}), device us a step (launches a step): "
+          + (", ".join(f"{k} {us:.2f} (x{n:g})" for k, us, n in rows) or "not measured")
+          + f"; the image launches {image:.2f} us a step, "
+          f"{100 * image / (1e3 * ev[False]):.2f}% of the stream-order reverse", flush=True)
+
+
 def phase_main_estep(smi, dev):
     """invert_elastic on an ElasticFwiProblem whose propagator is
     ElasticPropagator(impl="cuda_estep"): the VSP survey of ESTEP_MAIN,
@@ -3116,6 +3244,7 @@ def main() -> int:
     phase_elastic_shot(dev, smi)
     kernels += phase_estep_kernels(dev, smi)
     phase_estep_shot(dev, smi)
+    phase_marine_shot(dev, smi)
     kernels += phase_a3d_kernels(dev, smi)
     phase_a3d_fullscale(dev, smi)
     phase_a3d_step_kernels(dev, smi)

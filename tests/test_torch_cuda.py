@@ -605,6 +605,57 @@ def test_estep_gradient_matches_escan(device, source_type, record, free_surface)
         assert _rel(b, a) <= 1e-5
 
 
+def test_marine_shot_escan_matches_estep_bitwise_and_counts_image_steps(device):
+    """One marine shot (a water layer, vs = 0, over the solid; the free
+    surface; a pressure source; pressure records) through cuda_escan and
+    cuda_estep, which run the same per-cell bodies: the seismogram and the
+    five material and wavelet gradients bitwise equal. Inside
+    ``profiling.recording()`` the reverse call raises ``escan_image_steps``
+    by nt, the forward leaves it, and both kernel spans say free_surface."""
+    from tpufwi_torch import profiling
+    from tpufwi_torch.adjoint_elastic_scan import make_elastic_simulator_scan
+    from tpufwi_torch.adjoint_elastic_step import make_elastic_simulator_fused
+    from tpufwi_torch.propagators.elastic2d import ElasticPropagator
+
+    nt, water = 300, 12
+    (grid, dt, _, _), w, idx = _elastic_case(device, "pressure", "p", True, 8, nt=nt)
+    rng = np.random.default_rng(7)
+    vp = np.clip(2300 + 150 * rng.standard_normal(grid.shape), 2000, 2600)
+    vs, rho = vp / 1.8, 1000.0 + 0.3 * vp
+    vp[:water], vs[:water], rho[:water] = 1500.0, 0.0, 1000.0
+    prop = ElasticPropagator(grid, dt, 14.0, 2600.0, source_type="pressure", record="p",
+                             device="cpu")
+    mats = tuple(m.to(device).contiguous() for m in prop.material_fields(
+        *(torch.as_tensor(x) for x in (vp, vs, rho))))
+    assert float(mats[2][: grid.pad + water - 1].abs().max()) == 0.0  # mu_xz: the water's
+    out = []
+    for make in (make_elastic_simulator_scan, make_elastic_simulator_fused):
+        sim = make(grid, dt, 14.0, 2600.0, "pressure", "p")
+        args = [x.clone().requires_grad_(True) for x in (*mats, w)]
+        profiling.clear()
+        with profiling.recording():
+            seis = sim(*args, *idx)
+            c0 = profiling.counters()["escan_image_steps"]
+            J = 0.5 * (seis**2).sum()
+            grads = torch.autograd.grad(J, args)
+            c1 = profiling.counters()["escan_image_steps"]
+        torch.cuda.synchronize()
+        out.append((seis.detach(), grads, c1 - c0, profiling.spans()))
+    (seis_a, g_a, steps_a, spans_a), (seis_b, g_b, steps_b, _) = out
+    assert seis_a.shape == (nt, idx[1].shape[0]) and float(seis_a.abs().max()) > 0.0
+    assert torch.equal(seis_a, seis_b)
+    for name, a, b in zip(("lam", "lam2mu", "mu_xz", "buoy_x", "buoy_z", "wavelet"), g_a, g_b):
+        assert float(a.abs().max()) > 0.0, name
+        assert torch.equal(a, b), (name, float((a - b).abs().max()))
+    assert (steps_a, steps_b) == (nt, 0)  # the per-step engine runs no escan_reverse
+    kernels = [s for s in spans_a if s.name.startswith("kernels.")]
+    assert sorted(s.name for s in kernels) == ["kernels.forward", "kernels.reverse"]
+    assert all(s.attrs["free_surface"] is True for s in kernels)
+    (rev,) = [s for s in kernels if s.name == "kernels.reverse"]
+    assert rev.delta("escan_image_steps") == nt
+    profiling.clear()
+
+
 def test_elastic_objective_agrees_with_the_plain_reference_and_records_its_spans(device):
     """The benchmark's elastic comparison at a small size: a two-shot land
     survey's objective on cuda_escan (``ElasticFwiProblem`` over

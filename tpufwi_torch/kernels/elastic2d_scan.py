@@ -46,7 +46,9 @@ step later through a one-deep delay in VMEM.
 
 Each wrapper takes its plain version for tensors on the CPU, and only then;
 on a CUDA tensor it launches the kernel or raises. ``launches`` on each
-wrapper counts the time steps its kernel ran, and stays 0 on the CPU path.
+wrapper counts the time steps its kernel ran, and stays 0 on the CPU path;
+so does the profiling counter ``escan_image_steps``, which a reverse call
+with the free surface raises by its steps.
 """
 
 from __future__ import annotations
@@ -421,7 +423,7 @@ def escan_forward(grid, dt, mats, profiles, wavelet, src_idx, rcv_idx,
     fs, force, rec_v = _flags(grid, source_type, record)
     with torch.cuda.device(dev), profiling.span(
             "kernels.forward", device=dev, wrapper="escan_forward", nt=nt,
-            tape_bytes=0 if rows is None else rows.nbytes):
+            tape_bytes=0 if rows is None else rows.nbytes, free_surface=grid.free_surface):
         err = lib.tpufwi_escan_forward(
             *(m.data_ptr() for m in mats), *(p.data_ptr() for p in profiles),
             wavelet.data_ptr(), src_idx.data_ptr(), rcv_idx.data_ptr(), seis.data_ptr(),
@@ -477,7 +479,8 @@ def escan_reverse(grid, dt, mats, profiles, wavelet, ybar, tape, finals, src_idx
     iws = _maps(grid, plan, 0, nsrc, nrec, dev, vblocks=False)  # the reverse's unshifted tiles
     fs, force, rec_v = _flags(grid, source_type, record)
     with torch.cuda.device(dev), profiling.span(
-            "kernels.reverse", device=dev, wrapper="escan_reverse", nt=nt, tape_bytes=0):
+            "kernels.reverse", device=dev, wrapper="escan_reverse", nt=nt, tape_bytes=0,
+            free_surface=grid.free_surface):
         err = lib.tpufwi_escan_reverse(
             *(m.data_ptr() for m in mats), *(p.data_ptr() for p in profiles),
             wavelet.data_ptr(), ybar.data_ptr(), tape.data_ptr(), ring.data_ptr(),
@@ -486,6 +489,8 @@ def escan_reverse(grid, dt, mats, profiles, wavelet, ybar, tape, finals, src_idx
             NZ, NX, S, R, nt, nsrc, nrec, fs, n_ring, force, rec_v, *plan, int(dependent_launch),
             taps_arg(grid, dt), torch.cuda.current_stream().cuda_stream,
         )
+        if grid.free_surface:
+            profiling.count("escan_image_steps", nt)
     raise_on(lib, "escan_reverse", err)
     escan_reverse.launches += nt
     return tuple(g), srcrow

@@ -18,7 +18,8 @@ Spans mark the layer boundaries of the graded path, outermost first
   the valid-region mask; elastic only).
 - ``kernels.forward`` / ``kernels.reverse``, *device*: the C entry-point
   call alone of each whole-scan wrapper; wrapper, nt, tape_bytes (the tape
-  it allocated), and for the 3D wrappers variant.
+  it allocated), for the 3D wrappers variant, and for the elastic ones
+  free_surface.
 
 Each recorded span holds its name, host start and end, its parent span,
 the evaluation it belongs to (the ``objective.evaluation`` span that
@@ -50,7 +51,10 @@ wrappers' ``.launches``, which stay the kernels' step counters):
   tiles (the default variant; 0 under ``variant="gather"``);
 - ``a3d_tcpml_cells``: the transposed CPML terms x nt that the line pass of
   each ``a3d_reverse`` call on the card wrote (every cell within S + R of a
-  face, once an axis; both variants run the line pass).
+  face, once an axis; both variants run the line pass);
+- ``escan_image_steps``: the steps of each ``escan_reverse`` call on a
+  grid with the free surface, whose reverse runs the image launches
+  (``er_image_mid``, ``er_image_tail``) every step.
 
 ``trace(run_dir, label)`` profiles a block into a Chrome/Perfetto trace
 with the spans in it. ``roofline_report`` of the reference is not ported:
@@ -74,7 +78,7 @@ SPANS = ("objective.evaluation", "objective.shot", "propagator.call", "engine.fo
          "engine.reverse", "kernels.forward", "kernels.reverse", "propagator.materials",
          "engine.finish")
 COUNTERS = ("host_syncs", "grad_shots", "loss_shots", "a3d_shell_tiled_cells",
-            "a3d_tcpml_cells")
+            "a3d_tcpml_cells", "escan_image_steps")
 
 # a profiler range with no device-side twin (a user annotation gets one)
 _RANGE = getattr(torch._C._profiler, "_RecordFunctionFast", None)
