@@ -72,8 +72,9 @@ Phases, each printing its own lines; any failure exits non-zero.
      surface, a pressure source, hydrophones) at nt = 4885 through cuda_escan
      and cuda_estep, the seismogram and gradients bitwise equal and
      escan_image_steps raised by nt; the reverse alone by CUDA events (with
-     dependent launches and in stream order) and its passes' device us a
-     step, with the image launches' share
+     dependent launches and in stream order) and its passes' device us and
+     launches a step (2, the images in er_s / er_v); the land code of er_s /
+     er_v against its recorded SASS digest, and no pass spilling
  12. 3D kernels vs plain: a3d_forward (no tape, fp32 and bf16 ring tapes,
      illumination) and a3d_reverse (fed the plain forward's tape, fields and
      seismogram; fp32 and bf16 tapes) against their plain versions at the 3D
@@ -135,6 +136,7 @@ The second-to-last line is the kernels' JSON record, the last one
 from __future__ import annotations
 
 import functools
+import hashlib
 import json
 import os
 import re
@@ -515,20 +517,16 @@ def phase_build():
     print(f"[build] kernels ready in {secs:.1f} s (nvcc "
           + ", ".join(f"{lib.stem} {lib.build_seconds} s" for lib in libs) + ")", flush=True)
     for lib in libs:
-        kernel, spill = None, ""
-        for line in lib.log.read_text().splitlines() if lib.log.exists() else ():
-            m = re.search(r"Compiling entry function '\w*?_((?:acoustic|elastic)[23]d_\w+?)_cu_"
-                          r"[0-9a-f]{8}(\d+)(\w+)", line)
-            if m:
-                name = m.group(3)[:int(m.group(2))]
-                order = re.match(r"ILi([124])E", m.group(3)[int(m.group(2)):])
-                at_r4 = order is None or order.group(1) == "4"
-                kernel = f"{m.group(1)}.cu {name}" if at_r4 else None
-            elif kernel and "spill" in line:
-                spill = line.split(":", 1)[-1].strip()
-            elif kernel and "registers" in line:
-                print(f"[build] {kernel}: {line.split(':', 1)[-1].strip()}; {spill}", flush=True)
-                kernel = None
+        for mangled, (regs, st, ld) in (ptxas_resources(lib.log, "") if lib.log.exists()
+                                        else {}).items():
+            m = re.search(r"_((?:acoustic|elastic)[23]d_\w+?)_cu_[0-9a-f]{8}(\d+)(\w+)", mangled)
+            if not m:
+                continue
+            name = m.group(3)[:int(m.group(2))]
+            order = re.match(r"ILi([124])E", m.group(3)[int(m.group(2)):])
+            if order is None or order.group(1) == "4":
+                print(f"[build] {m.group(1)}.cu {name}: {regs} registers, spill stores {st} B, "
+                      f"loads {ld} B", flush=True)
 
 
 def one_shot(dev, nz=351, nx=1701, dx=10.0, t_max=None, nt=None, free_surface=False):
@@ -2098,6 +2096,107 @@ def phase_estep_shot(dev, smi):
             fail(f"cuda_estep {name} off cuda_escan's by {err:.3e} > 1e-5")
 
 
+# The SASS of the reverse's fused passes without the free surface (er_s /
+# er_v<R, 16, 32, false>), as nvcc NVCC_BUILD compiles them: (kernel, R) ->
+# (sass_functions' digest, registers). The free-surface flag must leave
+# this instantiation's code as it was before the flag existed; a change to
+# the land path of er_s / er_v updates this table deliberately.
+NVCC_BUILD = "Build cuda_12.9.r12.9/compiler.36037853_0"
+LAND_REVERSE_SASS = {
+    ("er_s", 1): ("42fd05bbc47af83a", 64), ("er_s", 2): ("e57d86931b1eab5d", 64),
+    ("er_s", 4): ("aa8d141b15677d60", 64), ("er_v", 1): ("75accbcd21cac0b2", 64),
+    ("er_v", 2): ("cbc9a73c953303df", 64), ("er_v", 4): ("38424404f5f966dc", 64),
+}
+
+
+def sass_functions(so, pattern):
+    """{mangled name: digest} of each function of the library ``so`` whose
+    name ``pattern`` matches, from cuobjdump -sass: a sha1 of the
+    instruction text alone (addresses and encodings dropped, branch labels
+    renumbered in order of appearance), so that two builds of the same code
+    compare equal whatever the functions around it."""
+    from tpufwi_torch.kernels import build
+
+    tool = os.path.join(os.path.dirname(build.nvcc()), "cuobjdump")
+    out = subprocess.run([tool, "-sass", str(so)], capture_output=True, text=True,
+                         check=True).stdout
+    funcs, name, lines, labels = {}, None, [], {}
+
+    def label(m):
+        return "L%d" % labels.setdefault(m.group(0), len(labels))
+
+    for line in out.splitlines() + ["Function : end"]:
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            if name and re.search(pattern, name):
+                funcs[name] = hashlib.sha1("\n".join(lines).encode()).hexdigest()[:16]
+            name, lines, labels = m.group(1), [], {}
+        elif (m := re.match(r"\s*/\*[0-9a-f]{4,}\*/\s*(.*?)\s*;", line)) or \
+                (m := re.match(r"\s*(\.L_x_\d+:)", line)):
+            lines.append(re.sub(r"\.L_x_\d+", label, m.group(1)))
+    return funcs
+
+
+def ptxas_resources(log, pattern):
+    """{mangled name: (registers, spill store bytes, spill load bytes)} of
+    each entry function of an nvcc log (ptxas -v) whose name ``pattern``
+    matches."""
+    res, name, spill = {}, None, (0, 0)
+    for line in log.read_text().splitlines():
+        if m := re.search(r"Compiling entry function '(\w+)'", line):
+            name, spill = m.group(1), (0, 0)
+        elif m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line):
+            spill = (int(m.group(1)), int(m.group(2)))
+        elif (m := re.search(r"Used (\d+) registers", line)) and name:
+            if re.search(pattern, name):
+                res[name] = (int(m.group(1)), *spill)
+            name = None
+    return res
+
+
+def reverse_pass_key(name):
+    """(kernel, R, "fs" or "land") of a mangled er_s / er_v<R, 16, 32[,
+    kFS]> name (no flag: the land code)."""
+    m = re.search(r"(er_[sv])ILi(\d)ELi16ELi32E(?:Lb([01])E)?E", name)
+    return m and (m.group(1), int(m.group(2)), "fs" if m.group(3) == "1" else "land")
+
+
+def reverse_pass_code(so, log):
+    """{(kernel, R, "fs" / "land"): (digest, registers, spill stores, spill
+    loads)} of the reverse's fused passes in the elastic library ``so``
+    (resources from its nvcc log ``log``)."""
+    sass = {reverse_pass_key(n): h for n, h in sass_functions(so, r"er_[sv]ILi").items()}
+    res = {reverse_pass_key(n): r for n, r in ptxas_resources(log, r"er_[sv]ILi").items()}
+    return {k: (sass[k], *res.get(k, (None, None, None))) for k in sorted(sass)}
+
+
+def check_reverse_pass_code():
+    """The land instantiation of er_s / er_v at every order against
+    LAND_REVERSE_SASS (compared only under the nvcc build it was recorded
+    with), and no spill in any instantiation."""
+    from tpufwi_torch.kernels import build
+
+    ke = elastic_module()
+    ke.load_library()
+    version = subprocess.run([build.nvcc(), "--version"], capture_output=True, text=True,
+                             check=True).stdout.strip().splitlines()[-1]
+    code = reverse_pass_code(ke.LIBRARY.path, ke.LIBRARY.log)
+    for (kernel, R, kind), (digest, regs, st, ld) in code.items():
+        print(f"[reverse passes] {kernel}<R={R}, {kind}>: sass {digest}, {regs} registers, "
+              f"spill stores {st} B, loads {ld} B", flush=True)
+    if not code or any(st != 0 or ld != 0 for _, _, st, ld in code.values()):
+        fail("a reverse pass spills, or none was found in the elastic library")
+    if version != NVCC_BUILD:
+        print(f"[reverse passes] land SASS not compared: nvcc {version}, the table's "
+              f"{NVCC_BUILD}", flush=True)
+        return
+    land = {(k, R): v[:2] for (k, R, kind), v in code.items() if kind == "land"}
+    same = land == LAND_REVERSE_SASS
+    print(f"[reverse passes] land er_s / er_v SASS and registers as recorded: {same}", flush=True)
+    if not same:
+        fail("the land instantiation of er_s / er_v changed its SASS or registers")
+
+
 MARINE_NT = 4885  # the marine cell's: t_max 4 s at the CFL 0.7 step for 4700 m/s
 MARINE_WATER_M = 450.0
 
@@ -2143,11 +2242,13 @@ def phase_marine_shot(dev, smi, nt=MARINE_NT, nt_prof=256):
     and cuda_estep: a value-and-grad of 0.5 |seis(m0) - d|^2 in the five
     material fields and the wavelet on each, bitwise equal (the same
     per-cell bodies), and escan_image_steps raised by nt by the reverse.
-    Then the reverse alone, fed the shot's tape: ms a step by CUDA events
+    Then the reverse alone, fed the shot's tape: us a step by CUDA events
     with dependent launches and in plain stream order, and torch.profiler's
-    device us a step of each pass in stream order over the first
-    ``nt_prof`` steps, whose image launches' share of the stream-order
-    reverse it prints."""
+    device us and launches a step of each pass in stream order over the
+    first ``nt_prof`` steps (2 a step and the call's own, checked; the
+    images run in er_s and er_v), with what remains of the image launches.
+    Last check_reverse_pass_code: er_s / er_v's land code as recorded, and
+    no spill."""
     from tpufwi_torch import profiling
     from tpufwi_torch.adjoint_elastic_scan import make_elastic_simulator_scan
     from tpufwi_torch.adjoint_elastic_step import make_elastic_simulator_fused
@@ -2208,16 +2309,22 @@ def phase_marine_shot(dev, smi, nt=MARINE_NT, nt_prof=256):
                                  tape, fin, si, ri, *kind, **kw)
 
     ev = {dep: events_ms(reverse(nt, dependent_launch=dep), 3)[0] / nt for dep in (True, False)}
-    # a short call in the profiler: a whole call's ~20,000 launches stall it
+    # a short call in the profiler: a whole call's ~10,000 launches stall it
     rows = device_us_per_step(reverse(nt_prof, dependent_launch=False), nt_prof,
                               r"::(e[fr]?_\w+?)[<(]", calls=True)
     image = sum(us for k, us, _ in rows if k.startswith("er_image"))
+    launches = sum(n for _, _, n in rows) * nt_prof
     print(f"[marine shot] escan_reverse alone, nt {nt}: {1e3 * ev[True]:.2f} us a step by CUDA "
           f"events with dependent launches, {1e3 * ev[False]:.2f} in plain stream order; "
           f"torch.profiler in stream order (nt {nt_prof}), device us a step (launches a step): "
           + (", ".join(f"{k} {us:.2f} (x{n:g})" for k, us, n in rows) or "not measured")
-          + f"; the image launches {image:.2f} us a step, "
-          f"{100 * image / (1e3 * ev[False]):.2f}% of the stream-order reverse", flush=True)
+          + f"; {launches / nt_prof:.4f} launches a step (the call's "
+          f"{ke.reverse_launches(True, nt_prof)} over {nt_prof} steps planned); the image "
+          f"launches (er_image*: the call's first stress-image transpose) {image:.4f} us a "
+          f"step, {100 * image / (1e3 * ev[False]):.2f}% of the stream-order reverse", flush=True)
+    if rows and launches != ke.reverse_launches(True, nt_prof):
+        fail("the free-surface reverse did not run its planned launches")
+    check_reverse_pass_code()
 
 
 def phase_main_estep(smi, dev):

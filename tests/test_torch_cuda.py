@@ -429,7 +429,7 @@ def test_escan_fused_edge_cases_match_split_bitwise(device, order, source_type, 
     engine's order: two sources
     and three receivers on one cell (the chains), sources and receivers on
     ring cells, a source on the free surface's row (its force undone by
-    er_image_tail after the image), and nt 1 and 2 (er_setup's first step,
+    er_v's surface tile row after the image), and nt 1 and 2 (er_setup's first step,
     the zero ring row at t = 0). At nt 1 a pressure source recorded by v
     receivers leaves every output zero (no stress cotangent reaches the
     source or the stress imaging, and sigma before the step is zero), so
@@ -485,6 +485,40 @@ def test_escan_reverse_launches_as_planned(device, dependent_launch, free_surfac
         m.group(1) for e in prof.events() if e.device_type == DeviceType.CUDA
         for m in [re.search(r"::(e[fr]?_\w+?)[<(]", e.name)] if m)
     assert sum(ours.values()) == ke.reverse_launches(free_surface, nt=nt), ours
+
+
+@pytest.mark.parametrize("dependent_launch", [True, False])
+def test_escan_reverse_free_surface_step_is_two_launches(device, dependent_launch):
+    """A free-surface reverse step on the card is 2 launches, er_s and er_v,
+    whose surface tile row runs the images: the profiler's kernels of a
+    12-step call (pressure source, p record) are er_s and er_v 12 times
+    each and the call's er_setup and er_image_s_t once, nothing else."""
+    import collections
+    import re
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from tpufwi_torch.kernels import elastic2d_scan as ke
+
+    nt = 12
+    args, w, idx = _elastic_case(device, "pressure", "p", True, 8, nt=nt)
+    seis, tape, finals = ke.escan_forward(*args, w, *idx, "pressure", "p", tape=True)
+    ybar = seis.contiguous()
+
+    def run():
+        ke.escan_reverse(*args, w, ybar, tape, finals, *idx, "pressure", "p",
+                         dependent_launch=dependent_launch)
+        torch.cuda.synchronize()
+
+    run()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        run()
+    ours = collections.Counter(
+        m.group(1) for e in prof.events() if e.device_type == DeviceType.CUDA
+        for m in [re.search(r"::(e[fr]?_\w+?)[<(]", e.name)] if m)
+    assert ours == {"er_s": nt, "er_v": nt, "er_setup": 1, "er_image_s_t": 1}, ours
+    assert (sum(ours.values()) - 2) / nt == ke.reverse_launches(True) == 2
 
 
 @pytest.mark.parametrize("shape", [(40, 56), (48, 112)])

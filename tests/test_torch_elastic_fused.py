@@ -5,8 +5,10 @@ The CUDA passes ``er_s`` and ``er_v`` (csrc/elastic2d_kernels.cuh) run each
 stage as tiles of ``escan_tile_plan``: a tile computes the dbar values over
 its cells and their R reach, writes only its own cells, reads the dual
 memories from one set and writes them to the other (ping-pong), and runs
-the step's glue (receivers, sources, ring impose) at its own cells, while
-the images run in launches of their own. ``fused_walk`` runs that walk
+the step's glue (receivers, sources, ring impose) at its own cells; with
+the free surface the tile rows are the forward's (``forward_tiles``), so
+one tile row holds every ghost row and its mirrors and runs the images
+after its cells. ``fused_walk`` runs that walk
 with the plain version's own functions (the step twin's ``update_s`` /
 ``update_v`` through ``torch.func.vjp``, the reconstruction, the sources,
 the images, the ring impose) on each tile's window, the tiles in turn and
@@ -55,24 +57,28 @@ def fused_walk(grid, dt, mats, profiles, wavelet, ybar, tape, finals, src_idx, r
     and, with the free surface, that step's stress-image transpose. Per
     step t: er_s tile by tile, each tile's glue at its own cells before and
     after its cells' update (the v receivers' cotangents, the source-point
-    cotangent, a pressure source undone; the stress rings); the stress
-    image and the velocity-image transpose; er_v tile by tile (the velocity
-    rings; for step t-1 a force source undone off the velocity image's rows
-    and the p receivers' cotangents); the velocity image and, for step
+    cotangent, a pressure source undone; the stress rings), and in a tile
+    of the surface tile row then the stress image and the velocity-image
+    transpose of its columns (``er_s_images``); er_v tile by tile (the
+    velocity rings; for step t-1 a force source undone off the velocity
+    image's rows and the p receivers' cotangents), and in a tile of the
+    surface tile row then the velocity image of its columns and, for step
     t-1, the stress-image transpose and a force source undone on the
-    image's rows (``er_image_tail``). Each tile reads its window (its cells
-    and their R reach, clipped to the grid) of the current fields and
-    writes its own cells in place; the duals are read from one set and
-    written to the other, swapped each step (``ping_pong=False``: one set,
-    updated in place)."""
+    image's rows (``er_v_images``). The tiles are the forward's, shifted
+    with the free surface so that the surface tile row holds every ghost
+    row and its mirrors. Each tile reads its window (its cells and their R
+    reach, clipped to the grid) of the current fields and writes its own
+    cells in place; the duals are read from one set and written to the
+    other, swapped each step (``ping_pong=False``: one set, updated in
+    place)."""
     params = ke._params(grid, mats, profiles, src_idx, rcv_idx)
     no_src = params._replace(src_idx=src_idx[:0])
     step = make_elastic_step(grid, dt, source_type, record)
     recon_stress, recon_velocity = make_elastic_reverse_reconstruct(grid, dt, source_type)
     image = step.image
     NZ, NX = grid.padded_shape
-    R = grid.radius
-    tiles = list(ke.fused_tiles(plan or ke.escan_tile_plan(grid), NZ, NX))
+    R, fs = grid.radius, grid.pad
+    tiles = list(ke.forward_tiles(plan or ke.escan_tile_plan(grid), grid))
     dtype, dev = mats[0].dtype, mats[0].device
     ring_idx = ring_plan(grid, dev)[0]
     n = ring_idx.shape[0]
@@ -89,6 +95,8 @@ def fused_walk(grid, dt, mats, profiles, wavelet, ybar, tape, finals, src_idx, r
     srcrow = torch.empty((nt, src_idx.shape[0]), dtype=dtype, device=dev)
     rz, rx = rcv_idx[:, 0], rcv_idx[:, 1]
     sz, sx = src_idx[:, 0], src_idx[:, 1]
+    # sources on the velocity image's vz rows, undone after the image
+    on_image = (sz >= fs - R) & (sz < fs + R) if image is not None else sz < 0
     ring_z, ring_x = ring_idx // NX, ring_idx % NX
     everywhere = (0, NZ, 0, NX)
 
@@ -128,6 +136,21 @@ def fused_walk(grid, dt, mats, profiles, wavelet, ybar, tape, finals, src_idx, r
                             az=no_src.az[wz], bz=no_src.bz[wz], ax=no_src.ax[:, wx],
                             bx=no_src.bx[:, wx])
         return (lambda a: a[wz, wx]), own, (slice(z0, z1), slice(x0, x1)), p
+
+    def surface(tile):
+        """The columns of ``tile`` if it is in the surface tile row, which
+        must hold the ghost rows and every mirror row, else None."""
+        z0, z1, x0, x1 = tile
+        if image is None or not z0 <= fs < z1:
+            return None
+        assert z0 <= fs - R and fs + R < z1, tile
+        return slice(x0, x1)
+
+    def images(pair, fields, cols):
+        """The image or transpose ``pair`` of two of ``fields`` on columns
+        ``cols``, in place."""
+        a, b = fields
+        a[:, cols], b[:, cols] = pair(a[:, cols], b[:, cols])
 
     # er_setup, and the first step's stress-image transpose
     if force:
@@ -170,9 +193,10 @@ def fused_walk(grid, dt, mats, profiles, wavelet, ybar, tape, finals, src_idx, r
             cb[1][cells] = cb[1][cells] + vzb_s[own]
             for j in range(4):
                 dout[j][cells] = dual_s[j][own]
-        if image is not None:  # er_image_mid
-            f[3], f[4] = image.s(f[3], f[4])
-            cb[0], cb[1] = image.v_t(cb[0], cb[1])
+            cols = surface(tile)
+            if cols is not None:  # er_s_images
+                images(image.s, (f[3], f[4]), cols)
+                images(image.v_t, (cb[0], cb[1]), cols)
         # er_v
         for tile in tiles:
             W, own, cells, p = window(*tile)
@@ -190,10 +214,7 @@ def fused_walk(grid, dt, mats, profiles, wavelet, ybar, tape, finals, src_idx, r
                 f[j][cells] = vel[j][own]
             impose(0, 2, row, tile)
             if force and t >= 1:
-                here = inside(sz, sx, tile)
-                if image is not None:
-                    here &= (sz < grid.pad - R) | (sz >= grid.pad + R)
-                undo(here, t - 1)
+                undo(inside(sz, sx, tile) & ~on_image, t - 1)
             for j in range(3):
                 cb[2 + j][cells] = cb[2 + j][cells] + sb_v[j][own]
             if record == "p" and t >= 1:
@@ -202,12 +223,13 @@ def fused_walk(grid, dt, mats, profiles, wavelet, ybar, tape, finals, src_idx, r
             g[4][cells] = g[4][cells] + gbz[own]
             for j in range(4):
                 dout[4 + j][cells] = dual_v[j][own]
-        if image is not None:  # er_image_tail
-            f[0], f[1] = image.v(f[0], f[1])
-            if t >= 1:
-                cb[3], cb[4] = image.s_t(cb[3], cb[4])
-                if force:
-                    undo((sz >= grid.pad - R) & (sz < grid.pad + R), t - 1)
+            cols = surface(tile)
+            if cols is not None:  # er_v_images
+                images(image.v, (f[0], f[1]), cols)
+                if t >= 1:
+                    images(image.s_t, (cb[3], cb[4]), cols)
+                    if force:
+                        undo(inside(sz, sx, tile) & on_image, t - 1)
     return tuple(g), srcrow
 
 
@@ -371,13 +393,13 @@ def test_fused_walk_edge_cases_bitwise(nt, source_type, record, free_surface):
 
 
 def test_reverse_launches_and_variants():
-    """2 launches a reverse step and 4 with the free surface (its images
-    pair cells of different tiles), plus er_setup a call and with the free
-    surface the first step's stress-image transpose; on the CPU the wrapper
-    is the plain version, with and without dependent launches, and
-    launches nothing."""
-    assert [ke.reverse_launches(fs) for fs in (False, True)] == [2, 4]
-    assert [ke.reverse_launches(fs, nt=10) for fs in (False, True)] == [21, 42]
+    """2 launches a reverse step, with the free surface too (its images
+    run in the surface tile row of er_s and er_v), plus er_setup a call and
+    with the free surface the first step's stress-image transpose; on the
+    CPU the wrapper is the plain version, with and without dependent
+    launches, and launches nothing."""
+    assert [ke.reverse_launches(fs) for fs in (False, True)] == [2, 2]
+    assert [ke.reverse_launches(fs, nt=10) for fs in (False, True)] == [21, 22]
     args, w, ybar, tape, finals, idx = _case(4, "force_z", "v", False, nt=4)
     r0 = ke.escan_reverse.launches
     g_p, sr_p = ke.escan_reverse_plain(*args, w, ybar, tape, finals, *idx, "force_z", "v")
@@ -386,3 +408,34 @@ def test_reverse_launches_and_variants():
                                  dependent_launch=dep)
         assert all(torch.equal(a, b) for a, b in zip(g, g_p)) and torch.equal(sr, sr_p)
     assert ke.escan_reverse.launches == r0
+
+
+@pytest.mark.parametrize("order", [2, 4, 8])
+@pytest.mark.parametrize("shape,pml", [((351, 1701), 20), ((40, 50), 8)])
+def test_reverse_tiles_hold_each_image_pair_in_one_tile_row(order, shape, pml):
+    """With the free surface the reverse walks the forward's tiles (the
+    walk of ``fused_walk``, and one flag word a tile in the maps that
+    ``escan_reverse`` allocates): the tile row starting at fs - 2R holds
+    each ghost row fs-1-k and all of its mirror rows (fs+k for vz and sxz,
+    fs+1+k for vx and szz, and the pinned row fs), and the R reach of no
+    other tile row touches a ghost row; without it the rows are unshifted.
+    The marine cell's padded grid (351 x 1701 at pml 20) and a small one."""
+    grid = Grid(shape=shape, h=(10.0, 10.0), pml=pml, order=order, free_surface=True)
+    NZ, NX = grid.padded_shape
+    R, fs = grid.radius, grid.pad
+    plan = ke.escan_tile_plan(grid)
+    shift = ke.forward_shift(plan, grid)
+    tiles = list(ke.forward_tiles(plan, grid))
+    maps = ke._maps(grid, plan, shift, 0, 0, "cpu", vblocks=False)
+    assert maps.numel() - 3 * NZ * NX == len(tiles)
+    rows = sorted({(z0, z1) for z0, z1, _, _ in tiles})
+    assert [z0 for z0, _ in rows] == [max(0, z) for z in range(-shift, NZ, plan.tz)]
+    (surf,) = [(z0, z1) for z0, z1 in rows if z0 <= fs < z1]
+    assert surf[0] == max(0, fs - 2 * R)
+    for k in range(R):
+        assert all(surf[0] <= z < surf[1] for z in (fs - 1 - k, fs + k, fs + 1 + k, fs))
+    for z0, z1 in rows:
+        if (z0, z1) != surf:
+            assert z1 + R <= fs - R or z0 - R >= fs, (z0, z1)
+    land = Grid(shape=shape, h=(10.0, 10.0), pml=pml, order=order)
+    assert ke.forward_shift(plan, land) == 0

@@ -35,7 +35,13 @@
 // over dbar values that are zero outside the grid, never atomics, so the
 // result is deterministic. The per-step engine's passes keep the dbar
 // values in four zero-halo planes in device memory; the whole-scan engine's
-// fused passes keep them in a shared-memory tile.
+// fused passes keep them in a shared-memory tile. Those run step t as two
+// launches, er_s (the glue before R-S, R-S with its stress rings, the
+// stress image and the velocity-image transpose) and er_v (R-V with its
+// velocity rings, the velocity image, and step t-1's glue up to R-S:
+// a force source undone, the p receivers' cotangents, the stress-image
+// transpose); with the free surface their tile rows are shifted so that
+// one tile row holds every ghost row and its mirrors, and runs the images.
 // All arithmetic is fp32 (FMA); no tensor cores.
 //
 // Layout: the five primal fields and the per-step passes' four dbar planes
@@ -728,14 +734,24 @@ constexpr int fused_smem(int planes) {
   return planes * FTile<R, TZ, TX>::N * (int)sizeof(float);
 }
 
+// the shift of the fused passes' tile rows (the forward's and, with the
+// free surface, the reverse's): block row by starts at row by TZ - shift,
+// so that with the free surface one starts at fs - 2R
+template <int R, int TZ>
+__host__ __device__ inline int ef_shift(int fs) {
+  return fs >= 0 ? (TZ - ((fs - 2 * R) % TZ + TZ) % TZ) % TZ : 0;
+}
+
 // The glue of fused reverse step t that er_s and er_v run in the owner
 // thread of each cell, through the maps of the reverse's tiles (m, built
 // by er_setup): er_s the v receivers' cotangents of ybar row t, the
 // source-point cotangent into srcrow row t, a pressure source undone, and
 // the stress rings of row (tape row t-1; zeros when null) imposed; er_v the
-// velocity rings imposed and, for step t-1, a force source undone (with
-// the free surface not on the velocity image's rows: er_image_tail's) and
-// the p receivers' cotangents of ybar row t-1.
+// velocity rings imposed and, for step t-1, a force source undone and the
+// p receivers' cotangents of ybar row t-1. With the free surface the
+// surface tile row's epilogues run the images after the cells (er_s_images,
+// er_v_images), and a force source on the velocity image's rows is undone
+// there, after the image.
 struct ERevGlue {
   SMaps m;
   const float *w, *ybar, *row;
@@ -774,10 +790,57 @@ __device__ __forceinline__ void er_undo_force(const ERevGlue& gl, int c, int t, 
     e_src_cell(vz, unused, unused, bzc, gl.w[t], dt, 1, -1.f);
 }
 
-template <int R, int TZ, int TX>
+// The free surface's epilogues of the fused passes, in the surface tile row
+// (z0 = fs - 2R: its tiles hold the ghost rows fs-R .. fs-1 and every
+// mirror row fs .. fs+R, and no other tile row writes them). After a
+// barrier, which makes the block's own cells' writes visible to all its
+// threads, thread row k of column x owns ghost row fs-1-k and its mirrors,
+// as the per-step engine's image launches own them: the same cell
+// functions in the same order, so the same roundings.
+
+// er_s's: the stress image of the primal (k = R: the surface pin) and the
+// velocity-image transpose of the cotangents
+template <int R>
+__device__ __forceinline__ void er_s_images(EFields f, EFields cb, int NX, int fs, int x) {
+  __syncthreads();
+  if (x >= NX) return;
+  for (int k = threadIdx.y; k <= R; k += kFRows) {
+    e_image_s_cell<R>(f, NX, fs, k * NX + x);
+    if (k < R) er_image_v_t_cell<R>(cb, NX, fs, k * NX + x);
+  }
+}
+
+// er_v's: the velocity image of the primal, then for step t-1 the
+// stress-image transpose of the cotangents and a force source undone on
+// the image's vz rows fs-R .. fs+R-1, which er_v's cells leave to it (the
+// per-step engine undoes it after the image)
+template <int R>
+__device__ __forceinline__ void er_v_images(EFields f, EFields cb, const ERevGlue& gl,
+                                            const float* __restrict__ bzm, int NX, float dt,
+                                            int x) {
+  __syncthreads();
+  if (x >= NX) return;
+  const int fs = gl.fs;
+  for (int k = threadIdx.y; k < R; k += kFRows) {
+    e_image_v_cell<R>(f, NX, fs, k * NX + x);
+    if (gl.t < 1) continue;
+    er_image_s_t_cell<R>(cb, NX, fs, k * NX + x);
+    if (!gl.force) continue;
+    for (int e = 0; e < 2; ++e) {
+      const int z = e ? fs + k : fs - 1 - k;
+      er_undo_force(gl, z * NX + x, gl.t - 1, bzm[z * NX + x], dt,
+                    f.vz[(z + R) * (NX + 2 * R) + x + R]);
+    }
+  }
+}
+
+// kFS: the free surface (fs >= 0), chosen by the host; without it the
+// tile rows are unshifted and no epilogue is compiled
+template <int R, int TZ, int TX, bool kFS>
 __global__ void __launch_bounds__(TX * kFRows, 1024 / (TX * kFRows))
     er_s(EFields f, EFields cb, const float* din, float* dout, float* __restrict__ g, EMats mt,
          EProf pr, int NZ, int NX, int S, ETaps tp, ERevGlue gl) {
+  static_assert(!kFS || TZ >= 3 * R + 1, "the surface tile row holds rows fs-2R .. fs+R");
   dep_wait();
   dep_trigger();
   using T = FTile<R, TZ, TX>;
@@ -789,7 +852,7 @@ __global__ void __launch_bounds__(TX * kFRows, 1024 / (TX * kFRows))
   float* qezz = sm + 3 * T::N;
   float* qhz = sm + 4 * T::N;
   float* qhx = sm + 5 * T::N;
-  const int z0 = blockIdx.y * TZ, x0 = blockIdx.x * TX;
+  const int z0 = blockIdx.y * TZ - (kFS ? ef_shift<R, TZ>(gl.fs) : 0), x0 = blockIdx.x * TX;
   const int ld = NX + 2 * R;
   const size_t pl = (size_t)NZ * NX;
   const float dt = tp.dt;
@@ -801,11 +864,11 @@ __global__ void __launch_bounds__(TX * kFRows, 1024 / (TX * kFRows))
   for (int j = 0; j < P; ++j) {
     const int rz = R + threadIdx.y + j * kFRows, z = z0 + rz - R;
     const int s = rz * T::W + threadIdx.x + R, i = (z + R) * ld + x + R;
-    const bool halo = z < NZ + R && x < NX + R;
+    const bool halo = (!kFS || z >= -R) && z < NZ + R && x < NX + R;
     svx[s] = halo ? f.vx[i] : 0.f;
     svz[s] = halo ? f.vz[i] : 0.f;
     float qv[4] = {0.f, 0.f, 0.f, 0.f};
-    if (z < NZ && x < NX) {
+    if ((!kFS || z >= 0) && z < NZ && x < NX) {
       const int c = z * NX + x;
       sb[j] = cb.sxx[c], zb[j] = cb.szz[c], xb[j] = cb.sxz[c];
       lam[j] = mt.lam[c], l2m[j] = mt.l2m[c], mu[j] = mt.muxz[c];
@@ -837,7 +900,7 @@ __global__ void __launch_bounds__(TX * kFRows, 1024 / (TX * kFRows))
 #pragma unroll
   for (int j = 0; j < P; ++j) {
     const int rz = R + threadIdx.y + j * kFRows, z = z0 + rz - R;
-    if (z >= NZ || x >= NX) continue;
+    if ((kFS && z < 0) || z >= NZ || x >= NX) continue;
     const int s = rz * T::W + threadIdx.x + R, c = z * NX + x, i = (z + R) * ld + x + R;
     if ((fl & 2) && gl.rec_v) {  // the receivers' cotangents
       float s0, s1 = 0.f;
@@ -868,12 +931,15 @@ __global__ void __launch_bounds__(TX * kFRows, 1024 / (TX * kFRows))
     g[c] = g0[j], g[pl + c] = g1[j], g[2 * pl + c] = g2[j];
     cb.vx[c] = vxb[j], cb.vz[c] = vzb[j];
   }
+  if constexpr (kFS)
+    if (z0 == gl.fs - 2 * R) er_s_images<R>(f, cb, NX, gl.fs, x);  // block-uniform
 }
 
-template <int R, int TZ, int TX>
+template <int R, int TZ, int TX, bool kFS>
 __global__ void __launch_bounds__(TX * kFRows, 1024 / (TX * kFRows))
     er_v(EFields f, EFields cb, const float* din, float* dout, float* __restrict__ g, EMats mt,
          EProf pr, int NZ, int NX, int S, ETaps tp, ERevGlue gl) {
+  static_assert(!kFS || TZ >= 3 * R + 1, "the surface tile row holds rows fs-2R .. fs+R");
   dep_wait();
   dep_trigger();
   using T = FTile<R, TZ, TX>;
@@ -886,7 +952,7 @@ __global__ void __launch_bounds__(TX * kFRows, 1024 / (TX * kFRows))
   float* q2 = sm + 4 * T::N;
   float* q3 = sm + 5 * T::N;
   float* q4 = sm + 6 * T::N;
-  const int z0 = blockIdx.y * TZ, x0 = blockIdx.x * TX;
+  const int z0 = blockIdx.y * TZ - (kFS ? ef_shift<R, TZ>(gl.fs) : 0), x0 = blockIdx.x * TX;
   const int ld = NX + 2 * R;
   const size_t pl = (size_t)NZ * NX;
   const float dt = tp.dt;
@@ -897,12 +963,12 @@ __global__ void __launch_bounds__(TX * kFRows, 1024 / (TX * kFRows))
   for (int j = 0; j < P; ++j) {
     const int rz = R + threadIdx.y + j * kFRows, z = z0 + rz - R;
     const int s = rz * T::W + threadIdx.x + R, i = (z + R) * ld + x + R;
-    const bool halo = z < NZ + R && x < NX + R;
+    const bool halo = (!kFS || z >= -R) && z < NZ + R && x < NX + R;
     ssxx[s] = halo ? f.sxx[i] : 0.f;
     sszz[s] = halo ? f.szz[i] : 0.f;
     ssxz[s] = halo ? f.sxz[i] : 0.f;
     float qv[4] = {0.f, 0.f, 0.f, 0.f};
-    if (z < NZ && x < NX) {
+    if ((!kFS || z >= 0) && z < NZ && x < NX) {
       const int c = z * NX + x;
       vb[j] = cb.vx[c], wb[j] = cb.vz[c], bxm[j] = mt.bx[c], bzm[j] = mt.bz[c];
       vx[j] = f.vx[i], vz[j] = f.vz[i], g3[j] = g[3 * pl + c], g4[j] = g[4 * pl + c];
@@ -934,7 +1000,7 @@ __global__ void __launch_bounds__(TX * kFRows, 1024 / (TX * kFRows))
 #pragma unroll
   for (int j = 0; j < P; ++j) {
     const int rz = R + threadIdx.y + j * kFRows, z = z0 + rz - R;
-    if (z >= NZ || x >= NX) continue;
+    if ((kFS && z < 0) || z >= NZ || x >= NX) continue;
     const int s = rz * T::W + threadIdx.x + R, c = z * NX + x, i = (z + R) * ld + x + R;
     const float a1 = dplus<R>(ssxx, s, 1, tp.x);
     const float a2 = dminus<R>(ssxz, s, T::W, tp.z);
@@ -949,7 +1015,7 @@ __global__ void __launch_bounds__(TX * kFRows, 1024 / (TX * kFRows))
         vz[j] = gl.row ? gl.row[gl.n_ring + q] : 0.f;
       }
     }
-    // step t-1's force source (on the image's rows, er_image_tail's)
+    // step t-1's force source (on the image's rows, er_v_images')
     if ((fl & 1) && gl.force && gl.t >= 1 && (gl.fs < 0 || z < gl.fs - R || z >= gl.fs + R))
       er_undo_force(gl, c, gl.t - 1, bzm[j], dt, vz[j]);
     rv_trans<R>(q1, q2, q3, q4, s, T::W, tp, sxxb[j], szzb[j], sxzb[j]);
@@ -961,6 +1027,8 @@ __global__ void __launch_bounds__(TX * kFRows, 1024 / (TX * kFRows))
     g[3 * pl + c] = g3[j], g[4 * pl + c] = g4[j];
     cb.sxx[c] = sxxb[j], cb.szz[c] = szzb[j], cb.sxz[c] = sxzb[j];
   }
+  if constexpr (kFS)
+    if (z0 == gl.fs - 2 * R) er_v_images<R>(f, cb, gl, mt.bz, NX, dt, x);  // block-uniform
 }
 
 // ---- the fused forward (escan_forward's): two launches a step, each a
@@ -991,13 +1059,6 @@ constexpr int kEFMinBlocks = 4;  // ef_s_fused's register cap: 4 blocks an SM
 template <int R, int TZ, int TX>
 constexpr int ef_smem() {
   return 4 * (2 * FTile<R, TZ, TX>::N + 10 * TZ * TX);
-}
-
-// the shift of the forward's tile rows: block row by starts at row
-// by TZ - shift, so that with the free surface one starts at fs - 2R
-template <int R, int TZ>
-__host__ __device__ inline int ef_shift(int fs) {
-  return fs >= 0 ? (TZ - ((fs - 2 * R) % TZ + TZ) % TZ) % TZ : 0;
 }
 
 struct EFwdArgs {
@@ -1174,19 +1235,19 @@ __device__ __forceinline__ int next_at(const long long* __restrict__ a, int n, i
 }
 
 // The fused reverse's set-up, once a call: the maps of its tiles (TZ x TX,
-// unshifted, ntx a row; cell_map_entry, one thread per source, receiver and
-// ring cell), and the glue of step t = nt-1 that er_v of a step after it
-// would run: a force source undone and the p receivers' cotangents of
-// ybar row t, by the first entry of each cell along its chain in index
-// order.
+// ntx a row, the rows shifted by ef_shift; cell_map_entry, one thread per
+// source, receiver and ring cell), and the glue of step t = nt-1 that er_v
+// of a step after it would run: a force source undone and the p
+// receivers' cotangents of ybar row t, by the first entry of each cell
+// along its chain in index order.
 __global__ void er_setup(const long long* __restrict__ src, int nsrc,
                          const long long* __restrict__ rcv, int nrec,
                          const int* __restrict__ ring, int n_ring, int NX, int R, int tz, int tx,
-                         int ntx, SMaps m, EFields f, EFields cb, const float* __restrict__ bzm,
-                         const float* __restrict__ w, const float* __restrict__ ybar, int t,
-                         float dt, int force, int rec_v) {
+                         int ntx, int shift, SMaps m, EFields f, EFields cb,
+                         const float* __restrict__ bzm, const float* __restrict__ w,
+                         const float* __restrict__ ybar, int t, float dt, int force, int rec_v) {
   const int k = blockIdx.x * blockDim.x + threadIdx.x;
-  cell_map_entry(k, src, nsrc, rcv, nrec, ring, n_ring, NX, tz, tx, ntx, 0, m);
+  cell_map_entry(k, src, nsrc, rcv, nrec, ring, n_ring, NX, tz, tx, ntx, shift, m);
   int next;
   if (k < nsrc) {
     if (!force || !chain_at(src, nsrc, k, next)) return;
@@ -1204,43 +1265,6 @@ __global__ void er_setup(const long long* __restrict__ src, int nsrc,
     const int c = (int)rcv[2 * r] * NX + (int)rcv[2 * r + 1];
     cb.sxx[c] += -0.5f * s;
     cb.szz[c] += -0.5f * s;
-  }
-}
-
-// between the fused passes, with the free surface: the stress image of
-// the primal and the velocity-image transpose of the cotangents (disjoint
-// arrays, so one launch)
-template <int R>
-__global__ void er_image_mid(EFields f, EFields cb, int NX, int fs) {
-  dep_wait();
-  dep_trigger();
-  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx < (R + 1) * NX) e_image_s_cell<R>(f, NX, fs, idx);
-  if (idx < R * NX) er_image_v_t_cell<R>(cb, NX, fs, idx);
-}
-
-// after er_v of step t, with the free surface: the velocity image of the
-// primal, then for step t-1 the stress-image transpose of the cotangents
-// and a force source undone on the image's vz rows fs-R .. fs+R-1, which
-// er_v leaves to it (the per-step engine undoes it after the image). Thread
-// idx < R NX owns ghost row fs-1-k and its vz mirror fs+k, column x.
-template <int R>
-__global__ void er_image_tail(EFields f, EFields cb, ERevGlue gl, const float* __restrict__ bzm,
-                              int NX, float dt) {
-  dep_wait();
-  dep_trigger();
-  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= R * NX) return;
-  const int fs = gl.fs;
-  e_image_v_cell<R>(f, NX, fs, idx);
-  if (gl.t < 1) return;
-  er_image_s_t_cell<R>(cb, NX, fs, idx);
-  if (!gl.force) return;
-  const int k = idx / NX, x = idx - k * NX;
-  for (int e = 0; e < 2; ++e) {
-    const int z = e ? fs + k : fs - 1 - k;
-    er_undo_force(gl, z * NX + x, gl.t - 1, bzm[z * NX + x], dt,
-                  f.vz[(z + R) * (NX + 2 * R) + x + R]);
   }
 }
 
@@ -1364,6 +1388,20 @@ constexpr int fused_plan_smem() {
   return rev > fwd ? rev : fwd;
 }
 
+// let both instantiations of the reverse's fused passes take their shared
+// bytes
+template <int R, int TZ, int TX, bool kFS>
+inline cudaError_t fused_reverse_smem() {
+  cudaError_t e = cudaFuncSetAttribute(reinterpret_cast<const void*>(er_s<R, TZ, TX, kFS>),
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       fused_smem<R, TZ, TX>(6));
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(reinterpret_cast<const void*>(er_v<R, TZ, TX, kFS>),
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             fused_smem<R, TZ, TX>(7));
+  return e;
+}
+
 // check the caller's plan against the tile this library runs, and let the
 // fused passes take their shared bytes (above the default 48 KB only by
 // this attribute); a refusal is an error
@@ -1371,13 +1409,8 @@ template <int R, int TZ, int TX>
 inline int fused_check_plan(const EPlan& plan) {
   if (plan.tz != TZ || plan.tx != TX || plan.smem != fused_plan_smem<R, TZ, TX>())
     return (int)cudaErrorInvalidValue;
-  cudaError_t e = cudaFuncSetAttribute(reinterpret_cast<const void*>(er_s<R, TZ, TX>),
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       fused_smem<R, TZ, TX>(6));
-  if (e == cudaSuccess)
-    e = cudaFuncSetAttribute(reinterpret_cast<const void*>(er_v<R, TZ, TX>),
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             fused_smem<R, TZ, TX>(7));
+  cudaError_t e = fused_reverse_smem<R, TZ, TX, false>();
+  if (e == cudaSuccess) e = fused_reverse_smem<R, TZ, TX, true>();
   if (e == cudaSuccess)
     e = cudaFuncSetAttribute(reinterpret_cast<const void*>(ef_s_fused<R, TZ, TX>),
                              cudaFuncAttributeMaxDynamicSharedMemorySize, ef_smem<R, TZ, TX>());
@@ -1385,34 +1418,29 @@ inline int fused_check_plan(const EPlan& plan) {
 }
 
 // Reverse step t on the fused passes, the glue in their owner threads
-// (ERevGlue, whose t is this step): er_s then er_v, 2 launches; with the
-// free surface 4: er_image_mid between them and er_image_tail after er_v
-// (the images and their transposes pair cells of different tiles). A call
-// runs er_setup, and with the free surface the first step's stress-image
+// (ERevGlue, whose t is this step): er_s then er_v, 2 launches, with the
+// free surface too (kFS, which must say gl.fs >= 0): their tile rows are
+// then shifted by ef_shift, as the forward's, and the surface tile row's
+// epilogues run the images (er_s_images, er_v_images). A call runs
+// er_setup, and with the free surface the first step's stress-image
 // transpose, before its first step (reverse_loop). er_s and er_v run
-// ahead of the image launches that the per-step engine runs between its passes:
-// those write only the primal fields and the cotangents that the next pass
-// reads after them, and the second passes read only dbar planes. din /
-// dout: the 8 dual planes read and written, swapped by the caller each
-// step. dep: each launch a programmatic dependent of the one before it
-// (launch_dep).
-template <int R, int TZ, int TX>
+// ahead of the image launches that the per-step engine runs between its
+// passes: those write only the primal fields and the cotangents that the
+// next pass reads after them, and the second passes read only dbar
+// planes. din / dout: the 8 dual planes read and written, swapped by the
+// caller each step. dep: each launch a programmatic dependent of the one
+// before it (launch_dep).
+template <int R, int TZ, int TX, bool kFS>
 void estage_rfused(EFields f, EFields cb, const float* din, float* dout, float* g, EMats mt,
                    EProf pr, const ERevGlue& gl, int NZ, int NX, int S, const ETaps& tp, int dep,
                    cudaStream_t st) {
   const size_t pl = (size_t)NZ * NX;
-  const dim3 grid((NX + TX - 1) / TX, (NZ + TZ - 1) / TZ), block(TX, kFRows);
-  const dim3 small(kESmallBlock);
-  launch_dep(dep, er_s<R, TZ, TX>, grid, block, fused_smem<R, TZ, TX>(6), st, f, cb, din,
+  const int shift = ef_shift<R, TZ>(gl.fs);
+  const dim3 grid((NX + TX - 1) / TX, (NZ + shift + TZ - 1) / TZ), block(TX, kFRows);
+  launch_dep(dep, er_s<R, TZ, TX, kFS>, grid, block, fused_smem<R, TZ, TX>(6), st, f, cb, din,
              dout, g, mt, pr, NZ, NX, S, tp, gl);
-  if (gl.fs >= 0)
-    launch_dep(dep, er_image_mid<R>, dim3(e_blocks((R + 1) * NX)), small, 0, st, f, cb, NX,
-               gl.fs);
-  launch_dep(dep, er_v<R, TZ, TX>, grid, block, fused_smem<R, TZ, TX>(7), st, f, cb,
+  launch_dep(dep, er_v<R, TZ, TX, kFS>, grid, block, fused_smem<R, TZ, TX>(7), st, f, cb,
              din + 4 * pl, dout + 4 * pl, g, mt, pr, NZ, NX, S, tp, gl);
-  if (gl.fs >= 0)
-    launch_dep(dep, er_image_tail<R>, dim3(e_blocks(R * NX)), small, 0, st, f, cb, gl, mt.bz,
-               NX, tp.dt);
 }
 
 }  // namespace

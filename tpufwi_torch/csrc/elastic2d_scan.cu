@@ -38,11 +38,15 @@
 // cotangent, the source undone and both ring imposes (a force source's undo
 // and a pressure receiver's cotangent, which er_s reads over its reach, in
 // er_v of the step before, or for the call's first step in er_setup). 2
-// launches per reverse step (estage_rfused), 4 with the free surface, whose
-// image launches pair cells of different tiles (er_image_mid;
-// er_image_tail, which also takes the stress-image transpose and a force
-// source's undo on the image's rows); once a call er_setup (the maps) and,
-// with the free surface, the first step's stress-image transpose. Each
+// launches per reverse step (estage_rfused), with the free surface too:
+// the tile rows are then shifted as the forward's, so that one tile row
+// holds every ghost row and its mirrors, and that row's tiles run the
+// images after their cells (er_s the stress image and the velocity-image
+// transpose; er_v the velocity image, the stress-image transpose and a
+// force source's undo on the image's rows), in an epilogue that the land
+// instantiation (a template flag chosen here from fs) does not compile;
+// once a call er_setup (the maps) and, with the free surface, the first
+// step's stress-image transpose. Each
 // launch of a step is a programmatic dependent of the one before it: its
 // launch and block scheduling overlap that kernel's drain, and it waits for
 // that kernel's memory before it touches any (dependent launch off: plain
@@ -124,10 +128,12 @@ int reverse_loop(const EPlan& plan, int dep, EMats mt, EProf pr, const float* w,
   float* cbb = ws + 5 * hp;
   EFields cb{cbb, cbb + pl, cbb + 2 * pl, cbb + 3 * pl, cbb + 4 * pl};
   float* dual = cbb + 5 * pl;
-  const int ntx = (NX + TX - 1) / TX, ntz = (NZ + TZ - 1) / TZ;
+  // with the free surface the tile rows are shifted as the forward's
+  const int shift = ef_shift<R, TZ>(fs);
+  const int ntx = (NX + TX - 1) / TX, ntz = (NZ + shift + TZ - 1) / TZ;
   const SMaps m = carve_maps(iws, NZ, NX, ntx * ntz, nsrc);
   er_setup<<<e_blocks(nsrc + nrec + n_ring), kESmallBlock, 0, st>>>(
-      src, nsrc, rcv, nrec, ring, n_ring, NX, R, TZ, TX, ntx, m, f, cb, mt.bz, w, ybar,
+      src, nsrc, rcv, nrec, ring, n_ring, NX, R, TZ, TX, ntx, shift, m, f, cb, mt.bz, w, ybar,
       nt - 1, tp.dt, force, rec_v);
   if (fs >= 0) er_image_s_t<R><<<e_blocks(R * NX), kESmallBlock, 0, st>>>(cb, NX, fs);
   for (int t = nt - 1; t >= 0; --t) {
@@ -135,8 +141,12 @@ int reverse_loop(const EPlan& plan, int dep, EMats mt, EProf pr, const float* w,
     // two sets of 8 dual planes, swapped each step
     const int k = (nt - 1 - t) & 1;
     const ERevGlue gl{m, w, ybar, row, srcrow, t, nsrc, nrec, n_ring, fs, force, rec_v};
-    estage_rfused<R, TZ, TX>(f, cb, dual + k * 8 * pl, dual + (1 - k) * 8 * pl, g, mt, pr, gl,
-                             NZ, NX, S, tp, dep, st);
+    const float* din = dual + k * 8 * pl;
+    float* dout = dual + (1 - k) * 8 * pl;
+    if (fs >= 0)
+      estage_rfused<R, TZ, TX, true>(f, cb, din, dout, g, mt, pr, gl, NZ, NX, S, tp, dep, st);
+    else
+      estage_rfused<R, TZ, TX, false>(f, cb, din, dout, g, mt, pr, gl, NZ, NX, S, tp, dep, st);
     if (t == nt - 1) {
       const cudaError_t err = cudaGetLastError();
       if (err != cudaSuccess) return (int)err;

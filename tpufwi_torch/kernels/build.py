@@ -40,7 +40,8 @@ class Library:
     """One shared library built from ``sources`` (which include
     ``headers``); ``declare(lib)`` sets the ctypes signatures.
     ``build_seconds`` is the wall time of this process's nvcc call (None if
-    the library was already built); ``log`` the path of its nvcc output."""
+    the library was already built); ``log`` the path of its nvcc output,
+    ``path`` that of the library once loaded."""
 
     def __init__(self, stem: str, sources: Sequence[Path], headers: Sequence[Path],
                  declare: Callable[[ctypes.CDLL], None]):
@@ -50,6 +51,7 @@ class Library:
         self.declare = declare
         self.build_seconds = None
         self.log = None
+        self.path = None
         self._lib = None
         self._lock = threading.Lock()
 
@@ -63,6 +65,7 @@ class Library:
             tag = digest.hexdigest()[:12]
             so = BUILD_DIR / f"lib{self.stem}_{tag}.so"
             self.log = BUILD_DIR / f"build_{self.stem}_{tag}.log"
+            self.path = so
             if not so.exists():
                 BUILD_DIR.mkdir(parents=True, exist_ok=True)
                 tmp = so.with_suffix(f".{os.getpid()}.tmp")

@@ -23,12 +23,13 @@ surface pin, the receivers, the tape entries and the ghost rows' image
 fs - 2R, so the stress image stays inside a tile); a tail launch adds the
 last step's force sources. The reverse runs one shared-memory tiled kernel
 per stage, which computes the dbar values over its tile and their R reach
-and applies the transposed stencils from shared memory (tile walk
-``fused_tiles``),
-with the step's glue in the thread that owns each cell: the receiver
-cotangents, the source-point cotangent, the source undone and both ring
-imposes (``reverse_launches``: 2 launches a step, 4 with the free surface,
-whose images pair cells of different tiles). Both run on the launch plan
+and applies the transposed stencils from shared memory, with the step's
+glue in the thread that owns each cell: the receiver cotangents, the
+source-point cotangent, the source undone and both ring imposes. It walks
+the forward's tiles (``forward_tiles``), so with the free surface one tile
+row holds every ghost row and its mirrors and runs the images after its
+cells (``reverse_launches``: 2 launches a step, with or without the free
+surface). Both run on the launch plan
 ``escan_tile_plan``, each launch a programmatic dependent of the one
 before unless ``dependent_launch`` is False. On the card each is held
 against the per-step engine (``kernels/elastic2d_step.py``
@@ -48,7 +49,8 @@ Each wrapper takes its plain version for tensors on the CPU, and only then;
 on a CUDA tensor it launches the kernel or raises. ``launches`` on each
 wrapper counts the time steps its kernel ran, and stays 0 on the CPU path;
 so does the profiling counter ``escan_image_steps``, which a reverse call
-with the free surface raises by its steps.
+with the free surface raises by its steps (on each of which the folded
+images run).
 """
 
 from __future__ import annotations
@@ -138,16 +140,18 @@ def fused_tiles(plan: EscanPlan, NZ: int, NX: int, shift: int = 0):
 
 
 def forward_shift(plan: EscanPlan, grid: Grid) -> int:
-    """The fused forward's tile-row shift (``ef_shift``): with the free
-    surface (row fs = grid.pad) a tile row starts at fs - 2R, so its tiles
-    hold the ghost rows fs-R .. fs-1 and their mirrors fs .. fs+R."""
+    """The fused passes' tile-row shift (``ef_shift``), the forward's and
+    the reverse's: with the free surface (row fs = grid.pad) a tile row
+    starts at fs - 2R, so its tiles hold the ghost rows fs-R .. fs-1 and
+    their mirrors fs .. fs+R."""
     if not grid.free_surface:
         return 0
     return (plan.tz - (grid.pad - 2 * grid.radius) % plan.tz) % plan.tz
 
 
 def forward_tiles(plan: EscanPlan, grid: Grid):
-    """The fused forward's tile walk over ``grid``'s padded grid."""
+    """The fused passes' tile walk over ``grid``'s padded grid, the
+    forward's and the reverse's."""
     return fused_tiles(plan, *grid.padded_shape, forward_shift(plan, grid))
 
 
@@ -178,13 +182,12 @@ def reverse_launches(free_surface: bool, nt: int | None = None) -> int:
     """Kernel launches of one reverse step (csrc/elastic2d_scan.cu), or with
     ``nt`` of a whole call: its steps' and its own, ``er_setup`` (the cell
     maps, and the first step's force-source undo and pressure-receiver
-    cotangents), with the free surface also the first step's stress-image
-    transpose. A step is ``er_s`` and ``er_v``; with the free surface also
-    ``er_image_mid`` and ``er_image_tail``."""
-    step = 4 if free_surface else 2
+    cotangents), with the free surface also ``er_image_s_t`` (the first
+    step's stress-image transpose). A step is ``er_s`` and ``er_v``, with
+    the free surface too: their surface tile row runs the images."""
     if nt is None:
-        return step
-    return nt * step + 1 + int(free_surface)
+        return 2
+    return 2 * nt + 1 + int(free_surface)
 
 
 def load_library():
@@ -476,7 +479,7 @@ def escan_reverse(grid, dt, mats, profiles, wavelet, ybar, tape, finals, src_idx
     g = torch.zeros((5, NZ, NX), dtype=torch.float32, device=dev)
     srcrow = torch.empty((nt, nsrc), dtype=torch.float32, device=dev)
     plan = escan_tile_plan(grid)
-    iws = _maps(grid, plan, 0, nsrc, nrec, dev, vblocks=False)  # the reverse's unshifted tiles
+    iws = _maps(grid, plan, forward_shift(plan, grid), nsrc, nrec, dev, vblocks=False)
     fs, force, rec_v = _flags(grid, source_type, record)
     with torch.cuda.device(dev), profiling.span(
             "kernels.reverse", device=dev, wrapper="escan_reverse", nt=nt, tape_bytes=0,

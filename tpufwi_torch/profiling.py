@@ -53,8 +53,10 @@ wrappers' ``.launches``, which stay the kernels' step counters):
   each ``a3d_reverse`` call on the card wrote (every cell within S + R of a
   face, once an axis; both variants run the line pass);
 - ``escan_image_steps``: the steps of each ``escan_reverse`` call on a
-  grid with the free surface, whose reverse runs the image launches
-  (``er_image_mid``, ``er_image_tail``) every step.
+  grid with the free surface, on each of which the images run, folded
+  into the surface tile row of ``er_s`` and ``er_v``; the call's one image
+  launch (``er_image_s_t``, the first step's stress-image transpose) is
+  the only ``er_image`` kernel left.
 
 ``trace(run_dir, label)`` profiles a block into a Chrome/Perfetto trace
 with the spans in it. ``roofline_report`` of the reference is not ported:
