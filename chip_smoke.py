@@ -35,7 +35,8 @@ Phases, each printing its own lines; any failure exits non-zero.
      reconstruction error
   6. over budget: the 5 m Marmousi2-scale survey (701 x 3401, nt = 9684),
      whose snapshot tape exceeds the card's budget, resolves to the rings
-     engine and gives a finite gradient
+     engine and gives a finite gradient; its forward's and reverse's device
+     us a step by CUDA events
   7. main paths: tpufwi_torch.invert.main on the card at the Marmousi2-scale
      grid (351 x 1701 at 10 m, order 8, pml 20, t_max 4 s: nt = 4842):
      a. snapshot engine (auto), 4 shots, stages 3 and 5 Hz of 2 iterations
@@ -1455,7 +1456,9 @@ def phase_gradients(dev, smi):
 
 def phase_over_budget(dev, smi):
     """The 5 m survey whose snapshot tape the card cannot hold: 'auto'
-    takes the rings engine; one value-and-grad."""
+    takes the rings engine; one value-and-grad, its forward's and reverse's
+    device us a step by the kernels' spans' CUDA events."""
+    from tpufwi_torch import profiling
     from tpufwi_torch.acquisition import Geometry
     from tpufwi_torch.propagators.acoustic2d import AcousticPropagator
     from tpufwi_torch.propagators.boundary import RingSpec
@@ -1471,13 +1474,20 @@ def phase_over_budget(dev, smi):
     if impl != "cuda_scanres" or "snapshot ineligible" not in prop.resolve_note:
         fail(f"the over-budget survey resolved to {impl}: {prop.resolve_note}")
     torch.cuda.reset_peak_memory_stats()
-    J, g, secs = _value_and_grad(prop, vp, Geometry(si, ri), w, torch.zeros((), device=dev))
+    profiling.clear()
+    with profiling.recording():
+        J, g, secs = _value_and_grad(prop, vp, Geometry(si, ri), w, torch.zeros((), device=dev))
     peak = torch.cuda.max_memory_allocated()
+    us = {k.name: 1e6 * k.device_s / k.attrs["nt"] for k in profiling.spans()
+          if k.name in ("kernels.forward", "kernels.reverse")}
+    profiling.clear()
     snap = nt * NZ * NX * 2
     ring = nt * RingSpec.build(grid).tape_bytes_per_step()
     print(f"[over budget] snapshot tape avoided {snap / 2**30:.2f} GiB; ring tape "
           f"{ring / 2**30:.3f} GiB ({ring} bytes); value-and-grad {secs:.3f} s/shot; peak "
-          f"memory {peak / 2**30:.2f} GiB; J {J:.6e}", flush=True)
+          f"memory {peak / 2**30:.2f} GiB; J {J:.6e}; device us a step by CUDA events: "
+          f"forward {us['kernels.forward']:.2f}, reverse {us['kernels.reverse']:.2f}; "
+          f"gradient finite {bool(torch.isfinite(g).all())}", flush=True)
     if not (np.isfinite(J) and bool(torch.isfinite(g).all()) and float(g.abs().max()) > 0):
         fail("the over-budget gradient is not finite and nonzero")
 

@@ -754,6 +754,75 @@ def test_elastic_objective_agrees_with_the_plain_reference_and_records_its_spans
     assert all(got[k] <= limits[k] for k in got), got
 
 
+def test_5m_rings_shot_agrees_with_the_plain_reference_and_carries_its_counts(device):
+    """The 5 m cell's survey (``marmousi2_acoustic_5m``) on the card: at 701
+    x 3401 (749 x 3449 padded) 'auto' resolves to cuda_scanres for the
+    cell's nt 9684, the bf16 snapshot tape being over budget; one mid-line
+    shot at nt 512 on that engine against ``fwibench/reference.py``'s
+    ``value_and_grad`` in fp32 with an fp32 tape (seismograms, J, the vp
+    gradient), at the truth times 1 + 3% of a smooth pattern, which the
+    direct wave in the water sees within the 512 steps. Tolerances, from
+    fp32 summation order (FMA chains against torch's separate products)
+    over 512 steps: seismograms 1e-5, J 1e-4, gradient 1e-4. (At the cell's
+    +-0.5% random perturbation of the start, which keeps the water, the
+    early traces' residual is so small that J and the gradient read their
+    rounding hundreds of times magnified: J 2.6e-4, gradient 7.6e-4.) Both kernel
+    spans carry the pass's counts: the padded grid, radius, strip depth,
+    sources, receivers and the rings tape."""
+    from fwibench import check, models, reference, spec
+    from tpufwi_torch import profiling
+    from tpufwi_torch.acquisition import Geometry
+    from tpufwi_torch.filters import apply_response
+    from tpufwi_torch.propagators.acoustic2d import AcousticPropagator
+
+    tol = {"seis_err": 1e-5, "J_err": 1e-4, "grad_err": 1e-4}
+    c = spec.load_cell("marmousi2_acoustic_5m.survey_grad")
+    cfg, nt, seed = c.config, 512, 2**31 + 3
+    dt = reference.cfl_dt(c.h, cfg["c_max_mps"], cfg["order"], cfg["cfl"])
+    vp_true = models.true_model(cfg, c.shape, seed, device)
+    z = torch.arange(c.shape[0], dtype=torch.float32, device=device)[:, None]
+    x = torch.arange(c.shape[1], dtype=torch.float32, device=device)[None, :]
+    m = (vp_true * (1.0 + 0.03 * torch.cos(x / 50.0 + z / 30.0))).clamp(*cfg["bounds"])
+    w_np = reference.ricker(cfg["f0_hz"], dt, nt)
+    h2_np = reference.lowpass_response(nt, dt, cfg["band_hz"])
+    src, rcv = spec.geometry(c)
+    src = src[len(src) // 2]
+    grid = Grid(shape=c.shape, h=c.h, pml=cfg["pml"], order=cfg["order"])
+    prop = AcousticPropagator(grid, dt, cfg["f0_hz"], cfg["c_max_mps"], device=device)
+    assert prop.fix_impl_for(nt=cfg["nt"]) == "cuda_scanres", prop.resolve_note
+    assert "snapshot ineligible" in prop.resolve_note
+    geom = Geometry.from_physical(grid, src, rcv, device=device)
+    w = torch.as_tensor(w_np, dtype=torch.float32, device=device)
+    h2 = torch.as_tensor(h2_np, dtype=torch.float32, device=device)
+    with torch.no_grad():
+        d = prop(vp_true, geom, w)
+    v = m.clone().requires_grad_(True)
+    profiling.clear()
+    with profiling.recording():
+        s = prop(v, geom, w)
+        J = 0.5 * ((apply_response(s, h2) - apply_response(d, h2)) ** 2).sum()
+        (g,) = torch.autograd.grad(J, v)
+    torch.cuda.synchronize()
+    kernels = {k.name: k for k in profiling.spans() if k.name.startswith("kernels.")}
+    profiling.clear()
+    counted = dict(nt=nt, NZ=749, NX=3449, radius=4, strip=24, nsrc=1, nrec=1701, tape="rings")
+    for name, wrapper in (("kernels.forward", "scanres_forward"),
+                          ("kernels.reverse", "scanres_reverse")):
+        a = kernels[name].attrs
+        assert a["wrapper"] == wrapper and {k: a[k] for k in counted} == counted, a
+
+    med = reference.Medium(c.shape, c.h, cfg["pml"], cfg["order"], dt, cfg["c_max_mps"],
+                           cfg["f0_hz"], device=device)
+    sv = reference.make_survey(med, src[None], rcv[None], w_np, h2_np)
+    d_f = reference.lowpass(reference.forward(sv, vp_true)[0], sv.h2, axis=1)
+    J_r, g_r, seis_r = reference.value_and_grad(sv, m, d_f, tape_dtype=torch.float32,
+                                                segment=int(c.check["segment"]))
+    got = check.readings(s.detach()[None], J.detach(), (g,), (seis_r, J_r, (g_r,)))
+    print(f"5 m shot at nt {nt} against the reference: {got}")
+    assert float(J_r.sum()) > 0.0 and float(g_r.abs().max()) > 0.0
+    assert all(got[k] <= tol[k] for k in tol), got
+
+
 # ------------------------------------------------------------- 3D (12-17)
 
 

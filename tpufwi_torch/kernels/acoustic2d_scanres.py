@@ -410,6 +410,13 @@ def _maps(grid, nsrc, nrec, dev):
     return torch.zeros(3 * NZ * NX + tiles + nsrc + nrec, dtype=torch.int32, device=dev)
 
 
+def _pass_attrs(NZ, NX, R, S, nsrc, nrec, tape) -> dict:
+    """A call's ``kernels.*`` span attributes from which its operations and
+    bytes can be counted: the padded grid, the stencil radius, the strip
+    depth, the sources, the receivers and the tape mode."""
+    return dict(NZ=NZ, NX=NX, radius=R, strip=S, nsrc=nsrc, nrec=nrec, tape=tape)
+
+
 def scanres_forward(grid, c2, profiles, wavelet, src_idx, rcv_idx, tape=None, illum=False,
                     dependent_launch=True):
     """Whole forward propagation (see ``scanres_forward_plain`` for the
@@ -446,7 +453,8 @@ def scanres_forward(grid, c2, profiles, wavelet, src_idx, rcv_idx, tape=None, il
     fs = surface_row(grid)
     with torch.cuda.device(dev), profiling.span(
             "kernels.forward", device=dev, wrapper="scanres_forward", nt=nt,
-            tape_bytes=sum(t.nbytes for t in (snap, rows) if t is not None)):
+            tape_bytes=sum(t.nbytes for t in (snap, rows) if t is not None),
+            **_pass_attrs(NZ, NX, R, S, nsrc, nrec, tape)):
         err = lib.tpufwi_scanres_forward(
             c2.data_ptr(), *(p.data_ptr() for p in profiles), wavelet.data_ptr(),
             src_idx.data_ptr(), rcv_idx.data_ptr(), seis.data_ptr(), _ptr(snap), _ptr(ring),
@@ -494,7 +502,7 @@ def scanres_reverse_snap(grid, c2, profiles, ybar, tape, src_idx, rcv_idx,
     fs = surface_row(grid)
     with torch.cuda.device(c2.device), profiling.span(
             "kernels.reverse", device=c2.device, wrapper="scanres_reverse_snap", nt=nt,
-            tape_bytes=0):
+            tape_bytes=0, **_pass_attrs(NZ, NX, R, S, nsrc, nrec, "snap")):
         err = lib.tpufwi_scanres_reverse_snap(
             c2.data_ptr(), *(p.data_ptr() for p in profiles), ybar.data_ptr(),
             tape.data_ptr(), src_idx.data_ptr(), rcv_idx.data_ptr(), gbar.data_ptr(),
@@ -544,7 +552,7 @@ def scanres_reverse(grid, c2, profiles, wavelet, ybar, tape, p_penult, p_last,
     fs = surface_row(grid)
     with torch.cuda.device(c2.device), profiling.span(
             "kernels.reverse", device=c2.device, wrapper="scanres_reverse", nt=nt,
-            tape_bytes=0):
+            tape_bytes=0, **_pass_attrs(NZ, NX, R, S, nsrc, nrec, "rings")):
         err = lib.tpufwi_scanres_reverse_rings(
             c2.data_ptr(), *(p.data_ptr() for p in profiles), wavelet.data_ptr(),
             ybar.data_ptr(), tape.data_ptr(), ring.data_ptr(), src_idx.data_ptr(),

@@ -18,8 +18,10 @@ Spans mark the layer boundaries of the graded path, outermost first
   the valid-region mask; elastic only).
 - ``kernels.forward`` / ``kernels.reverse``, *device*: the C entry-point
   call alone of each whole-scan wrapper; wrapper, nt, tape_bytes (the tape
-  it allocated), for the 3D wrappers variant, and for the elastic ones
-  free_surface.
+  it allocated), for the 3D wrappers variant, for the elastic ones
+  free_surface, and for the 2D acoustic ones what a count of the pass
+  needs: the padded grid NZ and NX, radius, strip (the CPML strip depth),
+  nsrc, nrec and tape (the tape mode: None, "snap" or "rings").
 
 Each recorded span holds its name, host start and end, its parent span,
 the evaluation it belongs to (the ``objective.evaluation`` span that
